@@ -1,0 +1,43 @@
+"""algebraicmultigrid_tpu_torch — the PyTorch / CUDA port of algebraicmultigrid_tpu.
+
+The host setup tier (numpy/scipy) is a copy of the JAX package's, so both
+packages build identical hierarchies; the device tier runs on PyTorch, with
+the fused V-cycle legs as hand-written CUDA kernels for Hopper
+(``ops/kernels/vcycle_legs.py``, ``csrc/vcycle_legs.cu``).  This package
+never imports JAX.
+
+Covered so far: the structured smoothed-aggregation Poisson solve on Lat2D
+levels — ``poisson((N, N), lattice=True)`` →
+``structured_smoothed_aggregation`` → ``cg_device`` / ``solve_refined``.
+"""
+
+from .config import (
+    BackwardSweep,
+    Cycle,
+    F,
+    ForwardSweep,
+    GaussSeidel,
+    Jacobi,
+    SOR,
+    Sweep,
+    SymmetricSweep,
+    V,
+    W,
+)
+from .models.aggregation import smoothed_aggregation
+from .models.device import build_device_hierarchy, cg_device, get_device_hierarchy, solve_refined
+from .models.fastsetup import structured_smoothed_aggregation
+from .models.gallery import poisson
+from .models.lattice import LatticeMatrix, LatticeProblem
+from .models.multilevel import MultiLevel, operator_complexity
+from .models.structured import StructuredAggregation
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Cycle", "V", "W", "F", "Sweep", "SymmetricSweep", "ForwardSweep", "BackwardSweep",
+    "GaussSeidel", "Jacobi", "SOR",
+    "StructuredAggregation", "smoothed_aggregation", "structured_smoothed_aggregation",
+    "MultiLevel", "operator_complexity", "LatticeMatrix", "LatticeProblem", "poisson",
+    "build_device_hierarchy", "get_device_hierarchy", "cg_device", "solve_refined",
+]
