@@ -17,7 +17,10 @@ operators.  The input is plain data:
     ``color_grid``, ``n_colors``, ``k``, ``row_dims``, ``col_dims``,
     ``omega``, ``iter``, ``forward``, ``backward``;
 * ``coarse``: ``kind`` ('qr' | 'pinv'), ``n``, ``rows_padded`` and the
-  matrices ``qr_q``/``qr_r`` or ``mat``.
+  matrices ``qr_q``/``qr_r`` or ``mat``;
+* optionally ``tail``: the whole-tail cache of ``levels[tail_start:]`` —
+  ``"levels"``, one factored-leg dict (as ``"fused"`` above) per tail level,
+  fine to coarse, and ``"Mc"``, the [n7, n7] coarse solve operator.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from .models.device import CoarseCache, DeviceHierarchy, DeviceLevel, MaskedMulticolorCache
+from .ops.kernels.tail_kernel import make_fused_tail_cache
 from .ops.kernels.vcycle_legs import FusedLegCache
 from .ops.lattice_op import Lat2D
 
@@ -92,7 +96,7 @@ def _fused(d, dtype, device):
     )
 
 
-def hierarchy_from_numpy(levels, coarse, *, device, dtype) -> DeviceHierarchy:
+def hierarchy_from_numpy(levels, coarse, *, device, dtype, tail=None, tail_start: int = -1) -> DeviceHierarchy:
     """Build the port's hierarchy from numpy arrays (see module docstring)."""
     device = torch.device(device)
     out = tuple(
@@ -122,4 +126,13 @@ def hierarchy_from_numpy(levels, coarse, *, device, dtype) -> DeviceHierarchy:
         n=int(coarse["n"]),
         rows_padded=int(coarse["rows_padded"]),
     )
-    return DeviceHierarchy(levels=out, coarse=cc)
+    tail_cache = None
+    if tail is not None:
+        if not 0 <= tail_start < len(out):
+            raise ValueError(f"tail_start {tail_start} is not a level of the hierarchy")
+        tail_cache = make_fused_tail_cache(
+            [_fused(d, dtype, device) for d in tail["levels"]], _tensor(tail["Mc"], dtype, device)
+        )
+    else:
+        tail_start = -1
+    return DeviceHierarchy(levels=out, coarse=cc, tail=tail_cache, tail_start=tail_start)

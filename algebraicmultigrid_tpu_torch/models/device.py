@@ -9,6 +9,11 @@ Port of the lattice subset of the JAX package's ``models/device.py``:
 * levels whose SA setup stashed the factored prolongator run the fused legs
   (``ops/kernels/vcycle_legs.py``): hand-written CUDA kernels on the card,
   their plain versions on the CPU;
+* the trailing run of small such levels plus the coarse solve runs as one
+  whole-tail V-cycle (``ops/kernels/tail_kernel.py``) in V-cycles; those
+  levels build no legs, and W/F cycles run them through the masked sweeps;
+* ``run_fixed_cycles`` runs the top level's cross-cycle updown leg once per
+  cycle;
 * the V/W/F recursion unrolls in Python over the level list, and the
   iteration loops are Python loops with one host read of the residual norm
   per iteration for the stopping test;
@@ -27,7 +32,8 @@ import torch
 from ..config import BackwardSweep, Cycle, F, ForwardSweep, GaussSeidel, SOR, SymmetricSweep, V, W
 from ..ops.banded import mat_vec
 from ..ops.coloring import color_steps
-from ..ops.kernels.vcycle_legs import build_fused_leg_cache, fused_down, fused_up
+from ..ops.kernels.tail_kernel import build_fused_tail_cache, fused_tail
+from ..ops.kernels.vcycle_legs import build_level_legs, fused_down, fused_up, fused_updown
 from ..ops.lattice_op import lat2d_from_spec
 from ..ops.sparse import round_up
 from .coarse import QRSolver
@@ -96,6 +102,8 @@ class CoarseCache:
 class DeviceHierarchy:
     levels: Tuple[DeviceLevel, ...]
     coarse: CoarseCache
+    tail: Any = None     # FusedTailCache of levels[tail_start:] + coarse solve
+    tail_start: int = -1
 
     @property
     def fine_padded(self) -> int:
@@ -174,38 +182,6 @@ def _build_lattice_smoother_cache(config, A_lat, rows_padded, dtype, device):
     )
 
 
-def _maybe_build_fused_legs(level, dtype, device):
-    """Fused down/up legs for a lattice level: requires Lat2D A/P/R with
-    box-k ratios, equal symmetric multicolor GS pre/post configs, a periodic
-    coloring and the SA factored-prolongator stash.  None → unfused path."""
-    from .lattice import LatticeMatrix, lattice_coloring
-
-    cfg = level.presmoother_config
-    if cfg != level.postsmoother_config:
-        return None
-    if not (isinstance(cfg, (GaussSeidel, SOR)) and cfg.ordering == "multicolor"):
-        return None
-    if not isinstance(cfg.sweep, SymmetricSweep):
-        return None
-    got = lattice_coloring(level.A.spec)
-    if got is None:
-        return None
-    grid, n_colors = got
-    T_t = getattr(level, "T_tent", None)
-    s_t = getattr(level, "psmooth_scale", None)
-    if not isinstance(T_t, LatticeMatrix) or s_t is None:
-        return None
-    if isinstance(s_t, tuple) and s_t and s_t[0] == "table":
-        factored_T = (T_t.spec, s_t)
-    else:
-        factored_T = (T_t.spec, ("vector", np.asarray(s_t)))
-    omega = float(cfg.omega) if isinstance(cfg, SOR) else 1.0
-    return build_fused_leg_cache(
-        level.A.spec, level.R.spec, level.P.spec, grid, n_colors, dtype, device,
-        omega, cfg.iter, True, True, factored_T,
-    )
-
-
 def _build_coarse_cache(ml: MultiLevel, dtype, device, rows_padded: int) -> CoarseCache:
     cs = ml.coarse_solver
     n = ml.final_A.shape[0]
@@ -234,13 +210,18 @@ def _build_coarse_cache(ml: MultiLevel, dtype, device, rows_padded: int) -> Coar
 
 
 def build_device_hierarchy(
-    ml: MultiLevel, *, device, dtype, fused: bool = True
+    ml: MultiLevel, *, device, dtype, fused: bool = True, tail: bool = True,
+    tail_max_rows: int = 250_000,
 ) -> DeviceHierarchy:
     """Lower a host lattice hierarchy to device tensors.
 
     Every level's A/P/R must be a ``LatticeMatrix`` (the structured setup's
     ``latticify_tail`` makes them so); anything else raises.  ``fused=False``
-    skips the fused legs and runs every level through the unfused ops."""
+    skips the fused legs and runs every level through the unfused ops.
+    ``tail`` builds the whole-tail cache from the first level (in order) at
+    which the tail gate holds with at most ``tail_max_rows`` rows; the
+    levels it covers build no legs.  The two keywords are the counterparts
+    of the JAX package's ``AMG_PALLAS_TAIL`` and ``AMG_TAIL_MAX_ROWS``."""
     from .lattice import LatticeMatrix
 
     device = torch.device(device)
@@ -255,6 +236,16 @@ def build_device_hierarchy(
     final_pad = round_up(max(ml.final_A.shape[0], 1), ROW_PAD)
     pads.append(final_pad)
 
+    tail_cache, tail_start = None, -1
+    if tail:
+        for start in range(len(ml.levels)):
+            tail_cache = build_fused_tail_cache(
+                ml.levels, ml, start, dtype, device, max_rows=tail_max_rows
+            )
+            if tail_cache is not None:
+                tail_start = start
+                break
+
     out = []
     for i, level in enumerate(ml.levels):
         A_dev = lat2d_from_spec(level.A.spec, dtype, device, row_pad=ROW_PAD)
@@ -262,11 +253,12 @@ def build_device_hierarchy(
         R_dev = lat2d_from_spec(level.R.spec, dtype, device, row_pad=pads[i + 1])
         pre = _build_lattice_smoother_cache(level.presmoother_config, level.A, pads[i], dtype, device)
         post = _build_lattice_smoother_cache(level.postsmoother_config, level.A, pads[i], dtype, device)
-        legs = _maybe_build_fused_legs(level, dtype, device) if fused else None
+        covered = tail_cache is not None and i >= tail_start
+        legs = build_level_legs(level, dtype, device) if fused and not covered else None
         out.append(DeviceLevel(A=A_dev, P=P_dev, R=R_dev, pre=pre, post=post, fused=legs))
 
     coarse = _build_coarse_cache(ml, dtype, device, final_pad)
-    return DeviceHierarchy(levels=tuple(out), coarse=coarse)
+    return DeviceHierarchy(levels=tuple(out), coarse=coarse, tail=tail_cache, tail_start=tail_start)
 
 
 # --------------------------------------------------------------------------
@@ -290,6 +282,10 @@ def _cycle(h: DeviceHierarchy, cycle: Cycle, x, b, lvl: int, x_zero: bool = Fals
     ``x_zero`` marks x as the zero vector (coarse-level recursion always
     starts from the zero guess, multilevel.jl:225): the fused down leg then
     does not read x."""
+    if h.tail is not None and lvl == h.tail_start and isinstance(cycle, V) and x.dim() == 1:
+        # every level from here down plus the coarse solve, one call
+        return fused_tail(h.tail, x, b, x_zero=x_zero)
+
     level = h.levels[lvl]
     n_here = x.shape[0]
     n_next = h.levels[lvl + 1].A.rows_padded if lvl + 1 < len(h.levels) else h.coarse.rows_padded
@@ -329,17 +325,52 @@ def _one_iteration(h: DeviceHierarchy, cycle: Cycle, x, b):
     return _cycle(h, cycle, x, b, 0)
 
 
+def _subsolve(h: DeviceHierarchy, coarse_b, lvl: int):
+    """One V-cycle from zero on the sub-hierarchy below ``lvl − 1``."""
+    if lvl >= len(h.levels):
+        return _coarse_solve(h.coarse, coarse_b)
+    return _cycle(h, V(), torch.zeros_like(coarse_b), coarse_b, lvl, x_zero=True)
+
+
 def run_fixed_cycles(h: DeviceHierarchy, x, b, n_cycles: int):
-    """``n_cycles`` cycles of :func:`_one_iteration` (V-cycles)."""
-    for _ in range(n_cycles):
-        x = _one_iteration(h, V(), x, b)
-    return x
+    """``n_cycles`` V-cycles, the same math as iterating
+    :func:`_one_iteration`.  When the top level has fused legs (and the tail
+    does not start there), the loop is: the down leg once, then per cycle
+    the sub-hierarchy's V-cycle and the cross-cycle ``fused_updown`` (up of
+    this cycle and down of the next in one launch), and a last sub-cycle and
+    up leg.  Its rounding differs from the iterated cycles by the deduped
+    boundary step of the double sweep."""
+    fused = h.levels[0].fused
+    usable = (
+        n_cycles >= 1
+        and fused is not None
+        and x.dim() == 1
+        and not (h.tail is not None and h.tail_start == 0)
+    )
+    if not usable:
+        for _ in range(n_cycles):
+            x = _one_iteration(h, V(), x, b)
+        return x
+
+    n_next = h.levels[1].A.rows_padded if len(h.levels) > 1 else h.coarse.rows_padded
+    xf, bc = fused_down(fused, x, b)
+    for _ in range(n_cycles - 1):
+        xc = _subsolve(h, fit_len(bc, n_next), 1)
+        xf, bc = fused_updown(fused, xf, b, xc)
+    xc = _subsolve(h, fit_len(bc, n_next), 1)
+    return fused_up(fused, xf, b, xc)
 
 
 def _resolve(ml: MultiLevel, device, dtype):
-    """Defaults: the card when there is one, and the hierarchy's dtype."""
+    """Defaults: the card, and the hierarchy's dtype.  With no ``device``
+    and no card this raises; the CPU runs only when asked for."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card is available: the torch engine runs on the card; "
+                "pass device='cpu' to run its plain PyTorch versions on the CPU"
+            )
+        device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

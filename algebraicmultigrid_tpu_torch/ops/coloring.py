@@ -19,7 +19,7 @@ import scipy.sparse as sp
 
 from .sparse import as_csr
 
-__all__ = ["graph_coloring", "jp_coloring", "color_steps"]
+__all__ = ["graph_coloring", "jp_coloring", "color_steps", "steps2_list"]
 
 
 def color_steps(n_colors, iters, fwd, bwd, omega=1.0):
@@ -46,6 +46,17 @@ def color_steps(n_colors, iters, fwd, bwd, omega=1.0):
                 out.append(c)
         steps = out
     return tuple(steps)
+
+
+def steps2_list(n_colors, iters, fwd, bwd, omega=1.0):
+    """Steps of the cross-cycle double sweep (postsmooth of one cycle
+    directly followed by presmooth of the next, same config): two sweeps
+    back to back, with the boundary duplicate collapsed at ω == 1 by the
+    same idempotence argument as within a symmetric sweep."""
+    s = color_steps(n_colors, iters, fwd, bwd, omega)
+    if omega == 1.0 and s and s[0] == s[-1]:
+        return s + s[1:]
+    return s + s
 
 
 def graph_coloring(A, seed: int = 0) -> np.ndarray:

@@ -1,0 +1,241 @@
+"""Whole-tail V-cycle (K4) on the trailing run of small Lat2D levels.
+
+Port of the JAX package's ``ops/pallas/tail_kernel.py`` in its factored
+form: one call runs the V-cycle of every level from ``start`` down — for each
+level the presmooth color steps, the residual and the factored restriction,
+the recursion from the zero guess, the correction and the postsmooth — with
+the dense coarse solve x_c = Mc·b_c at the bottom (Mc = R⁻¹Qᵀ, or the
+pseudo-inverse when the coarse operator is singular).
+
+The CUDA kernel (``csrc/tail_kernel.cu``) is one cooperative launch per
+call; ``fused_tail_reference`` is its plain PyTorch version, the recursion
+of the plain legs.  ``fused_tail`` takes the plain version only for tensors
+on the CPU; on a CUDA tensor it launches the kernel or raises.  Its launches
+count under ``launches["tail"]`` of ``vcycle_legs``.
+
+Differences from the JAX cache builder, all TPU layout: the planes stay
+unpadded (the kernel guards reads outside the grid to zero), so the ``_H``
+halo and the one-hot selector matrices are gone, and so is the VMEM audit
+(``AMG_TAIL_VMEM_MB``): the tail lives in device memory and L2.  The gate on
+levels is the JAX package's (``_level_ok``, ``_factored_spec``,
+``_scale_plane``, final level ≤ 4096 rows; the legs' part of it is
+``build_level_legs``), less its non-factored R/P-plane branch, which is not
+ported: a tail level without the factored stash builds no tail.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .vcycle_legs import (
+    FusedLegCache,
+    SUFFIX,
+    build_level_legs,
+    check_vector,
+    fused_down_reference,
+    fused_up_reference,
+    launches,
+    load_library,
+    raise_on,
+    stencil_args,
+)
+
+__all__ = [
+    "FusedTailCache",
+    "build_fused_tail_cache",
+    "make_fused_tail_cache",
+    "fused_tail",
+    "fused_tail_reference",
+]
+
+MAX_COARSE_ROWS = 4096
+# the kernel's descriptor-table capacity (kMaxTailLevels, csrc/tail_kernel.cu)
+MAX_LEVELS = 16
+# reach limits of the JAX gate (its 8-cell halo), kept so both packages
+# pick the same tail
+_H = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedTailCache:
+    """The tail's levels (fine → coarse), its coarse solve operator and, on a
+    card, the kernel's descriptor table."""
+
+    levels: Tuple[FusedLegCache, ...]
+    Mc: torch.Tensor       # [n7, n7] dense coarse solve operator
+    dims7: Tuple[int, int]  # coarse grid (W7x, W7y)
+    work_len: int          # elements of the kernel's work buffer
+    desc: Optional[torch.Tensor] = None  # uint8 TailLevel table (CUDA only)
+
+    @property
+    def n7(self) -> int:
+        return self.dims7[0] * self.dims7[1]
+
+
+def _work_layout(levels):
+    """Element offsets (x, b, r, g) per level and (b7, x7) in one work
+    buffer; level 0's x and b are the call's own vectors."""
+    off = 0
+    per = []
+    for i, L in enumerate(levels):
+        n = L.row_dims[0] * L.row_dims[1]
+        xo = bo = 0
+        if i > 0:
+            xo, bo = off, off + n
+            off += 2 * n
+        per.append((xo, bo, off, off + n))
+        off += 2 * n
+    n7 = levels[-1].col_dims[0] * levels[-1].col_dims[1]
+    return per, (off, off + n7), off + 2 * n7
+
+
+def _descriptor(levels, per) -> torch.Tensor:
+    """The kernel's TailLevel table, filled by the library and copied to the
+    card once."""
+    lib = load_library()
+    size = lib.amg_tail_level_bytes()
+    table = (ctypes.c_char * (size * len(levels)))()
+    for i, (L, (xo, bo, ro, go)) in enumerate(zip(levels, per)):
+        err = lib.amg_tail_fill_level(
+            ctypes.addressof(table), i,
+            L.A.data_ptr(), L.dinv.data_ptr(), L.T.data_ptr(), L.S.data_ptr(),
+            xo, bo, ro, go, *L.row_dims, *L.col_dims, L.k, *stencil_args(L, L.steps),
+        )
+        raise_on(err, f"tail descriptor of level {i}")
+    host = torch.frombuffer(bytearray(table), dtype=torch.uint8)
+    return host.to(levels[0].A.device)
+
+
+def make_fused_tail_cache(levels, Mc: torch.Tensor) -> FusedTailCache:
+    """Assemble the cache from per-level leg caches (fine → coarse) and the
+    coarse operator; also the entry of ``convert.hierarchy_from_numpy``."""
+    levels = tuple(levels)
+    if not levels or len(levels) > MAX_LEVELS:
+        raise ValueError(f"a tail has 1..{MAX_LEVELS} levels, got {len(levels)}")
+    for a, b in zip(levels, levels[1:]):
+        if tuple(a.col_dims) != tuple(b.row_dims):
+            raise ValueError("tail levels do not chain: coarse dims != next level's dims")
+    if levels[0].row_dims[0] * levels[0].row_dims[1] >= 2**31:
+        raise ValueError("the tail kernel indexes a level's cells in 32 bits")
+    dims7 = tuple(levels[-1].col_dims)
+    n7 = dims7[0] * dims7[1]
+    if tuple(Mc.shape) != (n7, n7):
+        raise ValueError(f"coarse operator {tuple(Mc.shape)} does not fit the grid {dims7}")
+    per, _, work_len = _work_layout(levels)
+    desc = _descriptor(levels, per) if Mc.device.type == "cuda" else None
+    return FusedTailCache(levels=levels, Mc=Mc.contiguous(), dims7=dims7, work_len=work_len, desc=desc)
+
+
+# --------------------------------------------------------------------------
+# the gate and the cache builder
+# --------------------------------------------------------------------------
+
+
+def _reach_ok(level, k: int) -> bool:
+    """The JAX tail gate's limits beyond the legs' own (``_level_ok``: R
+    offsets within [−k, 2k), P and A reach within its halo), kept so both
+    packages pick the same tail."""
+    sA, sR, sP = level.A.spec, level.R.spec, level.P.spec
+    return (
+        all(-k <= dx < 2 * k and -k <= dy < 2 * k for dx, dy in sR.offsets)
+        and max((max(abs(dx), abs(dy)) for dx, dy in sP.offsets), default=0) <= _H // 2
+        and max((max(abs(dx), abs(dy)) for dx, dy in sA.offsets), default=0) < _H
+    )
+
+
+def _coarse_operator(ml) -> np.ndarray:
+    """Mc with x = Mc·b the coarse solve: R⁻¹Qᵀ, or the pseudo-inverse
+    (coarse_solver.jl:9-16,66-81 semantics)."""
+    from ...models.coarse import QRSolver
+
+    cs = ml.coarse_solver
+    if isinstance(cs, QRSolver) and not cs._singular and cs.Q is not None:
+        import scipy.linalg as sla
+
+        return sla.solve_triangular(np.asarray(cs.R), np.asarray(cs.Q).conj().T, lower=False)
+    if getattr(cs, "pinvA", None) is not None:
+        return np.asarray(cs.pinvA)
+    return np.linalg.pinv(np.asarray(ml.final_A.toarray()))
+
+
+def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int = 250_000):
+    """The whole-tail cache for ``levels[start:]`` plus the coarse solve, or
+    None when the tail's first level has more than ``max_rows`` rows or any
+    tail level fails the gate: fused legs as ``build_level_legs`` builds
+    them, the JAX tail's reach limits, chained grids, and a final grid of at
+    most 4096 rows."""
+    tail = levels[start:]
+    if not tail or tail[0].A.shape[0] > max_rows or len(tail) > MAX_LEVELS:
+        return None
+    legs = []
+    for level in tail:
+        leg = build_level_legs(level, dtype, device)
+        if leg is None or not _reach_ok(level, leg.k) or (legs and legs[-1].col_dims != leg.row_dims):
+            return None
+        legs.append(leg)
+    W7x, W7y = legs[-1].col_dims
+    if ml.final_A.shape[0] != W7x * W7y or W7x * W7y > MAX_COARSE_ROWS:
+        return None
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    Mc = torch.as_tensor(_coarse_operator(ml).astype(np_dtype), device=device)
+    return make_fused_tail_cache(legs, Mc)
+
+
+# --------------------------------------------------------------------------
+# plain version and wrapper
+# --------------------------------------------------------------------------
+
+
+def _tail_go(cache: FusedTailCache, lvl: int, x, b, x_zero: bool):
+    L = cache.levels[lvl]
+    x, bc = fused_down_reference(L, x, b, x_zero=x_zero)
+    if lvl == len(cache.levels) - 1:
+        xc = cache.Mc @ bc
+    else:
+        xc = _tail_go(cache, lvl + 1, torch.zeros_like(bc), bc, True)
+    return fused_up_reference(L, x, b, xc)
+
+
+def fused_tail_reference(cache: FusedTailCache, x, b, x_zero: bool = False):
+    """One V-cycle over the whole tail in plain PyTorch: the recursion of
+    the plain legs with x_c = Mc·b_c at the bottom."""
+    return _tail_go(cache, 0, x, b, x_zero)
+
+
+def fused_tail(cache: FusedTailCache, x, b, x_zero: bool = False):
+    """x ← one V-cycle over the whole tail; ``x_zero`` asserts x is the zero
+    vector (the tail is entered from a coarser-level recursion), so x is not
+    read.  Returns x at ``x``'s (padded) length."""
+    if x.device.type == "cpu":
+        return fused_tail_reference(cache, x, b, x_zero=x_zero)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_tail runs on cuda or cpu tensors, not {x.device}")
+    L0 = cache.levels[0]
+    n = L0.row_dims[0] * L0.row_dims[1]
+    check_vector("x", x, L0.A, n)
+    check_vector("b", b, L0.A, n)
+    if x.dtype not in SUFFIX:
+        raise TypeError(f"fused_tail takes float32 or float64, not {x.dtype}")
+    if cache.desc is None or cache.desc.device != x.device:
+        raise ValueError("the tail cache was not built on this card")
+    lib = load_library()
+    per, (b7, x7), _ = _work_layout(cache.levels)
+    block_cells = lib.amg_tail_block_cells()
+    n_grid = sum(1 for L in cache.levels if L.row_dims[0] * L.row_dims[1] > block_cells)
+    work = torch.empty(cache.work_len, dtype=x.dtype, device=x.device)
+    x_out = torch.empty_like(x)
+    if x.shape[0] > n:
+        x_out[n:].zero_()
+    err = getattr(lib, f"amg_fused_tail_{SUFFIX[x.dtype]}")(
+        cache.desc.data_ptr(), len(cache.levels), n_grid, work.data_ptr(), x_out.data_ptr(),
+        None if x_zero else x.data_ptr(), b.data_ptr(), cache.Mc.data_ptr(), cache.n7, b7, x7,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    raise_on(err, "fused_tail kernel")
+    launches["tail"] += 1
+    return x_out

@@ -1,4 +1,4 @@
-"""Fused V-cycle legs (K1 down, K2 up) on Lat2D levels.
+"""Fused V-cycle legs (K1 down, K2 up, K3 updown) on Lat2D levels.
 
 Port of the JAX package's ``ops/pallas/vcycle_kernels.py`` in its factored
 form.  Structured SA stashes the tentative prolongator T (one offset, box-k)
@@ -7,14 +7,21 @@ and the smoothing scale S = ω·D̃⁻¹, so P = (I − diag(S)·A)·T and R = P
 * **down** (K1): multicolor GS/SOR presmooth over the color-step list,
   r = b − A·x, and the restriction b_c = box_k-sum(T⊙(r − A·(S⊙r)));
 * **up** (K2): Tup = T⊙upsample_k(x_c), x += Tup − S⊙(A·Tup), then the
-  postsmooth color steps.
+  postsmooth color steps;
+* **updown** (K3): up of one cycle then down of the next, across the cycle
+  boundary, with the double step list ``steps2_list`` (the boundary
+  duplicate collapsed at ω = 1); the fixed-cycle loop runs it once per
+  cycle at the top level.
 
-Each leg has a hand-written CUDA kernel (``csrc/vcycle_legs.cu``, built by
-``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``) and a plain
-PyTorch version beside it (``fused_down_reference`` / ``fused_up_reference``).
-The wrappers ``fused_down`` / ``fused_up`` take the plain version only for
-tensors on the CPU; on a CUDA tensor they launch the kernel or raise.
-``launches`` counts the kernel launches of each wrapper.
+Each leg has a hand-written CUDA kernel (``csrc/vcycle_legs.cu``; K3 is one
+cooperative launch) and a plain PyTorch version beside it
+(``fused_down_reference``, ``fused_up_reference``,
+``fused_updown_reference``).  The port's CUDA sources (these legs and the
+whole-tail kernel, ``csrc/tail_kernel.cu``) build into one library, by
+``nvcc`` for ``sm_90a`` at first use, loaded with ``ctypes``.  The wrappers
+take the plain version only for tensors on the CPU; on a CUDA tensor they
+launch the kernel or raise.  ``launches`` counts the kernel launches of
+every wrapper of that library (``tail`` is the whole-tail kernel's).
 
 Left for later (as in the JAX package, they are not on the SA main path):
 the non-factored R/P-plane branches and bf16 coefficient storage.
@@ -33,30 +40,35 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..coloring import color_steps
+from ..coloring import color_steps, steps2_list
 from ..lattice_op import expand_planes
 
 __all__ = [
     "FusedLegCache",
     "build_fused_leg_cache",
+    "build_level_legs",
     "fused_down",
     "fused_up",
+    "fused_updown",
     "fused_down_reference",
     "fused_up_reference",
+    "fused_updown_reference",
     "launches",
     "build_command",
     "load_library",
 ]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
-SOURCE = PACKAGE_DIR / "csrc" / "vcycle_legs.cu"
+CSRC = PACKAGE_DIR / "csrc"
+SOURCES = (CSRC / "vcycle_legs.cu", CSRC / "tail_kernel.cu")  # one nvcc call
+HEADERS = (CSRC / "stencil.cuh",)
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-# the kernel's fixed parameter-struct capacities (csrc/vcycle_legs.cu)
+# the kernels' fixed parameter-struct capacities (csrc/stencil.cuh)
 MAX_OFFSETS = 32
 MAX_COLOR_CELLS = 64
 
-launches = {"down": 0, "up": 0}
+launches = {"down": 0, "up": 0, "updown": 0, "tail": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +93,10 @@ class FusedLegCache:
     @property
     def steps(self) -> Tuple[int, ...]:
         return color_steps(self.n_colors, self.iter, self.forward, self.backward, self.omega)
+
+    @property
+    def steps2(self) -> Tuple[int, ...]:
+        return steps2_list(self.n_colors, self.iter, self.forward, self.backward, self.omega)
 
 
 def _factored_ok(specT, k, dims, cdims) -> bool:
@@ -168,6 +184,45 @@ def build_fused_leg_cache(
     )
 
 
+def build_level_legs(level, dtype, device) -> Optional[FusedLegCache]:
+    """Fused legs for a host hierarchy level, wired as the JAX package's
+    ``_maybe_build_fused_legs``: Lat2D A/P/R with box-k ratios, equal
+    symmetric multicolor GS/SOR pre/post configs, a periodic coloring and
+    the SA factored-prolongator stash.  None → the level runs unfused."""
+    from ...config import SOR, GaussSeidel, SymmetricSweep
+    from ...models.lattice import LatticeMatrix, lattice_coloring
+
+    cfg = level.presmoother_config
+    if cfg != level.postsmoother_config:
+        return None
+    if not (isinstance(cfg, (GaussSeidel, SOR)) and cfg.ordering == "multicolor"):
+        return None
+    if not isinstance(cfg.sweep, SymmetricSweep):
+        return None
+    if not all(isinstance(M, LatticeMatrix) for M in (level.A, level.P, level.R)):
+        return None
+    got = lattice_coloring(level.A.spec)
+    if got is None:
+        return None
+    grid, n_colors = got
+    T_t = getattr(level, "T_tent", None)
+    s_t = getattr(level, "psmooth_scale", None)
+    if not isinstance(T_t, LatticeMatrix) or s_t is None:
+        return None
+    if isinstance(s_t, tuple) and s_t and s_t[0] == "table":
+        scale = s_t
+    else:
+        v = np.asarray(s_t).ravel()
+        if v.shape[0] != level.A.spec.row_dims[0] * level.A.spec.row_dims[1]:
+            return None
+        scale = ("vector", v)
+    omega = float(cfg.omega) if isinstance(cfg, SOR) else 1.0
+    return build_fused_leg_cache(
+        level.A.spec, level.R.spec, level.P.spec, grid, n_colors, dtype, device,
+        omega, cfg.iter, True, True, (T_t.spec, scale),
+    )
+
+
 # --------------------------------------------------------------------------
 # plain PyTorch versions
 # --------------------------------------------------------------------------
@@ -194,9 +249,9 @@ def _color_plane(cache: FusedLegCache, device) -> torch.Tensor:
     return grid[ix][:, iy]
 
 
-def _sweep(cache: FusedLegCache, X, B):
+def _sweep(cache: FusedLegCache, X, B, steps):
     col = _color_plane(cache, X.device)
-    for c in cache.steps:
+    for c in steps:
         r = B - _stencil(cache.A, X, cache.offsA)
         X = torch.where(col == c, X + cache.omega * cache.dinv * r, X)
     return X
@@ -207,33 +262,57 @@ def _pad_out(X: torch.Tensor, length: int) -> torch.Tensor:
     return torch.nn.functional.pad(v, (0, length - v.shape[0])) if length > v.shape[0] else v
 
 
-def fused_down_reference(cache: FusedLegCache, x, b, x_zero: bool = False):
-    """(x', b_c) = (presmooth(x, b), R·(b − A·x')) in plain PyTorch."""
+def _restrict(cache: FusedLegCache, X, B):
+    """b_c = box_k-sum(T⊙(r − A·(S⊙r))), r = B − A·X, flat [Wxc·Wyc]."""
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
-    n, k = Wx * Wy, cache.k
-    B = b[:n].reshape(Wx, Wy)
-    X = torch.zeros_like(B) if x_zero else x[:n].reshape(Wx, Wy)
-    X = _sweep(cache, X, B)
+    k = cache.k
     r = B - _stencil(cache.A, X, cache.offsA)
     ts = cache.T * (r - _stencil(cache.A, cache.S * r, cache.offsA))
     ts = torch.nn.functional.pad(ts, (0, k * Wyc - Wy, 0, k * Wxc - Wx))
-    bc = ts.reshape(Wxc, k, Wyc, k).sum(dim=1).sum(dim=2)
-    return _pad_out(X, x.shape[0]), bc.reshape(Wxc * Wyc)
+    return ts.reshape(Wxc, k, Wyc, k).sum(dim=1).sum(dim=2).reshape(Wxc * Wyc)
+
+
+def _correct(cache: FusedLegCache, X, xc):
+    """X + P·x_c with P = (I − diag(S)·A)·T."""
+    Wx, Wy = cache.row_dims
+    Wxc, Wyc = cache.col_dims
+    k = cache.k
+    XC = xc[: Wxc * Wyc].reshape(Wxc, Wyc)
+    up = XC.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)[:Wx, :Wy]
+    Tup = cache.T * up
+    return X + (Tup - cache.S * _stencil(cache.A, Tup, cache.offsA))
+
+
+def fused_down_reference(cache: FusedLegCache, x, b, x_zero: bool = False):
+    """(x', b_c) = (presmooth(x, b), R·(b − A·x')) in plain PyTorch."""
+    Wx, Wy = cache.row_dims
+    n = Wx * Wy
+    B = b[:n].reshape(Wx, Wy)
+    X = torch.zeros_like(B) if x_zero else x[:n].reshape(Wx, Wy)
+    X = _sweep(cache, X, B, cache.steps)
+    return _pad_out(X, x.shape[0]), _restrict(cache, X, B)
 
 
 def fused_up_reference(cache: FusedLegCache, x, b, xc):
     """x = postsmooth(x + P·x_c, b) in plain PyTorch."""
     Wx, Wy = cache.row_dims
-    Wxc, Wyc = cache.col_dims
-    n, k = Wx * Wy, cache.k
+    n = Wx * Wy
     B = b[:n].reshape(Wx, Wy)
-    XC = xc[: Wxc * Wyc].reshape(Wxc, Wyc)
-    up = XC.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)[:Wx, :Wy]
-    Tup = cache.T * up
-    X = x[:n].reshape(Wx, Wy) + (Tup - cache.S * _stencil(cache.A, Tup, cache.offsA))
-    X = _sweep(cache, X, B)
+    X = _correct(cache, x[:n].reshape(Wx, Wy), xc)
+    X = _sweep(cache, X, B, cache.steps)
     return _pad_out(X, x.shape[0])
+
+
+def fused_updown_reference(cache: FusedLegCache, x, b, xc):
+    """(x', b_c') = down(up(x, x_c)) across the cycle boundary, with the
+    double step list, in plain PyTorch."""
+    Wx, Wy = cache.row_dims
+    n = Wx * Wy
+    B = b[:n].reshape(Wx, Wy)
+    X = _correct(cache, x[:n].reshape(Wx, Wy), xc)
+    X = _sweep(cache, X, B, cache.steps2)
+    return _pad_out(X, x.shape[0]), _restrict(cache, X, B)
 
 
 # --------------------------------------------------------------------------
@@ -250,10 +329,13 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Build output, named by the source's content hash so an edited
-    source never loads a stale build."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libvcycle_legs-{digest}.so"
+    """Build output, named by a content hash of every source and header so
+    an edited source never loads a stale build."""
+    h = hashlib.sha256()
+    for f in SOURCES + HEADERS:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libamg_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build_command(out: Path) -> list:
@@ -261,7 +343,7 @@ def build_command(out: Path) -> list:
         _nvcc(),
         "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(out), str(SOURCE),
+        "-o", str(out), *(str(f) for f in SOURCES),
     ]
 
 
@@ -269,14 +351,21 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _D = ctypes.c_double
-_DOWN_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _I, _IP, _I, _D, _I, _I, _I, _I, _I, _P]
-_UP_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _I, _IP, _I, _D, _I, _I, _I, _I, _P]
+_STENCIL = [_IP, _I, _IP, _I, _I, _IP, _I, _D]  # offs, n_off, colors a x b, steps, omega
+_SIGNATURES = {
+    "amg_fused_down_{}": [_P] * 10 + _STENCIL + [_I] * 5 + [_P],
+    "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 4 + [_P],
+    "amg_fused_updown_{}": [_P] * 11 + _STENCIL + [_I] * 5 + [_P],
+    "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _P],
+}
 
 
 def load_library():
-    """Build (at first use) and load the legs' shared library."""
+    """Build (at first use) and load the port's CUDA library: the legs and
+    the whole-tail kernel, from one nvcc call."""
     global _lib
     if _lib is not None:
         return _lib
@@ -289,11 +378,14 @@ def load_library():
         subprocess.run(build_command(tmp), check=True)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    for sfx in ("f32", "f64"):
-        down = getattr(lib, f"amg_fused_down_{sfx}")
-        down.argtypes, down.restype = _DOWN_ARGS, _I
-        up = getattr(lib, f"amg_fused_up_{sfx}")
-        up.argtypes, up.restype = _UP_ARGS, _I
+    for name, args in _SIGNATURES.items():
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, name.format(sfx))
+            fn.argtypes, fn.restype = args, _I
+    lib.amg_tail_level_bytes.argtypes, lib.amg_tail_level_bytes.restype = [], _I
+    lib.amg_tail_block_cells.argtypes, lib.amg_tail_block_cells.restype = [], _I
+    lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L] + [_I] * 5 + _STENCIL
+    lib.amg_tail_fill_level.restype = _I
     _lib = lib
     return lib
 
@@ -303,33 +395,57 @@ def _ints(vals):
     return (ctypes.c_int * max(len(vals), 1))(*vals)
 
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check(cache: FusedLegCache, name: str, t: torch.Tensor, min_len: int):
-    if t.device != cache.A.device:
-        raise ValueError(f"{name} is on {t.device}, the level's planes on {cache.A.device}")
-    if t.dtype != cache.A.dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, the level's planes {cache.A.dtype}")
+def check_vector(name: str, t: torch.Tensor, like: torch.Tensor, min_len: int):
+    """Raise unless ``t`` is a contiguous flat vector of at least ``min_len``
+    on ``like``'s device with ``like``'s dtype."""
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, the level's planes on {like.device}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the level's planes {like.dtype}")
     if t.dim() != 1 or t.shape[0] < min_len:
         raise ValueError(f"{name} must be a flat vector of length >= {min_len}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stencil_args(cache: FusedLegCache):
+def stencil_args(cache: FusedLegCache, steps):
+    """(offs, n_off, color table, a, b, steps, n_steps, omega) as the C entry
+    points take them."""
     offs = _ints([v for o in cache.offsA for v in o])
     grid = np.asarray(cache.color_grid)
-    steps = cache.steps
     return (
         offs, len(cache.offsA), _ints(grid.ravel()), grid.shape[0], grid.shape[1],
-        _ints(steps), len(steps),
+        _ints(steps), len(steps), cache.omega,
     )
 
 
-def _raise_on(err: int, what: str):
+def raise_on(err: int, what: str):
     if err:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def _prepare(cache: FusedLegCache, name: str, x, vecs):
+    """Check a CUDA call's vectors; returns (library entry point, x_out)
+    with x_out at x's (padded) length, zero beyond the level."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {x.device}")
+    for vname, t, n in vecs:
+        check_vector(vname, t, cache.A, n)
+    if cache.A.dtype not in SUFFIX:
+        raise TypeError(f"{name} takes float32 or float64, not {cache.A.dtype}")
+    fn = getattr(load_library(), f"amg_{name}_{SUFFIX[x.dtype]}")
+    x_out = torch.empty_like(x)
+    n = cache.row_dims[0] * cache.row_dims[1]
+    if x.shape[0] > n:
+        x_out[n:].zero_()
+    return fn, x_out
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
@@ -338,33 +454,20 @@ def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
     Returns x' at ``x``'s (padded) length and b_c at Wxc·Wyc."""
     if x.device.type == "cpu":
         return fused_down_reference(cache, x, b, x_zero=x_zero)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_down runs on cuda or cpu tensors, not {x.device}")
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
-    _check(cache, "x", x, n)
-    _check(cache, "b", b, n)
-    if cache.A.dtype not in _SUFFIX:
-        raise TypeError(f"fused_down takes float32 or float64, not {cache.A.dtype}")
-    lib = load_library()
-    x_out = torch.empty_like(x)
-    if x.shape[0] > n:
-        x_out[n:].zero_()
+    fn, x_out = _prepare(cache, "fused_down", x, [("x", x, n), ("b", b, n)])
     r = torch.empty((Wx, Wy), dtype=x.dtype, device=x.device)
     g = torch.empty_like(r)
     bc = torch.empty(Wxc * Wyc, dtype=x.dtype, device=x.device)
-    offs, n_off, ctab, ca, cb, steps, n_steps = _stencil_args(cache)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = getattr(lib, f"amg_fused_down_{_SUFFIX[x.dtype]}")
     err = fn(
         x_out.data_ptr(), None if x_zero else x.data_ptr(), b.data_ptr(),
         cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr(),
         r.data_ptr(), g.data_ptr(), bc.data_ptr(),
-        offs, n_off, ctab, ca, cb, steps, n_steps, cache.omega,
-        Wx, Wy, Wxc, Wyc, cache.k, stream,
+        *stencil_args(cache, cache.steps), Wx, Wy, Wxc, Wyc, cache.k, _stream(x),
     )
-    _raise_on(err, "fused_down kernel")
+    raise_on(err, "fused_down kernel")
     launches["down"] += 1
     return x_out, bc
 
@@ -373,31 +476,41 @@ def fused_up(cache: FusedLegCache, x, b, xc):
     """x = postsmooth(x + P·x_c, b); returns x at ``x``'s (padded) length."""
     if x.device.type == "cpu":
         return fused_up_reference(cache, x, b, xc)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_up runs on cuda or cpu tensors, not {x.device}")
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
-    _check(cache, "x", x, n)
-    _check(cache, "b", b, n)
-    _check(cache, "xc", xc, Wxc * Wyc)
-    if cache.A.dtype not in _SUFFIX:
-        raise TypeError(f"fused_up takes float32 or float64, not {cache.A.dtype}")
-    lib = load_library()
-    x_out = torch.empty_like(x)
-    if x.shape[0] > n:
-        x_out[n:].zero_()
-    tup = torch.empty((Wx, Wy), dtype=x.dtype, device=x.device)
-    offs, n_off, ctab, ca, cb, steps, n_steps = _stencil_args(cache)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = getattr(lib, f"amg_fused_up_{_SUFFIX[x.dtype]}")
+    fn, x_out = _prepare(cache, "fused_up", x, [("x", x, n), ("b", b, n), ("xc", xc, Wxc * Wyc)])
     err = fn(
         x_out.data_ptr(), x.data_ptr(), b.data_ptr(),
         cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr(),
-        xc.data_ptr(), tup.data_ptr(),
-        offs, n_off, ctab, ca, cb, steps, n_steps, cache.omega,
-        Wx, Wy, Wyc, cache.k, stream,
+        xc.data_ptr(), *stencil_args(cache, cache.steps), Wx, Wy, Wyc, cache.k, _stream(x),
     )
-    _raise_on(err, "fused_up kernel")
+    raise_on(err, "fused_up kernel")
     launches["up"] += 1
     return x_out
+
+
+def fused_updown(cache: FusedLegCache, x, b, xc):
+    """(x', b_c') = down(up(x, x_c)) across the cycle boundary in one
+    cooperative launch: returns the corrected and twice-smoothed x at
+    ``x``'s (padded) length and the next cycle's coarse rhs at Wxc·Wyc."""
+    if x.device.type == "cpu":
+        return fused_updown_reference(cache, x, b, xc)
+    Wx, Wy = cache.row_dims
+    Wxc, Wyc = cache.col_dims
+    n = Wx * Wy
+    if n >= 2**31:
+        raise ValueError("fused_updown indexes a level's cells in 32 bits")
+    fn, x_out = _prepare(cache, "fused_updown", x, [("x", x, n), ("b", b, n), ("xc", xc, Wxc * Wyc)])
+    r = torch.empty((Wx, Wy), dtype=x.dtype, device=x.device)
+    g = torch.empty_like(r)
+    bc = torch.empty(Wxc * Wyc, dtype=x.dtype, device=x.device)
+    err = fn(
+        x_out.data_ptr(), x.data_ptr(), b.data_ptr(),
+        cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr(),
+        xc.data_ptr(), r.data_ptr(), g.data_ptr(), bc.data_ptr(),
+        *stencil_args(cache, cache.steps2), Wx, Wy, Wxc, Wyc, cache.k, _stream(x),
+    )
+    raise_on(err, "fused_updown kernel")
+    launches["updown"] += 1
+    return x_out, bc

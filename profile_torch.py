@@ -1,0 +1,85 @@
+"""Where a cycle's device time goes, on one NVIDIA card.
+
+Sets up the 4096² flagship (structured SA, box-3), lowers it to the card in
+float32 and, after a warm-up, profiles with ``torch.profiler``:
+
+* ``fixed``: ``run_fixed_cycles`` over 20 cycles (K3 at L0, L1 legs, K4);
+* ``vcycle``: 20 V-cycles through ``_one_iteration`` (the solve's
+  preconditioner: L0 and L1 legs, K4).
+
+For each it prints the ms per cycle by CUDA events, the device time of each
+kernel and its share, and the device's idle share of the window (1 − the
+summed kernel time over the window's elapsed time).  Run from the
+repository root:
+
+    python3 profile_torch.py
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+
+N = 4096
+CYCLES = 20
+
+
+def main():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
+
+    if not torch.cuda.is_available():
+        print("no CUDA card: profile_torch needs one")
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+
+    ml = amt.structured_smoothed_aggregation(
+        amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3)
+    )
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    b = torch.zeros(h.fine_padded, device="cuda")
+    b[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
+
+    def fixed():
+        run_fixed_cycles(h, torch.zeros_like(b), b, CYCLES)
+
+    def vcycles():
+        x = torch.zeros_like(b)
+        for _ in range(CYCLES):
+            x = _one_iteration(h, amt.V(), x, b)
+
+    for name, fn in (("fixed", fixed), ("vcycle", vcycles)):
+        fn()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+        window_ms = start.elapsed_time(stop)
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                rows.append((us / 1e3, e.count, e.key))
+        busy = sum(r[0] for r in rows)
+        print(f"{name}: {window_ms / CYCLES!r} ms per cycle; device busy {busy / CYCLES!r} ms per cycle;"
+              f" idle share {1 - busy / window_ms!r}")
+        for ms, count, key in sorted(rows, reverse=True):
+            print(f"  {ms / CYCLES:9.4f} ms/cycle {100 * ms / busy:6.2f}%  x{count // CYCLES:<4d} {key[:90]}")
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,7 +24,7 @@ def pair():
         h_j = build_j(ml_j, dtype=jnp.float64)
     levels, coarse = jax_hierarchy_to_numpy(h_j)
     h_conv = hierarchy_from_numpy(levels, coarse, device="cpu", dtype=torch.float64)
-    h_own = build_t(ml_t, device="cpu", dtype=torch.float64)
+    h_own = build_t(ml_t, device="cpu", dtype=torch.float64, tail=False)
     return h_j, h_conv, h_own
 
 

@@ -105,3 +105,22 @@ def test_build_rejects_non_lattice_levels():
     ml = amt.smoothed_aggregation(amt.poisson((24, 24)))
     with pytest.raises(TypeError):
         build_device_hierarchy(ml, device="cpu", dtype=torch.float64)
+
+
+def test_default_device_is_the_card_never_the_cpu(monkeypatch):
+    """With no ``device`` the engine picks the card and raises without one;
+    the CPU runs only when asked for."""
+    from algebraicmultigrid_tpu_torch.models.device import _resolve
+
+    ml = amt.smoothed_aggregation(amt.poisson((24, 24)))
+    b = np.ones(ml.levels[0].A.shape[0])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: amt.get_device_hierarchy(ml),
+        lambda: amt.cg_device(ml, b),
+        lambda: amt.solve_refined(ml, b),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+    assert _resolve(ml, "cpu", None) == (torch.device("cpu"), torch.float64)
+    assert _resolve(ml, "cpu", "float32") == (torch.device("cpu"), torch.float32)

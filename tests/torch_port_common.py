@@ -1,7 +1,8 @@
 """Shared inputs for the tests that hold the PyTorch port against the JAX
 package: one small structured-SA Poisson problem set up by both packages,
 the JAX fused-leg switch scoped to a block, and the JAX device hierarchy
-read out as the numpy dicts ``convert.hierarchy_from_numpy`` takes."""
+(with its whole-tail cache, where it has one) read out as the numpy dicts
+``convert.hierarchy_from_numpy`` takes."""
 
 import contextlib
 import os
@@ -113,3 +114,31 @@ def jax_hierarchy_to_numpy(h):
         mat=np.asarray(c.mat), qr_q=np.asarray(c.qr_q), qr_r=np.asarray(c.qr_r),
     )
     return levels, coarse
+
+
+def jax_tail_to_numpy(h):
+    """The ``tail`` dict of a JAX DeviceHierarchy's factored whole-tail
+    cache: planes with the kernel's halo stripped, step metadata from the
+    levels' smoothers, and Mc read back from the coarse planes G."""
+    from algebraicmultigrid_tpu.ops.coloring import color_steps
+    from algebraicmultigrid_tpu.ops.pallas.tail_kernel import _H
+
+    t = h.tail
+    levels = []
+    for i, m in enumerate(t.metas):
+        assert m.factored
+        sm = h.levels[h.tail_start + i].pre
+        assert color_steps(sm.n_colors, sm.iter, sm.forward, sm.backward, sm.omega) == m.steps
+        Wx, Wy = m.dims
+        crop = (Ellipsis, slice(_H, _H + Wx), slice(_H, _H + Wy))
+        levels.append(dict(
+            A=np.asarray(t.A[i])[crop], dinv=np.asarray(t.dinv[i])[crop],
+            T=np.asarray(t.Tp[i])[crop], S=np.asarray(t.Sp[i])[crop],
+            offsA=m.offsA, color_grid=m.color_grid, n_colors=sm.n_colors, k=m.k,
+            row_dims=m.dims, col_dims=m.cdims, omega=m.omega, iter=sm.iter,
+            forward=sm.forward, backward=sm.backward,
+        ))
+    W7x, W7y = t.dims7
+    n7 = W7x * W7y
+    G = np.asarray(t.G)[:, _H : _H + W7x, _H : _H + W7y]
+    return dict(levels=levels, Mc=G.reshape(n7, n7).T)
