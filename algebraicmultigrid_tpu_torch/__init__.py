@@ -2,13 +2,18 @@
 
 The host setup tier (numpy/scipy) is a copy of the JAX package's, so both
 packages build identical hierarchies; the device tier runs on PyTorch, with
-the fused V-cycle legs as hand-written CUDA kernels for Hopper
-(``ops/kernels/vcycle_legs.py``, ``csrc/vcycle_legs.cu``).  This package
-never imports JAX.
+the JAX package's Pallas kernels as hand-written CUDA kernels for Hopper
+(``ops/kernels/``, ``csrc/``).  This package never imports JAX.
 
-Covered so far: the structured smoothed-aggregation Poisson solve on Lat2D
-levels — ``poisson((N, N), lattice=True)`` →
-``structured_smoothed_aggregation`` → ``cg_device`` / ``solve_refined``.
+Covered so far:
+
+* the structured smoothed-aggregation Poisson solve on Lat2D levels —
+  ``poisson((N, N), lattice=True)`` → ``structured_smoothed_aggregation``
+  → ``cg_device`` / ``solve_refined``;
+* any scipy matrix — ``smoothed_aggregation(A)`` / ``ruge_stuben(A)`` →
+  ``build_device_hierarchy`` (SDIA, BT, dense, BSG or ELL levels, with the
+  RCM basis where it helps) → ``cg_device`` / ``solve_device`` /
+  ``solve_refined`` / ``device_cycle_fn``.
 """
 
 from .config import (
@@ -25,7 +30,15 @@ from .config import (
     W,
 )
 from .models.aggregation import smoothed_aggregation
-from .models.device import build_device_hierarchy, cg_device, get_device_hierarchy, solve_refined
+from .models.classical import ruge_stuben
+from .models.device import (
+    build_device_hierarchy,
+    cg_device,
+    device_cycle_fn,
+    get_device_hierarchy,
+    solve_device,
+    solve_refined,
+)
 from .models.fastsetup import structured_smoothed_aggregation
 from .models.gallery import poisson
 from .models.lattice import LatticeMatrix, LatticeProblem
@@ -37,7 +50,8 @@ __version__ = "0.1.0"
 __all__ = [
     "Cycle", "V", "W", "F", "Sweep", "SymmetricSweep", "ForwardSweep", "BackwardSweep",
     "GaussSeidel", "Jacobi", "SOR",
-    "StructuredAggregation", "smoothed_aggregation", "structured_smoothed_aggregation",
+    "StructuredAggregation", "smoothed_aggregation", "structured_smoothed_aggregation", "ruge_stuben",
     "MultiLevel", "operator_complexity", "LatticeMatrix", "LatticeProblem", "poisson",
     "build_device_hierarchy", "get_device_hierarchy", "cg_device", "solve_refined",
+    "solve_device", "device_cycle_fn",
 ]

@@ -6,12 +6,29 @@ arrays of another engine's hierarchy (for example the JAX package's
 operators.  The input is plain data:
 
 * ``levels``: one dict per level with
-  - ``"A"``, ``"P"``, ``"R"``: Lat2D dicts — ``data`` [n_off, Wx, Wy] plus the
-    static ``offsets``, ``row_dims``, ``col_dims``, ``base_x``, ``base_y``,
-    ``shape``, ``nnz``, ``rows_padded``;
-  - ``"pre"``, ``"post"``: masked multicolor smoother dicts — ``color_of``,
-    ``dinv`` [rows_padded] plus ``n_colors``, ``omega``, ``iter``,
-    ``forward``, ``backward``;
+  - ``"A"``, ``"P"``, ``"R"``: operator dicts whose ``"format"`` names the
+    format (no ``"format"`` means Lat2D), with the fields of the port's
+    class of that name:
+    - ``Lat2D``: ``data`` [n_off, Wx, Wy] plus the static ``offsets``,
+      ``row_dims``, ``col_dims``, ``base_x``, ``base_y``, ``shape``,
+      ``nnz``, ``rows_padded``;
+    - ``ELL``: ``data``, ``cols`` [rows_padded, width], ``shape``, ``nnz``;
+    - ``SDIA``: ``data`` [n_off, rows_padded], ``offsets``, ``p``, ``q``,
+      ``shape``, ``nnz``, ``rows_padded``;
+    - ``DenseOp``: ``mat``, ``shape``, ``nnz``, ``rows_padded``;
+    - ``BTOp``: ``blocks``, ``rest_rows``, ``rest_data``, ``rest_cols``,
+      ``deltas``, ``T``, ``C``, ``shape``, ``nnz``, ``rows_padded``;
+    - ``BSG``: ``data``, ``off``, ``m0``, ``qlo``, ``shape``, ``nnz``,
+      ``ws``, ``qb``, ``rows_padded``, ``cols_padded``;
+  - ``"pre"``, ``"post"``: smoother dicts whose ``"kind"`` names the cache
+    (no ``"kind"`` means masked multicolor), each with ``omega`` and
+    ``iter`` and, but for Jacobi, ``forward`` and ``backward``:
+    - ``MaskedMulticolorCache``: ``color_of``, ``dinv`` [rows_padded],
+      ``n_colors``;
+    - ``JacobiCache``: ``dinv``;
+    - ``MulticolorCache``: ``rows``, ``data``, ``cols``, ``dinv`` (rows
+      padded with the level's ``rows_padded``);
+    - ``ScanGSCache``: ``diag``;
   - ``"fused"``: None, or the factored legs' full-size planes ``A``
     [nA, Wx, Wy], ``dinv``, ``T``, ``S`` [Wx, Wy] plus ``offsA``,
     ``color_grid``, ``n_colors``, ``k``, ``row_dims``, ``col_dims``,
@@ -20,7 +37,9 @@ operators.  The input is plain data:
   matrices ``qr_q``/``qr_r`` or ``mat``;
 * optionally ``tail``: the whole-tail cache of ``levels[tail_start:]`` —
   ``"levels"``, one factored-leg dict (as ``"fused"`` above) per tail level,
-  fine to coarse, and ``"Mc"``, the [n7, n7] coarse solve operator.
+  fine to coarse, and ``"Mc"``, the [n7, n7] coarse solve operator;
+* optionally ``final_A`` (an operator dict) and ``perm0``/``iperm0``, the
+  fine level's RCM basis (index vectors of the fine level's padded length).
 """
 
 from __future__ import annotations
@@ -28,10 +47,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.device import CoarseCache, DeviceHierarchy, DeviceLevel, MaskedMulticolorCache
+from .models.device import (
+    CoarseCache,
+    DeviceHierarchy,
+    DeviceLevel,
+    JacobiCache,
+    MaskedMulticolorCache,
+    ScanGSCache,
+    multicolor_cache,
+)
+from .ops.banded import SDIA, DenseOp, bt_op
+from .ops.bsg import bsg_op
 from .ops.kernels.tail_kernel import make_fused_tail_cache
 from .ops.kernels.vcycle_legs import FusedLegCache
 from .ops.lattice_op import Lat2D
+from .ops.sparse import ELL
 
 __all__ = ["hierarchy_from_numpy"]
 
@@ -62,16 +92,52 @@ def _lat2d(d, dtype, device) -> Lat2D:
     )
 
 
-def _smoother(d, dtype, device) -> MaskedMulticolorCache:
-    return MaskedMulticolorCache(
-        color_of=_tensor(d["color_of"], torch.int32, device),
-        dinv=_tensor(d["dinv"], dtype, device),
-        n_colors=int(d["n_colors"]),
-        omega=float(d["omega"]),
-        iter=int(d["iter"]),
-        forward=bool(d["forward"]),
-        backward=bool(d["backward"]),
-    )
+def _op(d, dtype, device):
+    fmt = d.get("format", "Lat2D")
+    if fmt == "Lat2D":
+        return _lat2d(d, dtype, device)
+    if fmt == "ELL":
+        return ELL(
+            data=_tensor(d["data"], dtype, device), cols=_tensor(d["cols"], torch.int64, device),
+            shape=_ints(d["shape"]), nnz=int(d["nnz"]),
+        )
+    if fmt == "SDIA":
+        return SDIA(
+            data=_tensor(d["data"], dtype, device), offsets=_ints(d["offsets"]), p=int(d["p"]),
+            q=int(d["q"]), shape=_ints(d["shape"]), nnz=int(d["nnz"]), rows_padded=int(d["rows_padded"]),
+        )
+    if fmt == "DenseOp":
+        return DenseOp(
+            mat=_tensor(d["mat"], dtype, device), shape=_ints(d["shape"]), nnz=int(d["nnz"]),
+            rows_padded=int(d["rows_padded"]),
+        )
+    if fmt == "BTOp":
+        return bt_op(d, dtype, device)
+    if fmt == "BSG":
+        return bsg_op(dict(d, data=np.asarray(d["data"], dtype=np.float32)), device)
+    raise ValueError(f"unknown operator format {fmt!r}")
+
+
+def _smoother(d, dtype, device):
+    kind = d.get("kind", "MaskedMulticolorCache")
+    omega, iters = float(d["omega"]), int(d["iter"])
+    if kind == "JacobiCache":
+        return JacobiCache(dinv=_tensor(d["dinv"], dtype, device), omega=omega, iter=iters)
+    fwd, bwd = bool(d["forward"]), bool(d["backward"])
+    if kind == "MaskedMulticolorCache":
+        return MaskedMulticolorCache(
+            color_of=_tensor(d["color_of"], torch.int32, device), dinv=_tensor(d["dinv"], dtype, device),
+            n_colors=int(d["n_colors"]), omega=omega, iter=iters, forward=fwd, backward=bwd,
+        )
+    if kind == "MulticolorCache":
+        return multicolor_cache(
+            d["rows"], d["data"], d["cols"], d["dinv"], int(d["rows_padded"]), dtype, device,
+            omega, iters, fwd, bwd,
+        )
+    if kind == "ScanGSCache":
+        return ScanGSCache(diag=_tensor(d["diag"], dtype, device), omega=omega, iter=iters,
+                           forward=fwd, backward=bwd)
+    raise ValueError(f"unknown smoother cache {kind!r}")
 
 
 def _fused(d, dtype, device):
@@ -96,14 +162,17 @@ def _fused(d, dtype, device):
     )
 
 
-def hierarchy_from_numpy(levels, coarse, *, device, dtype, tail=None, tail_start: int = -1) -> DeviceHierarchy:
+def hierarchy_from_numpy(
+    levels, coarse, *, device, dtype, tail=None, tail_start: int = -1, final_A=None,
+    perm0=None, iperm0=None,
+) -> DeviceHierarchy:
     """Build the port's hierarchy from numpy arrays (see module docstring)."""
     device = torch.device(device)
     out = tuple(
         DeviceLevel(
-            A=_lat2d(L["A"], dtype, device),
-            P=_lat2d(L["P"], dtype, device),
-            R=_lat2d(L["R"], dtype, device),
+            A=_op(L["A"], dtype, device),
+            P=_op(L["P"], dtype, device),
+            R=_op(L["R"], dtype, device),
             pre=_smoother(L["pre"], dtype, device),
             post=_smoother(L["post"], dtype, device),
             fused=_fused(L.get("fused"), dtype, device),
@@ -135,4 +204,8 @@ def hierarchy_from_numpy(levels, coarse, *, device, dtype, tail=None, tail_start
         )
     else:
         tail_start = -1
-    return DeviceHierarchy(levels=out, coarse=cc, tail=tail_cache, tail_start=tail_start)
+    perms = [None if v is None else _tensor(v, torch.int64, device) for v in (perm0, iperm0)]
+    return DeviceHierarchy(
+        levels=out, coarse=cc, final_A=None if final_A is None else _op(final_A, dtype, device),
+        tail=tail_cache, tail_start=tail_start, perm0=perms[0], iperm0=perms[1],
+    )

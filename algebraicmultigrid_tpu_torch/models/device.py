@@ -1,11 +1,21 @@
-"""Device (PyTorch) solve engine for lattice hierarchies.
+"""Device (PyTorch) solve engine.
 
-Port of the lattice subset of the JAX package's ``models/device.py``:
+Port of the JAX package's ``models/device.py``:
 
-* every level's A/P/R is a :class:`~..ops.lattice_op.Lat2D` — gather-free
-  plane arithmetic; level vectors stay padded to ``rows_padded`` end to end;
-* smoothers are masked multicolor GS/SOR sweeps (one full SpMV + masked
-  blend per color step) on the periodic lattice coloring;
+* each level's A/P/R is lowered to the fastest format that holds it:
+  Lat2D planes for lattice levels (``ops/lattice_op.py``), else SDIA, BTOp
+  or DenseOp (``ops/banded.py``), the BSG gather tier (``ops/bsg.py``, K6
+  as a CUDA kernel) or padded ELL (``ops/sparse.py``); level vectors stay
+  padded to ``rows_padded`` end to end;
+* an unstructured level whose natural order does not fit a BSG window
+  adopts the RCM-permuted basis ``A[π][:, π]``; π is folded into P/R and
+  the smoother caches, and the solve drivers apply it once on entry
+  (``perm0``) and exit (``iperm0``);
+* smoothers: weighted Jacobi, masked multicolor GS/SOR (one full SpMV +
+  masked blend per color step), gathered multicolor GS/SOR on ELL levels,
+  and the exact natural-order recurrence on small ELL levels (a CUDA kernel,
+  ``ops/kernels/scan_gs.py``); natural-order GS/SOR above 2048 rows is
+  promoted to multicolor, as in the JAX package;
 * levels whose SA setup stashed the factored prolongator run the fused legs
   (``ops/kernels/vcycle_legs.py``): hand-written CUDA kernels on the card,
   their plain versions on the CPU;
@@ -24,33 +34,46 @@ Port of the lattice subset of the JAX package's ``models/device.py``:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from ..config import BackwardSweep, Cycle, F, ForwardSweep, GaussSeidel, SOR, SymmetricSweep, V, W
-from ..ops.banded import mat_vec
-from ..ops.coloring import color_steps
+from ..config import BackwardSweep, Cycle, F, ForwardSweep, GaussSeidel, Jacobi, SOR, SymmetricSweep, V, W
+from ..ops.banded import bt_from_csr, dense_from_csr, mat_vec, sdia_from_csr
+from ..ops.bsg import bsg_from_csr, rcm_permutation
+from ..ops.coloring import color_steps, graph_coloring
+from ..ops.kernels.scan_gs import smooth_scan_gs
 from ..ops.kernels.tail_kernel import build_fused_tail_cache, fused_tail
 from ..ops.kernels.vcycle_legs import build_level_legs, fused_down, fused_up, fused_updown
 from ..ops.lattice_op import lat2d_from_spec
-from ..ops.sparse import round_up
+from ..ops.sparse import ELL, as_csr, ell_from_csr, np_dtype, round_up
 from .coarse import QRSolver
+from .lattice import LatticeMatrix
 from .multilevel import MultiLevel
 
 # every level's row space is padded to a multiple of this, as in the JAX
 # package, so level vectors line up with its hierarchies
 ROW_PAD = 8
+# natural-order GS/SOR runs its exact recurrence only up to this many rows;
+# larger levels run multicolor ordering, and smaller ones lower to Dense
+DENSE_THRESHOLD = 2048
 
 __all__ = [
+    "JacobiCache",
+    "MulticolorCache",
+    "ScanGSCache",
     "MaskedMulticolorCache",
     "CoarseCache",
     "DeviceLevel",
     "DeviceHierarchy",
     "build_device_hierarchy",
     "get_device_hierarchy",
+    "device_cycle_fn",
     "run_fixed_cycles",
+    "solve_device",
     "cg_device",
     "solve_refined",
 ]
@@ -59,6 +82,43 @@ __all__ = [
 # --------------------------------------------------------------------------
 # containers
 # --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class JacobiCache:
+    """x ← x + ω·D⁻¹(b − Ax); zero-diag rows frozen (smoother.jl:101-171)."""
+
+    dinv: torch.Tensor  # [rows_padded], 0 where diag == 0
+    omega: float
+    iter: int
+
+
+@dataclasses.dataclass(frozen=True)
+class MulticolorCache:
+    """Stacked per-color row blocks for gathered multicolor GS/SOR sweeps on
+    an ELL level.  Zero-diagonal rows are in no color (frozen); color c
+    holds ``sizes[c]`` rows, the rest of its block is padding."""
+
+    rows: torch.Tensor  # int64 [n_colors, cmax]
+    data: torch.Tensor  # [n_colors, cmax, width], diagonal slots zeroed
+    cols: torch.Tensor  # int64 [n_colors, cmax, width]
+    dinv: torch.Tensor  # [n_colors, cmax]
+    sizes: Tuple[int, ...]
+    omega: float
+    iter: int
+    forward: bool
+    backward: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanGSCache:
+    """The exact natural-order GS/SOR recurrence over ELL rows."""
+
+    diag: torch.Tensor  # [rows_padded]
+    omega: float
+    iter: int
+    forward: bool
+    backward: bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,11 +138,11 @@ class MaskedMulticolorCache:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceLevel:
-    A: Any  # Lat2D
+    A: Any  # Lat2D | SDIA | BTOp | DenseOp | BSG | ELL
     P: Any
     R: Any
-    pre: MaskedMulticolorCache
-    post: MaskedMulticolorCache
+    pre: Any  # one of the smoother caches above
+    post: Any
     fused: Any = None  # FusedLegCache — fused down/up legs
 
 
@@ -102,12 +162,23 @@ class CoarseCache:
 class DeviceHierarchy:
     levels: Tuple[DeviceLevel, ...]
     coarse: CoarseCache
+    final_A: Any = None  # the coarse operator, for a hierarchy with no levels
     tail: Any = None     # FusedTailCache of levels[tail_start:] + coarse solve
     tail_start: int = -1
+    # fine-level RCM basis: the cycle runs in the permuted basis; the solve
+    # drivers apply perm0 to b on entry and iperm0 to x on exit (int64
+    # index vectors extended by the identity over the padding; None =
+    # natural order)
+    perm0: Optional[torch.Tensor] = None
+    iperm0: Optional[torch.Tensor] = None
+
+    @property
+    def n_fine(self) -> int:
+        return self.levels[0].A.shape[0] if self.levels else self.coarse.n
 
     @property
     def fine_padded(self) -> int:
-        return self.levels[0].A.rows_padded
+        return self.levels[0].A.rows_padded if self.levels else self.coarse.rows_padded
 
 
 # --------------------------------------------------------------------------
@@ -125,6 +196,14 @@ def fit_len(v: torch.Tensor, n: int) -> torch.Tensor:
     return torch.nn.functional.pad(v, (0, n - m))
 
 
+def _smooth_jacobi(cache: JacobiCache, A, x, b):
+    n = x.shape[0]
+    for _ in range(cache.iter):
+        r = b - fit_len(mat_vec(A, x), n)
+        x = x + cache.omega * cache.dinv * r
+    return x
+
+
 def _smooth_masked_multicolor(cache: MaskedMulticolorCache, A, x, b):
     n = x.shape[0]
     for c in color_steps(cache.n_colors, cache.iter, cache.forward, cache.backward, cache.omega):
@@ -133,47 +212,91 @@ def _smooth_masked_multicolor(cache: MaskedMulticolorCache, A, x, b):
     return x
 
 
+def _color_step(cache: MulticolorCache, c: int, x, b):
+    """Update the rows of color c in place (they are mutually uncoupled)."""
+    s = cache.sizes[c]
+    rows = cache.rows[c, :s]
+    rsum = (cache.data[c, :s] * x[cache.cols[c, :s]]).sum(dim=1)
+    w = cache.omega
+    x[rows] = (1 - w) * x[rows] + w * cache.dinv[c, :s] * (b[rows] - rsum)
+
+
+def _smooth_multicolor(cache: MulticolorCache, A, x, b):
+    x = x.clone()
+    n_colors = len(cache.sizes)
+    for _ in range(cache.iter):
+        if cache.forward:
+            for c in range(n_colors):
+                _color_step(cache, c, x, b)
+        if cache.backward:
+            for c in range(n_colors - 1, -1, -1):
+                _color_step(cache, c, x, b)
+    return x
+
+
+def _apply_smoother(cache, A, x, b):
+    if isinstance(cache, MaskedMulticolorCache):
+        return _smooth_masked_multicolor(cache, A, x, b)
+    if isinstance(cache, JacobiCache):
+        return _smooth_jacobi(cache, A, x, b)
+    if isinstance(cache, MulticolorCache):
+        return _smooth_multicolor(cache, A, x, b)
+    if isinstance(cache, ScanGSCache):
+        return smooth_scan_gs(A, cache.diag, x, b, cache.omega, cache.iter, cache.forward, cache.backward)
+    raise TypeError(f"unknown device smoother cache {type(cache).__name__}")
+
+
 # --------------------------------------------------------------------------
 # building the device hierarchy
 # --------------------------------------------------------------------------
 
 
 def _sweep_flags(config):
-    if not (isinstance(config, (GaussSeidel, SOR)) and config.ordering == "multicolor"):
-        raise TypeError(
-            f"the torch engine runs multicolor GaussSeidel/SOR smoothers, got {config!r}"
-        )
     omega = float(config.omega) if isinstance(config, SOR) else 1.0
     fwd = isinstance(config.sweep, (ForwardSweep, SymmetricSweep))
     bwd = isinstance(config.sweep, (BackwardSweep, SymmetricSweep))
     return omega, fwd, bwd
 
 
+def _dinv(diag: np.ndarray, rows_padded: int, dtype) -> np.ndarray:
+    """1/diag over the level's rows, 0 where diag == 0 and on the padding."""
+    n = diag.shape[0]
+    out = np.zeros(rows_padded, dtype=dtype)
+    active = diag != 0
+    out[:n] = np.where(active, 1.0 / np.where(active, diag, 1), 0.0)
+    return out
+
+
 def _build_lattice_smoother_cache(config, A_lat, rows_padded, dtype, device):
     """O(boundary) smoother cache for a lattice level: periodic torus
-    coloring + host diagonal expansion, no O(nnz) graph analysis."""
+    coloring + host diagonal expansion, no O(nnz) graph analysis.  None for
+    a config the lattice path does not take (natural-order GS/SOR), which
+    then runs on the materialised level."""
     from .lattice import lattice_coloring
 
     spec = A_lat.spec
     n = A_lat.shape[0]
+    np_dt = np_dtype(dtype)
+    diag = spec.diagonal().astype(np_dt)
+    if isinstance(config, Jacobi):
+        dinv = _dinv(diag, rows_padded, np_dt)
+        return JacobiCache(dinv=torch.as_tensor(dinv, device=device), omega=float(config.omega), iter=config.iter)
+    if not (isinstance(config, (GaussSeidel, SOR)) and config.ordering == "multicolor"):
+        return None
     omega, fwd, bwd = _sweep_flags(config)
     got = lattice_coloring(spec)
     if got is None:
-        raise ValueError("no periodic lattice coloring for this level")
+        return None
     grid, n_colors = got
     a, b = grid.shape
     Wx, Wy = spec.row_dims
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    diag = spec.diagonal().astype(np_dtype)
     colors = grid[(np.arange(Wx) % a)[:, None], (np.arange(Wy) % b)[None, :]].ravel()
     active = diag != 0
     color_of = np.full(rows_padded, n_colors, dtype=np.int32)
     color_of[:n] = np.where(active, colors, n_colors)
-    dinv = np.zeros(rows_padded, dtype=np_dtype)
-    dinv[:n] = np.where(active, 1.0 / np.where(active, diag, 1), 0.0)
     return MaskedMulticolorCache(
         color_of=torch.as_tensor(color_of, device=device),
-        dinv=torch.as_tensor(dinv, device=device),
+        dinv=torch.as_tensor(_dinv(diag, rows_padded, np_dt), device=device),
         n_colors=int(n_colors),
         omega=omega,
         iter=config.iter,
@@ -182,16 +305,111 @@ def _build_lattice_smoother_cache(config, A_lat, rows_padded, dtype, device):
     )
 
 
+def _build_masked_multicolor_cache(A_csr, rows_padded, dtype, device, omega, iters, fwd, bwd, sym=False):
+    n = A_csr.shape[0]
+    colors = graph_coloring(A_csr, assume_symmetric=sym)
+    diag = A_csr.diagonal()
+    n_colors = int(colors.max()) + 1 if n else 1
+    color_of = np.full(rows_padded, n_colors, dtype=np.int32)
+    color_of[:n] = np.where(diag != 0, colors, n_colors)
+    return MaskedMulticolorCache(
+        color_of=torch.as_tensor(color_of, device=device),
+        dinv=torch.as_tensor(_dinv(diag, rows_padded, np_dtype(dtype)), device=device),
+        n_colors=n_colors,
+        omega=omega,
+        iter=iters,
+        forward=fwd,
+        backward=bwd,
+    )
+
+
+def multicolor_cache(rows, data, cols, dinv, rows_padded, dtype, device, omega, iters, fwd, bwd):
+    """MulticolorCache from its host arrays (rows padded with the sentinel
+    ``rows_padded``, as the JAX package's cache holds them)."""
+    rows = np.asarray(rows)
+    return MulticolorCache(
+        rows=torch.as_tensor(rows.astype(np.int64), device=device),
+        data=torch.as_tensor(np.array(data), device=device).to(dtype),
+        cols=torch.as_tensor(np.asarray(cols).astype(np.int64), device=device),
+        dinv=torch.as_tensor(np.array(dinv), device=device).to(dtype),
+        sizes=tuple(int(v) for v in (rows != rows_padded).sum(axis=1)),
+        omega=float(omega),
+        iter=int(iters),
+        forward=bool(fwd),
+        backward=bool(bwd),
+    )
+
+
+def _build_multicolor_cache(A_csr, A_ell: ELL, dtype, device, omega, iters, fwd, bwd, sym=False):
+    n = A_csr.shape[0]
+    colors = graph_coloring(A_csr, assume_symmetric=sym)
+    diag = A_csr.diagonal()
+    active = diag != 0  # zero-diag rows frozen
+    n_colors = int(colors.max()) + 1 if n else 1
+    groups = [np.flatnonzero((colors == c) & active) for c in range(n_colors)]
+    groups = [g for g in groups if g.size > 0] or [np.zeros(0, dtype=np.int64)]
+    cmax = max(max(g.size for g in groups), 1)
+    width = A_ell.width
+    sentinel = A_ell.rows_padded
+    np_dt = np_dtype(dtype)
+    rows = np.full((len(groups), cmax), sentinel, dtype=np.int64)
+    data = np.zeros((len(groups), cmax, width), dtype=np_dt)
+    cols = np.zeros((len(groups), cmax, width), dtype=np.int64)
+    dinv = np.zeros((len(groups), cmax), dtype=np_dt)
+    h_data = A_ell.data.cpu().numpy()
+    h_cols = A_ell.cols.cpu().numpy()
+    for c, g in enumerate(groups):
+        rows[c, : g.size] = g
+        dd = h_data[g].copy()
+        cc = h_cols[g]
+        dd[cc == g[:, None]] = 0  # zero the diagonal slots → rsum is off-diag
+        data[c, : g.size] = dd
+        cols[c, : g.size] = cc
+        dinv[c, : g.size] = 1.0 / diag[g]
+    return multicolor_cache(rows, data, cols, dinv, sentinel, dtype, device, omega, iters, fwd, bwd)
+
+
+def _build_smoother_cache(config, A_host, A_dev, dtype, device, sym=False):
+    """The device smoother cache of one level (``A_host`` in the level's
+    device basis: the RCM-permuted matrix where the level adopted it)."""
+    if isinstance(A_host, LatticeMatrix):
+        cache = _build_lattice_smoother_cache(config, A_host, A_dev.rows_padded, dtype, device)
+        if cache is not None:
+            return cache
+        A_host = A_host.tocsr()  # natural-order GS: materialise
+
+    rows_padded = A_dev.rows_padded
+    np_dt = np_dtype(dtype)
+    if isinstance(config, Jacobi):
+        dinv = _dinv(A_host.diagonal().astype(np_dt), rows_padded, np_dt)
+        return JacobiCache(dinv=torch.as_tensor(dinv, device=device), omega=float(config.omega), iter=config.iter)
+    if isinstance(config, (GaussSeidel, SOR)):
+        omega, fwd, bwd = _sweep_flags(config)
+        if config.ordering == "multicolor":
+            if isinstance(A_dev, ELL):
+                return _build_multicolor_cache(A_host, A_dev, dtype, device, omega, config.iter, fwd, bwd, sym=sym)
+            return _build_masked_multicolor_cache(
+                A_host, rows_padded, dtype, device, omega, config.iter, fwd, bwd, sym=sym
+            )
+        if not isinstance(A_dev, ELL):
+            raise TypeError("natural-order GS requires the ELL device format")
+        d = np.zeros(rows_padded, dtype=np_dt)
+        d[: A_host.shape[0]] = A_host.diagonal().astype(np_dt)
+        return ScanGSCache(diag=torch.as_tensor(d, device=device), omega=omega, iter=config.iter,
+                           forward=fwd, backward=bwd)
+    raise TypeError(f"unknown smoother config {config!r}")
+
+
 def _build_coarse_cache(ml: MultiLevel, dtype, device, rows_padded: int) -> CoarseCache:
     cs = ml.coarse_solver
     n = ml.final_A.shape[0]
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    np_dt = np_dtype(dtype)
     zero = torch.zeros((0, 0), dtype=dtype, device=device)
     if isinstance(cs, QRSolver) and not cs._singular and cs.Q is not None:
         return CoarseCache(
             mat=zero,
-            qr_q=torch.as_tensor(cs.Q.astype(np_dtype), device=device),
-            qr_r=torch.as_tensor(cs.R.astype(np_dtype), device=device),
+            qr_q=torch.as_tensor(cs.Q.astype(np_dt), device=device),
+            qr_r=torch.as_tensor(cs.R.astype(np_dt), device=device),
             kind="qr",
             n=n,
             rows_padded=rows_padded,
@@ -200,7 +418,7 @@ def _build_coarse_cache(ml: MultiLevel, dtype, device, rows_padded: int) -> Coar
         ml.final_A.toarray()
     )
     return CoarseCache(
-        mat=torch.as_tensor(pinvA.astype(np_dtype), device=device),
+        mat=torch.as_tensor(pinvA.astype(np_dt), device=device),
         qr_q=zero,
         qr_r=zero,
         kind="pinv",
@@ -209,30 +427,105 @@ def _build_coarse_cache(ml: MultiLevel, dtype, device, rows_padded: int) -> Coar
     )
 
 
+def device_config(cfg, n: int):
+    """The smoother config the device engine runs: natural-order GS/SOR is
+    an O(n) sequential recurrence, so above ``DENSE_THRESHOLD`` rows it is
+    promoted to multicolor ordering (the same smoother family; the
+    reference's contract is convergence, not sweep order)."""
+    if isinstance(cfg, (GaussSeidel, SOR)) and cfg.ordering == "natural" and n > DENSE_THRESHOLD:
+        return dataclasses.replace(cfg, ordering="multicolor")
+    return cfg
+
+
+def _needs_ell(level) -> bool:
+    """Natural-order GS/SOR runs its exact recurrence over ELL rows."""
+    n = level.A.shape[0]
+    for cfg in (level.presmoother_config, level.postsmoother_config):
+        dc = device_config(cfg, n)
+        if isinstance(dc, (GaussSeidel, SOR)) and dc.ordering == "natural":
+            return True
+    return False
+
+
+def _permute_rect(M, prow, pcol):
+    """Fold level bases into a transfer operator: rows by this level's
+    permutation, columns by the neighbour level's."""
+    if prow is None and pcol is None:
+        return M
+    C = M.tocsr() if hasattr(M, "tocsr") else sp.csr_matrix(M)
+    if prow is not None:
+        C = C[prow]
+    if pcol is not None:
+        C = C[:, pcol]
+    return C.tocsr()
+
+
 def build_device_hierarchy(
     ml: MultiLevel, *, device, dtype, fused: bool = True, tail: bool = True,
     tail_max_rows: int = 250_000,
 ) -> DeviceHierarchy:
-    """Lower a host lattice hierarchy to device tensors.
+    """Lower a host hierarchy to device tensors.
 
-    Every level's A/P/R must be a ``LatticeMatrix`` (the structured setup's
-    ``latticify_tail`` makes them so); anything else raises.  ``fused=False``
-    skips the fused legs and runs every level through the unfused ops.
-    ``tail`` builds the whole-tail cache from the first level (in order) at
-    which the tail gate holds with at most ``tail_max_rows`` rows; the
-    levels it covers build no legs.  The two keywords are the counterparts
-    of the JAX package's ``AMG_PALLAS_TAIL`` and ``AMG_TAIL_MAX_ROWS``."""
-    from .lattice import LatticeMatrix
+    Each level's A/P/R goes to the first format that takes it: Lat2D for a
+    ``LatticeMatrix``, else SDIA → BTOp → DenseOp (at most
+    ``DENSE_THRESHOLD`` rows and columns) → BSG in natural order (windows of
+    at most 64 blocks) → ELL.  A square level that falls through to ELL
+    tries the RCM basis: if ``A[π][:, π]`` is BSG-viable, the level adopts
+    it, and π is folded into its P/R, its smoother caches and, at the fine
+    level, ``perm0``/``iperm0``.  Natural-order GS/SOR levels (at most
+    ``DENSE_THRESHOLD`` rows) lower to ELL for the exact recurrence.
 
+    ``fused=False`` skips the fused legs of lattice levels.  ``tail`` builds
+    the whole-tail cache from the first level (in order) at which the tail
+    gate holds with at most ``tail_max_rows`` rows; the levels it covers
+    build no legs.  The two keywords are the counterparts of the JAX
+    package's ``AMG_PALLAS_FUSED``/``AMG_PALLAS_TAIL`` and
+    ``AMG_TAIL_MAX_ROWS``."""
     device = torch.device(device)
-    if not ml.levels:
-        raise ValueError("the torch engine needs at least one hierarchy level")
-    for i, level in enumerate(ml.levels):
-        for name in ("A", "P", "R"):
-            if not isinstance(getattr(level, name), LatticeMatrix):
-                raise TypeError(f"level {i} {name} is not a LatticeMatrix")
 
-    pads = [round_up(max(level.A.shape[0], 1), ROW_PAD) for level in ml.levels]
+    def lower(M, target_pad, force_ell=False):
+        if isinstance(M, LatticeMatrix):
+            if not force_ell:
+                return lat2d_from_spec(M.spec, dtype, device, row_pad=target_pad)
+            M = M.tocsr()
+        M = as_csr(M)
+        if not force_ell:
+            # smaller levels tolerate wider diagonal sets (padding overhead
+            # is bounded separately by max_overhead)
+            mo = 40 if max(M.shape) > 100_000 else 96
+            op = sdia_from_csr(M, dtype, device, row_pad=target_pad, max_offsets=mo, max_overhead=8.0)
+            if op is None:
+                op = bt_from_csr(M, dtype, device, row_pad=target_pad)
+            if op is None and max(M.shape) <= DENSE_THRESHOLD:
+                op = dense_from_csr(M, dtype, device, row_pad=target_pad)
+            if op is None:
+                op = bsg_from_csr(M, dtype, device, row_pad=target_pad, ws_cap=64)
+            if op is not None:
+                return op
+        return ell_from_csr(M, dtype, device, row_pad=target_pad)
+
+    def lower_square(level):
+        M = level.A
+        force = _needs_ell(level)
+        if isinstance(M, LatticeMatrix) or force:
+            return lower(M, ROW_PAD, force_ell=force), None, None
+        A_dev = lower(M, ROW_PAD)
+        if not isinstance(A_dev, ELL):
+            return A_dev, None, None
+        # natural order fell through to the gather tier: try the RCM basis
+        A_csr = as_csr(M)
+        pi = rcm_permutation(A_csr)
+        if np.array_equal(pi, np.arange(A_csr.shape[0])):
+            return A_dev, None, None
+        Ap = A_csr[pi][:, pi].tocsr()
+        G = bsg_from_csr(Ap, dtype, device, row_pad=ROW_PAD)
+        if G is None:
+            return A_dev, None, None
+        return G, pi, Ap
+
+    lowered = [lower_square(level) for level in ml.levels]
+    pads = [A_dev.rows_padded for A_dev, _, _ in lowered]
+    perms = [pi for _, pi, _ in lowered] + [None]  # the coarse level stays natural
     final_pad = round_up(max(ml.final_A.shape[0], 1), ROW_PAD)
     pads.append(final_pad)
 
@@ -246,19 +539,39 @@ def build_device_hierarchy(
                 tail_start = start
                 break
 
+    sym = type(ml.symmetry).__name__ == "HermitianSymmetry"
     out = []
-    for i, level in enumerate(ml.levels):
-        A_dev = lat2d_from_spec(level.A.spec, dtype, device, row_pad=ROW_PAD)
-        P_dev = lat2d_from_spec(level.P.spec, dtype, device, row_pad=pads[i])
-        R_dev = lat2d_from_spec(level.R.spec, dtype, device, row_pad=pads[i + 1])
-        pre = _build_lattice_smoother_cache(level.presmoother_config, level.A, pads[i], dtype, device)
-        post = _build_lattice_smoother_cache(level.postsmoother_config, level.A, pads[i], dtype, device)
+    for i, (level, (A_dev, _, Ap)) in enumerate(zip(ml.levels, lowered)):
+        # P maps coarse → this level's rows; R maps this level → coarse rows
+        pf, pc = perms[i], perms[i + 1]
+        P_dev = lower(_permute_rect(level.P, pf, pc), pads[i])
+        R_dev = lower(_permute_rect(level.R, pc, pf), pads[i + 1])
+        A_host = Ap if Ap is not None else level.A
+        n = level.A.shape[0]
+        pre, post = (
+            _build_smoother_cache(device_config(cfg, n), A_host, A_dev, dtype, device, sym=sym)
+            for cfg in (level.presmoother_config, level.postsmoother_config)
+        )
         covered = tail_cache is not None and i >= tail_start
         legs = build_level_legs(level, dtype, device) if fused and not covered else None
         out.append(DeviceLevel(A=A_dev, P=P_dev, R=R_dev, pre=pre, post=post, fused=legs))
 
-    coarse = _build_coarse_cache(ml, dtype, device, final_pad)
-    return DeviceHierarchy(levels=tuple(out), coarse=coarse, tail=tail_cache, tail_start=tail_start)
+    perm0 = iperm0 = None
+    if perms[0] is not None:
+        pi0 = perms[0]
+        ext = np.arange(len(pi0), pads[0])
+        perm0 = torch.as_tensor(np.concatenate([pi0, ext]), device=device)
+        iperm0 = torch.as_tensor(np.concatenate([np.argsort(pi0), ext]), device=device)
+
+    return DeviceHierarchy(
+        levels=tuple(out),
+        coarse=_build_coarse_cache(ml, dtype, device, final_pad),
+        final_A=lower(ml.final_A, ROW_PAD),
+        tail=tail_cache,
+        tail_start=tail_start,
+        perm0=perm0,
+        iperm0=iperm0,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -294,7 +607,7 @@ def _cycle(h: DeviceHierarchy, cycle: Cycle, x, b, lvl: int, x_zero: bool = Fals
         x, coarse_b = fused_down(level.fused, x, b, x_zero=x_zero)
         coarse_b = fit_len(coarse_b, n_next)
     else:
-        x = _smooth_masked_multicolor(level.pre, level.A, x, b)
+        x = _apply_smoother(level.pre, level.A, x, b)
         res = b - fit_len(mat_vec(level.A, x), n_here)
         coarse_b = fit_len(mat_vec(level.R, res), n_next)
 
@@ -306,7 +619,7 @@ def _cycle(h: DeviceHierarchy, cycle: Cycle, x, b, lvl: int, x_zero: bool = Fals
     if level.fused is not None:
         return fused_up(level.fused, x, b, coarse_x)
     x = x + fit_len(mat_vec(level.P, coarse_x), n_here)
-    return _smooth_masked_multicolor(level.post, level.A, x, b)
+    return _apply_smoother(level.post, level.A, x, b)
 
 
 def _next(h, cycle, x, b, lvl, x_zero: bool = False):
@@ -322,7 +635,9 @@ def _next(h, cycle, x, b, lvl, x_zero: bool = False):
 
 
 def _one_iteration(h: DeviceHierarchy, cycle: Cycle, x, b):
-    return _cycle(h, cycle, x, b, 0)
+    if h.levels:
+        return _cycle(h, cycle, x, b, 0)
+    return _coarse_solve(h.coarse, b)
 
 
 def _subsolve(h: DeviceHierarchy, coarse_b, lvl: int):
@@ -340,7 +655,7 @@ def run_fixed_cycles(h: DeviceHierarchy, x, b, n_cycles: int):
     this cycle and down of the next in one launch), and a last sub-cycle and
     up leg.  Its rounding differs from the iterated cycles by the deduped
     boundary step of the double sweep."""
-    fused = h.levels[0].fused
+    fused = h.levels[0].fused if h.levels else None
     usable = (
         n_cycles >= 1
         and fused is not None
@@ -396,10 +711,26 @@ def get_device_hierarchy(ml: MultiLevel, device=None, dtype=None) -> DeviceHiera
 # --------------------------------------------------------------------------
 
 
+def _enter_basis(h: DeviceHierarchy, v):
+    """b → the hierarchy's fine-level basis (RCM for BSG levels)."""
+    return v if h.perm0 is None else v[h.perm0]
+
+
+def _exit_basis(h: DeviceHierarchy, v):
+    """x back to the caller's natural ordering."""
+    return v if h.iperm0 is None else v[h.iperm0]
+
+
+def _fine_op(h: DeviceHierarchy):
+    return h.levels[0].A if h.levels else h.final_A
+
+
 def _solve_fused(h: DeviceHierarchy, b, maxiter, abstol, cycle, calculate_residual):
-    """Stationary iteration (multilevel.jl:158-198 semantics); returns
+    """Stationary iteration (multilevel.jl:158-198 semantics) from x = 0;
+    ``b`` and the returned x are in the caller's ordering.  Returns
     (x, iterations, ‖r‖)."""
-    A = h.levels[0].A
+    b = _enter_basis(h, b)
+    A = _fine_op(h)
     x = torch.zeros_like(b)
     normres = float(torch.linalg.norm(b))
     itr = 1
@@ -408,14 +739,15 @@ def _solve_fused(h: DeviceHierarchy, b, maxiter, abstol, cycle, calculate_residu
         if calculate_residual:
             normres = float(torch.linalg.norm(b - fit_len(mat_vec(A, x), b.shape[0])))
         itr += 1
-    return x, itr - 1, normres
+    return _exit_basis(h, x), itr - 1, normres
 
 
 def _pcg_fused(h: DeviceHierarchy, b, maxiter, abstol, cycle):
     """Preconditioned CG with one AMG cycle (zero initial guess, fixed,
-    linear — preconditioner.jl:12-19 contract) per iteration.  Returns
-    (x, iterations, ‖r‖)."""
-    A = h.levels[0].A
+    linear — preconditioner.jl:12-19 contract) per iteration; ``b`` and the
+    returned x are in the caller's ordering.  Returns (x, iterations, ‖r‖)."""
+    b = _enter_basis(h, b)
+    A = _fine_op(h)
     n_pad = b.shape[0]
 
     def M(r):
@@ -439,7 +771,13 @@ def _pcg_fused(h: DeviceHierarchy, b, maxiter, abstol, cycle):
         rz = rz_new
         itr += 1
         normr = float(torch.linalg.norm(r))
-    return x, itr, normr
+    return _exit_basis(h, x), itr, normr
+
+
+def _upload(h: DeviceHierarchy, b, device, dtype):
+    """(b at the fine level's padded length, n) on the device."""
+    b_arr = torch.as_tensor(np.asarray(b), device=device).to(dtype)
+    return fit_len(b_arr, h.fine_padded), b_arr.shape[0]
 
 
 def cg_device(
@@ -457,23 +795,97 @@ def cg_device(
     """AMG-preconditioned conjugate gradients on the device."""
     device, dtype = _resolve(ml, device, dtype)
     h = get_device_hierarchy(ml, device, dtype)
-    b_arr = torch.as_tensor(np.asarray(b), device=device).to(dtype)
-    n = b_arr.shape[0]
-    bp = fit_len(b_arr, h.fine_padded)
-    normb = float(torch.linalg.norm(b_arr))
-    thresh = max(tol * normb, abstol)
+    bp, n = _upload(h, b, device, dtype)
+    thresh = max(tol * float(torch.linalg.norm(bp)), abstol)
     x, itr, normr = _pcg_fused(h, bp, maxiter, thresh, cycle)
     xout = x[:n].cpu().numpy()
     return (xout, int(itr), float(normr)) if log else xout
 
 
+def solve_device(
+    ml: MultiLevel,
+    b,
+    cycle: Cycle = V(),
+    *,
+    x=None,
+    maxiter: int = 100,
+    abstol: float = 0.0,
+    reltol: Optional[float] = None,
+    verbose: bool = False,
+    log: bool = False,
+    calculate_residual: bool = True,
+    device=None,
+    dtype=None,
+):
+    """Device-engine solve (mirrors solve_mg / multilevel.jl:158-198).  As
+    in the JAX package, the initial guess ``x`` is used only on the logged
+    (``log`` or ``verbose``) path; the other path starts from zero."""
+    device, dtype = _resolve(ml, device, dtype)
+    h = get_device_hierarchy(ml, device, dtype)
+    bp, n = _upload(h, b, device, dtype)
+    if reltol is None:
+        reltol = math.sqrt(torch.finfo(dtype).eps)
+    normb = float(torch.linalg.norm(bp))
+    if normb != 0:
+        abstol = max(reltol * normb, abstol)
+
+    if not (log or verbose):
+        xq, _, _ = _solve_fused(h, bp, maxiter, abstol, cycle, calculate_residual)
+        return xq[:n].cpu().numpy()
+
+    # observed path: one cycle per iteration, host-side logging, state in the
+    # hierarchy's (possibly RCM-permuted) basis
+    A = _fine_op(h)
+    bq = _enter_basis(h, bp)
+    xq = torch.zeros_like(bq) if x is None else _enter_basis(h, _upload(h, x, device, dtype)[0])
+    residuals = [normb]
+    normres = normb
+    itr = 1
+    while itr <= maxiter and ((not calculate_residual) or normres > abstol):
+        if verbose:
+            print(f"Norm of residual at iteration {itr:6d} is {normres:.4e}")
+        xq = _one_iteration(h, cycle, xq, bq)
+        normres = float(torch.linalg.norm(bq - fit_len(mat_vec(A, xq), bq.shape[0])))
+        residuals.append(normres)
+        itr += 1
+    xout = _exit_basis(h, xq)[:n].cpu().numpy()
+    return (xout, residuals) if log else xout
+
+
+def device_cycle_fn(ml: MultiLevel, cycle: Cycle = V(), *, device=None, dtype=None):
+    """A function ``b -> x`` applying exactly one cycle from zero — the
+    preconditioner contract (preconditioner.jl:12-19).  ``b`` may be a host
+    array or a device tensor; x comes back on the device in the caller's
+    ordering (the RCM basis, where the hierarchy has one, is entered and
+    left around the cycle)."""
+    device, dtype = _resolve(ml, device, dtype)
+    h = get_device_hierarchy(ml, device, dtype)
+
+    def apply(b):
+        bp, n = _upload(h, b, device, dtype)
+        bq = _enter_basis(h, bp)
+        return _exit_basis(h, _one_iteration(h, cycle, torch.zeros_like(bq), bq))[:n]
+
+    return apply
+
+
 def _get_fine_f64(ml: MultiLevel, device):
-    """f64 Lat2D of the fine level — the outer-residual carrier of
-    :func:`solve_refined`."""
+    """f64 device operator of the fine level in the caller's ordering — the
+    outer-residual carrier of :func:`solve_refined`: Lat2D, SDIA, dense up
+    to 4096 rows, else a gathered ELL."""
     key = ("torch-fine64", str(device))
     if key not in ml._device_cache:
-        spec = ml.levels[0].A.spec
-        ml._device_cache[key] = lat2d_from_spec(spec, torch.float64, device, row_pad=ROW_PAD)
+        A = ml.levels[0].A if ml.levels else ml.final_A
+        if isinstance(A, LatticeMatrix):
+            op = lat2d_from_spec(A.spec, torch.float64, device, row_pad=ROW_PAD)
+        else:
+            A_csr = as_csr(A)
+            op = sdia_from_csr(A_csr, torch.float64, device, max_offsets=40, max_overhead=8.0)
+            if op is None and max(A_csr.shape) <= 4096:
+                op = dense_from_csr(A_csr, torch.float64, device)
+            if op is None:
+                op = ell_from_csr(A_csr, torch.float64, device, row_pad=ROW_PAD)
+        ml._device_cache[key] = op
     return ml._device_cache[key]
 
 
@@ -494,23 +906,28 @@ def solve_refined(
     stats: Optional[dict] = None,
 ):
     """Mixed-precision iterative refinement: float32 AMG inner solves under
-    a float64 outer residual loop, all on the device:
+    a float64 outer residual loop:
 
         r = b − A·x            (f64, one SpMV per round)
         solve A·e ≈ r in f32   (AMG-PCG or V-cycles to ``inner_tol``)
         x ← x + e              (f64)
 
-    Per round the host reads one scalar norm.  ``b`` may be a device tensor
-    (skips the upload); ``return_device=True`` returns the f64 device
-    solution.  ``stats``, when given, receives the inner iteration count of
-    each round under ``"inner_iters"``."""
+    The outer loop runs on the device with the fine operator's f64 lowering
+    (:func:`_get_fine_f64`): per round the host reads one scalar norm.
+    Unlike the JAX package, which takes the f64 residual of a gathered fine
+    level on the host for want of fast f64 on a TPU, a GPU gathers f64 as
+    it gathers f32, bound by memory, so no round leaves the device.  ``b``
+    may be a device tensor (skips the upload); ``return_device=True``
+    returns the f64 solution on the device.  ``stats``, when given, receives
+    the inner iteration count of each round under ``"inner_iters"``."""
     device, dtype = _resolve(ml, device, dtype)
     h = get_device_hierarchy(ml, device, dtype)
     A64 = _get_fine_f64(ml, device)
-    n = ml.levels[0].A.shape[0]
-    b64 = torch.as_tensor(b, device=device).to(torch.float64) if isinstance(b, torch.Tensor) else (
-        torch.as_tensor(np.asarray(b, dtype=np.float64), device=device)
-    )
+    n = h.n_fine
+    if isinstance(b, torch.Tensor):
+        b64 = b.to(device=device, dtype=torch.float64)
+    else:
+        b64 = torch.as_tensor(np.asarray(b, dtype=np.float64), device=device)
     b64 = fit_len(b64, h.fine_padded)
     normb = float(torch.linalg.norm(b64))
     if normb == 0:

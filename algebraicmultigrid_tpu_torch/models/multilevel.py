@@ -15,8 +15,9 @@ Two engines run the same cycle structure:
 * the **host engine** here (numpy/scipy, exact reference smoother semantics)
   — the conformance reference used for differential testing and small
   problems;
-* the **device engine** (``models/device.py``) — PyTorch on Lat2D levels,
-  entered through ``cg_device`` / ``solve_refined``.
+* the **device engine** (``models/device.py``) — PyTorch on the card (or
+  on the CPU when asked), ``MultiLevel.solve(engine="torch")``, or
+  ``cg_device`` / ``solve_refined``.
 """
 
 from __future__ import annotations
@@ -156,6 +157,10 @@ class MultiLevel:
         """Run multigrid cycling to convergence (multilevel.jl:152-198)."""
         if engine == "numpy":
             return solve_mg(self, b, cycle, **kwargs)
+        if engine == "torch":
+            from .device import solve_device
+
+            return solve_device(self, b, cycle, **kwargs)
         raise ValueError(f"unknown engine {engine!r}")
 
 

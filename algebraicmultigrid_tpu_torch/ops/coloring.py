@@ -7,19 +7,20 @@ within a color have no mutual coupling, so updating a whole color at once IS
 Gauss-Seidel for the color-permuted ordering.  Each color step becomes a
 dense-regular batched row update on the TPU VPU.
 
-Implemented as a vectorised Jones–Plassmann greedy: numpy-only, O(E) work
-per round, deterministic (seeded priorities), no Python per-node loop — so
-it scales to multi-million-row setup on the host.
+The coloring is the native natural-order greedy kernel
+(``native/amg_setup.cpp``), as in the JAX package, so both packages color a
+general graph alike.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import scipy.sparse as sp
 
 from .sparse import as_csr
 
-__all__ = ["graph_coloring", "jp_coloring", "color_steps", "steps2_list"]
+__all__ = [
+    "graph_coloring", "color_steps", "steps2_list",
+]
 
 
 def color_steps(n_colors, iters, fwd, bwd, omega=1.0):
@@ -59,66 +60,21 @@ def steps2_list(n_colors, iters, fwd, bwd, omega=1.0):
     return s + s
 
 
-def graph_coloring(A, seed: int = 0) -> np.ndarray:
-    """Default coloring: the vectorised Jones-Plassmann numpy tier.  (The JAX
-    package prefers its native natural-order greedy kernel, so the two may
-    color a general graph differently; lattice levels use the periodic
-    ``lattice_coloring`` in both packages.)"""
-    return jp_coloring(A, seed=seed)
+def graph_coloring(A, assume_symmetric: bool = False) -> np.ndarray:
+    """Natural-order greedy coloring of the adjacency graph of ``A``
+    (symmetrised unless ``assume_symmetric``, diagonal ignored) by the
+    native kernel: colors 0..k-1, no stored off-diagonal entry joins two
+    rows of one color."""
+    from ..native.build import as_i32_ptr, as_i64_ptr, get_native
 
-
-def jp_coloring(A, seed: int = 0, max_rounds: int = 10_000) -> np.ndarray:
-    """Color the adjacency graph of ``A`` (symmetrised, diagonal ignored).
-
-    Returns ``colors[n]`` with colors 0..k-1 such that no stored off-diagonal
-    entry (i, j) of A+Aᵀ has colors[i] == colors[j].
-    """
+    lib = get_native()
     M = as_csr(A)
     n = M.shape[0]
     if n == 0:
         return np.zeros(0, dtype=np.int32)
-    G = (M + M.T).tocsr()
-    rows = np.repeat(np.arange(n), np.diff(G.indptr))
-    cols = G.indices
-    off = rows != cols
-    ei, ej = rows[off], cols[off]
-
-    rng = np.random.default_rng(seed)
-    prio = rng.permutation(n)
-
-    colors = np.full(n, -1, dtype=np.int32)
-    undecided = np.ones(n, dtype=bool)
-    n_colors = 0
-
-    for _ in range(max_rounds):
-        if not undecided.any():
-            break
-        # Max priority among undecided neighbours of each undecided node.
-        live = undecided[ei] & undecided[ej]
-        nbr_max = np.full(n, -1, dtype=np.int64)
-        np.maximum.at(nbr_max, ei[live], prio[ej[live]])
-        winners = undecided & (prio > nbr_max)
-        if not winners.any():  # isolated-in-round nodes: all remaining win
-            winners = undecided
-        # Greedy smallest-available color per winner.
-        assigned = np.zeros(n, dtype=bool)
-        for c in range(n_colors + 1):
-            cand = winners & ~assigned
-            if not cand.any():
-                break
-            conflict = np.zeros(n, dtype=bool)
-            nbr_is_c = colors[ej] == c
-            np.logical_or.at(conflict, ei[nbr_is_c], True)
-            take = cand & ~conflict
-            colors[take] = c
-            assigned |= take
-            n_colors = max(n_colors, c + 1)
-        # Anything still unassigned among winners opens a fresh color.
-        rest = winners & ~assigned
-        if rest.any():
-            colors[rest] = n_colors
-            n_colors += 1
-        undecided &= colors < 0
-    if undecided.any():
-        raise RuntimeError("jp_coloring did not converge")
+    G = M if assume_symmetric else (M + M.T).tocsr()
+    Gp = np.ascontiguousarray(G.indptr, dtype=np.int64)
+    Gj = np.ascontiguousarray(G.indices, dtype=np.int64)
+    colors = np.zeros(n, dtype=np.int32)
+    lib.greedy_coloring(n, as_i64_ptr(Gp), as_i64_ptr(Gj), as_i32_ptr(colors))
     return colors

@@ -16,12 +16,15 @@ and the smoothing scale S = ω·D̃⁻¹, so P = (I − diag(S)·A)·T and R = P
 Each leg has a hand-written CUDA kernel (``csrc/vcycle_legs.cu``; K3 is one
 cooperative launch) and a plain PyTorch version beside it
 (``fused_down_reference``, ``fused_up_reference``,
-``fused_updown_reference``).  The port's CUDA sources (these legs and the
-whole-tail kernel, ``csrc/tail_kernel.cu``) build into one library, by
-``nvcc`` for ``sm_90a`` at first use, loaded with ``ctypes``.  The wrappers
-take the plain version only for tensors on the CPU; on a CUDA tensor they
-launch the kernel or raise.  ``launches`` counts the kernel launches of
-every wrapper of that library (``tail`` is the whole-tail kernel's).
+``fused_updown_reference``).  The port's CUDA sources (these legs, the
+whole-tail kernel ``csrc/tail_kernel.cu``, the BSG SpMV ``csrc/bsg_spmv.cu``
+and the natural-order GS sweep ``csrc/scan_gs.cu``) build into one library
+at first use — one ``nvcc`` process per source for ``sm_90a``, all started
+together, then one link — loaded with ``ctypes``.  The wrappers take the
+plain version only for tensors on the CPU; on a CUDA tensor they launch the
+kernel or raise.  ``launches`` counts the kernel launches of every wrapper
+of that library (``tail`` is the whole-tail kernel's, ``bsg`` the BSG
+SpMV's, ``scan_gs`` the natural-order sweep's).
 
 Left for later (as in the JAX package, they are not on the SA main path):
 the non-factored R/P-plane branches and bf16 coefficient storage.
@@ -54,13 +57,13 @@ __all__ = [
     "fused_up_reference",
     "fused_updown_reference",
     "launches",
-    "build_command",
+    "build_library",
     "load_library",
 ]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = (CSRC / "vcycle_legs.cu", CSRC / "tail_kernel.cu")  # one nvcc call
+SOURCES = tuple(CSRC / f for f in ("vcycle_legs.cu", "tail_kernel.cu", "bsg_spmv.cu", "scan_gs.cu"))
 HEADERS = (CSRC / "stencil.cuh",)
 BUILD_DIR = PACKAGE_DIR / "_build"
 
@@ -68,7 +71,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 MAX_OFFSETS = 32
 MAX_COLOR_CELLS = 64
 
-launches = {"down": 0, "up": 0, "updown": 0, "tail": 0}
+launches = {"down": 0, "up": 0, "updown": 0, "tail": 0, "bsg": 0, "scan_gs": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,13 +341,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libamg_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build_command(out: Path) -> list:
-    return [
-        _nvcc(),
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(out), *(str(f) for f in SOURCES),
-    ]
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+
+def compile_command(src: Path, obj: Path) -> list:
+    return [_nvcc(), *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+
+
+def link_command(objs, out: Path) -> list:
+    return [_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(out), *(str(o) for o in objs)]
+
+
+def build_library(out: Path, sources=SOURCES) -> None:
+    """Compile every source in its own nvcc process, all started together,
+    and link the objects into ``out`` (written atomically)."""
+    import subprocess
+
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{Path(src).stem}-{tag}.o" for src in sources]
+    procs = [subprocess.Popen(compile_command(src, obj)) for src, obj in zip(sources, objs)]
+    failed = [Path(src).name for src, p in zip(sources, procs) if p.wait()]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    subprocess.run(link_command(objs, tmp), check=True)
+    for obj in objs:
+        obj.unlink()
+    os.replace(tmp, out)
 
 
 _lib = None
@@ -360,23 +383,20 @@ _SIGNATURES = {
     "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 4 + [_P],
     "amg_fused_updown_{}": [_P] * 11 + _STENCIL + [_I] * 5 + [_P],
     "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _P],
+    "amg_scan_gs_{}": [_P] * 6 + [_I, _I, _D, _I, _I, _I, _P],
 }
 
 
 def load_library():
-    """Build (at first use) and load the port's CUDA library: the legs and
-    the whole-tail kernel, from one nvcc call."""
+    """Build (at first use) and load the port's CUDA library: the legs, the
+    whole-tail kernel, the BSG SpMV and the natural-order GS sweep."""
     global _lib
     if _lib is not None:
         return _lib
-    import subprocess
-
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        subprocess.run(build_command(tmp), check=True)
-        os.replace(tmp, out)
+        build_library(out)
     lib = ctypes.CDLL(str(out))
     for name, args in _SIGNATURES.items():
         for sfx in ("f32", "f64"):
@@ -386,6 +406,8 @@ def load_library():
     lib.amg_tail_block_cells.argtypes, lib.amg_tail_block_cells.restype = [], _I
     lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L] + [_I] * 5 + _STENCIL
     lib.amg_tail_fill_level.restype = _I
+    lib.amg_bsg_spmv_f32.argtypes = [_P] * 5 + [_L, _I, _I, _L, _P]
+    lib.amg_bsg_spmv_f32.restype = _I
     _lib = lib
     return lib
 

@@ -25,7 +25,24 @@ Runs, in order, and exits non-zero on the first failure:
    float64 to 1e-10);
 6. checks the solve against a direct solve, and one cycle on the card
    against the same cycle on the CPU, on a small 192² problem whose whole
-   hierarchy is the tail (asserts that K4 ran).
+   hierarchy is the tail (asserts that K4 ran);
+7. sets up the unstructured problem of ``bench.py``: ``poisson((1024,
+   1024))`` as a scipy CSR with rows and columns in the order of
+   ``np.random.default_rng(1).permutation``, then ``smoothed_aggregation``
+   with defaults, lowered to the card in float32; asserts 5 levels plus a
+   1×1 coarse solve, BSG on L0–L2 with the fine level in the RCM basis,
+   ELL with natural-order GS on L3/L4, and the BSG levels' color counts
+   2/9/10, each equal to the greedy coloring of its RCM-permuted matrix;
+8. holds K6 ``bsg_spmv`` against its plain version at the L0/L1/L2 shapes
+   (max relative error <= 1e-5), timing kernel, plain version and the
+   cuSPARSE SpMV of the same permuted CSR (``torch.sparse_csr_tensor``),
+   and the natural-order sweep ``scan_gs`` against its plain version on
+   L3 and L4;
+9. drives the unstructured solve with the counters zeroed just before:
+   ``cg_device(tol=1e-6)`` and ``solve_refined(tol=1e-8)`` (its float64
+   outer residual an ELL SpMV on the card), each residual checked in the caller's ordering with a scipy
+   float64 SpMV; then one V-cycle, whose K6 and ``scan_gs`` launches must
+   equal the count derived from the hierarchy, and its time.
 
 The last two lines of output are the card's ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``; the line before them lists every
@@ -71,14 +88,35 @@ SOURCES = {
     "fused_up": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
     "fused_updown": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
     "fused_tail": "algebraicmultigrid_tpu_torch/csrc/tail_kernel.cu",
+    "bsg_spmv": "algebraicmultigrid_tpu_torch/csrc/bsg_spmv.cu",
+    "scan_gs": "algebraicmultigrid_tpu_torch/csrc/scan_gs.cu",
 }
 REPLACES = {
     "fused_down": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:1432",
     "fused_up": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:1736",
     "fused_updown": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:2222",
     "fused_tail": "algebraicmultigrid_tpu/ops/pallas/tail_kernel.py:451",
+    "bsg_spmv": "algebraicmultigrid_tpu/ops/bsg.py:189",
+    # not a Pallas kernel: the XLA lax.scan recurrence of natural-order GS
+    "scan_gs": "algebraicmultigrid_tpu/models/device.py:277 (_scan_sweep, an XLA lax.scan, not a Pallas kernel)",
 }
-COUNTER = {"fused_down": "down", "fused_up": "up", "fused_updown": "updown", "fused_tail": "tail"}
+COUNTER = {
+    "fused_down": "down", "fused_up": "up", "fused_updown": "updown", "fused_tail": "tail",
+    "bsg_spmv": "bsg", "scan_gs": "scan_gs",
+}
+# the unstructured problem: bench.py's scrambled Poisson
+NU = 1024
+NU_SEED = 1
+U_LEVELS = 5
+U_COARSE = (1, 1)
+U_BSG_LEVELS = (0, 1, 2)
+U_COLORS = (2, 9, 10)  # the natural-order greedy coloring's, as in the JAX package
+U_CG_TOL = 1e-6
+# an f32 solution vector cannot hold an f64-checked relative residual much
+# below ||A|| * eps_f32 * ||x|| / ||b||: at 1024² that floor is ~1e-5, so the
+# caller's-order scipy check of cg_device's answer is held to this bound,
+# and the 1e-6 to its own residual (solve_refined reaches 1e-8 in f64)
+U_CG_TRUE = 1e-4
 
 
 def log(msg):
@@ -216,7 +254,7 @@ def compare_kernels(device, ml):
         v[:m] = torch.randn(m, generator=gen)
         return v.to(device)
 
-    rows = {name: [] for name in SOURCES}
+    rows = {name: [] for name in ("fused_down", "fused_up", "fused_updown", "fused_tail")}
 
     def record(name, got, ref, fn, plain, work, **extra):
         errs = [errors(g, r) for g, r in zip(got, ref)]
@@ -400,7 +438,7 @@ def fixed_cycles(device, ml, h):
 
     if not np.isfinite(xh).all() or not relres < CYCLES_RELRES:
         raise AssertionError(f"relres_after_cycles {relres} >= {CYCLES_RELRES}")
-    want = {"updown": CYCLES - 1, "tail": CYCLES, "down": CYCLES + 1, "up": CYCLES + 1}
+    want = {"updown": CYCLES - 1, "tail": CYCLES, "down": CYCLES + 1, "up": CYCLES + 1, "bsg": 0, "scan_gs": 0}
     if counts != want:
         raise AssertionError(f"fixed-cycle launches {counts} != {want}")
     if not all(fixed_rel[k] <= tol for k, tol in FIXED_RTOL.items()):
@@ -445,6 +483,228 @@ def small_reference(device):
         raise AssertionError(f"the small problem did not run the tail kernel: {counts}")
 
 
+# --------------------------------------------------------------------------
+# the unstructured path (phases 7-9)
+# --------------------------------------------------------------------------
+
+
+def unstructured_setup(device):
+    """Phase 7: bench.py's scrambled Poisson through SA and the lowering;
+    returns (permuted CSR, hierarchy, device hierarchy)."""
+    import scipy.sparse as sp
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import ScanGSCache
+    from algebraicmultigrid_tpu_torch.ops.bsg import BSG, rcm_permutation
+    from algebraicmultigrid_tpu_torch.ops.coloring import graph_coloring
+    from algebraicmultigrid_tpu_torch.ops.sparse import ELL
+
+    A = sp.csr_matrix(amt.poisson((NU, NU)))
+    p = np.random.default_rng(NU_SEED).permutation(A.shape[0])
+    Ap = A[p][:, p].tocsr()
+    t0 = time.perf_counter()
+    ml = amt.smoothed_aggregation(Ap)
+    t1 = time.perf_counter()
+    h = amt.get_device_hierarchy(ml, device=device, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    fmt = [(type(L.A).__name__, type(L.P).__name__, type(L.R).__name__, type(L.pre).__name__) for L in h.levels]
+    colors = [getattr(L.pre, "n_colors", None) for L in h.levels]
+    log(f"unstructured {NU}x{NU} scrambled: rows {[L.A.shape[0] for L in h.levels]} coarse {ml.final_A.shape}"
+        f" operator_complexity {ml.operator_complexity()!r}")
+    log(f"unstructured formats (A, P, R, smoother) {fmt} colors {colors} perm0 {h.perm0 is not None}")
+    log(f"unstructured setup_s {t1 - t0!r} lowering_s {t2 - t1!r}")
+    if len(h.levels) != U_LEVELS or ml.final_A.shape != U_COARSE:
+        raise AssertionError(f"{len(h.levels)} levels and a {ml.final_A.shape} coarse solve,"
+                             f" not {U_LEVELS} and {U_COARSE}")
+    if h.perm0 is None:
+        raise AssertionError("the fine level did not adopt the RCM basis")
+    for i, L in enumerate(h.levels):
+        if i in U_BSG_LEVELS:
+            if not isinstance(L.A, BSG):
+                raise AssertionError(f"level {i} lowered to {type(L.A).__name__}, not BSG")
+            M = ml.levels[i].A.tocsr()
+            pi = rcm_permutation(M)
+            want = int(graph_coloring(M[pi][:, pi], assume_symmetric=True).max()) + 1
+            if not L.pre.n_colors == L.post.n_colors == want == U_COLORS[i]:
+                raise AssertionError(f"level {i} has {L.pre.n_colors} colors, its greedy coloring {want},"
+                                     f" expected {U_COLORS[i]}")
+        elif not (isinstance(L.A, ELL) and isinstance(L.pre, ScanGSCache) and isinstance(L.post, ScanGSCache)):
+            raise AssertionError(f"level {i} is {fmt[i]}, not ELL with natural-order GS")
+    return Ap, ml, h
+
+
+def bsg_to_csr(B):
+    """The float32 CSR matrix a BSG operator holds (its stored entries)."""
+    import scipy.sparse as sp
+
+    data = B.data.cpu().numpy()
+    T, K = data.shape[:2]
+    keep = data != 0
+    t, _, u, j = np.nonzero(keep)
+    rows = t * 1024 + u * 128 + j
+    cols = B.m0.cpu().numpy()[t].astype(np.int64) * 128 + B.off.cpu().numpy()[keep]
+    M = sp.csr_matrix((data[keep], (rows, cols)), shape=B.shape)
+    M.sort_indices()
+    return M
+
+
+def bsg_work(B):
+    """(bytes, flops) of one BSG SpMV: coefficients, offsets and m0 read
+    once, x's columns read once, y written once; 2 flops a stored entry."""
+    return B.data.numel() * 8 + B.m0.numel() * 4 + B.shape[1] * 4 + B.rows_padded * 4, 2 * B.nnz
+
+
+def scan_gs_work(A, cache):
+    """(bytes, flops) of one natural-order smoother application: the level's
+    ELL data and columns, diag, b and x in once and x out once; 2 flops a
+    stored entry plus 6 a row, per sweep."""
+    itemsize = A.data.element_size()
+    sweeps = cache.iter * (int(cache.forward) + int(cache.backward))
+    words = A.rows_padded * 4
+    return A.data.numel() * itemsize + A.cols.numel() * 8 + words * itemsize, sweeps * (2 * A.nnz + 6 * A.shape[0])
+
+
+def compare_unstructured_kernels(device, ml, h):
+    """Phase 8: K6 at the L0/L1/L2 shapes against its plain version and
+    cuSPARSE, and scan_gs on L3/L4 against its plain version."""
+    import torch
+
+    from algebraicmultigrid_tpu_torch.models.device import ScanGSCache
+    from algebraicmultigrid_tpu_torch.ops.kernels.bsg_spmv import bsg_spmv, bsg_spmv_reference
+    from algebraicmultigrid_tpu_torch.ops.kernels.scan_gs import smooth_scan_gs, smooth_scan_gs_reference
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    rows = {"bsg_spmv": [], "scan_gs": []}
+    for lvl in U_BSG_LEVELS:
+        B = h.levels[lvl].A
+        x = torch.randn(B.rows_padded, generator=gen).to(device)
+        got, ref = bsg_spmv(B, x), bsg_spmv_reference(B, x)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got, ref)
+        # the same matrix as cuSPARSE CSR, read back from the BSG arrays
+        Mp = bsg_to_csr(B)
+        S = torch.sparse_csr_tensor(
+            torch.as_tensor(Mp.indptr, dtype=torch.int64), torch.as_tensor(Mp.indices, dtype=torch.int64),
+            torch.as_tensor(Mp.data), size=Mp.shape,
+        ).to(device)
+        xs = x[: Mp.shape[1]].contiguous()
+        lib_err = errors((S @ xs), got[: Mp.shape[0]])[1]
+        r = dict(
+            level=lvl, rows=B.shape[0], K=B.width, ws=B.ws, nnz=B.nnz,
+            max_abs_err=abs_err, max_rel_err=rel_err, cusparse_rel_diff=lib_err,
+            ms=time_ms(lambda: bsg_spmv(B, x)), plain_ms=time_ms(lambda: bsg_spmv_reference(B, x)),
+            library_ms=time_ms(lambda: S @ xs),
+        )
+        r["bound_ms"], r["bound_by"] = bound(*bsg_work(B), 1)
+        rows["bsg_spmv"].append(r)
+        del S
+    for lvl, L in enumerate(h.levels):
+        if not isinstance(L.pre, ScanGSCache):
+            continue
+        c, A = L.pre, L.A
+        x = torch.randn(A.rows_padded, generator=gen).to(device)
+        b = torch.randn(A.rows_padded, generator=gen).to(device)
+        run = (A, c.diag, x, b, c.omega, c.iter, c.forward, c.backward)
+        got, ref = smooth_scan_gs(*run), smooth_scan_gs_reference(*run)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got, ref)
+        r = dict(
+            level=lvl, rows=A.shape[0], K=A.width, nnz=A.nnz, max_abs_err=abs_err, max_rel_err=rel_err,
+            ms=time_ms(lambda: smooth_scan_gs(*run)), plain_ms=time_ms(lambda: smooth_scan_gs_reference(*run), reps=2),
+            library_ms=None,
+        )
+        r["bound_ms"], r["bound_by"] = bound(*scan_gs_work(A, c), 1)
+        rows["scan_gs"].append(r)
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"kernel {name} L{r['level']} rows {r['rows']} K {r['K']}: max_rel_err {r['max_rel_err']!r}"
+                f" max_abs_err {r['max_abs_err']!r} kernel {r['ms']!r} ms plain {r['plain_ms']!r} ms"
+                + (f" cusparse {r['library_ms']!r} ms (rel diff {r['cusparse_rel_diff']!r})" if r["library_ms"] else "")
+                + f" bound {r['bound_ms']!r} ms ({r['bound_by']})")
+            if not r["max_rel_err"] <= KERNEL_RTOL:
+                raise AssertionError(f"{name} disagrees with its plain version: {r}")
+    return rows
+
+
+def expected_vcycle_launches(h):
+    """(K6, scan_gs) launches of one V-cycle, from the hierarchy: per BSG
+    level its smoothers' color steps, the residual and each BSG transfer;
+    one scan_gs launch per natural-order smoother application."""
+    from algebraicmultigrid_tpu_torch.models.device import MaskedMulticolorCache, ScanGSCache
+    from algebraicmultigrid_tpu_torch.ops.bsg import BSG
+    from algebraicmultigrid_tpu_torch.ops.coloring import color_steps
+
+    bsg = scan = 0
+    for L in h.levels:
+        for c in (L.pre, L.post):
+            if isinstance(c, ScanGSCache):
+                scan += 1
+            elif isinstance(c, MaskedMulticolorCache) and isinstance(L.A, BSG):
+                bsg += len(color_steps(c.n_colors, c.iter, c.forward, c.backward, c.omega))
+        bsg += isinstance(L.A, BSG) + isinstance(L.P, BSG) + isinstance(L.R, BSG)
+    return bsg, scan
+
+
+def unstructured_solve(device, Ap, ml, h):
+    """Phase 9: cg_device and solve_refined on the unstructured problem with
+    the counters zeroed just before; then one V-cycle's launches and time."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _enter_basis, _one_iteration
+
+    b = np.random.default_rng(0).standard_normal(Ap.shape[0])
+    normb = np.linalg.norm(b)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    x_cg, iters, normr = amt.cg_device(ml, b, tol=U_CG_TOL, device=device, dtype=torch.float32, log=True)
+    t1 = time.perf_counter()
+    stats = {}
+    x_ref, hist = amt.solve_refined(ml, b, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats)
+    t2 = time.perf_counter()
+    counts = read_counts()
+    # again, with the float64 fine operator already lowered
+    amt.solve_refined(ml, b, tol=TOL, max_rounds=MAX_ROUNDS, device=device)
+    t3 = time.perf_counter()
+    relres_cg = float(np.linalg.norm(b - Ap @ x_cg) / normb)
+    relres_ref = float(np.linalg.norm(b - Ap @ x_ref) / normb)
+    log(f"unstructured cg_device: {iters} iterations, its own relres {float(normr / normb)!r},"
+        f" scipy float64 relres {relres_cg!r}, {t1 - t0!r} s")
+    log(f"unstructured solve_refined: rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']}"
+        f" relres {relres_ref!r} history {hist} {t2 - t1!r} s (again: {t3 - t2!r} s)")
+    log(f"launches in the unstructured solves {counts}")
+
+    want = expected_vcycle_launches(h)
+    bv = _enter_basis(h, torch.as_tensor(np.pad(b, (0, h.fine_padded - b.shape[0])), dtype=torch.float32,
+                                         device=device))
+    xv = torch.zeros_like(bv)
+    torch.cuda.synchronize()
+    zero_counts()
+    _one_iteration(h, amt.V(), xv, bv)
+    torch.cuda.synchronize()
+    per_cycle = read_counts()
+    vcycle_ms = time_ms(lambda: _one_iteration(h, amt.V(), xv, bv), reps=10)
+    log(f"unstructured vcycle_ms {vcycle_ms!r}; launches per V-cycle {per_cycle};"
+        f" expected bsg {want[0]} scan_gs {want[1]}")
+
+    for name, x in (("cg_device", x_cg), ("solve_refined", x_ref)):
+        if not (x.shape == b.shape and np.isfinite(x).all()):
+            raise AssertionError(f"{name}: the solution is not a finite vector of the problem's size")
+    if not (normr / normb < U_CG_TOL and relres_cg < U_CG_TRUE):
+        raise AssertionError(f"cg_device relres {normr / normb} (scipy: {relres_cg})")
+    if not (relres_ref < TOL and len(hist) - 1 <= MAX_ROUNDS):
+        raise AssertionError(f"solve_refined relres {relres_ref} after {len(hist) - 1} rounds")
+    if not (counts["bsg"] > 0 and counts["scan_gs"] > 0):
+        raise AssertionError(f"the unstructured solves did not launch K6 and scan_gs: {counts}")
+    if (per_cycle["bsg"], per_cycle["scan_gs"]) != want:
+        raise AssertionError(f"V-cycle launches {per_cycle} != expected bsg/scan_gs {want}")
+    return counts, per_cycle
+
+
 def main():
     import torch
 
@@ -472,6 +732,12 @@ def main():
     del h
     torch.cuda.empty_cache()
     small_reference(device)
+    del ml
+    torch.cuda.empty_cache()
+
+    Ap, ml_u, h_u = unstructured_setup(device)
+    rows_u = compare_unstructured_kernels(device, ml_u, h_u)
+    u_counts, u_cycle = unstructured_solve(device, Ap, ml_u, h_u)
 
     kernels = []
     for name, rs in rows.items():
@@ -482,6 +748,15 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=None,
+        ))
+    for name, rs in rows_u.items():
+        first = rs[0]  # K6 at L0, scan_gs at L3
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=u_counts[COUNTER[name]], launches_per_vcycle=u_cycle[COUNTER[name]],
+            max_abs_err=max(r["max_abs_err"] for r in rs),
+            ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=first["library_ms"],
         ))
     log(json.dumps({"kernels": kernels}))
     log(card)

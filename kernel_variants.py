@@ -66,7 +66,6 @@ def edit(text, old, new):
 def build(root):
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
-    procs = {}
     for name, edits in VARIANTS.items():
         d = root / name
         d.mkdir()
@@ -76,13 +75,10 @@ def build(root):
                 if fname == f.name:
                     text = edit(text, old, new)
             (d / f.name).write_text(text)
-        cmd = vl.build_command(d / "lib.so")
-        cmd = [c if not c.endswith(".cu") else str(d / Path(c).name) for c in cmd]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, p in procs.items():
-        out, _ = p.communicate()
-        if p.returncode:
-            raise SystemExit(f"variant {name} failed to build:\n{out}")
+        try:
+            vl.build_library(d / "lib.so", [d / f.name for f in vl.SOURCES])
+        except (RuntimeError, subprocess.CalledProcessError) as e:
+            raise SystemExit(f"variant {name} failed to build: {e}")
 
 
 def main():

@@ -7,12 +7,16 @@ float32 and, after a warm-up, profiles with ``torch.profiler``:
 * ``vcycle``: 20 V-cycles through ``_one_iteration`` (the solve's
   preconditioner: L0 and L1 legs, K4).
 
+With the argument ``unstructured`` it profiles instead 20 V-cycles of
+``bench.py``'s scrambled Poisson 1024² (``smoothed_aggregation`` with
+defaults: BSG levels with K6, natural-order GS levels with ``scan_gs``).
+
 For each it prints the ms per cycle by CUDA events, the device time of each
 kernel and its share, and the device's idle share of the window (1 − the
 summed kernel time over the window's elapsed time).  Run from the
 repository root:
 
-    python3 profile_torch.py
+    python3 profile_torch.py [unstructured]
 """
 
 import subprocess
@@ -21,24 +25,12 @@ import sys
 import numpy as np
 
 N = 4096
+NU = 1024
 CYCLES = 20
 
 
-def main():
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    import algebraicmultigrid_tpu_torch as amt
+def lattice_runs(amt, torch):
     from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
-
-    if not torch.cuda.is_available():
-        print("no CUDA card: profile_torch needs one")
-        return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
 
     ml = amt.structured_smoothed_aggregation(
         amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3)
@@ -55,7 +47,48 @@ def main():
         for _ in range(CYCLES):
             x = _one_iteration(h, amt.V(), x, b)
 
-    for name, fn in (("fixed", fixed), ("vcycle", vcycles)):
+    return (("fixed", fixed), ("vcycle", vcycles))
+
+
+def unstructured_runs(amt, torch):
+    import scipy.sparse as sp
+
+    from algebraicmultigrid_tpu_torch.models.device import _enter_basis, _one_iteration
+
+    A = sp.csr_matrix(amt.poisson((NU, NU)))
+    p = np.random.default_rng(1).permutation(A.shape[0])
+    Ap = A[p][:, p].tocsr()
+    ml = amt.smoothed_aggregation(Ap)
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    b = torch.zeros(h.fine_padded, device="cuda")
+    b[: NU * NU] = torch.as_tensor(Ap @ np.ones(NU * NU), dtype=torch.float32, device="cuda")
+    b = _enter_basis(h, b)
+
+    def vcycles():
+        x = torch.zeros_like(b)
+        for _ in range(CYCLES):
+            x = _one_iteration(h, amt.V(), x, b)
+
+    return (("unstructured_vcycle", vcycles),)
+
+
+def main():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import algebraicmultigrid_tpu_torch as amt
+
+    if not torch.cuda.is_available():
+        print("no CUDA card: profile_torch needs one")
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+
+    runs = (unstructured_runs if sys.argv[1:] == ["unstructured"] else lattice_runs)(amt, torch)
+    for name, fn in runs:
         fn()
         torch.cuda.synchronize()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

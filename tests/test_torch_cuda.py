@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the fused-leg, updown and whole-tail kernels
-against their plain versions, and one cycle, the fixed-cycle loop and a
-refined solve on the card against the CPU.
+"""The port on a CUDA card: the fused-leg, updown, whole-tail, BSG SpMV and
+natural-order GS kernels against their plain versions, and one cycle, the
+fixed-cycle loop and a refined solve on the card against the CPU, on the
+lattice path and on an unstructured (scrambled Poisson) hierarchy.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so on a machine without JAX run it without the suite's conftest:
@@ -118,7 +119,7 @@ def test_cuda_fixed_cycles_match_cpu(ml):
         out[dev] = run_fixed_cycles(h, torch.zeros_like(b), b, 3)
         counts[dev] = {k: vl.launches[k] - before[k] for k in before}
     assert _rel(out["cuda"], out["cpu"]) < 1e-12
-    assert counts["cuda"] == {"down": 1, "up": 1, "updown": 2, "tail": 3}
+    assert counts["cuda"] == {"down": 1, "up": 1, "updown": 2, "tail": 3, "bsg": 0, "scan_gs": 0}
     assert not any(counts["cpu"].values())
 
 
@@ -158,3 +159,82 @@ def test_cuda_solve_refined(ml):
     assert len(hist_gpu) == len(hist_cpu)
     A = ml.levels[0].A
     assert np.linalg.norm(b - A @ x_gpu) / np.linalg.norm(b) < 1e-8
+
+
+@pytest.fixture(scope="module")
+def ml_unstructured():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    import scipy.sparse as sp
+
+    import algebraicmultigrid_tpu_torch as amt
+
+    A = sp.csr_matrix(amt.poisson((128, 128)))
+    p = np.random.default_rng(1).permutation(A.shape[0])
+    return amt.smoothed_aggregation(A[p][:, p].tocsr())
+
+
+def test_cuda_bsg_matches_plain_version(ml_unstructured):
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.bsg import BSG
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.bsg_spmv import bsg_spmv, bsg_spmv_reference
+
+    h = build_device_hierarchy(ml_unstructured, device="cuda", dtype=torch.float32)
+    ops = [op for L in h.levels for op in (L.A, L.P, L.R) if isinstance(op, BSG)]
+    assert ops and h.perm0 is not None
+    before = vl.launches["bsg"]
+    for i, B in enumerate(ops):
+        x = _vec(B.shape[1], max(B.cols_padded, B.rows_padded), 7 + i)
+        got = bsg_spmv(B, x)
+        torch.cuda.synchronize()
+        assert got.shape == (B.rows_padded,) and _rel(got, bsg_spmv_reference(B, x)) < TOL
+    assert vl.launches["bsg"] == before + len(ops)
+    with pytest.raises(TypeError):
+        bsg_spmv(ops[0], x.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_scan_gs_matches_plain_version(ml_unstructured, dtype):
+    from algebraicmultigrid_tpu_torch.models.device import ScanGSCache, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.scan_gs import smooth_scan_gs, smooth_scan_gs_reference
+
+    h = build_device_hierarchy(ml_unstructured, device="cuda", dtype=dtype)
+    levels = [L for L in h.levels if isinstance(L.pre, ScanGSCache)]
+    assert levels
+    tol = TOL if dtype == torch.float32 else 1e-12
+    before = vl.launches["scan_gs"]
+    for i, L in enumerate(levels):
+        c = L.pre
+        x, b = _vec(L.A.shape[0], L.A.rows_padded, 8 + i, dtype), _vec(L.A.shape[0], L.A.rows_padded, 9 + i, dtype)
+        for fwd, bwd in ((True, False), (False, True), (True, True)):
+            run = (L.A, c.diag, x, b, c.omega, 2, fwd, bwd)
+            got = smooth_scan_gs(*run)
+            torch.cuda.synchronize()
+            assert _rel(got, smooth_scan_gs_reference(*run)) < tol
+    assert vl.launches["scan_gs"] == before + 3 * len(levels)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_unstructured_cycle_matches_cpu(ml_unstructured, dtype):
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _enter_basis, _one_iteration, build_device_hierarchy
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml_unstructured, device=dev, dtype=dtype)
+        b = _enter_basis(h, _vec(h.n_fine, h.fine_padded, 10, dtype).to(dev))
+        out[dev] = _one_iteration(h, amt.V(), torch.zeros_like(b), b)
+    assert _rel(out["cuda"], out["cpu"]) < (TOL if dtype == torch.float32 else 1e-12)
+
+
+def test_cuda_unstructured_solves(ml_unstructured):
+    import algebraicmultigrid_tpu_torch as amt
+
+    A = ml_unstructured.levels[0].A
+    b = np.random.default_rng(11).standard_normal(A.shape[0])
+    x, it, normr = amt.cg_device(ml_unstructured, b, tol=1e-6, dtype=torch.float32, log=True)
+    assert normr <= 1e-6 * np.linalg.norm(b) and np.linalg.norm(b - A @ x) < 1e-4 * np.linalg.norm(b)
+    x, hist = amt.solve_refined(ml_unstructured, b, tol=1e-8, log=True)
+    assert len(hist) <= 5 and np.linalg.norm(b - A @ x) < 1e-8 * np.linalg.norm(b)

@@ -8,7 +8,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_common import PLAIN_TILES, jax_env, jax_hierarchy_to_numpy, rel_err, setup_both
+from torch_port_common import PLAIN_TILES, jax_basis_to_numpy, jax_env, jax_hierarchy_to_numpy, rel_err, setup_both
 
 TOL = 1e-12
 
@@ -23,7 +23,7 @@ def pair():
     with jax_env(**PLAIN_TILES):
         h_j = build_j(ml_j, dtype=jnp.float64)
     levels, coarse = jax_hierarchy_to_numpy(h_j)
-    h_conv = hierarchy_from_numpy(levels, coarse, device="cpu", dtype=torch.float64)
+    h_conv = hierarchy_from_numpy(levels, coarse, device="cpu", dtype=torch.float64, **jax_basis_to_numpy(h_j))
     h_own = build_t(ml_t, device="cpu", dtype=torch.float64, tail=False)
     return h_j, h_conv, h_own
 

@@ -100,9 +100,15 @@ def test_solve_refined_matches_jax_rounds(problem):
 
 
 def test_build_rejects_non_lattice_levels():
+    """Non-lattice levels lower to the general formats; the builder rejects
+    one only for a smoother it cannot run."""
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import Lat2D
 
     ml = amt.smoothed_aggregation(amt.poisson((24, 24)))
+    h = build_device_hierarchy(ml, device="cpu", dtype=torch.float64)
+    assert not any(isinstance(L.A, Lat2D) for L in h.levels)
+    ml.levels[0].presmoother_config = "not a smoother"
     with pytest.raises(TypeError):
         build_device_hierarchy(ml, device="cpu", dtype=torch.float64)
 
@@ -119,6 +125,9 @@ def test_default_device_is_the_card_never_the_cpu(monkeypatch):
         lambda: amt.get_device_hierarchy(ml),
         lambda: amt.cg_device(ml, b),
         lambda: amt.solve_refined(ml, b),
+        lambda: amt.solve_device(ml, b),
+        lambda: amt.device_cycle_fn(ml),
+        lambda: ml.solve(b, engine="torch"),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()

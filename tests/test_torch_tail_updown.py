@@ -159,9 +159,10 @@ def test_cpu_tail_wrapper_takes_the_plain_version(problem):
 def test_build_command_lists_both_sources():
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
-    cmd = vl.build_command(vl.library_path())
     names = [f.name for f in vl.SOURCES]
-    assert names == ["vcycle_legs.cu", "tail_kernel.cu"]
-    assert all(str(f) in cmd and f.exists() for f in vl.SOURCES)
-    assert cmd.count("-gencode") == 1 and "arch=compute_90a,code=sm_90a" in cmd
+    assert names == ["vcycle_legs.cu", "tail_kernel.cu", "bsg_spmv.cu", "scan_gs.cu"]
+    for f in vl.SOURCES:
+        cmd = vl.compile_command(f, vl.BUILD_DIR / "x.o")
+        assert f.exists() and str(f) in cmd and "-c" in cmd
+        assert cmd.count("-gencode") == 1 and "arch=compute_90a,code=sm_90a" in cmd
     assert all(f.exists() for f in vl.HEADERS)

@@ -122,12 +122,14 @@ def test_build_command_targets_sm90a_in_ignored_dir():
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     out = vl.library_path()
-    cmd = vl.build_command(out)
-    assert cmd[0].endswith("nvcc")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    assert all(str(f) in cmd and f.exists() for f in vl.SOURCES)
-    assert out.parent == vl.BUILD_DIR and str(out) in cmd
+    obj = vl.BUILD_DIR / "x.o"
+    for cmd in [vl.compile_command(f, obj) for f in vl.SOURCES] + [vl.link_command([obj], out)]:
+        assert cmd[0].endswith("nvcc")
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert all(f.exists() and str(f) in vl.compile_command(f, obj) for f in vl.SOURCES)
+    link = vl.link_command([obj], out)
+    assert "-shared" in link and str(obj) in link
+    assert out.parent == vl.BUILD_DIR and str(out) in link
     rel = out.relative_to(REPO)
     ignored = subprocess.run(
         ["git", "check-ignore", "-q", str(rel)], cwd=REPO, capture_output=True

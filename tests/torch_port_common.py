@@ -50,13 +50,64 @@ def jax_env(**env):
 PLAIN_TILES = dict(AMG_PALLAS_FUSED="1", AMG_PACKED_SWEEP="0", AMG_TILE_COMPACT="0")
 
 
+def scrambled_poisson(n, seed=1):
+    """poisson((n, n)) as CSC with rows and columns in a random order."""
+    import algebraicmultigrid_tpu as amg
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(amg.poisson((n, n)))
+    p = np.random.default_rng(seed).permutation(A.shape[0])
+    return A[p][:, p].tocsc()
+
+
+_ML = {}
+
+
+def both_unstructured(name):
+    """(JAX hierarchy, port hierarchy, A) for a named problem, cached:
+    ``"rs_randlap"``, ``"sa_elastic"`` (with its near-null space) or
+    ``"sa<N>"``, SA on a scrambled N² Poisson."""
+    import algebraicmultigrid_tpu as amg
+    import algebraicmultigrid_tpu_torch as amt
+    import scipy.sparse as sp
+    from conftest import load_csc, load_npz
+
+    if name not in _ML:
+        if name == "rs_randlap":
+            A = load_csc("randlap")
+            _ML[name] = (amg.ruge_stuben(A), amt.ruge_stuben(A), A)
+        elif name == "sa_elastic":
+            z = load_npz("lin_elastic_2d")
+            A = sp.csc_matrix((z["data"], z["indices"], z["indptr"]), shape=tuple(z["shape"]))
+            _ML[name] = (amg.smoothed_aggregation(A, B=z["B"]), amt.smoothed_aggregation(A, B=z["B"]), A)
+        else:  # "sa<N>": SA on a scrambled N² Poisson
+            A = scrambled_poisson(int(name[2:]))
+            _ML[name] = (amg.smoothed_aggregation(A), amt.smoothed_aggregation(A), A)
+    return _ML[name]
+
+
 def rel_err(a, b):
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
-def _lat2d(A):
+def _fields(obj):
+    """A JAX dataclass's fields, arrays read out as numpy."""
+    import dataclasses
+
+    return {
+        f.name: np.asarray(v) if hasattr(v, "shape") else v
+        for f in dataclasses.fields(obj)
+        for v in [getattr(obj, f.name)]
+    }
+
+
+def _op(A):
+    """Operator dict of any JAX device format (no ``format`` key for Lat2D)."""
+    name = type(A).__name__
+    if name != "Lat2D":
+        return dict(_fields(A), format=name)
     return dict(
         data=np.asarray(A.data), offsets=A.offsets, row_dims=A.row_dims,
         col_dims=A.col_dims, base_x=A.base_x, base_y=A.base_y, shape=A.shape,
@@ -64,7 +115,12 @@ def _lat2d(A):
     )
 
 
-def _smoother(c):
+def _smoother(c, rows_padded=None):
+    """Smoother dict of any JAX smoother cache (no ``kind`` key for the
+    masked multicolor cache)."""
+    name = type(c).__name__
+    if name != "MaskedMulticolorCache":
+        return dict(_fields(c), kind=name, rows_padded=rows_padded)
     return dict(
         color_of=np.asarray(c.color_of), dinv=np.asarray(c.dinv), n_colors=c.n_colors,
         omega=c.omega, iter=c.iter, forward=c.forward, backward=c.backward,
@@ -103,8 +159,9 @@ def jax_hierarchy_to_numpy(h):
     PLAIN_TILES (or with no fused legs)."""
     levels = [
         dict(
-            A=_lat2d(L.A), P=_lat2d(L.P), R=_lat2d(L.R),
-            pre=_smoother(L.pre), post=_smoother(L.post), fused=_fused(L.fused),
+            A=_op(L.A), P=_op(L.P), R=_op(L.R),
+            pre=_smoother(L.pre, L.A.rows_padded), post=_smoother(L.post, L.A.rows_padded),
+            fused=_fused(L.fused),
         )
         for L in h.levels
     ]
@@ -114,6 +171,16 @@ def jax_hierarchy_to_numpy(h):
         mat=np.asarray(c.mat), qr_q=np.asarray(c.qr_q), qr_r=np.asarray(c.qr_r),
     )
     return levels, coarse
+
+
+def jax_basis_to_numpy(h):
+    """The ``final_A``/``perm0``/``iperm0`` keywords of
+    ``hierarchy_from_numpy`` for a JAX DeviceHierarchy."""
+    return dict(
+        final_A=_op(h.final_A),
+        perm0=None if h.perm0 is None else np.asarray(h.perm0),
+        iperm0=None if h.iperm0 is None else np.asarray(h.iperm0),
+    )
 
 
 def jax_tail_to_numpy(h):
