@@ -10,6 +10,9 @@ Covered so far:
 * the structured smoothed-aggregation Poisson solve on Lat2D levels —
   ``poisson((N, N), lattice=True)`` → ``structured_smoothed_aggregation``
   → ``cg_device`` / ``solve_refined``;
+* 3-D lattice problems — ``poisson((N, N, N), lattice=True)`` →
+  ``structured_smoothed_aggregation_nd`` → LatND levels smoothed by the
+  whole-sweep kernel K7;
 * any scipy matrix — ``smoothed_aggregation(A)`` / ``ruge_stuben(A)`` →
   ``build_device_hierarchy`` (SDIA, BT, dense, BSG or ELL levels, with the
   RCM basis where it helps) → ``cg_device`` / ``solve_device`` /
@@ -42,6 +45,12 @@ from .models.device import (
 from .models.fastsetup import structured_smoothed_aggregation
 from .models.gallery import poisson
 from .models.lattice import LatticeMatrix, LatticeProblem
+from .models.lattice_nd import (
+    BoxAggregationND,
+    LatticeMatrixND,
+    LatticeProblemND,
+    structured_smoothed_aggregation_nd,
+)
 from .models.multilevel import MultiLevel, operator_complexity
 from .models.structured import StructuredAggregation
 
@@ -50,8 +59,10 @@ __version__ = "0.1.0"
 __all__ = [
     "Cycle", "V", "W", "F", "Sweep", "SymmetricSweep", "ForwardSweep", "BackwardSweep",
     "GaussSeidel", "Jacobi", "SOR",
-    "StructuredAggregation", "smoothed_aggregation", "structured_smoothed_aggregation", "ruge_stuben",
-    "MultiLevel", "operator_complexity", "LatticeMatrix", "LatticeProblem", "poisson",
+    "StructuredAggregation", "smoothed_aggregation", "structured_smoothed_aggregation",
+    "structured_smoothed_aggregation_nd", "ruge_stuben",
+    "MultiLevel", "operator_complexity", "LatticeMatrix", "LatticeProblem", "LatticeMatrixND",
+    "LatticeProblemND", "BoxAggregationND", "poisson",
     "build_device_hierarchy", "get_device_hierarchy", "cg_device", "solve_refined",
     "solve_device", "device_cycle_fn",
 ]

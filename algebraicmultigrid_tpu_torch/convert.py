@@ -12,6 +12,9 @@ operators.  The input is plain data:
     - ``Lat2D``: ``data`` [n_off, Wx, Wy] plus the static ``offsets``,
       ``row_dims``, ``col_dims``, ``base_x``, ``base_y``, ``shape``,
       ``nnz``, ``rows_padded``;
+    - ``LatND``: ``data`` [n_off, *row_dims] plus ``offsets``,
+      ``row_dims``, ``col_dims``, ``bases``, ``shape``, ``nnz``,
+      ``rows_padded``;
     - ``ELL``: ``data``, ``cols`` [rows_padded, width], ``shape``, ``nnz``;
     - ``SDIA``: ``data`` [n_off, rows_padded], ``offsets``, ``p``, ``q``,
       ``shape``, ``nnz``, ``rows_padded``;
@@ -29,6 +32,10 @@ operators.  The input is plain data:
     - ``MulticolorCache``: ``rows``, ``data``, ``cols``, ``dinv`` (rows
       padded with the level's ``rows_padded``);
     - ``ScanGSCache``: ``diag``;
+    - ``GSSweepCache`` (K5, a Lat2D level) and ``Sweep3DCache`` (K7, a 3-D
+      LatND level): ``dinv`` [rows_padded], ``color_table`` (the periodic
+      coloring's table, of the period shape) and ``n_colors``; the cache
+      reads the level's own A;
   - ``"fused"``: None, or the factored legs' full-size planes ``A``
     [nA, Wx, Wy], ``dinv``, ``T``, ``S`` [Wx, Wy] plus ``offsA``,
     ``color_grid``, ``n_colors``, ``k``, ``row_dims``, ``col_dims``,
@@ -58,8 +65,11 @@ from .models.device import (
 )
 from .ops.banded import SDIA, DenseOp, bt_op
 from .ops.bsg import bsg_op
+from .ops.kernels.gs_sweep import build_gs_sweep_cache
+from .ops.kernels.sweep3d import build_sweep3d_cache
 from .ops.kernels.tail_kernel import make_fused_tail_cache
 from .ops.kernels.vcycle_legs import FusedLegCache
+from .ops.lattice_nd_op import LatND
 from .ops.lattice_op import Lat2D
 from .ops.sparse import ELL
 
@@ -96,6 +106,12 @@ def _op(d, dtype, device):
     fmt = d.get("format", "Lat2D")
     if fmt == "Lat2D":
         return _lat2d(d, dtype, device)
+    if fmt == "LatND":
+        return LatND(
+            data=_tensor(d["data"], dtype, device), offsets=_pairs(d["offsets"]),
+            row_dims=_ints(d["row_dims"]), col_dims=_ints(d["col_dims"]), bases=_pairs(d["bases"]),
+            shape=_ints(d["shape"]), nnz=int(d["nnz"]), rows_padded=int(d["rows_padded"]),
+        )
     if fmt == "ELL":
         return ELL(
             data=_tensor(d["data"], dtype, device), cols=_tensor(d["cols"], torch.int64, device),
@@ -118,7 +134,10 @@ def _op(d, dtype, device):
     raise ValueError(f"unknown operator format {fmt!r}")
 
 
-def _smoother(d, dtype, device):
+_SWEEP_KINDS = {"GSSweepCache": build_gs_sweep_cache, "Sweep3DCache": build_sweep3d_cache}
+
+
+def _smoother(d, dtype, device, A):
     kind = d.get("kind", "MaskedMulticolorCache")
     omega, iters = float(d["omega"]), int(d["iter"])
     if kind == "JacobiCache":
@@ -137,6 +156,13 @@ def _smoother(d, dtype, device):
     if kind == "ScanGSCache":
         return ScanGSCache(diag=_tensor(d["diag"], dtype, device), omega=omega, iter=iters,
                            forward=fwd, backward=bwd)
+    if kind in _SWEEP_KINDS:
+        cache = _SWEEP_KINDS[kind](
+            A, _tensor(d["dinv"], dtype, device), d["color_table"], int(d["n_colors"]), omega, iters, fwd, bwd
+        )
+        if cache is None:
+            raise ValueError(f"the level {A.row_dims} is past the {kind} kernel's shape limits")
+        return cache
     raise ValueError(f"unknown smoother cache {kind!r}")
 
 
@@ -168,17 +194,18 @@ def hierarchy_from_numpy(
 ) -> DeviceHierarchy:
     """Build the port's hierarchy from numpy arrays (see module docstring)."""
     device = torch.device(device)
-    out = tuple(
-        DeviceLevel(
-            A=_op(L["A"], dtype, device),
+    out = []
+    for L in levels:
+        A = _op(L["A"], dtype, device)
+        out.append(DeviceLevel(
+            A=A,
             P=_op(L["P"], dtype, device),
             R=_op(L["R"], dtype, device),
-            pre=_smoother(L["pre"], dtype, device),
-            post=_smoother(L["post"], dtype, device),
+            pre=_smoother(L["pre"], dtype, device, A),
+            post=_smoother(L["post"], dtype, device, A),
             fused=_fused(L.get("fused"), dtype, device),
-        )
-        for L in levels
-    )
+        ))
+    out = tuple(out)
     empty = torch.zeros((0, 0), dtype=dtype, device=device)
 
     def mat(name):

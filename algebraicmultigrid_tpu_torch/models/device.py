@@ -3,7 +3,8 @@
 Port of the JAX package's ``models/device.py``:
 
 * each level's A/P/R is lowered to the fastest format that holds it:
-  Lat2D planes for lattice levels (``ops/lattice_op.py``), else SDIA, BTOp
+  Lat2D planes for 2-D lattice levels (``ops/lattice_op.py``), LatND for
+  N-D ones (``ops/lattice_nd_op.py``), else SDIA, BTOp
   or DenseOp (``ops/banded.py``), the BSG gather tier (``ops/bsg.py``, K6
   as a CUDA kernel) or padded ELL (``ops/sparse.py``); level vectors stay
   padded to ``rows_padded`` end to end;
@@ -12,7 +13,10 @@ Port of the JAX package's ``models/device.py``:
   the smoother caches, and the solve drivers apply it once on entry
   (``perm0``) and exit (``iperm0``);
 * smoothers: weighted Jacobi, masked multicolor GS/SOR (one full SpMV +
-  masked blend per color step), gathered multicolor GS/SOR on ELL levels,
+  masked blend per color step), the whole-sweep kernels K5 on Lat2D levels
+  without legs or tail and K7 on 3-D LatND levels (one launch per smoother
+  application, ``ops/kernels/gs_sweep.py``, ``ops/kernels/sweep3d.py``),
+  gathered multicolor GS/SOR on ELL levels,
   and the exact natural-order recurrence on small ELL levels (a CUDA kernel,
   ``ops/kernels/scan_gs.py``); natural-order GS/SOR above 2048 rows is
   promoted to multicolor, as in the JAX package;
@@ -45,13 +49,17 @@ from ..config import BackwardSweep, Cycle, F, ForwardSweep, GaussSeidel, Jacobi,
 from ..ops.banded import bt_from_csr, dense_from_csr, mat_vec, sdia_from_csr
 from ..ops.bsg import bsg_from_csr, rcm_permutation
 from ..ops.coloring import color_steps, graph_coloring
+from ..ops.kernels.gs_sweep import GSSweepCache, build_gs_sweep_cache, smooth_gs
 from ..ops.kernels.scan_gs import smooth_scan_gs
+from ..ops.kernels.sweep3d import Sweep3DCache, build_sweep3d_cache, smooth_sweep3d
 from ..ops.kernels.tail_kernel import build_fused_tail_cache, fused_tail
 from ..ops.kernels.vcycle_legs import build_level_legs, fused_down, fused_up, fused_updown
-from ..ops.lattice_op import lat2d_from_spec
+from ..ops.lattice_nd_op import LatND, latnd_from_spec
+from ..ops.lattice_op import Lat2D, lat2d_from_spec
 from ..ops.sparse import ELL, as_csr, ell_from_csr, np_dtype, round_up
 from .coarse import QRSolver
 from .lattice import LatticeMatrix
+from .lattice_nd import LatticeMatrixND
 from .multilevel import MultiLevel
 
 # every level's row space is padded to a multiple of this, as in the JAX
@@ -138,7 +146,7 @@ class MaskedMulticolorCache:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceLevel:
-    A: Any  # Lat2D | SDIA | BTOp | DenseOp | BSG | ELL
+    A: Any  # Lat2D | LatND | SDIA | BTOp | DenseOp | BSG | ELL
     P: Any
     R: Any
     pre: Any  # one of the smoother caches above
@@ -235,6 +243,10 @@ def _smooth_multicolor(cache: MulticolorCache, A, x, b):
 
 
 def _apply_smoother(cache, A, x, b):
+    if isinstance(cache, GSSweepCache):
+        return smooth_gs(cache, x, b)
+    if isinstance(cache, Sweep3DCache):
+        return smooth_sweep3d(cache, x, b)
     if isinstance(cache, MaskedMulticolorCache):
         return _smooth_masked_multicolor(cache, A, x, b)
     if isinstance(cache, JacobiCache):
@@ -267,14 +279,18 @@ def _dinv(diag: np.ndarray, rows_padded: int, dtype) -> np.ndarray:
     return out
 
 
-def _build_lattice_smoother_cache(config, A_lat, rows_padded, dtype, device):
+def _build_lattice_smoother_cache(config, A_lat, A_dev, dtype, device, sweep_kernel=True):
     """O(boundary) smoother cache for a lattice level: periodic torus
     coloring + host diagonal expansion, no O(nnz) graph analysis.  None for
     a config the lattice path does not take (natural-order GS/SOR), which
-    then runs on the materialised level."""
+    then runs on the materialised level.  Multicolor GS/SOR runs K5 when
+    ``sweep_kernel`` (the level has no legs and no place in the tail) and
+    no cell has a zero diagonal, as in the JAX package; else, or past K5's
+    shape limits, the masked sweep."""
     from .lattice import lattice_coloring
 
     spec = A_lat.spec
+    rows_padded = A_dev.rows_padded
     n = A_lat.shape[0]
     np_dt = np_dtype(dtype)
     diag = spec.diagonal().astype(np_dt)
@@ -294,9 +310,56 @@ def _build_lattice_smoother_cache(config, A_lat, rows_padded, dtype, device):
     active = diag != 0
     color_of = np.full(rows_padded, n_colors, dtype=np.int32)
     color_of[:n] = np.where(active, colors, n_colors)
+    dinv = torch.as_tensor(_dinv(diag, rows_padded, np_dt), device=device)
+    if sweep_kernel and isinstance(A_dev, Lat2D) and active.all():
+        cache = build_gs_sweep_cache(A_dev, dinv, grid, n_colors, omega, config.iter, fwd, bwd)
+        if cache is not None:
+            return cache
     return MaskedMulticolorCache(
         color_of=torch.as_tensor(color_of, device=device),
-        dinv=torch.as_tensor(_dinv(diag, rows_padded, np_dt), device=device),
+        dinv=dinv,
+        n_colors=int(n_colors),
+        omega=omega,
+        iter=config.iter,
+        forward=fwd,
+        backward=bwd,
+    )
+
+
+def _build_lattice_nd_smoother_cache(config, A_lnd, A_dev, dtype, device, sweep_kernel=True):
+    """O(boundary) smoother cache for an N-D lattice level (the JAX
+    package's ``_build_lattice_nd_smoother_cache``): periodic torus coloring
+    + host diagonal expansion.  Multicolor GS/SOR on a 3-D level with no
+    zero diagonal runs K7 when ``sweep_kernel``; else, or past K7's shape
+    limits, the masked sweep.  None for natural-order GS/SOR."""
+    from .lattice_nd import lattice_coloring_nd
+
+    spec = A_lnd.spec
+    rows_padded = A_dev.rows_padded
+    n = A_lnd.shape[0]
+    diag = spec.diagonal()
+    active = diag != 0
+    dinv = torch.as_tensor(_dinv(diag, rows_padded, np_dtype(dtype)), device=device)
+    if isinstance(config, Jacobi):
+        return JacobiCache(dinv=dinv, omega=float(config.omega), iter=config.iter)
+    if not (isinstance(config, (GaussSeidel, SOR)) and config.ordering == "multicolor"):
+        return None
+    got = lattice_coloring_nd(spec)
+    if got is None:
+        return None
+    tab, n_colors = got
+    omega, fwd, bwd = _sweep_flags(config)
+    if sweep_kernel and isinstance(A_dev, LatND) and spec.ndim == 3 and active.all():
+        cache = build_sweep3d_cache(A_dev, dinv, tab, n_colors, omega, config.iter, fwd, bwd)
+        if cache is not None:
+            return cache
+    reps = [-(-W // p) for W, p in zip(spec.row_dims, tab.shape)]
+    colors = np.tile(tab, reps)[tuple(slice(0, W) for W in spec.row_dims)].ravel()
+    color_of = np.full(rows_padded, n_colors, dtype=np.int32)
+    color_of[:n] = np.where(active, colors, n_colors)
+    return MaskedMulticolorCache(
+        color_of=torch.as_tensor(color_of, device=device),
+        dinv=dinv,
         n_colors=int(n_colors),
         omega=omega,
         iter=config.iter,
@@ -369,11 +432,19 @@ def _build_multicolor_cache(A_csr, A_ell: ELL, dtype, device, omega, iters, fwd,
     return multicolor_cache(rows, data, cols, dinv, sentinel, dtype, device, omega, iters, fwd, bwd)
 
 
-def _build_smoother_cache(config, A_host, A_dev, dtype, device, sym=False):
+def _build_smoother_cache(config, A_host, A_dev, dtype, device, sym=False, sweep_kernel=True):
     """The device smoother cache of one level (``A_host`` in the level's
-    device basis: the RCM-permuted matrix where the level adopted it)."""
+    device basis: the RCM-permuted matrix where the level adopted it).
+    ``sweep_kernel`` lets a lattice level run its whole-sweep kernel (K5,
+    K7); the builder passes False for levels whose legs or tail run the
+    cycle, as the JAX package's ``_AMG_SKIP_PALLAS_GS`` does."""
+    if isinstance(A_host, LatticeMatrixND):
+        cache = _build_lattice_nd_smoother_cache(config, A_host, A_dev, dtype, device, sweep_kernel)
+        if cache is not None:
+            return cache
+        A_host = A_host.tocsr()  # natural-order GS: materialise
     if isinstance(A_host, LatticeMatrix):
-        cache = _build_lattice_smoother_cache(config, A_host, A_dev.rows_padded, dtype, device)
+        cache = _build_lattice_smoother_cache(config, A_host, A_dev, dtype, device, sweep_kernel)
         if cache is not None:
             return cache
         A_host = A_host.tocsr()  # natural-order GS: materialise
@@ -462,12 +533,12 @@ def _permute_rect(M, prow, pcol):
 
 def build_device_hierarchy(
     ml: MultiLevel, *, device, dtype, fused: bool = True, tail: bool = True,
-    tail_max_rows: int = 250_000,
+    tail_max_rows: int = 250_000, sweeps: bool = True,
 ) -> DeviceHierarchy:
     """Lower a host hierarchy to device tensors.
 
     Each level's A/P/R goes to the first format that takes it: Lat2D for a
-    ``LatticeMatrix``, else SDIA → BTOp → DenseOp (at most
+    ``LatticeMatrix``, LatND for a ``LatticeMatrixND``, else SDIA → BTOp → DenseOp (at most
     ``DENSE_THRESHOLD`` rows and columns) → BSG in natural order (windows of
     at most 64 blocks) → ELL.  A square level that falls through to ELL
     tries the RCM basis: if ``A[π][:, π]`` is BSG-viable, the level adopts
@@ -478,12 +549,19 @@ def build_device_hierarchy(
     ``fused=False`` skips the fused legs of lattice levels.  ``tail`` builds
     the whole-tail cache from the first level (in order) at which the tail
     gate holds with at most ``tail_max_rows`` rows; the levels it covers
-    build no legs.  The two keywords are the counterparts of the JAX
-    package's ``AMG_PALLAS_FUSED``/``AMG_PALLAS_TAIL`` and
-    ``AMG_TAIL_MAX_ROWS``."""
+    build no legs.  ``sweeps`` lets multicolor GS/SOR lattice levels run
+    their whole-sweep kernel: K5 on a Lat2D level with neither legs nor a
+    place in the tail, K7 on a 3-D LatND level; ``sweeps=False`` keeps the
+    masked sweep there.  The keywords are the counterparts of the JAX
+    package's ``AMG_PALLAS_FUSED``/``AMG_PALLAS_TAIL``,
+    ``AMG_TAIL_MAX_ROWS`` and ``AMG_PALLAS_GS``/``AMG_SWEEP3D``."""
     device = torch.device(device)
 
     def lower(M, target_pad, force_ell=False):
+        if isinstance(M, LatticeMatrixND):
+            if not force_ell:
+                return latnd_from_spec(M.spec, dtype, device, row_pad=target_pad)
+            M = M.tocsr()
         if isinstance(M, LatticeMatrix):
             if not force_ell:
                 return lat2d_from_spec(M.spec, dtype, device, row_pad=target_pad)
@@ -507,7 +585,7 @@ def build_device_hierarchy(
     def lower_square(level):
         M = level.A
         force = _needs_ell(level)
-        if isinstance(M, LatticeMatrix) or force:
+        if isinstance(M, (LatticeMatrix, LatticeMatrixND)) or force:
             return lower(M, ROW_PAD, force_ell=force), None, None
         A_dev = lower(M, ROW_PAD)
         if not isinstance(A_dev, ELL):
@@ -546,14 +624,17 @@ def build_device_hierarchy(
         pf, pc = perms[i], perms[i + 1]
         P_dev = lower(_permute_rect(level.P, pf, pc), pads[i])
         R_dev = lower(_permute_rect(level.R, pc, pf), pads[i + 1])
+        covered = tail_cache is not None and i >= tail_start
+        legs = build_level_legs(level, dtype, device) if fused and not covered else None
+        # levels whose legs or tail run the cycle keep the masked caches for
+        # the W/F cycles
+        kernel = sweeps and legs is None and not covered
         A_host = Ap if Ap is not None else level.A
         n = level.A.shape[0]
         pre, post = (
-            _build_smoother_cache(device_config(cfg, n), A_host, A_dev, dtype, device, sym=sym)
+            _build_smoother_cache(device_config(cfg, n), A_host, A_dev, dtype, device, sym=sym, sweep_kernel=kernel)
             for cfg in (level.presmoother_config, level.postsmoother_config)
         )
-        covered = tail_cache is not None and i >= tail_start
-        legs = build_level_legs(level, dtype, device) if fused and not covered else None
         out.append(DeviceLevel(A=A_dev, P=P_dev, R=R_dev, pre=pre, post=post, fused=legs))
 
     perm0 = iperm0 = None
@@ -871,13 +952,15 @@ def device_cycle_fn(ml: MultiLevel, cycle: Cycle = V(), *, device=None, dtype=No
 
 def _get_fine_f64(ml: MultiLevel, device):
     """f64 device operator of the fine level in the caller's ordering — the
-    outer-residual carrier of :func:`solve_refined`: Lat2D, SDIA, dense up
-    to 4096 rows, else a gathered ELL."""
+    outer-residual carrier of :func:`solve_refined`: Lat2D, LatND, SDIA,
+    dense up to 4096 rows, else a gathered ELL."""
     key = ("torch-fine64", str(device))
     if key not in ml._device_cache:
         A = ml.levels[0].A if ml.levels else ml.final_A
         if isinstance(A, LatticeMatrix):
             op = lat2d_from_spec(A.spec, torch.float64, device, row_pad=ROW_PAD)
+        elif isinstance(A, LatticeMatrixND):
+            op = latnd_from_spec(A.spec, torch.float64, device, row_pad=ROW_PAD)
         else:
             A_csr = as_csr(A)
             op = sdia_from_csr(A_csr, torch.float64, device, max_offsets=40, max_overhead=8.0)

@@ -72,8 +72,9 @@ def poisson(
 ):
     """Discrete Poisson operator — 1-D tridiagonal or N-D stencil grid.
 
-    With ``lattice=True`` (1-D/2-D only) returns a symbolic
-    :class:`~.lattice.LatticeProblem` instead of assembled scipy — the entry
+    With ``lattice=True`` returns a symbolic :class:`~.lattice.LatticeProblem`
+    (1-D/2-D) or :class:`~.lattice_nd.LatticeProblemND` (N ≥ 3) instead of
+    assembled scipy — the entry
     to the O(boundary) structured setup, usable at sizes where scipy assembly
     itself is prohibitive."""
     if isinstance(n, (tuple, list)):
@@ -92,7 +93,9 @@ def poisson(
                 from .lattice import LatticeProblem
 
                 return LatticeProblem(stencil, sz, dtype=dtype)
-            raise NotImplementedError("N-D lattice problems are not ported yet")
+            from .lattice_nd import LatticeProblemND
+
+            return LatticeProblemND(stencil, sz, dtype=dtype)
         return stencil_grid(stencil, sz, dtype=dtype)
     if lattice:
         from .lattice import LatticeProblem

@@ -29,6 +29,7 @@ import torch
 
 from .bsg import BSG
 from .kernels.bsg_spmv import bsg_spmv
+from .lattice_nd_op import LatND, latnd_spmv
 from .lattice_op import Lat2D, lat2d_spmv
 from .sparse import ELL, as_csr, np_dtype, round_up
 from .spmv import ell_spmv
@@ -308,6 +309,8 @@ def mat_vec(A, x: torch.Tensor) -> torch.Tensor:
     """SpMV over the device operator formats (flat vectors)."""
     if isinstance(A, Lat2D):
         return lat2d_spmv(A, x)
+    if isinstance(A, LatND):
+        return latnd_spmv(A, x)
     if isinstance(A, BSG):
         return bsg_spmv(A, x)
     if isinstance(A, SDIA):

@@ -1,0 +1,222 @@
+"""What K5 (``gs_sweep.py``) and K7 (``sweep3d.py``) share: the cache, the
+tile plan, the plain version and the launch.
+
+Both compute one multicolor GS/SOR smoother application on a lattice
+level: for each color c of ``color_steps(n_colors, iter, forward, backward,
+omega)``, in order, the cells of color c take
+
+    x ← x + ω·D⁻¹(b − A·x)
+
+with x read as 0 outside the grid; the padding rows past the level are
+never updated.  The CUDA kernel (``csrc/sweep_tile.cuh``) runs the whole
+application as one launch: a tile of x plus a halo of ``n_steps·reach``
+cells per axis in shared memory, every step there, the tiles independent by
+halo over-compute.  A 2-D level is the grid (1, Wx, Wy) of the same kernel.
+
+The plain version (``tiled_sweep_reference``) is the step-by-step masked
+sweep: per step one full stencil pass and a masked blend, the arithmetic of
+``models/device.py::_smooth_masked_multicolor`` on the same operator, so
+on the CPU the two agree bitwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..coloring import color_steps
+from .vcycle_legs import MAX_COLOR_CELLS, MAX_OFFSETS, SUFFIX, _ints, _stream, check_vector, launches, load_library, raise_on
+
+__all__ = ["TiledSweepCache", "plan_box", "tiled_sweep_cache", "tiled_sweep_reference", "launch_tiled_sweep"]
+
+log = logging.getLogger(__name__)
+
+MAX_STEPS = 64  # csrc/stencil.cuh kMaxSteps
+# an SM's shared memory for one block (227 KB of the H100's 228)
+SMEM_LIMIT = 232_448
+# the loaded box (tile + halo) per axis, chosen by kernel_variants.py
+# sweeps: 3-D boxes of 14 x 14 x 64 cells (50 KB of float32, four blocks
+# an SM), 2-D boxes of 32 x 64 cells
+BOX = {2: (1, 32, 64), 3: (14, 14, 64)}
+# no axis of a tile is cut below this many cells to make room for a halo
+MIN_TILE = 8
+# the grid's tile counts on axes 0 and 1 are CUDA grid dimensions
+MAX_TILES = 65_535
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledSweepCache:
+    """One level's whole-sweep smoother.  ``A`` is the level's own Lat2D or
+    LatND operator: the kernel reads its planes in place."""
+
+    A: Any
+    dinv: torch.Tensor                      # [rows_padded] 1/diag
+    dims: Tuple[int, int, int]              # the grid, (1, Wx, Wy) for 2-D
+    offsets: Tuple[Tuple[int, int, int], ...]
+    periods: Tuple[int, int, int]
+    color_table: Tuple[int, ...]            # flat, C order over periods
+    n_colors: int
+    box: Tuple[int, int, int]               # tile + 2·halo per axis
+    omega: float
+    iter: int
+    forward: bool
+    backward: bool
+    nd: int                                 # 2 (K5) or 3 (K7)
+
+    @property
+    def steps(self) -> Tuple[int, ...]:
+        return color_steps(self.n_colors, self.iter, self.forward, self.backward, self.omega)
+
+    @property
+    def halo(self) -> Tuple[int, int, int]:
+        n = len(self.steps)
+        return tuple(n * max(abs(d[a]) for d in self.offsets) for a in range(3))
+
+
+def _as3(dims, offsets, periods):
+    """A 2-D level as the grid (1, Wx, Wy)."""
+    if len(dims) == 3:
+        return tuple(dims), tuple(tuple(d) for d in offsets), tuple(periods)
+    return (1,) + tuple(dims), tuple((0,) + tuple(d) for d in offsets), (1,) + tuple(periods)
+
+
+def plan_box(nd: int, dims, offsets, n_steps: int, itemsize: int):
+    """(box, None) — the loaded box per axis — or (None, why) when the level
+    is past the kernel's shape limits: more than 64 color steps, a halo that
+    leaves no ``MIN_TILE`` tile within an SM's shared memory, or more tiles
+    than a CUDA grid dimension holds."""
+    if not 1 <= n_steps <= MAX_STEPS:
+        return None, f"{n_steps} color steps (the kernel takes 1..{MAX_STEPS})"
+    halo = [n_steps * max(abs(d[a]) for d in offsets) for a in range(3)]
+    least = [2 * h + min(MIN_TILE, n) for h, n in zip(halo, dims)]
+    box = [min(max(e, lo), n + 2 * h) for e, lo, n, h in zip(BOX[nd], least, dims, halo)]
+    # over the limit: halve the axis with the most room above its least box
+    while math.prod(box) * itemsize > SMEM_LIMIT:
+        a = max(range(3), key=lambda i: box[i] - least[i])
+        if box[a] <= least[a]:
+            need = math.prod(least) * itemsize
+            return None, f"a box of {least} cells needs {need} bytes of shared memory (limit {SMEM_LIMIT})"
+        box[a] = max(least[a], (box[a] + least[a]) // 2)
+    tiles = [-(-dims[a] // (box[a] - 2 * halo[a])) for a in range(3)]
+    if max(tiles[0], tiles[1]) > MAX_TILES:
+        return None, f"{tiles} tiles (the grid's axes 0 and 1 take at most {MAX_TILES})"
+    return tuple(box), None
+
+
+def tiled_sweep_cache(
+    cls, A, dinv, color_table, n_colors: int, omega: float, iters: int, fwd: bool, bwd: bool,
+) -> Optional[TiledSweepCache]:
+    """The whole-sweep cache (of class ``cls``) of a lattice level (``A`` a
+    Lat2D, or a 3-D LatND with bases (1, 1)), or None — logged — when the
+    level is past the kernel's limits (then the level keeps its masked
+    sweep)."""
+    tab = np.asarray(color_table, dtype=np.int64)
+    nd = len(A.row_dims)
+    if tab.ndim != nd or nd not in (2, 3):
+        raise ValueError(f"a {tab.ndim}-D color table for a {nd}-D level")
+    dims, offsets, periods = _as3(A.row_dims, A.offsets, tab.shape)
+    steps = color_steps(int(n_colors), int(iters), bool(fwd), bool(bwd), float(omega))
+    why = None
+    if len(offsets) > MAX_OFFSETS:
+        why = f"{len(offsets)} offsets (the kernel takes {MAX_OFFSETS})"
+    elif tab.size > MAX_COLOR_CELLS:
+        why = f"a color table of {tab.size} cells (the kernel takes {MAX_COLOR_CELLS})"
+    else:
+        box, why = plan_box(nd, dims, offsets, len(steps), A.data.element_size())
+    if why is not None:
+        log.info("level %s keeps the masked sweep: %s", tuple(A.row_dims), why)
+        return None
+    return cls(
+        A=A, dinv=dinv, dims=dims, offsets=offsets, periods=periods,
+        color_table=tuple(int(c) for c in tab.ravel()), n_colors=int(n_colors), box=box,
+        omega=float(omega), iter=int(iters), forward=bool(fwd), backward=bool(bwd), nd=nd,
+    )
+
+
+# --------------------------------------------------------------------------
+# plain version
+# --------------------------------------------------------------------------
+
+
+def _color_field(cache: TiledSweepCache, device) -> torch.Tensor:
+    tab = torch.as_tensor(cache.color_table, device=device).view(cache.periods)
+    idx = []
+    for a, (n, p) in enumerate(zip(cache.dims, cache.periods)):
+        shape = [1, 1, 1]
+        shape[a] = n
+        idx.append((torch.arange(n, device=device) % p).view(shape))
+    return tab[tuple(idx)]
+
+
+def _stencil(planes, X, offsets):
+    """Σₖ planes_k ⊙ X[· + dₖ] with zeros outside the grid, summed in offset
+    order as the LatND/Lat2D SpMV sums."""
+    m = [max(abs(d[a]) for d in offsets) for a in range(3)]
+    Xp = torch.nn.functional.pad(X, (m[2], m[2], m[1], m[1], m[0], m[0]))
+    n0, n1, n2 = X.shape
+    acc = None
+    for k, (d0, d1, d2) in enumerate(offsets):
+        g = Xp[m[0] + d0 : m[0] + d0 + n0, m[1] + d1 : m[1] + d1 + n1, m[2] + d2 : m[2] + d2 + n2]
+        term = planes[k] * g
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def tiled_sweep_reference(cache: TiledSweepCache, x, b):
+    """The smoother in plain PyTorch: per color step one stencil pass and a
+    masked blend; returns a new x of ``x``'s (padded) length."""
+    dims = cache.dims
+    n = math.prod(dims)
+    X = x[:n].reshape(dims)
+    B = b[:n].reshape(dims)
+    D = cache.dinv[:n].reshape(dims)
+    planes = cache.A.data.reshape((-1,) + dims)
+    col = _color_field(cache, x.device)
+    for c in cache.steps:
+        r = B - _stencil(planes, X, cache.offsets)
+        X = torch.where(col == c, X + cache.omega * D * r, X)
+    out = x.clone()
+    out[:n] = X.reshape(n)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the launch
+# --------------------------------------------------------------------------
+
+
+def launch_tiled_sweep(cache: TiledSweepCache, x, b, entry: str, counter: str):
+    """Run the smoother: the plain version on a CPU tensor, else one launch
+    of ``amg_<entry>_<f32|f64>`` (counted under ``launches[counter]``) or
+    an exception."""
+    if x.device.type == "cpu":
+        return tiled_sweep_reference(cache, x, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"{entry} runs on cuda or cpu tensors, not {x.device}")
+    planes = cache.A.data
+    n = math.prod(cache.dims)
+    for name, t in (("x", x), ("b", b), ("dinv", cache.dinv)):
+        check_vector(name, t, planes, n)
+    if planes.dtype not in SUFFIX:
+        raise TypeError(f"{entry} takes float32 or float64, not {planes.dtype}")
+    if not planes.is_contiguous():
+        raise ValueError(f"{entry} reads the level's planes in place: they must be contiguous")
+    steps = cache.steps
+    x_out = torch.empty_like(x)
+    if x.shape[0] > n:
+        x_out[n:] = x[n:]
+    fn = getattr(load_library(), f"amg_{entry}_{SUFFIX[x.dtype]}")
+    err = fn(
+        x_out.data_ptr(), x.data_ptr(), b.data_ptr(), planes.data_ptr(), cache.dinv.data_ptr(),
+        _ints(cache.dims), _ints([v for d in cache.offsets for v in d]), len(cache.offsets),
+        _ints(cache.periods), _ints(cache.color_table), _ints(steps), len(steps), _ints(cache.box),
+        cache.omega, _stream(x),
+    )
+    raise_on(err, f"{entry} kernel")
+    launches[counter] += 1
+    return x_out

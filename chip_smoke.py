@@ -3,9 +3,12 @@
 Runs, in order, and exits non-zero on the first failure:
 
 1. checks that a CUDA card is present and prints its name and power limit;
-2. builds the port's CUDA library (``csrc/vcycle_legs.cu`` with K1
-   ``fused_down``, K2 ``fused_up``, K3 ``fused_updown``, and
-   ``csrc/tail_kernel.cu`` with K4 ``fused_tail``) in one ``nvcc`` call;
+2. builds the port's CUDA library from the sources in the checkout
+   (``csrc/vcycle_legs.cu`` with K1 ``fused_down``, K2 ``fused_up``, K3
+   ``fused_updown``; ``csrc/tail_kernel.cu`` with K4 ``fused_tail``;
+   ``csrc/bsg_spmv.cu`` with K6; ``csrc/scan_gs.cu``; ``csrc/gs_sweep.cu``
+   with K5 and ``csrc/sweep3d.cu`` with K7), one ``nvcc`` per source, all
+   started together, then one link;
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes of the 4096² problem — K1/K2/K3 at level 0 (4096²)
    and level 1 (1366²), K4 on the tail (456² … 6² plus the 2×2 coarse
@@ -42,7 +45,26 @@ Runs, in order, and exits non-zero on the first failure:
    ``cg_device(tol=1e-6)`` and ``solve_refined(tol=1e-8)`` (its float64
    outer residual an ELL SpMV on the card), each residual checked in the caller's ordering with a scipy
    float64 SpMV; then one V-cycle, whose K6 and ``scan_gs`` launches must
-   equal the count derived from the hierarchy, and its time.
+   equal the count derived from the hierarchy, and its time;
+10. sets up the 3-D problem of ``bench.py``'s opt-in cell at 256³:
+    ``structured_smoothed_aggregation_nd(poisson((256, 256, 256),
+    lattice=True), proxy=47, cut_rows=20000)``, and asserts what the JAX
+    package gives: 5 levels of 16,777,216 / 636,056 / 24,389 / 1,000 / 64
+    rows + an 8-row QR, operator complexity 1.14878, L0 a LatND with 7
+    offsets, 2 colors and the K7 cache (steps 0, 1, 0), L1–L4 lowered as the
+    JAX package lowers them (SDIA A; P BSG/BSG/Dense/SDIA; R
+    ELL/ELL/Dense/SDIA); holds K7 against its plain version at L0 and on a
+    13×9×100 grid in float32 and float64 (max relative error <= 1e-5 and
+    1e-12); runs ``cg_device(tol=1e-6)`` and ``solve_refined(tol=1e-8)`` with
+    the counters zeroed just before, each residual checked with a float64
+    LatND SpMV on the card; then one V-cycle, with exactly 2 K7 launches
+    and the K6 launches derived from the hierarchy, and its time;
+11. sets up the 4096² flagship with forward-GS presmoothing and
+    backward-GS postsmoothing, which has no legs and no tail: asserts 8
+    levels and K5 on every Lat2D level, holds K5 against its plain version
+    at L0 (4096²) and L1 (1366²), runs ``solve_refined(tol=1e-8)`` with the
+    counters zeroed just before, and counts one V-cycle: exactly 14 K5
+    launches and none of K1–K4.
 
 The last two lines of output are the card's ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``; the line before them lists every
@@ -90,6 +112,8 @@ SOURCES = {
     "fused_tail": "algebraicmultigrid_tpu_torch/csrc/tail_kernel.cu",
     "bsg_spmv": "algebraicmultigrid_tpu_torch/csrc/bsg_spmv.cu",
     "scan_gs": "algebraicmultigrid_tpu_torch/csrc/scan_gs.cu",
+    "gs_sweep": "algebraicmultigrid_tpu_torch/csrc/gs_sweep.cu",
+    "sweep3d": "algebraicmultigrid_tpu_torch/csrc/sweep3d.cu",
 }
 REPLACES = {
     "fused_down": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:1432",
@@ -99,10 +123,12 @@ REPLACES = {
     "bsg_spmv": "algebraicmultigrid_tpu/ops/bsg.py:189",
     # not a Pallas kernel: the XLA lax.scan recurrence of natural-order GS
     "scan_gs": "algebraicmultigrid_tpu/models/device.py:277 (_scan_sweep, an XLA lax.scan, not a Pallas kernel)",
+    "gs_sweep": "algebraicmultigrid_tpu/ops/pallas/gs_kernel.py:298",
+    "sweep3d": "algebraicmultigrid_tpu/ops/pallas/sweep3d_kernel.py:209",
 }
 COUNTER = {
     "fused_down": "down", "fused_up": "up", "fused_updown": "updown", "fused_tail": "tail",
-    "bsg_spmv": "bsg", "scan_gs": "scan_gs",
+    "bsg_spmv": "bsg", "scan_gs": "scan_gs", "gs_sweep": "gs", "sweep3d": "sweep3d",
 }
 # the unstructured problem: bench.py's scrambled Poisson
 NU = 1024
@@ -438,7 +464,8 @@ def fixed_cycles(device, ml, h):
 
     if not np.isfinite(xh).all() or not relres < CYCLES_RELRES:
         raise AssertionError(f"relres_after_cycles {relres} >= {CYCLES_RELRES}")
-    want = {"updown": CYCLES - 1, "tail": CYCLES, "down": CYCLES + 1, "up": CYCLES + 1, "bsg": 0, "scan_gs": 0}
+    want = {"updown": CYCLES - 1, "tail": CYCLES, "down": CYCLES + 1, "up": CYCLES + 1, "bsg": 0, "scan_gs": 0,
+            "gs": 0, "sweep3d": 0}
     if counts != want:
         raise AssertionError(f"fixed-cycle launches {counts} != {want}")
     if not all(fixed_rel[k] <= tol for k, tol in FIXED_RTOL.items()):
@@ -705,6 +732,268 @@ def unstructured_solve(device, Ap, ml, h):
     return counts, per_cycle
 
 
+# --------------------------------------------------------------------------
+# the 3-D path (phase 10) and the 2-D path without legs (phase 11)
+# --------------------------------------------------------------------------
+
+N3 = 256
+N3_KW = dict(proxy=47, cut_rows=20000)
+N3_ROWS = (16_777_216, 636_056, 24_389, 1_000, 64)
+N3_COARSE = 8
+N3_OC = 1.14878
+# the JAX package's lowering of L1-L4 at 256^3
+N3_FORMATS = [("SDIA", "BSG", "ELL"), ("SDIA", "BSG", "ELL"), ("SDIA", "DenseOp", "DenseOp"), ("SDIA", "SDIA", "SDIA")]
+ODD3 = (13, 9, 100)
+SWEEP_RTOL = {"float32": KERNEL_RTOL, "float64": 1e-12}
+FB_LEVELS = 8
+FB_K5_PER_VCYCLE = 14
+
+
+def sweep_work(cache):
+    """(words, flops) of one whole-sweep application: the planes, dinv, b
+    and x read once and x written once; per color step, 2 flops an offset
+    plus 3 at each cell of that color."""
+    n = int(np.prod(cache.dims))
+    tab = np.asarray(cache.color_table).reshape(cache.periods)
+    cells = {}
+    for idx in np.ndindex(*tab.shape):
+        count = int(np.prod([len(range(i, w, p)) for i, w, p in zip(idx, cache.dims, tab.shape)]))
+        cells[int(tab[idx])] = cells.get(int(tab[idx]), 0) + count
+    flops = sum(cells.get(c, 0) * (2 * len(cache.offsets) + 3) for c in cache.steps)
+    return (len(cache.offsets) + 4) * n, flops
+
+
+def compare_sweep(name, fn, ref, cache, x, b, level, timed=True):
+    """One whole-sweep kernel against its plain version (and timed)."""
+    import torch
+
+    got, want = fn(cache, x, b), ref(cache, x, b)
+    torch.cuda.synchronize()
+    abs_err, rel_err = errors(got, want)
+    key = str(x.dtype).removeprefix("torch.")
+    r = dict(level=level, dims=cache.dims, dtype=key, steps=cache.steps, box=cache.box,
+             max_abs_err=abs_err, max_rel_err=rel_err)
+    if timed:
+        r["ms"], r["plain_ms"] = time_ms(lambda: fn(cache, x, b)), time_ms(lambda: ref(cache, x, b))
+        r["bound_ms"], r["bound_by"] = bound(*sweep_work(cache), x.element_size())
+    log(f"kernel {name} {level} dims {cache.dims} {key} steps {cache.steps} box {cache.box}:"
+        f" max_rel_err {rel_err!r} max_abs_err {abs_err!r}"
+        + (f" kernel {r['ms']!r} ms plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']})"
+           if timed else ""))
+    if not rel_err <= SWEEP_RTOL[key]:
+        raise AssertionError(f"{name} disagrees with its plain version: {r}")
+    return r
+
+
+def lattice_3d(device):
+    """Phase 10: the 3-D problem's setup, lowering, K7 checks, solves and
+    per-V-cycle launches."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _get_fine_f64, _one_iteration
+    from algebraicmultigrid_tpu_torch.models.lattice_nd import lattice_coloring_nd
+    from algebraicmultigrid_tpu_torch.ops.banded import mat_vec
+    from algebraicmultigrid_tpu_torch.ops.kernels.sweep3d import (
+        Sweep3DCache, build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference,
+    )
+    from algebraicmultigrid_tpu_torch.ops.lattice_nd_op import latnd_from_spec
+
+    t0 = time.perf_counter()
+    ml = amt.structured_smoothed_aggregation_nd(amt.poisson((N3,) * 3, lattice=True), **N3_KW)
+    t1 = time.perf_counter()
+    h = amt.get_device_hierarchy(ml, device=device, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rows = tuple(L.A.shape[0] for L in ml.levels)
+    oc = ml.operator_complexity()
+    fmt = [(type(L.A).__name__, type(L.P).__name__, type(L.R).__name__) for L in h.levels]
+    log(f"3-D {N3}^3: rows {rows} coarse {ml.final_A.shape} {type(ml.coarse_solver).__name__}"
+        f" operator_complexity {oc!r}")
+    log(f"3-D formats (A, P, R) {fmt} smoothers {[type(L.pre).__name__ for L in h.levels]}")
+    log(f"3-D setup_s {t1 - t0!r} lowering_s {t2 - t1!r}")
+    if rows != N3_ROWS or ml.final_A.shape != (N3_COARSE, N3_COARSE) or h.coarse.kind != "qr":
+        raise AssertionError(f"3-D levels {rows} + {ml.final_A.shape} {h.coarse.kind}, not {N3_ROWS} + an 8-row QR")
+    if abs(oc - N3_OC) > 1e-4:
+        raise AssertionError(f"3-D operator complexity {oc} != {N3_OC}")
+    L0 = h.levels[0]
+    if fmt[0] != ("LatND", "LatND", "LatND") or len(L0.A.offsets) != 7:
+        raise AssertionError(f"L0 is {fmt[0]} with {len(L0.A.offsets)} offsets, not a 7-offset LatND")
+    for c in (L0.pre, L0.post):
+        if not (isinstance(c, Sweep3DCache) and c.n_colors == 2 and c.steps == (0, 1, 0)):
+            raise AssertionError(f"L0 smoother {c!r} is not K7 with 2 colors and steps (0, 1, 0)")
+    if fmt[1:] != N3_FORMATS:
+        raise AssertionError(f"L1-L4 lowered to {fmt[1:]}, not {N3_FORMATS}")
+
+    # K7 against its plain version: L0 (timed) and an odd grid
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    n0, pad0 = L0.A.shape[0], L0.A.rows_padded
+
+    def vec(m, length, dtype):
+        v = torch.zeros(length, dtype=dtype)
+        v[:m] = torch.randn(m, generator=gen, dtype=dtype)
+        return v.to(device)
+
+    rows_k7 = []
+    x, b = vec(n0, pad0, torch.float32), vec(n0, pad0, torch.float32)
+    for c in (L0.pre, L0.post):
+        rows_k7.append(compare_sweep("sweep3d", smooth_sweep3d, smooth_sweep3d_reference, c, x, b, "L0",
+                                     timed=c is L0.pre))
+    del x, b
+    prob = amt.poisson(ODD3, lattice=True)
+    tab, nc = lattice_coloring_nd(prob.spec)
+    for dtype in (torch.float32, torch.float64):
+        A = latnd_from_spec(prob.spec, dtype, device)
+        dinv = torch.zeros(A.rows_padded, dtype=dtype)
+        dinv[: A.shape[0]] = torch.as_tensor(1.0 / prob.spec.diagonal(), dtype=dtype)
+        x, b = vec(A.shape[0], A.rows_padded, dtype), vec(A.shape[0], A.rows_padded, dtype)
+        for it, fwd, bwd, omega in ((1, True, True, 1.0), (1, True, False, 1.0), (2, True, True, 1.3)):
+            c = build_sweep3d_cache(A, dinv.to(device), tab, nc, omega, it, fwd, bwd)
+            rows_k7.append(compare_sweep("sweep3d", smooth_sweep3d, smooth_sweep3d_reference, c, x, b,
+                                         "odd", timed=False))
+
+    # the solves, with the counters zeroed just before
+    bh = np.random.default_rng(4).standard_normal(n0)
+    A64 = _get_fine_f64(ml, device)
+    b64 = torch.as_tensor(np.pad(bh, (0, A64.rows_padded - n0)), device=device)
+    normb = float(torch.linalg.norm(b64))
+
+    def relres(xv):
+        xp = torch.zeros_like(b64)
+        xp[:n0] = torch.as_tensor(xv, dtype=torch.float64, device=device)
+        return float(torch.linalg.norm(b64 - mat_vec(A64, xp)) / normb)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t3 = time.perf_counter()
+    x_cg, iters, normr = amt.cg_device(ml, bh, tol=U_CG_TOL, device=device, dtype=torch.float32, log=True)
+    t4 = time.perf_counter()
+    stats = {}
+    x_ref, hist = amt.solve_refined(ml, bh, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats)
+    t5 = time.perf_counter()
+    counts = read_counts()
+    rr_cg, rr_ref = relres(x_cg), relres(x_ref)
+    log(f"3-D cg_device: {iters} iterations, its own relres {normr / normb!r}, f64 LatND relres {rr_cg!r},"
+        f" {t4 - t3!r} s")
+    log(f"3-D solve_refined: rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']} relres {rr_ref!r}"
+        f" history {hist} {t5 - t4!r} s")
+    log(f"launches in the 3-D solves {counts}")
+
+    want_bsg, _ = expected_vcycle_launches(h)
+    bv = torch.zeros(pad0, device=device)
+    bv[:n0] = torch.as_tensor(bh, dtype=torch.float32, device=device)
+    xv = torch.zeros_like(bv)
+    torch.cuda.synchronize()
+    zero_counts()
+    _one_iteration(h, amt.V(), xv, bv)
+    torch.cuda.synchronize()
+    per_cycle = read_counts()
+    vcycle_ms = time_ms(lambda: _one_iteration(h, amt.V(), xv, bv), reps=10)
+    h_plain = amt.build_device_hierarchy(ml, device=device, dtype=torch.float32, sweeps=False)
+    plain_vcycle_ms = time_ms(lambda: _one_iteration(h_plain, amt.V(), xv, bv), reps=10)
+    del h_plain
+    log(f"3-D vcycle_ms kernels {vcycle_ms!r} masked sweeps {plain_vcycle_ms!r}; launches per V-cycle"
+        f" {per_cycle}; expected sweep3d 2 bsg {want_bsg}")
+
+    for name, xs in (("cg_device", x_cg), ("solve_refined", x_ref)):
+        if not (xs.shape == (n0,) and np.isfinite(xs).all()):
+            raise AssertionError(f"3-D {name}: the solution is not a finite vector of the problem's size")
+    if not (normr / normb < U_CG_TOL and rr_cg < U_CG_TRUE):
+        raise AssertionError(f"3-D cg_device relres {normr / normb} (f64 LatND: {rr_cg})")
+    if not (rr_ref < TOL and len(hist) - 1 <= MAX_ROUNDS):
+        raise AssertionError(f"3-D solve_refined relres {rr_ref} after {len(hist) - 1} rounds")
+    if not (counts["sweep3d"] > 0 and counts["bsg"] > 0):
+        raise AssertionError(f"the 3-D solves did not launch K7 and K6: {counts}")
+    want = dict.fromkeys(per_cycle, 0)
+    want.update(sweep3d=2, bsg=want_bsg)
+    if per_cycle != want:
+        raise AssertionError(f"3-D V-cycle launches {per_cycle} != {want}")
+    return rows_k7, counts, per_cycle, vcycle_ms
+
+
+def lattice_fwd_bwd(device):
+    """Phase 11: the 4096² flagship with forward/backward GS, every Lat2D
+    level on K5."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration
+    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import GSSweepCache, smooth_gs, smooth_gs_reference
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import Lat2D
+
+    t0 = time.perf_counter()
+    ml = setup(
+        N, presmoother=amt.GaussSeidel(ordering="multicolor", sweep=amt.ForwardSweep()),
+        postsmoother=amt.GaussSeidel(ordering="multicolor", sweep=amt.BackwardSweep()),
+    )
+    t1 = time.perf_counter()
+    h = amt.get_device_hierarchy(ml, device=device, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    levels = len(ml.levels) + 1
+    lat = [i for i, L in enumerate(h.levels) if isinstance(L.A, Lat2D)]
+    k5 = [i for i, L in enumerate(h.levels) if isinstance(L.pre, GSSweepCache) and isinstance(L.post, GSSweepCache)]
+    log(f"fwd/bwd {N}x{N}: levels {levels} dims {[L.A.row_dims for L in h.levels]} tail_start {h.tail_start}"
+        f" legs {[L.fused is not None for L in h.levels]} K5 levels {k5}; setup_s {t1 - t0!r} lowering_s {t2 - t1!r}")
+    if levels != FB_LEVELS or h.tail is not None or any(L.fused is not None for L in h.levels):
+        raise AssertionError(f"fwd/bwd: {levels} levels, tail {h.tail_start}, legs on some level")
+    if not lat or k5 != lat:
+        raise AssertionError(f"K5 on levels {k5}, the Lat2D levels are {lat}")
+    if h.levels[0].pre.steps != (0, 1) or h.levels[0].post.steps != (1, 0):
+        raise AssertionError(f"L0 steps {h.levels[0].pre.steps} / {h.levels[0].post.steps}")
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    rows_k5 = []
+    for lvl in (0, 1):
+        L = h.levels[lvl]
+        n, pad = L.A.shape[0], L.A.rows_padded
+        x = torch.zeros(pad)
+        b = torch.zeros(pad)
+        x[:n], b[:n] = torch.randn(n, generator=gen), torch.randn(n, generator=gen)
+        x, b = x.to(device), b.to(device)
+        for c in (L.pre, L.post):
+            rows_k5.append(compare_sweep("gs_sweep", smooth_gs, smooth_gs_reference, c, x, b, f"L{lvl}"))
+
+    bh = np.random.default_rng(6).standard_normal(N * N)
+    torch.cuda.synchronize()
+    zero_counts()
+    t3 = time.perf_counter()
+    stats = {}
+    x, hist = amt.solve_refined(ml, bh, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats)
+    t4 = time.perf_counter()
+    counts = read_counts()
+    relres = float(np.linalg.norm(bh - ml.levels[0].A @ x) / np.linalg.norm(bh))
+    log(f"fwd/bwd solve_refined: rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']}"
+        f" relres {relres!r} history {hist} {t4 - t3!r} s; launches {counts}")
+
+    bv = torch.zeros(h.fine_padded, device=device)
+    bv[: N * N] = torch.as_tensor(bh, dtype=torch.float32, device=device)
+    xv = torch.zeros_like(bv)
+    torch.cuda.synchronize()
+    zero_counts()
+    _one_iteration(h, amt.V(), xv, bv)
+    torch.cuda.synchronize()
+    per_cycle = read_counts()
+    vcycle_ms = time_ms(lambda: _one_iteration(h, amt.V(), xv, bv), reps=10)
+    h_plain = amt.build_device_hierarchy(ml, device=device, dtype=torch.float32, sweeps=False)
+    plain_vcycle_ms = time_ms(lambda: _one_iteration(h_plain, amt.V(), xv, bv), reps=10)
+    del h_plain
+    log(f"fwd/bwd vcycle_ms kernels {vcycle_ms!r} masked sweeps {plain_vcycle_ms!r};"
+        f" launches per V-cycle {per_cycle}")
+
+    if not (x.shape == (N * N,) and np.isfinite(x).all()):
+        raise AssertionError("fwd/bwd: the solution is not a finite vector of the problem's size")
+    if not (relres < TOL and len(hist) - 1 <= MAX_ROUNDS):
+        raise AssertionError(f"fwd/bwd solve_refined relres {relres} after {len(hist) - 1} rounds")
+    if not counts["gs"] > 0:
+        raise AssertionError(f"the fwd/bwd solve did not launch K5: {counts}")
+    want = dict.fromkeys(per_cycle, 0)
+    want["gs"] = FB_K5_PER_VCYCLE
+    if per_cycle != want:
+        raise AssertionError(f"fwd/bwd V-cycle launches {per_cycle} != {want}")
+    return rows_k5, counts, per_cycle, vcycle_ms
+
+
 def main():
     import torch
 
@@ -738,6 +1027,12 @@ def main():
     Ap, ml_u, h_u = unstructured_setup(device)
     rows_u = compare_unstructured_kernels(device, ml_u, h_u)
     u_counts, u_cycle = unstructured_solve(device, Ap, ml_u, h_u)
+    del Ap, ml_u, h_u
+    torch.cuda.empty_cache()
+
+    rows_k7, counts_3d, cycle_3d, _ = lattice_3d(device)
+    torch.cuda.empty_cache()
+    rows_k5, counts_fb, cycle_fb, _ = lattice_fwd_bwd(device)
 
     kernels = []
     for name, rs in rows.items():
@@ -757,6 +1052,16 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],
+        ))
+    for name, rs, counts, cycle in (("gs_sweep", rows_k5, counts_fb, cycle_fb),
+                                    ("sweep3d", rows_k7, counts_3d, cycle_3d)):
+        first = rs[0]  # L0's presmoother, float32
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=counts[COUNTER[name]], launches_per_vcycle=cycle[COUNTER[name]],
+            max_abs_err=max(r["max_abs_err"] for r in rs),
+            ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=None,
         ))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,5 +1,8 @@
 """Time the cooperative kernels (K3 ``fused_updown``, K4 ``fused_tail``)
-under alternative launch shapes and cell loops, on one NVIDIA card.
+under alternative launch shapes and cell loops, on one NVIDIA card; with
+the argument ``sweeps``, the whole-sweep kernels K7 (``sweep3d``, at L0 of
+256³, symmetric GS) and K5 (``gs_sweep``, at 4096², forward GS) under
+alternative thread blocks and loaded boxes.
 
 Each variant is the tree's CUDA sources with a few lines edited, built into
 its own library (all builds run in parallel) and swapped in under the same
@@ -9,7 +12,11 @@ K4 time (x = 0), one fixed cycle (``run_fixed_cycles``) and K3's error
 against its plain version, then the same work through K2 + K1.  Run from the
 repository root:
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [sweeps]
+
+In ``sweeps`` mode each source variant runs with each box of ``BOXES_3D``
+/ ``BOXES_2D`` (the tile plus halo that ``tiled_sweep.plan_box`` starts
+from), with the error against the plain version.
 """
 
 import subprocess
@@ -53,6 +60,24 @@ VARIANTS = {
 }
 
 
+SWEEP_VARIANTS = {
+    "tree": [],
+    "threads512": [
+        ("sweep_tile.cuh", "kSweepThreads = 256;", "kSweepThreads = 512;"),
+        ("sweep_tile.cuh", "y = ND == 3 ? 4 : 8;", "y = ND == 3 ? 4 : 16;"),
+        ("sweep_tile.cuh", "z = ND == 3 ? 2 : 1;", "z = ND == 3 ? 4 : 1;"),
+    ],
+    "threads1024": [
+        ("sweep_tile.cuh", "kSweepThreads = 256;", "kSweepThreads = 1024;"),
+        ("sweep_tile.cuh", "y = ND == 3 ? 4 : 8;", "y = ND == 3 ? 8 : 32;"),
+        ("sweep_tile.cuh", "z = ND == 3 ? 2 : 1;", "z = ND == 3 ? 4 : 1;"),
+    ],
+}
+# (12, 12, 64) is lifted to (14, 14, 64): a one-step-per-halo tile keeps 8 cells
+BOXES_3D = [(14, 14, 64), (20, 20, 64), (16, 16, 64), (24, 24, 64), (14, 16, 128), (32, 32, 32)]
+BOXES_2D = [(1, 32, 64), (1, 64, 128), (1, 32, 128), (1, 16, 128), (1, 64, 64), (1, 16, 256)]
+
+
 def edit(text, old, new):
     if new is None:  # swap the for_cells loop for the row-chunk loop
         a = text.index("template <typename F>")
@@ -63,10 +88,10 @@ def edit(text, old, new):
     return text.replace(old, new)
 
 
-def build(root):
+def build(root, variants):
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         d = root / name
         d.mkdir()
         for f in vl.SOURCES + vl.HEADERS:
@@ -81,12 +106,59 @@ def build(root):
             raise SystemExit(f"variant {name} failed to build: {e}")
 
 
+def sweeps(use):
+    """K7 at 256³ and K5 at 4096², per source variant and box."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.lattice import lattice_coloring
+    from algebraicmultigrid_tpu_torch.models.lattice_nd import lattice_coloring_nd
+    from algebraicmultigrid_tpu_torch.ops.kernels import tiled_sweep as ts
+    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import build_gs_sweep_cache, smooth_gs, smooth_gs_reference
+    from algebraicmultigrid_tpu_torch.ops.kernels.sweep3d import (
+        build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference,
+    )
+    from algebraicmultigrid_tpu_torch.ops.lattice_nd_op import latnd_from_spec
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec
+
+    import chip_smoke as cs
+
+    gen = torch.Generator().manual_seed(0)
+    cases = []
+    for dims, fwd_bwd, boxes in (((256,) * 3, (True, True), BOXES_3D), ((N, N), (True, False), BOXES_2D)):
+        spec = amt.poisson(dims, lattice=True).spec
+        if len(dims) == 3:
+            A = latnd_from_spec(spec, torch.float32, "cuda")
+            tab, nc = lattice_coloring_nd(spec)
+            build_c, fn, ref = build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference
+        else:
+            A = lat2d_from_spec(spec, torch.float32, "cuda", row_pad=8)
+            tab, nc = lattice_coloring(spec)
+            build_c, fn, ref = build_gs_sweep_cache, smooth_gs, smooth_gs_reference
+        n = A.shape[0]
+        dinv = torch.as_tensor(np.pad(1.0 / spec.diagonal(), (0, A.rows_padded - n)), dtype=torch.float32).cuda()
+        x = torch.randn(A.rows_padded, generator=gen).cuda()
+        b = torch.randn(A.rows_padded, generator=gen).cuda()
+        for box in boxes:
+            ts.BOX[len(dims)] = box
+            c = build_c(A, dinv, tab, nc, 1.0, 1, *fwd_bwd)
+            cases.append((dims, box, c, fn, x, b, ref(c, x, b)))
+    for rnd in range(ROUNDS):
+        for name in SWEEP_VARIANTS:
+            use(name)
+            for dims, box, c, fn, x, b, want in cases:
+                err = cs.errors(fn(c, x, b), want)[1]
+                ms = cs.time_ms(lambda: fn(c, x, b))
+                print(f"round {rnd} {name:12s} {dims} box {c.box}: {ms!r} ms  max_rel_err {err!r}", flush=True)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA card: kernel_variants needs one")
         return 1
+    variants = SWEEP_VARIANTS if sys.argv[1:] == ["sweeps"] else VARIANTS
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
@@ -99,14 +171,18 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t = time.perf_counter()
-        build(root)
-        print(f"{len(VARIANTS)} variants built in {time.perf_counter() - t!r} s", flush=True)
+        build(root, variants)
+        print(f"{len(variants)} variants built in {time.perf_counter() - t!r} s", flush=True)
 
         def use(name):
             vl._lib = None
             vl.library_path = lambda: root / name / "lib.so"
             vl.load_library()
 
+        if variants is SWEEP_VARIANTS:
+            sweeps(use)
+            print(card)
+            return 0
         use("tree")
         ml = cs.setup(N)
         h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)

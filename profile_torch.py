@@ -9,14 +9,19 @@ float32 and, after a warm-up, profiles with ``torch.profiler``:
 
 With the argument ``unstructured`` it profiles instead 20 V-cycles of
 ``bench.py``'s scrambled Poisson 1024² (``smoothed_aggregation`` with
-defaults: BSG levels with K6, natural-order GS levels with ``scan_gs``).
+defaults: BSG levels with K6, natural-order GS levels with ``scan_gs``);
+with ``3d``, 20 V-cycles of ``poisson((256, 256, 256), lattice=True)``
+through ``structured_smoothed_aggregation_nd(proxy=47, cut_rows=20000)``
+(K7 at L0, masked 8-color sweeps and K6 below); with ``fwdbwd``, 20
+V-cycles of the 4096² flagship with forward/backward GS (K5 on every
+Lat2D level, no legs, no tail).
 
 For each it prints the ms per cycle by CUDA events, the device time of each
 kernel and its share, and the device's idle share of the window (1 − the
 summed kernel time over the window's elapsed time).  Run from the
 repository root:
 
-    python3 profile_torch.py [unstructured]
+    python3 profile_torch.py [unstructured | 3d | fwdbwd]
 """
 
 import subprocess
@@ -72,6 +77,42 @@ def unstructured_runs(amt, torch):
     return (("unstructured_vcycle", vcycles),)
 
 
+def vcycle_runs(name, ml, h, amt, torch):
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration
+
+    n = ml.levels[0].A.shape[0]
+    b = torch.zeros(h.fine_padded, device="cuda")
+    b[:n] = torch.as_tensor(ml.levels[0].A @ np.ones(n), dtype=torch.float32, device="cuda")
+
+    def vcycles():
+        x = torch.zeros_like(b)
+        for _ in range(CYCLES):
+            x = _one_iteration(h, amt.V(), x, b)
+
+    return ((name, vcycles),)
+
+
+def lattice_3d_runs(amt, torch):
+    ml = amt.structured_smoothed_aggregation_nd(
+        amt.poisson((256, 256, 256), lattice=True), proxy=47, cut_rows=20000
+    )
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    return vcycle_runs("vcycle_3d", ml, h, amt, torch)
+
+
+def fwd_bwd_runs(amt, torch):
+    ml = amt.structured_smoothed_aggregation(
+        amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3),
+        presmoother=amt.GaussSeidel(ordering="multicolor", sweep=amt.ForwardSweep()),
+        postsmoother=amt.GaussSeidel(ordering="multicolor", sweep=amt.BackwardSweep()),
+    )
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    return vcycle_runs("vcycle_fwdbwd", ml, h, amt, torch)
+
+
+RUNS = {"unstructured": unstructured_runs, "3d": lattice_3d_runs, "fwdbwd": fwd_bwd_runs}
+
+
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -87,7 +128,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}")
 
-    runs = (unstructured_runs if sys.argv[1:] == ["unstructured"] else lattice_runs)(amt, torch)
+    runs = RUNS.get(sys.argv[1] if sys.argv[1:] else "", lattice_runs)(amt, torch)
     for name, fn in runs:
         fn()
         torch.cuda.synchronize()

@@ -1,7 +1,8 @@
-"""The port on a CUDA card: the fused-leg, updown, whole-tail, BSG SpMV and
-natural-order GS kernels against their plain versions, and one cycle, the
-fixed-cycle loop and a refined solve on the card against the CPU, on the
-lattice path and on an unstructured (scrambled Poisson) hierarchy.
+"""The port on a CUDA card: the fused-leg, updown, whole-tail, BSG SpMV,
+natural-order GS and whole-sweep (K5, K7) kernels against their plain
+versions, and one cycle, the fixed-cycle loop and a refined solve on the
+card against the CPU, on the lattice path, on an unstructured (scrambled
+Poisson) hierarchy, on a 3-D lattice and on a forward/backward GS lattice.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so on a machine without JAX run it without the suite's conftest:
@@ -119,7 +120,7 @@ def test_cuda_fixed_cycles_match_cpu(ml):
         out[dev] = run_fixed_cycles(h, torch.zeros_like(b), b, 3)
         counts[dev] = {k: vl.launches[k] - before[k] for k in before}
     assert _rel(out["cuda"], out["cpu"]) < 1e-12
-    assert counts["cuda"] == {"down": 1, "up": 1, "updown": 2, "tail": 3, "bsg": 0, "scan_gs": 0}
+    assert counts["cuda"] == {"down": 1, "up": 1, "updown": 2, "tail": 3, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0}
     assert not any(counts["cpu"].values())
 
 
@@ -238,3 +239,134 @@ def test_cuda_unstructured_solves(ml_unstructured):
     assert normr <= 1e-6 * np.linalg.norm(b) and np.linalg.norm(b - A @ x) < 1e-4 * np.linalg.norm(b)
     x, hist = amt.solve_refined(ml_unstructured, b, tol=1e-8, log=True)
     assert len(hist) <= 5 and np.linalg.norm(b - A @ x) < 1e-8 * np.linalg.norm(b)
+
+
+SWEEP_CONFIGS = [(1, True, True, 1.0), (1, True, False, 1.0), (1, False, True, 1.0), (2, True, True, 1.3)]
+
+
+def _sweep_case(prob, dtype):
+    """(level operator, 1/diag, color table, n_colors) of a lattice problem
+    on the card."""
+    from algebraicmultigrid_tpu_torch.models.lattice import lattice_coloring
+    from algebraicmultigrid_tpu_torch.models.lattice_nd import lattice_coloring_nd
+    from algebraicmultigrid_tpu_torch.ops.lattice_nd_op import latnd_from_spec
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec
+
+    spec = prob.spec
+    if len(spec.row_dims) == 3:
+        A = latnd_from_spec(spec, dtype, "cuda")
+        tab, nc = lattice_coloring_nd(spec)
+    else:
+        A = lat2d_from_spec(spec, dtype, "cuda", row_pad=8)
+        tab, nc = lattice_coloring(spec)
+    d = spec.diagonal()
+    dinv = torch.zeros(A.rows_padded, dtype=dtype)
+    dinv[: d.shape[0]] = torch.as_tensor(1.0 / d, dtype=dtype)
+    return A, dinv.cuda(), tab, nc
+
+
+# (5, 3, 4) is smaller than one tile; (13, 9, 100) and (45, 45, 45) end in
+# partial tiles
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [(5, 3, 4), (13, 9, 100), (45, 45, 45)])
+def test_cuda_sweep3d_matches_plain_version(ml, dims, dtype):
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.sweep3d import (
+        build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference,
+    )
+
+    A, dinv, tab, nc = _sweep_case(amt.poisson(dims, lattice=True), dtype)
+    n = A.shape[0]
+    x, b = _vec(n, A.rows_padded, 12, dtype), _vec(n, A.rows_padded, 13, dtype)
+    tol = TOL if dtype == torch.float32 else 1e-12
+    before = vl.launches["sweep3d"]
+    for it, fwd, bwd, omega in SWEEP_CONFIGS:
+        c = build_sweep3d_cache(A, dinv, tab, nc, omega, it, fwd, bwd)
+        got = smooth_sweep3d(c, x, b)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and _rel(got, smooth_sweep3d_reference(c, x, b)) < tol
+    assert vl.launches["sweep3d"] == before + len(SWEEP_CONFIGS)
+
+
+# (3, 5) is smaller than one tile; the 9-point (131, 77) grid has four
+# colors and ends in partial tiles; 1366² is L1 of the 4096² flagship
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid", ["5pt-3x5", "9pt-131x77", "5pt-1366x1366"])
+def test_cuda_gs_sweep_matches_plain_version(ml, grid, dtype):
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import build_gs_sweep_cache, smooth_gs, smooth_gs_reference
+
+    kind, shape = grid.split("-")
+    dims = tuple(int(v) for v in shape.split("x"))
+    if kind == "5pt":
+        prob = amt.poisson(dims, lattice=True)
+    else:
+        st = -np.ones((3, 3))
+        st[1, 1] = 8.0
+        prob = amt.LatticeProblem(st, dims)
+    A, dinv, tab, nc = _sweep_case(prob, dtype)
+    n = A.shape[0]
+    x, b = _vec(n, A.rows_padded, 14, dtype), _vec(n, A.rows_padded, 15, dtype)
+    tol = TOL if dtype == torch.float32 else 1e-12
+    before = vl.launches["gs"]
+    for it, fwd, bwd, omega in SWEEP_CONFIGS:
+        c = build_gs_sweep_cache(A, dinv, tab, nc, omega, it, fwd, bwd)
+        got = smooth_gs(c, x, b)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and _rel(got, smooth_gs_reference(c, x, b)) < tol
+    assert vl.launches["gs"] == before + len(SWEEP_CONFIGS)
+    with pytest.raises(TypeError):
+        smooth_gs(c, x.to(torch.float32 if dtype == torch.float64 else torch.float64), b)
+
+
+@pytest.fixture(scope="module")
+def ml_3d():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    import algebraicmultigrid_tpu_torch as amt
+
+    return amt.structured_smoothed_aggregation_nd(
+        amt.poisson((45, 45, 45), lattice=True), proxy=12, cut_rows=2000, min_proxy_dim=9
+    )
+
+
+def test_cuda_3d_cycle_and_solve(ml_3d):
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml_3d, device=dev, dtype=torch.float64)
+        b = _vec(h.n_fine, h.fine_padded, 16, torch.float64).to(dev)
+        before = dict(vl.launches)
+        out[dev] = _one_iteration(h, amt.V(), torch.zeros_like(b), b)
+        counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+    assert _rel(out["cuda"], out["cpu"]) < 1e-12
+    assert counts["cuda"]["sweep3d"] == 2 and not any(counts["cpu"].values())
+    A = ml_3d.levels[0].A
+    b = np.random.default_rng(17).standard_normal(A.shape[0])
+    x, hist = amt.solve_refined(ml_3d, b, tol=1e-8, log=True)
+    assert len(hist) <= 5 and np.linalg.norm(b - A @ x) < 1e-8 * np.linalg.norm(b)
+
+
+def test_cuda_fwd_bwd_cycle_runs_k5(ml):
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    ml_fb = amt.structured_smoothed_aggregation(
+        amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3),
+        presmoother=amt.GaussSeidel(ordering="multicolor", sweep=amt.ForwardSweep()),
+        postsmoother=amt.GaussSeidel(ordering="multicolor", sweep=amt.BackwardSweep()), **SETUP_KW,
+    )
+    out = {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml_fb, device=dev, dtype=torch.float64)
+        b = _vec(N * N, h.fine_padded, 18, torch.float64).to(dev)
+        before = vl.launches["gs"]
+        out[dev] = _one_iteration(h, amt.V(), torch.zeros_like(b), b)
+        assert vl.launches["gs"] - before == (2 * len(h.levels) if dev == "cuda" else 0)
+    assert _rel(out["cuda"], out["cpu"]) < 1e-12
