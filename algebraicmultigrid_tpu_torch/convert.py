@@ -45,6 +45,9 @@ operators.  The input is plain data:
 * optionally ``tail``: the whole-tail cache of ``levels[tail_start:]`` —
   ``"levels"``, one factored-leg dict (as ``"fused"`` above) per tail level,
   fine to coarse, and ``"Mc"``, the [n7, n7] coarse solve operator;
+* optionally ``sub``: the whole-subcycle cache of ``levels[sub_start:]`` —
+  the factored-leg dict of level ``sub_start`` (as ``"fused"`` above); its
+  deeper levels are the tail, which must start at ``sub_start + 1``;
 * optionally ``final_A`` (an operator dict) and ``perm0``/``iperm0``, the
   fine level's RCM basis (index vectors of the fine level's padded length).
 """
@@ -66,6 +69,7 @@ from .models.device import (
 from .ops.banded import SDIA, DenseOp, bt_op
 from .ops.bsg import bsg_op
 from .ops.kernels.gs_sweep import build_gs_sweep_cache
+from .ops.kernels.subcycle_kernel import make_fused_subcycle_cache
 from .ops.kernels.sweep3d import build_sweep3d_cache
 from .ops.kernels.tail_kernel import make_fused_tail_cache
 from .ops.kernels.vcycle_legs import FusedLegCache
@@ -190,7 +194,7 @@ def _fused(d, dtype, device):
 
 def hierarchy_from_numpy(
     levels, coarse, *, device, dtype, tail=None, tail_start: int = -1, final_A=None,
-    perm0=None, iperm0=None,
+    perm0=None, iperm0=None, sub=None, sub_start: int = -1,
 ) -> DeviceHierarchy:
     """Build the port's hierarchy from numpy arrays (see module docstring)."""
     device = torch.device(device)
@@ -231,8 +235,16 @@ def hierarchy_from_numpy(
         )
     else:
         tail_start = -1
+    sub_cache = None
+    if sub is not None:
+        if tail_cache is None or sub_start + 1 != tail_start:
+            raise ValueError(f"sub_start {sub_start} is not the level above the tail ({tail_start})")
+        sub_cache = make_fused_subcycle_cache(_fused(sub, dtype, device), tail_cache)
+    else:
+        sub_start = -1
     perms = [None if v is None else _tensor(v, torch.int64, device) for v in (perm0, iperm0)]
     return DeviceHierarchy(
         levels=out, coarse=cc, final_A=None if final_A is None else _op(final_A, dtype, device),
-        tail=tail_cache, tail_start=tail_start, perm0=perms[0], iperm0=perms[1],
+        tail=tail_cache, tail_start=tail_start, sub=sub_cache, sub_start=sub_start,
+        perm0=perms[0], iperm0=perms[1],
     )

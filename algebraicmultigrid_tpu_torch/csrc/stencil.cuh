@@ -1,6 +1,7 @@
 // Per-cell pieces of the factored V-cycle on a Lat2D level, shared by the
-// leg kernels (vcycle_legs.cu: K1, K2, K3) and the whole-tail kernel
-// (tail_kernel.cu: K4).  Each function computes one cell; the kernels own
+// leg kernels (vcycle_legs.cu: K1, K2, K3), the whole-tail kernel
+// (tail_kernel.cu: K4, through tail_levels.cuh) and the whole-subcycle
+// kernel (subcycle_kernel.cu: K9).  Each function computes one cell; the kernels own
 // the loops, the launches and the barriers between dependent phases.
 //
 // Planes are unpadded [Wx, Wy] row-major; every stencil read outside
@@ -246,9 +247,12 @@ inline int make_steps(Steps* s, const int* steps, int n_steps) {
 }
 
 // One cooperative launch with as many blocks as can be co-resident
-// (occupancy per SM x SM count), so every block reaches each grid barrier.
+// (occupancy per SM x SM count, with `smem` bytes of dynamic shared memory a
+// block), so every block reaches each grid barrier.  A kernel's default
+// dynamic limit is 48 KB less its static shared memory, so any dynamic size
+// is opted into first.
 inline int launch_cooperative(const void* fn, int threads, void** args,
-                              cudaStream_t stream) {
+                              cudaStream_t stream, size_t smem = 0) {
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
@@ -256,13 +260,18 @@ inline int launch_cooperative(const void* fn, int threads, void** args,
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  if (err == cudaSuccess && smem > 0) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                        smem);
   }
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   err = cudaLaunchCooperativeKernel(fn, dim3(per_sm * sms), dim3(threads), args,
-                                    0, stream);
+                                    smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

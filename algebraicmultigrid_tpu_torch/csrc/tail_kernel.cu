@@ -26,128 +26,26 @@
 // these levels have fewer cells than a block has threads times four.  One
 // 1024-thread block per SM keeps the grid barrier's arrivals few (on an
 // H100, kernel_variants.py: 0.39 ms; 0.43 ms with every level on the
-// grid; 0.55 ms with 512-thread blocks).
+// grid; 0.55 ms with 512-thread blocks).  The recursion itself lives in
+// tail_levels.cuh, shared with the phased whole-subcycle kernel K9.
 // Planes stay unpadded and stencil reads outside the grid are guarded to
 // zero (the TPU's halo and one-hot selector matmuls do not carry over).
-// The restriction sums each coarse cell's k x k box of T (r - A g) in the
-// same pass, one thread per coarse cell.  Color steps run in place, race
-// free within a step because no two coupled cells share a color.
-//
-// The per-level descriptors (plane pointers, shapes, stencil, coloring,
-// steps) exceed the kernel-parameter space, so they live in a device array
-// of TailLevel (at most kMaxTailLevels levels), filled once per cache by
-// amg_tail_fill_level and copied into shared memory at kernel start.  The
-// wrapper passes one work buffer for every level's x, b, r, g and the
+// The wrapper passes one work buffer for every level's x, b, r, g and the
 // coarse vectors; the kernel allocates nothing.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "stencil.cuh"
+#include "tail_levels.cuh"
 
 namespace {
 
-namespace coop = cooperative_groups;
-using amg::ColorGrid;
-using amg::Stencil;
+using amg::kMaxTailLevels;
+using amg::TailLevel;
 
-constexpr int kMaxTailLevels = 16;
 constexpr int kTailThreads = 1024;
-constexpr int kBlockCells = 4096;
 
-struct TailLevel {
-  const void* A;  // [nA, Wx, Wy] stencil planes
-  const void* dinv;
-  const void* Tp;
-  const void* S;
-  int64_t x_off;  // element offsets into the work buffer (level 0 uses the
-  int64_t b_off;  // call's x_out and b_in instead of x_off and b_off)
-  int64_t r_off;
-  int64_t g_off;
-  int Wx, Wy, Wxc, Wyc, k;
-  int n_steps;
-  int steps[amg::kMaxSteps];
-  double omega;
-  Stencil st;
-  ColorGrid cg;
-};
-
-struct Span {  // the blocks first, first + stride, ... share a level's cells
-  int first;
-  int stride;
-};
-
-struct GridBarrier {
-  coop::grid_group g;
-  __device__ void operator()() { g.sync(); }
-};
-
-struct BlockBarrier {
-  __device__ void operator()() { __syncthreads(); }
-};
-
-// presmooth, residual and restriction of one level; x_in == nullptr is the
-// zero start
-template <typename T, typename Barrier>
-__device__ void level_down(const TailLevel& L, T* x, const T* x_in,
-                           const T* b, T* r, T* g, T* bc, Span sp,
-                           Barrier bar) {
-  const T* A = (const T*)L.A;
-  const T* dinv = (const T*)L.dinv;
-  const T* Tp = (const T*)L.Tp;
-  const T* S = (const T*)L.S;
-  const int Wx = L.Wx, Wy = L.Wy;
-  const T omega = (T)L.omega;
-  for (int s = 0; s < L.n_steps; ++s) {
-    const T* src = s == 0 ? x_in : (const T*)x;
-    const int color = L.steps[s];
-    amg::for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
-      amg::step_cell(x, src, b, A, dinv, L.st, L.cg, color, omega, i, j, Wx,
-                     Wy, s == 0);
-    });
-    bar();
-  }
-  amg::for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
-    amg::residual_cell(r, g, (const T*)x, b, A, S, L.st, i, j, Wx, Wy);
-  });
-  bar();
-  amg::for_cells(L.Wxc, L.Wyc, sp.first, sp.stride, [&](int I, int J) {
-    amg::restrict_cell(bc, (const T*)r, (const T*)g, A, Tp, L.st, I, J, Wx, Wy,
-                       L.Wyc, L.k);
-  });
-  bar();
-}
-
-// correction from the coarse x, then postsmooth
-template <typename T, typename Barrier>
-__device__ void level_up(const TailLevel& L, T* x, const T* b, const T* xc,
-                         Span sp, Barrier bar) {
-  const T* A = (const T*)L.A;
-  const T* dinv = (const T*)L.dinv;
-  const T* Tp = (const T*)L.Tp;
-  const T* S = (const T*)L.S;
-  const int Wx = L.Wx, Wy = L.Wy;
-  const T omega = (T)L.omega;
-  amg::for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
-    amg::correct_cell(x, (const T*)x, xc, A, Tp, S, L.st, i, j, Wx, Wy, L.Wyc,
-                      L.k);
-  });
-  bar();
-  for (int s = 0; s < L.n_steps; ++s) {
-    const int color = L.steps[s];
-    amg::for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
-      amg::step_cell(x, (const T*)x, b, A, dinv, L.st, L.cg, color, omega, i,
-                     j, Wx, Wy, false);
-    });
-    bar();
-  }
-}
-
-// Levels [0, n_grid) run on the whole grid, levels [n_grid, n_lvl) and the
-// coarse solve on block 0.  Every thread of the grid reaches every
-// grid.sync() (no early return).
 template <typename T>
 __global__ void __launch_bounds__(kTailThreads)
     tail_kernel(const TailLevel* lv, int n_lvl, int n_grid, T* work,
@@ -155,53 +53,9 @@ __global__ void __launch_bounds__(kTailThreads)
                 const T* __restrict__ Mc, int n7, int64_t b7_off,
                 int64_t x7_off) {
   __shared__ TailLevel sh[kMaxTailLevels];
-  {
-    const int words = n_lvl * (int)(sizeof(TailLevel) / sizeof(int));
-    const int* src = (const int*)lv;
-    int* dst = (int*)sh;
-    for (int w = threadIdx.x; w < words; w += blockDim.x) dst[w] = src[w];
-  }
-  __syncthreads();
-
-  GridBarrier gbar{coop::this_grid()};
-  BlockBarrier bbar;
-  const Span gspan{(int)blockIdx.x, (int)gridDim.x};
-  const Span bspan{0, 1};
-
-  auto X = [&](int l) -> T* { return l == 0 ? x_out : work + sh[l].x_off; };
-  auto B = [&](int l) -> const T* {
-    return l == 0 ? b_in : (const T*)(work + sh[l].b_off);
-  };
-  auto BC = [&](int l) -> T* {
-    return work + (l + 1 < n_lvl ? sh[l + 1].b_off : b7_off);
-  };
-  auto XC = [&](int l) -> const T* {
-    return l + 1 < n_lvl ? (const T*)X(l + 1) : (const T*)(work + x7_off);
-  };
-  auto down = [&](int l, Span sp, auto bar) {
-    level_down<T>(sh[l], X(l), l == 0 ? x_in : (const T*)nullptr, B(l),
-                  work + sh[l].r_off, work + sh[l].g_off, BC(l), sp, bar);
-  };
-
-  for (int l = 0; l < n_grid; ++l) down(l, gspan, gbar);
-  if (blockIdx.x == 0) {
-    for (int l = n_grid; l < n_lvl; ++l) down(l, bspan, bbar);
-    const T* b7 = work + b7_off;
-    T* x7 = work + x7_off;
-    for (int i = threadIdx.x; i < n7; i += blockDim.x) {
-      T acc = T(0);
-      for (int t = 0; t < n7; ++t) acc += Mc[(int64_t)i * n7 + t] * b7[t];
-      x7[i] = acc;
-    }
-    __syncthreads();
-    for (int l = n_lvl - 1; l >= n_grid; --l) {
-      level_up<T>(sh[l], X(l), B(l), XC(l), bspan, bbar);
-    }
-  }
-  gbar();
-  for (int l = n_grid - 1; l >= 0; --l) {
-    level_up<T>(sh[l], X(l), B(l), XC(l), gspan, gbar);
-  }
+  amg::load_levels(sh, lv, n_lvl);
+  amg::tail_cycle<T>(sh, n_lvl, n_grid, work, x_out, x_in, b_in, Mc, n7,
+                     b7_off, x7_off);
 }
 
 template <typename T>
@@ -223,10 +77,11 @@ int fused_tail(const void* desc, int n_lvl, int n_grid, T* work, T* x_out,
 
 extern "C" int amg_tail_level_bytes() { return (int)sizeof(TailLevel); }
 
-extern "C" int amg_tail_block_cells() { return kBlockCells; }
+extern "C" int amg_tail_block_cells() { return amg::kBlockCells; }
 
 // Fill descriptor `l` of a host-side TailLevel array (the wrapper copies the
-// array to the card once per cache).
+// array to the card once per cache): a tail's levels, or a subcycle's top
+// level followed by its tail's.
 extern "C" int amg_tail_fill_level(void* table, int l, const void* A,
                                    const void* dinv, const void* Tp,
                                    const void* S, long long x_off,
@@ -236,7 +91,7 @@ extern "C" int amg_tail_fill_level(void* table, int l, const void* A,
                                    const int* ctab, int ca, int cb,
                                    const int* steps, int n_steps,
                                    double omega) {
-  if (l < 0 || l >= kMaxTailLevels || n_steps < 1 ||
+  if (l < 0 || l >= amg::kMaxTableLevels || n_steps < 1 ||
       n_steps > amg::kMaxSteps || (k != 2 && k != 3)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,0 +1,192 @@
+// The whole-tail V-cycle recursion over a table of Lat2D level
+// descriptors, shared by the whole-tail kernel K4 (tail_kernel.cu) and the
+// phased whole-subcycle kernel K9 (subcycle_kernel.cu, its phase B).
+//
+// For every tail level, fine to coarse: the presmooth color steps, the
+// residual and the factored restriction b_c = box_k-sum(T * (r - A (S r)));
+// at the bottom the dense coarse solve x_c = Mc b_c; then, coarse to fine,
+// the correction x += Tup - S (A Tup), Tup = T * upsample_k(x_c), and the
+// postsmooth.  Every level below the entry starts from the zero guess.
+//
+// Every pass is a grid-stride loop and dependent passes are separated by
+// grid.sync().  Levels of at most kBlockCells cells and the coarse solve run
+// inside block 0 alone, with __syncthreads() between passes, while the
+// other blocks wait at the next grid barrier.  Color steps run in place,
+// race free within a step because no two coupled cells share a color.  The
+// restriction sums each coarse cell's k x k box of T (r - A g) in the same
+// pass, one thread per coarse cell.
+//
+// The per-level descriptors (plane pointers, shapes, stencil, coloring,
+// steps) exceed the kernel-parameter space, so they live in a device array
+// of TailLevel, filled once per cache by amg_tail_fill_level and copied
+// into shared memory at kernel start (load_levels).  One work buffer holds
+// every level's x, b, r, g and the coarse vectors.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "stencil.cuh"
+
+namespace amg {
+
+namespace coop = cooperative_groups;
+
+constexpr int kMaxTailLevels = 16;
+// a descriptor table holds a tail, or a subcycle's top level and its tail
+constexpr int kMaxTableLevels = kMaxTailLevels + 1;
+constexpr int kBlockCells = 4096;
+
+struct TailLevel {
+  const void* A;  // [nA, Wx, Wy] stencil planes
+  const void* dinv;
+  const void* Tp;
+  const void* S;
+  int64_t x_off;  // element offsets into the work buffer (level 0 uses the
+  int64_t b_off;  // call's x_out and b_in instead of x_off and b_off)
+  int64_t r_off;
+  int64_t g_off;
+  int Wx, Wy, Wxc, Wyc, k;
+  int n_steps;
+  int steps[kMaxSteps];
+  double omega;
+  Stencil st;
+  ColorGrid cg;
+};
+
+struct Span {  // the blocks first, first + stride, ... share a level's cells
+  int first;
+  int stride;
+};
+
+struct GridBarrier {
+  coop::grid_group g;
+  __device__ void operator()() { g.sync(); }
+};
+
+struct BlockBarrier {
+  __device__ void operator()() { __syncthreads(); }
+};
+
+// copy n descriptors from the device table into shared memory
+__device__ __forceinline__ void load_levels(TailLevel* sh, const TailLevel* lv,
+                                            int n) {
+  const int words = n * (int)(sizeof(TailLevel) / sizeof(int));
+  const int* src = (const int*)lv;
+  int* dst = (int*)sh;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) dst[w] = src[w];
+  __syncthreads();
+}
+
+// presmooth, residual and restriction of one level; x_in == nullptr is the
+// zero start
+template <typename T, typename Barrier>
+__device__ void level_down(const TailLevel& L, T* x, const T* x_in,
+                           const T* b, T* r, T* g, T* bc, Span sp,
+                           Barrier bar) {
+  const T* A = (const T*)L.A;
+  const T* dinv = (const T*)L.dinv;
+  const T* Tp = (const T*)L.Tp;
+  const T* S = (const T*)L.S;
+  const int Wx = L.Wx, Wy = L.Wy;
+  const T omega = (T)L.omega;
+  for (int s = 0; s < L.n_steps; ++s) {
+    const T* src = s == 0 ? x_in : (const T*)x;
+    const int color = L.steps[s];
+    for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
+      step_cell(x, src, b, A, dinv, L.st, L.cg, color, omega, i, j, Wx, Wy,
+                s == 0);
+    });
+    bar();
+  }
+  for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
+    residual_cell(r, g, (const T*)x, b, A, S, L.st, i, j, Wx, Wy);
+  });
+  bar();
+  for_cells(L.Wxc, L.Wyc, sp.first, sp.stride, [&](int I, int J) {
+    restrict_cell(bc, (const T*)r, (const T*)g, A, Tp, L.st, I, J, Wx, Wy,
+                  L.Wyc, L.k);
+  });
+  bar();
+}
+
+// correction from the coarse x, then postsmooth
+template <typename T, typename Barrier>
+__device__ void level_up(const TailLevel& L, T* x, const T* b, const T* xc,
+                         Span sp, Barrier bar) {
+  const T* A = (const T*)L.A;
+  const T* dinv = (const T*)L.dinv;
+  const T* Tp = (const T*)L.Tp;
+  const T* S = (const T*)L.S;
+  const int Wx = L.Wx, Wy = L.Wy;
+  const T omega = (T)L.omega;
+  for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
+    correct_cell(x, (const T*)x, xc, A, Tp, S, L.st, i, j, Wx, Wy, L.Wyc,
+                 L.k);
+  });
+  bar();
+  for (int s = 0; s < L.n_steps; ++s) {
+    const int color = L.steps[s];
+    for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
+      step_cell(x, (const T*)x, b, A, dinv, L.st, L.cg, color, omega, i, j,
+                Wx, Wy, false);
+    });
+    bar();
+  }
+}
+
+// One V-cycle over the n_lvl levels of sh (in shared memory): levels
+// [0, n_grid) on the whole grid, levels [n_grid, n_lvl) and the coarse solve
+// on block 0.  Level 0 reads x_in (nullptr: the zero start) and b_in and
+// writes x_out.  Every thread of the grid reaches every grid.sync() (no
+// early return), and the call ends on a grid barrier after its last write.
+template <typename T>
+__device__ void tail_cycle(const TailLevel* sh, int n_lvl, int n_grid,
+                           T* work, T* x_out, const T* x_in, const T* b_in,
+                           const T* __restrict__ Mc, int n7, int64_t b7_off,
+                           int64_t x7_off) {
+  GridBarrier gbar{coop::this_grid()};
+  BlockBarrier bbar;
+  const Span gspan{(int)blockIdx.x, (int)gridDim.x};
+  const Span bspan{0, 1};
+
+  auto X = [&](int l) -> T* { return l == 0 ? x_out : work + sh[l].x_off; };
+  auto B = [&](int l) -> const T* {
+    return l == 0 ? b_in : (const T*)(work + sh[l].b_off);
+  };
+  auto BC = [&](int l) -> T* {
+    return work + (l + 1 < n_lvl ? sh[l + 1].b_off : b7_off);
+  };
+  auto XC = [&](int l) -> const T* {
+    return l + 1 < n_lvl ? (const T*)X(l + 1) : (const T*)(work + x7_off);
+  };
+  auto down = [&](int l, Span sp, auto bar) {
+    level_down<T>(sh[l], X(l), l == 0 ? x_in : (const T*)nullptr, B(l),
+                  work + sh[l].r_off, work + sh[l].g_off, BC(l), sp, bar);
+  };
+
+  for (int l = 0; l < n_grid; ++l) down(l, gspan, gbar);
+  if (blockIdx.x == 0) {
+    for (int l = n_grid; l < n_lvl; ++l) down(l, bspan, bbar);
+    const T* b7 = work + b7_off;
+    T* x7 = work + x7_off;
+    for (int i = threadIdx.x; i < n7; i += blockDim.x) {
+      T acc = T(0);
+      for (int t = 0; t < n7; ++t) acc += Mc[(int64_t)i * n7 + t] * b7[t];
+      x7[i] = acc;
+    }
+    __syncthreads();
+    for (int l = n_lvl - 1; l >= n_grid; --l) {
+      level_up<T>(sh[l], X(l), B(l), XC(l), bspan, bbar);
+    }
+  }
+  gbar();
+  for (int l = n_grid - 1; l >= 0; --l) {
+    level_up<T>(sh[l], X(l), B(l), XC(l), gspan, gbar);
+  }
+}
+
+}  // namespace amg

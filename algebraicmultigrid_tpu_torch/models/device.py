@@ -26,6 +26,9 @@ Port of the JAX package's ``models/device.py``:
 * the trailing run of small such levels plus the coarse solve runs as one
   whole-tail V-cycle (``ops/kernels/tail_kernel.py``) in V-cycles; those
   levels build no legs, and W/F cycles run them through the masked sweeps;
+* with ``subcycle=True`` the level above the tail, the tail and the coarse
+  solve run as one phased whole-subcycle V-cycle from zero
+  (``ops/kernels/subcycle_kernel.py``) in the V recursion;
 * ``run_fixed_cycles`` runs the top level's cross-cycle updown leg once per
   cycle;
 * the V/W/F recursion unrolls in Python over the level list, and the
@@ -51,6 +54,7 @@ from ..ops.bsg import bsg_from_csr, rcm_permutation
 from ..ops.coloring import color_steps, graph_coloring
 from ..ops.kernels.gs_sweep import GSSweepCache, build_gs_sweep_cache, smooth_gs
 from ..ops.kernels.scan_gs import smooth_scan_gs
+from ..ops.kernels.subcycle_kernel import build_fused_subcycle_cache, fused_subcycle
 from ..ops.kernels.sweep3d import Sweep3DCache, build_sweep3d_cache, smooth_sweep3d
 from ..ops.kernels.tail_kernel import build_fused_tail_cache, fused_tail
 from ..ops.kernels.vcycle_legs import build_level_legs, fused_down, fused_up, fused_updown
@@ -173,6 +177,8 @@ class DeviceHierarchy:
     final_A: Any = None  # the coarse operator, for a hierarchy with no levels
     tail: Any = None     # FusedTailCache of levels[tail_start:] + coarse solve
     tail_start: int = -1
+    sub: Any = None      # FusedSubcycleCache of levels[sub_start:] + coarse solve
+    sub_start: int = -1
     # fine-level RCM basis: the cycle runs in the permuted basis; the solve
     # drivers apply perm0 to b on entry and iperm0 to x on exit (int64
     # index vectors extended by the identity over the padding; None =
@@ -533,7 +539,7 @@ def _permute_rect(M, prow, pcol):
 
 def build_device_hierarchy(
     ml: MultiLevel, *, device, dtype, fused: bool = True, tail: bool = True,
-    tail_max_rows: int = 250_000, sweeps: bool = True,
+    tail_max_rows: int = 250_000, sweeps: bool = True, subcycle: bool = False,
 ) -> DeviceHierarchy:
     """Lower a host hierarchy to device tensors.
 
@@ -552,9 +558,13 @@ def build_device_hierarchy(
     build no legs.  ``sweeps`` lets multicolor GS/SOR lattice levels run
     their whole-sweep kernel: K5 on a Lat2D level with neither legs nor a
     place in the tail, K7 on a 3-D LatND level; ``sweeps=False`` keeps the
-    masked sweep there.  The keywords are the counterparts of the JAX
-    package's ``AMG_PALLAS_FUSED``/``AMG_PALLAS_TAIL``,
-    ``AMG_TAIL_MAX_ROWS`` and ``AMG_PALLAS_GS``/``AMG_SWEEP3D``."""
+    masked sweep there.  ``subcycle`` builds, when the tail starts at level
+    2 or deeper, the phased whole-subcycle cache of the level above it
+    (``sub_start = tail_start − 1``, where its gate holds); V-cycles then
+    run that level, the tail and the coarse solve as one call.  The
+    keywords are the counterparts of the JAX package's
+    ``AMG_PALLAS_FUSED``/``AMG_PALLAS_TAIL``, ``AMG_TAIL_MAX_ROWS``,
+    ``AMG_PALLAS_GS``/``AMG_SWEEP3D`` and ``AMG_PALLAS_SUB``."""
     device = torch.device(device)
 
     def lower(M, target_pad, force_ell=False):
@@ -637,6 +647,16 @@ def build_device_hierarchy(
         )
         out.append(DeviceLevel(A=A_dev, P=P_dev, R=R_dev, pre=pre, post=post, fused=legs))
 
+    # sub_start must be a coarse level (its cycle starts from zero); level 0
+    # receives real iterates and keeps its own kernels
+    sub, sub_start = None, -1
+    if subcycle and tail_cache is not None and tail_start >= 2:
+        sub = build_fused_subcycle_cache(
+            ml.levels, ml, tail_start - 1, dtype, device, legs=out[tail_start - 1].fused, tail=tail_cache
+        )
+        if sub is not None:
+            sub_start = tail_start - 1
+
     perm0 = iperm0 = None
     if perms[0] is not None:
         pi0 = perms[0]
@@ -650,6 +670,8 @@ def build_device_hierarchy(
         final_A=lower(ml.final_A, ROW_PAD),
         tail=tail_cache,
         tail_start=tail_start,
+        sub=sub,
+        sub_start=sub_start,
         perm0=perm0,
         iperm0=iperm0,
     )
@@ -676,6 +698,11 @@ def _cycle(h: DeviceHierarchy, cycle: Cycle, x, b, lvl: int, x_zero: bool = Fals
     ``x_zero`` marks x as the zero vector (coarse-level recursion always
     starts from the zero guess, multilevel.jl:225): the fused down leg then
     does not read x."""
+    if h.sub is not None and lvl == h.sub_start and isinstance(cycle, V) and x.dim() == 1 and x_zero:
+        # this level, every level below it and the coarse solve, one call
+        # from the zero guess.  Unlike the JAX package's branch it requires
+        # x_zero: an F cycle's V pass reaches this level with a nonzero x.
+        return fit_len(fused_subcycle(h.sub, b), x.shape[0])
     if h.tail is not None and lvl == h.tail_start and isinstance(cycle, V) and x.dim() == 1:
         # every level from here down plus the coarse solve, one call
         return fused_tail(h.tail, x, b, x_zero=x_zero)
@@ -777,13 +804,13 @@ def _resolve(ml: MultiLevel, device, dtype):
     return device, dtype
 
 
-def get_device_hierarchy(ml: MultiLevel, device=None, dtype=None) -> DeviceHierarchy:
-    """The device hierarchy the solve drivers use for (device, dtype),
-    built on first use and cached on ``ml``."""
+def get_device_hierarchy(ml: MultiLevel, device=None, dtype=None, *, subcycle: bool = False) -> DeviceHierarchy:
+    """The device hierarchy the solve drivers use for (device, dtype,
+    subcycle), built on first use and cached on ``ml``."""
     device, dtype = _resolve(ml, device, dtype)
-    key = ("torch-hierarchy", str(device), str(dtype))
+    key = ("torch-hierarchy", str(device), str(dtype), bool(subcycle))
     if key not in ml._device_cache:
-        ml._device_cache[key] = build_device_hierarchy(ml, device=device, dtype=dtype)
+        ml._device_cache[key] = build_device_hierarchy(ml, device=device, dtype=dtype, subcycle=subcycle)
     return ml._device_cache[key]
 
 
@@ -872,10 +899,13 @@ def cg_device(
     device=None,
     dtype=None,
     log: bool = False,
+    subcycle: bool = False,
 ):
-    """AMG-preconditioned conjugate gradients on the device."""
+    """AMG-preconditioned conjugate gradients on the device.  ``subcycle``
+    here and in the other drivers runs the hierarchy built with
+    ``build_device_hierarchy(..., subcycle=True)``."""
     device, dtype = _resolve(ml, device, dtype)
-    h = get_device_hierarchy(ml, device, dtype)
+    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle)
     bp, n = _upload(h, b, device, dtype)
     thresh = max(tol * float(torch.linalg.norm(bp)), abstol)
     x, itr, normr = _pcg_fused(h, bp, maxiter, thresh, cycle)
@@ -897,12 +927,13 @@ def solve_device(
     calculate_residual: bool = True,
     device=None,
     dtype=None,
+    subcycle: bool = False,
 ):
     """Device-engine solve (mirrors solve_mg / multilevel.jl:158-198).  As
     in the JAX package, the initial guess ``x`` is used only on the logged
     (``log`` or ``verbose``) path; the other path starts from zero."""
     device, dtype = _resolve(ml, device, dtype)
-    h = get_device_hierarchy(ml, device, dtype)
+    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle)
     bp, n = _upload(h, b, device, dtype)
     if reltol is None:
         reltol = math.sqrt(torch.finfo(dtype).eps)
@@ -933,14 +964,14 @@ def solve_device(
     return (xout, residuals) if log else xout
 
 
-def device_cycle_fn(ml: MultiLevel, cycle: Cycle = V(), *, device=None, dtype=None):
+def device_cycle_fn(ml: MultiLevel, cycle: Cycle = V(), *, device=None, dtype=None, subcycle: bool = False):
     """A function ``b -> x`` applying exactly one cycle from zero — the
     preconditioner contract (preconditioner.jl:12-19).  ``b`` may be a host
     array or a device tensor; x comes back on the device in the caller's
     ordering (the RCM basis, where the hierarchy has one, is entered and
     left around the cycle)."""
     device, dtype = _resolve(ml, device, dtype)
-    h = get_device_hierarchy(ml, device, dtype)
+    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle)
 
     def apply(b):
         bp, n = _upload(h, b, device, dtype)
@@ -987,6 +1018,7 @@ def solve_refined(
     log: bool = False,
     return_device: bool = False,
     stats: Optional[dict] = None,
+    subcycle: bool = False,
 ):
     """Mixed-precision iterative refinement: float32 AMG inner solves under
     a float64 outer residual loop:
@@ -1004,7 +1036,7 @@ def solve_refined(
     returns the f64 solution on the device.  ``stats``, when given, receives
     the inner iteration count of each round under ``"inner_iters"``."""
     device, dtype = _resolve(ml, device, dtype)
-    h = get_device_hierarchy(ml, device, dtype)
+    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle)
     A64 = _get_fine_f64(ml, device)
     n = h.n_fine
     if isinstance(b, torch.Tensor):

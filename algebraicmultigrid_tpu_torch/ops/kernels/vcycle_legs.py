@@ -17,15 +17,16 @@ Each leg has a hand-written CUDA kernel (``csrc/vcycle_legs.cu``; K3 is one
 cooperative launch) and a plain PyTorch version beside it
 (``fused_down_reference``, ``fused_up_reference``,
 ``fused_updown_reference``).  The port's CUDA sources (these legs, the
-whole-tail kernel ``csrc/tail_kernel.cu``, the BSG SpMV ``csrc/bsg_spmv.cu``,
-the natural-order GS sweep ``csrc/scan_gs.cu`` and the whole-sweep kernels
-K5 ``csrc/gs_sweep.cu`` and K7 ``csrc/sweep3d.cu``) build into one library
+whole-tail kernel ``csrc/tail_kernel.cu``, the whole-subcycle kernel
+``csrc/subcycle_kernel.cu``, the BSG SpMV ``csrc/bsg_spmv.cu``, the
+natural-order GS sweep ``csrc/scan_gs.cu`` and the whole-sweep kernels K5
+``csrc/gs_sweep.cu`` and K7 ``csrc/sweep3d.cu``) build into one library
 at first use — one ``nvcc`` process per source for ``sm_90a``, all started
 together, then one link — loaded with ``ctypes``.  The wrappers take the
 plain version only for tensors on the CPU; on a CUDA tensor they launch the
 kernel or raise.  ``launches`` counts the kernel launches of every wrapper
-of that library (``tail`` is the whole-tail kernel's, ``bsg`` the BSG
-SpMV's, ``scan_gs`` the natural-order sweep's, ``gs`` K5's and ``sweep3d``
+of that library (``tail`` is the whole-tail kernel's, ``sub`` the
+whole-subcycle kernel's, ``bsg`` the BSG SpMV's, ``scan_gs`` the natural-order sweep's, ``gs`` K5's and ``sweep3d``
 K7's).
 
 Left for later (as in the JAX package, they are not on the SA main path):
@@ -66,16 +67,20 @@ __all__ = [
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = tuple(
-    CSRC / f for f in ("vcycle_legs.cu", "tail_kernel.cu", "bsg_spmv.cu", "scan_gs.cu", "gs_sweep.cu", "sweep3d.cu")
+    CSRC / f
+    for f in (
+        "vcycle_legs.cu", "tail_kernel.cu", "subcycle_kernel.cu", "bsg_spmv.cu", "scan_gs.cu", "gs_sweep.cu",
+        "sweep3d.cu",
+    )
 )
-HEADERS = (CSRC / "stencil.cuh", CSRC / "sweep_tile.cuh")
+HEADERS = (CSRC / "stencil.cuh", CSRC / "tail_levels.cuh", CSRC / "sweep_tile.cuh")
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # the kernels' fixed parameter-struct capacities (csrc/stencil.cuh)
 MAX_OFFSETS = 32
 MAX_COLOR_CELLS = 64
 
-launches = {"down": 0, "up": 0, "updown": 0, "tail": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0}
+launches = {"down": 0, "up": 0, "updown": 0, "tail": 0, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,6 +392,7 @@ _SIGNATURES = {
     "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 4 + [_P],
     "amg_fused_updown_{}": [_P] * 11 + _STENCIL + [_I] * 5 + [_P],
     "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _P],
+    "amg_fused_subcycle_{}": [_P, _I, _I] + [_P] * 7 + [_I, _L, _L] + [_I] * 5 + [_P],
     "amg_scan_gs_{}": [_P] * 6 + [_I, _I, _D, _I, _I, _I, _P],
     "amg_gs_sweep_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
     "amg_sweep3d_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
@@ -395,7 +401,7 @@ _SIGNATURES = {
 
 def load_library():
     """Build (at first use) and load the port's CUDA library: the legs, the
-    whole-tail kernel, the BSG SpMV, the natural-order GS sweep and the
+    whole-tail and whole-subcycle kernels, the BSG SpMV, the natural-order GS sweep and the
     whole-sweep kernels K5 and K7."""
     global _lib
     if _lib is not None:
@@ -411,6 +417,7 @@ def load_library():
             fn.argtypes, fn.restype = args, _I
     lib.amg_tail_level_bytes.argtypes, lib.amg_tail_level_bytes.restype = [], _I
     lib.amg_tail_block_cells.argtypes, lib.amg_tail_block_cells.restype = [], _I
+    lib.amg_subcycle_smem_limit.argtypes, lib.amg_subcycle_smem_limit.restype = [], _I
     lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L] + [_I] * 5 + _STENCIL
     lib.amg_tail_fill_level.restype = _I
     lib.amg_bsg_spmv_f32.argtypes = [_P] * 5 + [_L, _I, _I, _L, _P]

@@ -6,6 +6,7 @@ Runs, in order, and exits non-zero on the first failure:
 2. builds the port's CUDA library from the sources in the checkout
    (``csrc/vcycle_legs.cu`` with K1 ``fused_down``, K2 ``fused_up``, K3
    ``fused_updown``; ``csrc/tail_kernel.cu`` with K4 ``fused_tail``;
+   ``csrc/subcycle_kernel.cu`` with K9 ``fused_subcycle``;
    ``csrc/bsg_spmv.cu`` with K6; ``csrc/scan_gs.cu``; ``csrc/gs_sweep.cu``
    with K5 and ``csrc/sweep3d.cu`` with K7), one ``nvcc`` per source, all
    started together, then one link;
@@ -64,7 +65,20 @@ Runs, in order, and exits non-zero on the first failure:
     levels and K5 on every Lat2D level, holds K5 against its plain version
     at L0 (4096²) and L1 (1366²), runs ``solve_refined(tol=1e-8)`` with the
     counters zeroed just before, and counts one V-cycle: exactly 14 K5
-    launches and none of K1–K4.
+    launches and none of K1–K4;
+12. lowers the 4096² flagship of phase 4 with ``subcycle=True`` and asserts
+    ``sub_start`` 1 and ``tail_start`` 2, as the JAX package gives them;
+    holds K9 ``fused_subcycle`` against its plain version at L1 (1366²) in
+    float32 and float64 (max relative error <= 1e-5 and 1e-12), and at L1
+    (64²) of the 192² problem with the tail limited to 600 rows; times K9,
+    its plain version, the route it replaces (L1 ``fused_down`` + K4 + L1
+    ``fused_up``) and K4 entered at L1 (``tail_max_rows=2_500_000``), each
+    held against K9's output; runs ``solve_refined(tol=1e-8,
+    subcycle=True)`` with the counters zeroed just before (relres < 1e-8
+    within 4 rounds, K9 launched, K1/K2 only at L0, no K4) and 400
+    ``run_fixed_cycles`` on b = A·1 (relres < 1e-5, exactly updown 399,
+    sub 400, down 1, up 1, tail 0); and times a V-cycle and a fixed cycle
+    with and without the subcycle.
 
 The last two lines of output are the card's ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``; the line before them lists every
@@ -114,6 +128,7 @@ SOURCES = {
     "scan_gs": "algebraicmultigrid_tpu_torch/csrc/scan_gs.cu",
     "gs_sweep": "algebraicmultigrid_tpu_torch/csrc/gs_sweep.cu",
     "sweep3d": "algebraicmultigrid_tpu_torch/csrc/sweep3d.cu",
+    "fused_subcycle": "algebraicmultigrid_tpu_torch/csrc/subcycle_kernel.cu",
 }
 REPLACES = {
     "fused_down": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:1432",
@@ -125,10 +140,11 @@ REPLACES = {
     "scan_gs": "algebraicmultigrid_tpu/models/device.py:277 (_scan_sweep, an XLA lax.scan, not a Pallas kernel)",
     "gs_sweep": "algebraicmultigrid_tpu/ops/pallas/gs_kernel.py:298",
     "sweep3d": "algebraicmultigrid_tpu/ops/pallas/sweep3d_kernel.py:209",
+    "fused_subcycle": "algebraicmultigrid_tpu/ops/pallas/subcycle_kernel.py:310",
 }
 COUNTER = {
     "fused_down": "down", "fused_up": "up", "fused_updown": "updown", "fused_tail": "tail",
-    "bsg_spmv": "bsg", "scan_gs": "scan_gs", "gs_sweep": "gs", "sweep3d": "sweep3d",
+    "bsg_spmv": "bsg", "scan_gs": "scan_gs", "gs_sweep": "gs", "sweep3d": "sweep3d", "fused_subcycle": "sub",
 }
 # the unstructured problem: bench.py's scrambled Poisson
 NU = 1024
@@ -464,8 +480,8 @@ def fixed_cycles(device, ml, h):
 
     if not np.isfinite(xh).all() or not relres < CYCLES_RELRES:
         raise AssertionError(f"relres_after_cycles {relres} >= {CYCLES_RELRES}")
-    want = {"updown": CYCLES - 1, "tail": CYCLES, "down": CYCLES + 1, "up": CYCLES + 1, "bsg": 0, "scan_gs": 0,
-            "gs": 0, "sweep3d": 0}
+    want = {"updown": CYCLES - 1, "tail": CYCLES, "down": CYCLES + 1, "up": CYCLES + 1, "sub": 0, "bsg": 0,
+            "scan_gs": 0, "gs": 0, "sweep3d": 0}
     if counts != want:
         raise AssertionError(f"fixed-cycle launches {counts} != {want}")
     if not all(fixed_rel[k] <= tol for k, tol in FIXED_RTOL.items()):
@@ -994,6 +1010,179 @@ def lattice_fwd_bwd(device):
     return rows_k5, counts, per_cycle, vcycle_ms
 
 
+# --------------------------------------------------------------------------
+# the phased whole-subcycle path (phase 12)
+# --------------------------------------------------------------------------
+
+EXPECT_SUB_START = 1  # the JAX package's at 4096²: the level above the tail
+SUB_RTOL = {"float32": KERNEL_RTOL, "float64": 1e-12}
+SUB_SMALL_TAIL_ROWS = 600  # the 192² problem's tail at L2, its sub level L1 (64²)
+SUB_ROUTE_TAIL_ROWS = 2_500_000  # K4 entered at L1: the one-launch route without tiles
+
+
+def sub_work(cache):
+    """(words, flops) of one whole-subcycle call: level t's planes, D⁻¹, T,
+    S and b read once and x written once, the tail's planes and Mc read once
+    (b_c, x_c and x_mid never leave the kernel's buffers); the flops of the
+    down leg from zero, the tail and the up leg."""
+    top = cache.top
+    n = top.row_dims[0] * top.row_dims[1]
+    n0 = cache.tail.levels[0].row_dims[0] * cache.tail.levels[0].row_dims[1]
+    t_words, t_flops = tail_work(cache.tail, True)
+    words = (len(top.offsA) + 3) * n + 2 * n + t_words - 2 * n0
+    flops = (leg_work(top, top.steps, False, True, x_zero=True)[1] + t_flops
+             + leg_work(top, top.steps, True, False)[1])
+    return words, flops
+
+
+def compare_subcycle(cache, b, where):
+    """K9 against its plain version on one b; (max abs, max rel) error."""
+    import torch
+
+    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+
+    got, ref = sk.fused_subcycle(cache, b), sk.fused_subcycle_reference(cache, b)
+    torch.cuda.synchronize()
+    abs_err, rel_err = errors(got, ref)
+    key = str(b.dtype).removeprefix("torch.")
+    log(f"kernel fused_subcycle {where} {cache.top.row_dims} {key} tile {cache.tile} halos {cache.halos}:"
+        f" max_rel_err {rel_err!r} max_abs_err {abs_err!r}")
+    if not rel_err <= SUB_RTOL[key]:
+        raise AssertionError(f"fused_subcycle {where} {key} disagrees with its plain version: {rel_err}")
+    return got, abs_err
+
+
+def subcycle_path(device, ml):
+    """Phase 12: the 4096² flagship with the subcycle: K9 against its plain
+    version and the routes it replaces, the refined solve and the
+    fixed-cycle loop with the counters zeroed just before each."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _cycle, _one_iteration, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+
+    t0 = time.perf_counter()
+    h = amt.get_device_hierarchy(ml, device=device, dtype=torch.float32, subcycle=True)
+    torch.cuda.synchronize()
+    log(f"subcycle {N}x{N}: tail_start {h.tail_start} sub_start {h.sub_start} tile {h.sub and h.sub.tile}"
+        f" lowering_s {time.perf_counter() - t0!r}")
+    if (h.sub_start, h.tail_start) != (EXPECT_SUB_START, EXPECT_TAIL_START) or h.sub.top is not h.levels[1].fused:
+        raise AssertionError(f"sub_start {h.sub_start}, tail_start {h.tail_start}: not"
+                             f" {EXPECT_SUB_START} and {EXPECT_TAIL_START} with L1's legs")
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    L1 = h.levels[1]
+    n1, pad1 = L1.A.shape[0], L1.A.rows_padded
+
+    def vec(m, length, dtype=torch.float32):
+        v = torch.zeros(length, dtype=dtype)
+        v[:m] = torch.randn(m, generator=gen, dtype=dtype)
+        return v.to(device)
+
+    # K9 at L1, float32 (timed) and float64, against its plain version
+    b = vec(n1, pad1)
+    x_sub, abs32 = compare_subcycle(h.sub, b, "L1")
+    row = dict(level=1, dims=h.sub.top.row_dims, tile=h.sub.tile, max_abs_err=abs32,
+               ms=time_ms(lambda: sk.fused_subcycle(h.sub, b)),
+               plain_ms=time_ms(lambda: sk.fused_subcycle_reference(h.sub, b)))
+    row["bound_ms"], row["bound_by"] = bound(*sub_work(h.sub), 4)
+    sub64 = sk.build_fused_subcycle_cache(ml.levels, ml, EXPECT_SUB_START, torch.float64, device)
+    _, abs64 = compare_subcycle(sub64, vec(n1, pad1, torch.float64), "L1")
+    del sub64
+
+    # the routes K9 replaces, on the same b: the L1 legs + K4, and K4 from L1
+    h_legs = amt.build_device_hierarchy(ml, device=device, dtype=torch.float32)
+    h_t1 = amt.build_device_hierarchy(ml, device=device, dtype=torch.float32, tail_max_rows=SUB_ROUTE_TAIL_ROWS)
+    if h_legs.sub is not None or h_legs.tail_start != EXPECT_TAIL_START or h_t1.tail_start != 1:
+        raise AssertionError(f"routes: tail_start {h_legs.tail_start} and {h_t1.tail_start}, not 2 and 1")
+    z = torch.zeros_like(b)
+    routes = {
+        "route_ms": lambda: _cycle(h_legs, amt.V(), z, b, 1, x_zero=True),
+        "tail_at_l1_ms": lambda: tk.fused_tail(h_t1.tail, z, b, x_zero=True),
+    }
+    for key, fn in routes.items():
+        rel = errors(fn(), x_sub)[1]
+        row[key] = time_ms(fn)
+        log(f"subcycle route {key}: {row[key]!r} ms, max_rel_err against K9 {rel!r}")
+        if not rel <= KERNEL_RTOL:
+            raise AssertionError(f"{key} disagrees with K9: {rel}")
+    del h_t1
+    log(f"kernel fused_subcycle L1 {row['dims']}: kernel {row['ms']!r} ms plain {row['plain_ms']!r} ms"
+        f" legs+K4 {row['route_ms']!r} ms K4 from L1 {row['tail_at_l1_ms']!r} ms"
+        f" bound {row['bound_ms']!r} ms ({row['bound_by']})")
+
+    # the 192² problem: a second size with partial tiles and a clipped edge
+    ml_s = setup(SMALL, proxy=64, cut_rows=2000, min_proxy_dim=16)
+    abs_small = []
+    for dtype in (torch.float32, torch.float64):
+        hs = amt.build_device_hierarchy(ml_s, device=device, dtype=dtype, tail_max_rows=SUB_SMALL_TAIL_ROWS,
+                                        subcycle=True)
+        if (hs.sub_start, hs.tail_start) != (1, 2):
+            raise AssertionError(f"{SMALL}²: sub_start {hs.sub_start}, tail_start {hs.tail_start}")
+        Ls = hs.levels[1]
+        abs_small.append(compare_subcycle(hs.sub, vec(Ls.A.shape[0], Ls.A.rows_padded, dtype), f"{SMALL}² L1")[1])
+    row["max_abs_err"] = max(abs32, abs64, *abs_small)
+
+    # the refined solve, then the fixed-cycle loop, counters zeroed before each
+    bh = np.random.default_rng(8).standard_normal(N * N)
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    stats = {}
+    x, hist = amt.solve_refined(ml, bh, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats,
+                                subcycle=True)
+    t2 = time.perf_counter()
+    solve_counts = read_counts()
+    relres = float(np.linalg.norm(bh - ml.levels[0].A @ x) / np.linalg.norm(bh))
+    log(f"subcycle solve_refined: rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']}"
+        f" relres {relres!r} history {hist} {t2 - t1!r} s; launches {solve_counts}")
+
+    bf = torch.zeros(h.fine_padded, device=device)
+    bf[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device=device)
+    xf = torch.zeros_like(bf)
+    torch.cuda.synchronize()
+    zero_counts()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    xc = run_fixed_cycles(h, xf, bf, CYCLES)
+    stop.record()
+    torch.cuda.synchronize()
+    cycle_counts = read_counts()
+    fixed_ms = start.elapsed_time(stop) / CYCLES
+    xch = xc[: N * N].double().cpu().numpy()
+    relres_fixed = float(np.linalg.norm(bf[: N * N].double().cpu().numpy() - ml.levels[0].A @ xch)
+                         / float(bf.double().norm()))
+    log(f"subcycle fixed cycles {CYCLES}: ms_per_cycle {fixed_ms!r} relres_after_cycles {relres_fixed!r};"
+        f" launches {cycle_counts}")
+
+    # a V-cycle and a fixed cycle with and without the subcycle, in turns
+    times = {"vcycle_legs": [], "vcycle_sub": [], "fixed_legs": [], "fixed_sub": []}
+    for hh, tag in ((h_legs, "legs"), (h, "sub"), (h, "sub"), (h_legs, "legs")):
+        times[f"vcycle_{tag}"].append(time_ms(lambda: _one_iteration(hh, amt.V(), xf, bf), reps=10))
+        times[f"fixed_{tag}"].append(time_ms(lambda: run_fixed_cycles(hh, xf, bf, 50), reps=2) / 50)
+    del h_legs
+    log(f"subcycle timings in turns (legs, sub, sub, legs): {times}")
+    row.update(vcycle_ms=times["vcycle_sub"][0], vcycle_legs_ms=times["vcycle_legs"][0],
+               fixed_ms=times["fixed_sub"][0], fixed_legs_ms=times["fixed_legs"][0])
+
+    if not (x.shape == (N * N,) and np.isfinite(x).all()):
+        raise AssertionError("subcycle: the solution is not a finite vector of the problem's size")
+    if not (relres < TOL and len(hist) - 1 <= MAX_ROUNDS):
+        raise AssertionError(f"subcycle solve_refined relres {relres} after {len(hist) - 1} rounds")
+    c = solve_counts
+    if not (c["sub"] > 0 and c["tail"] == 0 and c["down"] == c["up"] == c["sub"] and c["updown"] == 0):
+        raise AssertionError(f"the subcycle solve's launches {c}: K9 once per V-cycle, K1/K2 only at L0, no K4")
+    if not (np.isfinite(xch).all() and relres_fixed < CYCLES_RELRES):
+        raise AssertionError(f"subcycle relres_after_cycles {relres_fixed} >= {CYCLES_RELRES}")
+    want = dict.fromkeys(cycle_counts, 0)
+    want.update(updown=CYCLES - 1, sub=CYCLES, down=1, up=1)
+    if cycle_counts != want:
+        raise AssertionError(f"subcycle fixed-cycle launches {cycle_counts} != {want}")
+    return row, solve_counts, cycle_counts
+
+
 def main():
     import torch
 
@@ -1021,7 +1210,7 @@ def main():
     del h
     torch.cuda.empty_cache()
     small_reference(device)
-    del ml
+    ml._device_cache.clear()  # phase 12 lowers the flagship again
     torch.cuda.empty_cache()
 
     Ap, ml_u, h_u = unstructured_setup(device)
@@ -1033,6 +1222,8 @@ def main():
     rows_k7, counts_3d, cycle_3d, _ = lattice_3d(device)
     torch.cuda.empty_cache()
     rows_k5, counts_fb, cycle_fb, _ = lattice_fwd_bwd(device)
+    torch.cuda.empty_cache()
+    row_sub, counts_sub, cycle_sub = subcycle_path(device, ml)
 
     kernels = []
     for name, rs in rows.items():
@@ -1063,6 +1254,12 @@ def main():
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=None,
         ))
+    kernels.append(dict(
+        name="fused_subcycle", route="cuda", source=SOURCES["fused_subcycle"], replaces=REPLACES["fused_subcycle"],
+        launches=cycle_sub["sub"], launches_solve=counts_sub["sub"], max_abs_err=row_sub["max_abs_err"],
+        ms=row_sub["ms"], plain_ms=row_sub["plain_ms"], bound_ms=row_sub["bound_ms"], bound_by=row_sub["bound_by"],
+        library_ms=None, route_ms=row_sub["route_ms"], tail_at_l1_ms=row_sub["tail_at_l1_ms"],
+    ))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 under alternative launch shapes and cell loops, on one NVIDIA card; with
 the argument ``sweeps``, the whole-sweep kernels K7 (``sweep3d``, at L0 of
 256³, symmetric GS) and K5 (``gs_sweep``, at 4096², forward GS) under
-alternative thread blocks and loaded boxes.
+alternative thread blocks and loaded boxes; with ``subcycle``, the
+whole-subcycle kernel K9 (``fused_subcycle``, at L1 of 4096²) under
+alternative thread blocks (1024 threads, one block an SM, as K4; smaller
+blocks, several an SM, as K5) and tile edges.
 
 Each variant is the tree's CUDA sources with a few lines edited, built into
 its own library (all builds run in parallel) and swapped in under the same
@@ -12,11 +15,15 @@ K4 time (x = 0), one fixed cycle (``run_fixed_cycles``) and K3's error
 against its plain version, then the same work through K2 + K1.  Run from the
 repository root:
 
-    python3 kernel_variants.py [sweeps]
+    python3 kernel_variants.py [sweeps | subcycle]
 
 In ``sweeps`` mode each source variant runs with each box of ``BOXES_3D``
 / ``BOXES_2D`` (the tile plus halo that ``tiled_sweep.plan_box`` starts
-from), with the error against the plain version.
+from), with the error against the plain version.  In ``subcycle`` mode each
+source variant runs K9 with each tile edge of ``SUB_TILES`` (the cache
+shrinks a tile whose shared memory does not fit), with the error against
+the plain version, and a fixed cycle (``run_fixed_cycles``) at each
+variant's default tile.
 """
 
 import subprocess
@@ -73,6 +80,22 @@ SWEEP_VARIANTS = {
         ("sweep_tile.cuh", "z = ND == 3 ? 2 : 1;", "z = ND == 3 ? 4 : 1;"),
     ],
 }
+SUB_VARIANTS = {
+    "tree": [],
+    "sub512x2": [
+        ("subcycle_kernel.cu", "kSubThreads = 1024;", "kSubThreads = 512;"),
+        ("subcycle_kernel.cu", "kSubMinBlocks = 1;", "kSubMinBlocks = 2;"),
+    ],
+    "sub256x4": [
+        ("subcycle_kernel.cu", "kSubThreads = 1024;", "kSubThreads = 256;"),
+        ("subcycle_kernel.cu", "kSubMinBlocks = 1;", "kSubMinBlocks = 4;"),
+    ],
+    "sub256x2": [
+        ("subcycle_kernel.cu", "kSubThreads = 1024;", "kSubThreads = 256;"),
+        ("subcycle_kernel.cu", "kSubMinBlocks = 1;", "kSubMinBlocks = 2;"),
+    ],
+}
+SUB_TILES = (24, 36, 48, 72, 96)
 # (12, 12, 64) is lifted to (14, 14, 64): a one-step-per-halo tile keeps 8 cells
 BOXES_3D = [(14, 14, 64), (20, 20, 64), (16, 16, 64), (24, 24, 64), (14, 16, 128), (32, 32, 32)]
 BOXES_2D = [(1, 32, 64), (1, 64, 128), (1, 32, 128), (1, 16, 128), (1, 64, 64), (1, 16, 256)]
@@ -152,13 +175,51 @@ def sweeps(use):
                 print(f"round {rnd} {name:12s} {dims} box {c.box}: {ms!r} ms  max_rel_err {err!r}", flush=True)
 
 
+def subcycle(use):
+    """K9 at L1 of 4096², per source variant and tile edge, and a fixed
+    cycle per variant."""
+    import dataclasses
+
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+
+    import chip_smoke as cs
+
+    ml = cs.setup(N)
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32, subcycle=True)
+    top, tail = h.sub.top, h.sub.tail
+    L1 = h.levels[1]
+    gen = torch.Generator().manual_seed(0)
+    b = torch.zeros(L1.A.rows_padded)
+    b[: L1.A.shape[0]] = torch.randn(L1.A.shape[0], generator=gen)
+    b = b.cuda()
+    want = sk.fused_subcycle_reference(h.sub, b)
+    bf = torch.zeros(h.fine_padded, device="cuda")
+    bf[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
+    for rnd in range(ROUNDS):
+        for name in SUB_VARIANTS:
+            use(name)
+            for tile in SUB_TILES:
+                c = sk.make_fused_subcycle_cache(top, tail, tile=tile)
+                err = cs.errors(sk.fused_subcycle(c, b), want)[1]
+                ms = cs.time_ms(lambda: sk.fused_subcycle(c, b))
+                print(f"round {rnd} {name:10s} tile {c.tile:3d}: K9 {ms!r} ms  max_rel_err {err!r}", flush=True)
+            hh = dataclasses.replace(h, sub=sk.make_fused_subcycle_cache(top, tail))
+            fc = cs.time_ms(lambda: run_fixed_cycles(hh, torch.zeros_like(bf), bf, 50), reps=2) / 50
+            print(f"round {rnd} {name:10s} tile {hh.sub.tile:3d}: fixed cycle {fc!r} ms", flush=True)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA card: kernel_variants needs one")
         return 1
-    variants = SWEEP_VARIANTS if sys.argv[1:] == ["sweeps"] else VARIANTS
+    mode = sys.argv[1] if sys.argv[1:] else ""
+    variants = {"sweeps": SWEEP_VARIANTS, "subcycle": SUB_VARIANTS}.get(mode, VARIANTS)
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
@@ -181,6 +242,10 @@ def main():
 
         if variants is SWEEP_VARIANTS:
             sweeps(use)
+            print(card)
+            return 0
+        if variants is SUB_VARIANTS:
+            subcycle(use)
             print(card)
             return 0
         use("tree")

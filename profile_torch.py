@@ -14,16 +14,19 @@ with ``3d``, 20 V-cycles of ``poisson((256, 256, 256), lattice=True)``
 through ``structured_smoothed_aggregation_nd(proxy=47, cut_rows=20000)``
 (K7 at L0, masked 8-color sweeps and K6 below); with ``fwdbwd``, 20
 V-cycles of the 4096² flagship with forward/backward GS (K5 on every
-Lat2D level, no legs, no tail).
+Lat2D level, no legs, no tail); with ``subcycle``, the flagship's ``fixed``
+and ``vcycle`` runs on the hierarchy built with ``subcycle=True`` (K9 in
+place of the L1 legs and K4).
 
 For each it prints the ms per cycle by CUDA events, the device time of each
-kernel and its share, and the device's idle share of the window (1 − the
-summed kernel time over the window's elapsed time).  Run from the
-repository root:
+kernel and its share, the device's idle share of the window (1 − the
+summed kernel time over the window's elapsed time) and the port's kernel
+launches per cycle.  Run from the repository root:
 
-    python3 profile_torch.py [unstructured | 3d | fwdbwd]
+    python3 profile_torch.py [unstructured | 3d | fwdbwd | subcycle]
 """
 
+import functools
 import subprocess
 import sys
 
@@ -34,13 +37,15 @@ NU = 1024
 CYCLES = 20
 
 
-def lattice_runs(amt, torch):
+def lattice_runs(amt, torch, subcycle=False):
     from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
 
     ml = amt.structured_smoothed_aggregation(
         amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3)
     )
-    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32, subcycle=subcycle)
+    if subcycle and h.sub is None:
+        raise SystemExit("the flagship built no subcycle cache")
     b = torch.zeros(h.fine_padded, device="cuda")
     b[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
 
@@ -110,7 +115,10 @@ def fwd_bwd_runs(amt, torch):
     return vcycle_runs("vcycle_fwdbwd", ml, h, amt, torch)
 
 
-RUNS = {"unstructured": unstructured_runs, "3d": lattice_3d_runs, "fwdbwd": fwd_bwd_runs}
+RUNS = {
+    "unstructured": unstructured_runs, "3d": lattice_3d_runs, "fwdbwd": fwd_bwd_runs,
+    "subcycle": functools.partial(lattice_runs, subcycle=True),
+}
 
 
 def main():
@@ -118,6 +126,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     if not torch.cuda.is_available():
         print("no CUDA card: profile_torch needs one")
@@ -133,12 +142,14 @@ def main():
         fn()
         torch.cuda.synchronize()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = dict(vl.launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start.record()
             fn()
             stop.record()
             torch.cuda.synchronize()
         window_ms = start.elapsed_time(stop)
+        per_cycle = {k: (vl.launches[k] - before[k]) / CYCLES for k in before if vl.launches[k] != before[k]}
         rows = []
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
@@ -148,7 +159,7 @@ def main():
                 rows.append((us / 1e3, e.count, e.key))
         busy = sum(r[0] for r in rows)
         print(f"{name}: {window_ms / CYCLES!r} ms per cycle; device busy {busy / CYCLES!r} ms per cycle;"
-              f" idle share {1 - busy / window_ms!r}")
+              f" idle share {1 - busy / window_ms!r}; kernel launches per cycle {per_cycle}")
         for ms, count, key in sorted(rows, reverse=True):
             print(f"  {ms / CYCLES:9.4f} ms/cycle {100 * ms / busy:6.2f}%  x{count // CYCLES:<4d} {key[:90]}")
     print(card)

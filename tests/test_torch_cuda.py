@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the fused-leg, updown, whole-tail, BSG SpMV,
-natural-order GS and whole-sweep (K5, K7) kernels against their plain
-versions, and one cycle, the fixed-cycle loop and a refined solve on the
+"""The port on a CUDA card: the fused-leg, updown, whole-tail,
+whole-subcycle, BSG SpMV, natural-order GS and whole-sweep (K5, K7) kernels
+against their plain versions, and one cycle, the fixed-cycle loop and a refined solve on the
 card against the CPU, on the lattice path, on an unstructured (scrambled
 Poisson) hierarchy, on a 3-D lattice and on a forward/backward GS lattice.
 
@@ -120,8 +120,67 @@ def test_cuda_fixed_cycles_match_cpu(ml):
         out[dev] = run_fixed_cycles(h, torch.zeros_like(b), b, 3)
         counts[dev] = {k: vl.launches[k] - before[k] for k in before}
     assert _rel(out["cuda"], out["cpu"]) < 1e-12
-    assert counts["cuda"] == {"down": 1, "up": 1, "updown": 2, "tail": 3, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0}
+    assert counts["cuda"] == {
+        "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0,
+    }
     assert not any(counts["cpu"].values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tile", [48, 9])
+def test_cuda_subcycle_matches_plain_version(ml, tile, dtype):
+    """K9 at L1 of the 192² problem (64² = 3·21 + 1: partial tiles and a
+    clipped coarse edge) with the tail at L2, in 48-cell tiles (four) and
+    9-cell tiles (more tiles than some grids have blocks)."""
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+
+    h = build_device_hierarchy(ml, device="cuda", dtype=dtype, tail_max_rows=600, subcycle=True)
+    assert (h.tail_start, h.sub_start) == (2, 1)
+    cache = sk.make_fused_subcycle_cache(h.sub.top, h.sub.tail, tile=tile)
+    assert cache.tile == tile
+    L = h.levels[1]
+    b = _vec(L.A.shape[0], L.A.rows_padded, 7, dtype)
+    before = vl.launches["sub"]
+    got = sk.fused_subcycle(cache, b)
+    ref = sk.fused_subcycle_reference(cache, b)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == b.shape
+    assert _rel(got, ref) < (TOL if dtype == torch.float32 else 1e-12)
+    assert vl.launches["sub"] == before + 1
+
+
+def test_cuda_subcycle_vcycle_launches(ml):
+    """One V-cycle with the subcycle: K1 and K2 at L0, K9 for the rest, and
+    the same x as on the CPU (float64)."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml, device=dev, dtype=torch.float64, tail_max_rows=600, subcycle=True)
+        b = _vec(N * N, h.fine_padded, 8, torch.float64).to(dev)
+        before = dict(vl.launches)
+        out[dev] = _one_iteration(h, amt.V(), torch.zeros_like(b), b)
+        counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+    assert _rel(out["cuda"], out["cpu"]) < 1e-12
+    want = dict.fromkeys(counts["cuda"], 0)
+    want.update(down=1, up=1, sub=1)
+    assert counts["cuda"] == want
+    assert not any(counts["cpu"].values())
+
+
+def test_cuda_subcycle_refuses_a_cache_of_another_device(ml):
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels.subcycle_kernel import fused_subcycle
+
+    h = build_device_hierarchy(ml, device="cpu", dtype=torch.float32, tail_max_rows=600, subcycle=True)
+    assert h.sub is not None and h.sub.desc is None
+    L = h.levels[1]
+    with pytest.raises(ValueError):
+        fused_subcycle(h.sub, _vec(L.A.shape[0], L.A.rows_padded, 9))
 
 
 def test_cuda_wrappers_check_their_inputs(ml):

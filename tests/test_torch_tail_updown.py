@@ -160,7 +160,10 @@ def test_build_command_lists_both_sources():
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     names = [f.name for f in vl.SOURCES]
-    assert names == ["vcycle_legs.cu", "tail_kernel.cu", "bsg_spmv.cu", "scan_gs.cu", "gs_sweep.cu", "sweep3d.cu"]
+    assert names == [
+        "vcycle_legs.cu", "tail_kernel.cu", "subcycle_kernel.cu", "bsg_spmv.cu", "scan_gs.cu", "gs_sweep.cu",
+        "sweep3d.cu",
+    ]
     for f in vl.SOURCES:
         cmd = vl.compile_command(f, vl.BUILD_DIR / "x.o")
         assert f.exists() and str(f) in cmd and "-c" in cmd

@@ -209,3 +209,29 @@ def jax_tail_to_numpy(h):
     n7 = W7x * W7y
     G = np.asarray(t.G)[:, _H : _H + W7x, _H : _H + W7y]
     return dict(levels=levels, Mc=G.reshape(n7, n7).T)
+
+
+def jax_sub_to_numpy(h):
+    """The ``sub`` dict of a JAX DeviceHierarchy's whole-subcycle cache: the
+    top level's factored-leg planes untiled from the slabs ``A1/d1/T1/S1``
+    (each slab's interior rows, the lanes cut to the grid) and the step
+    metadata from the level's smoother; its deeper levels are the tail."""
+    from algebraicmultigrid_tpu.ops.coloring import color_steps
+
+    s = h.sub
+    Wx, Wy = s.dims
+
+    def untile(t):  # [g1, (n,) B1x, By1] → [(n,) Wx, Wy]
+        a = np.asarray(t)[..., s.H1 : s.H1 + s.TX1, :Wy]
+        if a.ndim == 4:
+            a = np.moveaxis(a, 1, 0)
+        return a.reshape(a.shape[:-3] + (s.g1 * s.TX1, Wy))[..., :Wx, :]
+
+    sm = h.levels[h.sub_start].pre
+    assert color_steps(sm.n_colors, sm.iter, sm.forward, sm.backward, sm.omega) == s.steps
+    return dict(
+        A=untile(s.A1), dinv=untile(s.d1), T=untile(s.T1), S=untile(s.S1),
+        offsA=s.offsA, color_grid=s.color_grid, n_colors=sm.n_colors, k=s.k,
+        row_dims=s.dims, col_dims=s.cdims, omega=s.omega, iter=sm.iter,
+        forward=sm.forward, backward=sm.backward,
+    )
