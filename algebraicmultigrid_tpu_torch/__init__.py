@@ -16,7 +16,11 @@ Covered so far:
 * any scipy matrix — ``smoothed_aggregation(A)`` / ``ruge_stuben(A)`` →
   ``build_device_hierarchy`` (SDIA, BT, dense, BSG or ELL levels, with the
   RCM basis where it helps) → ``cg_device`` / ``solve_device`` /
-  ``solve_refined`` / ``device_cycle_fn``.
+  ``solve_refined`` / ``device_cycle_fn``; the drivers and
+  ``ml.solve(B, engine="torch")`` take a multi-RHS B of shape [n, k];
+* the multi-GPU lattice tier (``algebraicmultigrid_tpu_torch.parallel``) on
+  ``torch.distributed``: one process per x-slab, the halo-exchange SpMV
+  with K8 overlapping the exchange, the slab-sharded V/W/F cycle and PCG.
 """
 
 from .config import (

@@ -34,8 +34,9 @@ operators.  The input is plain data:
     - ``ScanGSCache``: ``diag``;
     - ``GSSweepCache`` (K5, a Lat2D level) and ``Sweep3DCache`` (K7, a 3-D
       LatND level): ``dinv`` [rows_padded], ``color_table`` (the periodic
-      coloring's table, of the period shape) and ``n_colors``; the cache
-      reads the level's own A;
+      coloring's table, of the period shape), ``n_colors`` and optionally
+      ``fallback``, the masked multicolor smoother dict that runs a
+      multi-RHS x; the cache reads the level's own A;
   - ``"fused"``: None, or the factored legs' full-size planes ``A``
     [nA, Wx, Wy], ``dinv``, ``T``, ``S`` [Wx, Wy] plus ``offsA``,
     ``color_grid``, ``n_colors``, ``k``, ``row_dims``, ``col_dims``,
@@ -77,7 +78,7 @@ from .ops.lattice_nd_op import LatND
 from .ops.lattice_op import Lat2D
 from .ops.sparse import ELL
 
-__all__ = ["hierarchy_from_numpy"]
+__all__ = ["hierarchy_from_numpy", "slab_hierarchy_from_numpy"]
 
 
 def _pairs(v):
@@ -161,8 +162,10 @@ def _smoother(d, dtype, device, A):
         return ScanGSCache(diag=_tensor(d["diag"], dtype, device), omega=omega, iter=iters,
                            forward=fwd, backward=bwd)
     if kind in _SWEEP_KINDS:
+        fallback = _smoother(d["fallback"], dtype, device, A) if d.get("fallback") is not None else None
         cache = _SWEEP_KINDS[kind](
-            A, _tensor(d["dinv"], dtype, device), d["color_table"], int(d["n_colors"]), omega, iters, fwd, bwd
+            A, _tensor(d["dinv"], dtype, device), d["color_table"], int(d["n_colors"]), omega, iters, fwd, bwd,
+            fallback,
         )
         if cache is None:
             raise ValueError(f"the level {A.row_dims} is past the {kind} kernel's shape limits")
@@ -248,3 +251,39 @@ def hierarchy_from_numpy(
         tail=tail_cache, tail_start=tail_start, sub=sub_cache, sub_start=sub_start,
         perm0=perms[0], iperm0=perms[1],
     )
+
+
+def _program(sm):
+    """A slab smoother program: ("gs", color steps, ω) or ("jacobi", n, ω)."""
+    kind, prog, omega = sm
+    return (str(kind), tuple(int(c) for c in prog) if kind == "gs" else int(prog), float(omega))
+
+
+def slab_hierarchy_from_numpy(levels, pinv, ctrue, cpad, n_sh: int, *, rank: int, device, dtype=None):
+    """One rank's slab hierarchy (``parallel.lattice_cycle.SlabHierarchy``
+    placed with ``to_rank``) from another engine's arrays, for example the
+    JAX package's ``SlabHierarchy`` read out as numpy:
+
+    * ``levels``: one dict per level with the slab arrays ``A``
+      [n_sh, loc+2Hp, Wyp, n_off] (replicated levels [1, Wxp, Wyp, n_off]),
+      ``dinv``, ``T``, ``S`` (the same without the offset axis) and the
+      static ``offsets``, ``color_tab``, ``pre_sm``, ``post_sm``
+      (``("gs", steps, ω)`` or ``("jacobi", n, ω)``), ``k``, ``dims``,
+      ``pdims``, ``Hp``, ``sharded``;
+    * ``pinv``, the dense coarse-solve operator; ``ctrue``/``cpad``, the
+      true and padded coarsest grid; ``n_sh``, the number of slabs.
+
+    ``dtype`` casts the arrays (None keeps theirs)."""
+    from .parallel.lattice_cycle import SlabHierarchy, SlabLevel
+
+    lvls = tuple(
+        SlabLevel(
+            A=np.asarray(d["A"]), dinv=np.asarray(d["dinv"]), T=np.asarray(d["T"]), S=np.asarray(d["S"]),
+            offsets=_pairs(d["offsets"]), color_tab=tuple(tuple(int(c) for c in row) for row in d["color_tab"]),
+            pre_sm=_program(d["pre_sm"]), post_sm=_program(d["post_sm"]), k=int(d["k"]), dims=_ints(d["dims"]),
+            pdims=_ints(d["pdims"]), Hp=int(d["Hp"]), sharded=bool(d["sharded"]),
+        )
+        for d in levels
+    )
+    h = SlabHierarchy(levels=lvls, pinv=np.asarray(pinv), ctrue=_ints(ctrue), cpad=_ints(cpad), n_sh=int(n_sh))
+    return h.to_rank(rank, device, dtype)

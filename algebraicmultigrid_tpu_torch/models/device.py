@@ -31,6 +31,10 @@ Port of the JAX package's ``models/device.py``:
   (``ops/kernels/subcycle_kernel.py``) in the V recursion;
 * ``run_fixed_cycles`` runs the top level's cross-cycle updown leg once per
   cycle;
+* a multi-RHS block ``x[n, k]`` runs through every format's SpMV and every
+  smoother, past the legs, the tail and the subcycle (which take a flat
+  x), as in the JAX package: K5/K7 caches hand it to their masked
+  fallback, K6 and ``scan_gs`` run column by column;
 * the V/W/F recursion unrolls in Python over the level list, and the
   iteration loops are Python loops with one host read of the residual norm
   per iteration for the stopping test;
@@ -59,7 +63,7 @@ from ..ops.kernels.sweep3d import Sweep3DCache, build_sweep3d_cache, smooth_swee
 from ..ops.kernels.tail_kernel import build_fused_tail_cache, fused_tail
 from ..ops.kernels.vcycle_legs import build_level_legs, fused_down, fused_up, fused_updown
 from ..ops.lattice_nd_op import LatND, latnd_from_spec
-from ..ops.lattice_op import Lat2D, lat2d_from_spec
+from ..ops.lattice_op import Lat2D, lat2d_from_spec, pad_rows
 from ..ops.sparse import ELL, as_csr, ell_from_csr, np_dtype, round_up
 from .coarse import QRSolver
 from .lattice import LatticeMatrix
@@ -201,28 +205,35 @@ class DeviceHierarchy:
 
 
 def fit_len(v: torch.Tensor, n: int) -> torch.Tensor:
-    """Pad-or-slice the leading axis to exactly n."""
+    """Pad-or-slice the leading axis to exactly n (v flat or [rows, k])."""
     m = v.shape[0]
     if m == n:
         return v
     if m > n:
         return v[:n]
-    return torch.nn.functional.pad(v, (0, n - m))
+    return pad_rows(v, 0, n - m)
+
+
+def _rows(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-row vector broadcast against x (flat, or a multi-RHS [n, k])."""
+    return v if x.dim() == 1 else v.unsqueeze(-1)
 
 
 def _smooth_jacobi(cache: JacobiCache, A, x, b):
     n = x.shape[0]
+    dinv = _rows(cache.dinv, x)
     for _ in range(cache.iter):
         r = b - fit_len(mat_vec(A, x), n)
-        x = x + cache.omega * cache.dinv * r
+        x = x + cache.omega * dinv * r
     return x
 
 
 def _smooth_masked_multicolor(cache: MaskedMulticolorCache, A, x, b):
     n = x.shape[0]
+    dinv, color_of = _rows(cache.dinv, x), _rows(cache.color_of, x)
     for c in color_steps(cache.n_colors, cache.iter, cache.forward, cache.backward, cache.omega):
         r = b - fit_len(mat_vec(A, x), n)
-        x = torch.where(cache.color_of == c, x + cache.omega * cache.dinv * r, x)
+        x = torch.where(color_of == c, x + cache.omega * dinv * r, x)
     return x
 
 
@@ -230,9 +241,9 @@ def _color_step(cache: MulticolorCache, c: int, x, b):
     """Update the rows of color c in place (they are mutually uncoupled)."""
     s = cache.sizes[c]
     rows = cache.rows[c, :s]
-    rsum = (cache.data[c, :s] * x[cache.cols[c, :s]]).sum(dim=1)
+    rsum = (_rows(cache.data[c, :s], x) * x[cache.cols[c, :s]]).sum(dim=1)
     w = cache.omega
-    x[rows] = (1 - w) * x[rows] + w * cache.dinv[c, :s] * (b[rows] - rsum)
+    x[rows] = (1 - w) * x[rows] + w * _rows(cache.dinv[c, :s], x) * (b[rows] - rsum)
 
 
 def _smooth_multicolor(cache: MulticolorCache, A, x, b):
@@ -249,6 +260,12 @@ def _smooth_multicolor(cache: MulticolorCache, A, x, b):
 
 
 def _apply_smoother(cache, A, x, b):
+    if isinstance(cache, (GSSweepCache, Sweep3DCache)) and x.dim() != 1:
+        # multi-RHS: the whole-sweep kernels take a flat x; the level's
+        # masked sweep runs the block, as in the JAX package
+        if cache.fallback is None:
+            raise ValueError(f"this {type(cache).__name__} has no masked fallback for a multi-RHS x")
+        cache = cache.fallback
     if isinstance(cache, GSSweepCache):
         return smooth_gs(cache, x, b)
     if isinstance(cache, Sweep3DCache):
@@ -317,11 +334,7 @@ def _build_lattice_smoother_cache(config, A_lat, A_dev, dtype, device, sweep_ker
     color_of = np.full(rows_padded, n_colors, dtype=np.int32)
     color_of[:n] = np.where(active, colors, n_colors)
     dinv = torch.as_tensor(_dinv(diag, rows_padded, np_dt), device=device)
-    if sweep_kernel and isinstance(A_dev, Lat2D) and active.all():
-        cache = build_gs_sweep_cache(A_dev, dinv, grid, n_colors, omega, config.iter, fwd, bwd)
-        if cache is not None:
-            return cache
-    return MaskedMulticolorCache(
+    masked = MaskedMulticolorCache(
         color_of=torch.as_tensor(color_of, device=device),
         dinv=dinv,
         n_colors=int(n_colors),
@@ -330,6 +343,11 @@ def _build_lattice_smoother_cache(config, A_lat, A_dev, dtype, device, sweep_ker
         forward=fwd,
         backward=bwd,
     )
+    if sweep_kernel and isinstance(A_dev, Lat2D) and active.all():
+        cache = build_gs_sweep_cache(A_dev, dinv, grid, n_colors, omega, config.iter, fwd, bwd, fallback=masked)
+        if cache is not None:
+            return cache
+    return masked
 
 
 def _build_lattice_nd_smoother_cache(config, A_lnd, A_dev, dtype, device, sweep_kernel=True):
@@ -355,15 +373,11 @@ def _build_lattice_nd_smoother_cache(config, A_lnd, A_dev, dtype, device, sweep_
         return None
     tab, n_colors = got
     omega, fwd, bwd = _sweep_flags(config)
-    if sweep_kernel and isinstance(A_dev, LatND) and spec.ndim == 3 and active.all():
-        cache = build_sweep3d_cache(A_dev, dinv, tab, n_colors, omega, config.iter, fwd, bwd)
-        if cache is not None:
-            return cache
     reps = [-(-W // p) for W, p in zip(spec.row_dims, tab.shape)]
     colors = np.tile(tab, reps)[tuple(slice(0, W) for W in spec.row_dims)].ravel()
     color_of = np.full(rows_padded, n_colors, dtype=np.int32)
     color_of[:n] = np.where(active, colors, n_colors)
-    return MaskedMulticolorCache(
+    masked = MaskedMulticolorCache(
         color_of=torch.as_tensor(color_of, device=device),
         dinv=dinv,
         n_colors=int(n_colors),
@@ -372,6 +386,11 @@ def _build_lattice_nd_smoother_cache(config, A_lnd, A_dev, dtype, device, sweep_
         forward=fwd,
         backward=bwd,
     )
+    if sweep_kernel and isinstance(A_dev, LatND) and spec.ndim == 3 and active.all():
+        cache = build_sweep3d_cache(A_dev, dinv, tab, n_colors, omega, config.iter, fwd, bwd, fallback=masked)
+        if cache is not None:
+            return cache
+    return masked
 
 
 def _build_masked_multicolor_cache(A_csr, rows_padded, dtype, device, omega, iters, fwd, bwd, sym=False):
@@ -686,7 +705,10 @@ def _coarse_solve(coarse: CoarseCache, b):
     b_log = b[: coarse.n]
     if coarse.kind == "qr":
         y = coarse.qr_q.T @ b_log
-        x = torch.linalg.solve_triangular(coarse.qr_r, y[:, None], upper=True)[:, 0]
+        if y.dim() == 1:
+            x = torch.linalg.solve_triangular(coarse.qr_r, y[:, None], upper=True)[:, 0]
+        else:
+            x = torch.linalg.solve_triangular(coarse.qr_r, y, upper=True)
     else:
         x = coarse.mat @ b_log
     return fit_len(x, coarse.rows_padded)
@@ -711,8 +733,11 @@ def _cycle(h: DeviceHierarchy, cycle: Cycle, x, b, lvl: int, x_zero: bool = Fals
     n_here = x.shape[0]
     n_next = h.levels[lvl + 1].A.rows_padded if lvl + 1 < len(h.levels) else h.coarse.rows_padded
 
-    if level.fused is not None:
-        x, coarse_b = fused_down(level.fused, x, b, x_zero=x_zero)
+    # the legs take a flat x; a multi-RHS block runs the level's masked
+    # sweeps and transfer operators, as in the JAX package
+    legs = level.fused if x.dim() == 1 else None
+    if legs is not None:
+        x, coarse_b = fused_down(legs, x, b, x_zero=x_zero)
         coarse_b = fit_len(coarse_b, n_next)
     else:
         x = _apply_smoother(level.pre, level.A, x, b)
@@ -724,8 +749,8 @@ def _cycle(h: DeviceHierarchy, cycle: Cycle, x, b, lvl: int, x_zero: bool = Fals
     else:
         coarse_x = _next(h, cycle, torch.zeros_like(coarse_b), coarse_b, lvl + 1, x_zero=True)
 
-    if level.fused is not None:
-        return fused_up(level.fused, x, b, coarse_x)
+    if legs is not None:
+        return fused_up(legs, x, b, coarse_x)
     x = x + fit_len(mat_vec(level.P, coarse_x), n_here)
     return _apply_smoother(level.post, level.A, x, b)
 
@@ -850,6 +875,12 @@ def _solve_fused(h: DeviceHierarchy, b, maxiter, abstol, cycle, calculate_residu
     return _exit_basis(h, x), itr - 1, normres
 
 
+def _dot(a, b):
+    """⟨a, b⟩ over every entry, as ``jnp.vdot`` takes it (a multi-RHS block
+    is one vector of the block-diagonal system)."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
 def _pcg_fused(h: DeviceHierarchy, b, maxiter, abstol, cycle):
     """Preconditioned CG with one AMG cycle (zero initial guess, fixed,
     linear — preconditioner.jl:12-19 contract) per iteration; ``b`` and the
@@ -865,16 +896,16 @@ def _pcg_fused(h: DeviceHierarchy, b, maxiter, abstol, cycle):
     r = b
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = _dot(r, z)
     itr = 0
     normr = float(torch.linalg.norm(r))
     while itr < maxiter and normr > abstol:
         Ap = fit_len(mat_vec(A, p), n_pad)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / _dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = _dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         itr += 1

@@ -30,7 +30,7 @@ import torch
 from .bsg import BSG
 from .kernels.bsg_spmv import bsg_spmv
 from .lattice_nd_op import LatND, latnd_spmv
-from .lattice_op import Lat2D, lat2d_spmv
+from .lattice_op import Lat2D, lat2d_spmv, pad_rows
 from .sparse import ELL, as_csr, np_dtype, round_up
 from .spmv import ell_spmv
 
@@ -261,24 +261,27 @@ def bt_op(d, dtype: torch.dtype, device) -> BTOp:
 
 
 def _sdia_spmv(A: SDIA, x: torch.Tensor) -> torch.Tensor:
-    """Σ_k data[k] · x[(i·p)//q + off_k] by strided slices."""
+    """Σ_k data[k] · x[(i·p)//q + off_k] by strided slices (x flat or a
+    multi-RHS block [n, k])."""
     p, q = A.p, A.q
     Mq = A.rows_padded // q  # rows_padded is a multiple of q by construction
     consts = [[(r * p) // q + off for r in range(q)] for off in A.offsets]
     flat = [c for row in consts for c in row]
     lo = max(0, -min(flat))
     hi = max(0, (Mq - 1) * p + max(flat) + 1 - x.shape[0])
-    xp = torch.nn.functional.pad(x, (lo, hi)) if lo or hi else x
+    xp = pad_rows(x, lo, hi) if lo or hi else x
+    tail = tuple(x.shape[1:])
 
-    y = torch.zeros(A.rows_padded, dtype=torch.promote_types(A.data.dtype, x.dtype), device=x.device)
+    y = torch.zeros((A.rows_padded,) + tail, dtype=torch.promote_types(A.data.dtype, x.dtype), device=x.device)
     for k in range(len(A.offsets)):
         parts = []
         for r in range(q):
             c = consts[k][r] + lo
             parts.append(xp[c : c + (Mq - 1) * p + 1 : p])
         # interleave residues: y_k[m·q + r] = parts[r][m]
-        xk = parts[0] if q == 1 else torch.stack(parts, dim=1).reshape(Mq * q)
-        y = y + A.data[k] * xk
+        xk = parts[0] if q == 1 else torch.stack(parts, dim=1).reshape((Mq * q,) + tail)
+        dk = A.data[k] if not tail else A.data[k].unsqueeze(-1)
+        y = y + dk * xk
     return y
 
 
@@ -290,23 +293,29 @@ def _bt_spmv(A: BTOp, x: torch.Tensor) -> torch.Tensor:
     nc = A.shape[1]
     T, C = A.T, A.C
     Mr = A.rows_padded // T
+    tail = tuple(x.shape[1:])
     # X2[m] = x[mC : (m+1)C]; block rows m+δ for m in [0, Mr) are needed
     need_lo = -min(min(A.deltas), 0)
     need_hi = max(Mr + max(A.deltas), nc // C) - nc // C
-    x_log = x[:nc] if x.shape[0] >= nc else torch.nn.functional.pad(x, (0, nc - x.shape[0]))
-    Xp = torch.nn.functional.pad(x_log, (need_lo * C, max(need_hi, 0) * C))
-    X2 = Xp.reshape(-1, C)
+    x_log = x[:nc] if x.shape[0] >= nc else pad_rows(x, 0, nc - x.shape[0])
+    Xp = pad_rows(x_log, need_lo * C, max(need_hi, 0) * C)
+    X2 = Xp.reshape((-1, C) + tail)
     Xs = torch.stack([X2[need_lo + d : need_lo + d + Mr] for d in A.deltas], dim=1)
-    y = torch.einsum("dtc,mdc->mt", A.blocks, Xs).reshape(A.rows_padded)
+    if tail:
+        y = torch.einsum("dtc,mdck->mtk", A.blocks, Xs).reshape((A.rows_padded,) + tail)
+    else:
+        y = torch.einsum("dtc,mdc->mt", A.blocks, Xs).reshape(A.rows_padded)
     # boundary remainder: a small gather, then an index_add_ whose unused
     # slots land on one extra row that is cut off
-    contrib = (A.rest_data * x_log[A.rest_cols]).sum(dim=1)
-    y = torch.cat([y, y.new_zeros(1)]).index_add_(0, A.rest_rows, contrib)
+    rest = A.rest_data if not tail else A.rest_data.unsqueeze(-1)
+    contrib = (rest * x_log[A.rest_cols]).sum(dim=1)
+    y = torch.cat([y, y.new_zeros((1,) + tail)]).index_add_(0, A.rest_rows, contrib)
     return y[: A.rows_padded]
 
 
 def mat_vec(A, x: torch.Tensor) -> torch.Tensor:
-    """SpMV over the device operator formats (flat vectors)."""
+    """SpMV over the device operator formats: x flat, or a multi-RHS block
+    ``x[n, k]`` (every format takes one, as in the JAX package)."""
     if isinstance(A, Lat2D):
         return lat2d_spmv(A, x)
     if isinstance(A, LatND):

@@ -48,7 +48,11 @@ def bsg_spmv_reference(B: BSG, x: torch.Tensor) -> torch.Tensor:
 
 def bsg_spmv(B: BSG, x: torch.Tensor) -> torch.Tensor:
     """y = B·x for a flat float32 x of at least ``B.shape[1]`` entries;
-    returns y of ``B.rows_padded`` entries (zero beyond ``B.shape[0]``)."""
+    returns y of ``B.rows_padded`` entries (zero beyond ``B.shape[0]``).
+    A multi-RHS block ``x[n, k]`` runs column by column (k launches on the
+    card), as the JAX package's ``bsg_spmv`` does."""
+    if x.dim() == 2:
+        return torch.stack([bsg_spmv(B, x[:, j].contiguous()) for j in range(x.shape[1])], dim=1)
     if x.device.type == "cpu":
         return bsg_spmv_reference(B, x)
     if x.device.type != "cuda":

@@ -25,11 +25,12 @@ class GSSweepCache(TiledSweepCache):
     """K5's cache: a Lat2D level, its 1/diag and its periodic coloring."""
 
 
-def build_gs_sweep_cache(A, dinv, color_grid, n_colors, omega, iters, fwd, bwd) -> Optional[GSSweepCache]:
+def build_gs_sweep_cache(A, dinv, color_grid, n_colors, omega, iters, fwd, bwd, fallback=None) -> Optional[GSSweepCache]:
     """K5 for a Lat2D level ``A`` with 1/diag ``dinv`` [rows_padded] and
     the ``lattice_coloring`` table ``color_grid``; None (logged) past the
-    kernel's shape limits."""
-    return tiled_sweep_cache(GSSweepCache, A, dinv, color_grid, n_colors, omega, iters, fwd, bwd)
+    kernel's shape limits.  ``fallback``, the level's masked multicolor
+    cache, runs a multi-RHS x."""
+    return tiled_sweep_cache(GSSweepCache, A, dinv, color_grid, n_colors, omega, iters, fwd, bwd, fallback)
 
 
 def smooth_gs_reference(cache: GSSweepCache, x, b):

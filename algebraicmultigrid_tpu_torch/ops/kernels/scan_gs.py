@@ -26,16 +26,18 @@ __all__ = ["smooth_scan_gs", "smooth_scan_gs_reference"]
 
 
 def _sweep(A: ELL, diag, x, b, omega: float, rows):
+    data = A.data if x.dim() == 1 else A.data.unsqueeze(-1)
     for i in rows:
         d = diag[i]
         xi = x[i]
-        rsum = (A.data[i] * x[A.cols[i]]).sum() - d * xi
+        rsum = (data[i] * x[A.cols[i]]).sum(dim=0) - d * xi
         cand = (1 - omega) * xi + omega * (b[i] - rsum) / torch.where(d == 0, torch.ones_like(d), d)
         x[i] = torch.where(d == 0, xi, cand)
 
 
 def smooth_scan_gs_reference(A: ELL, diag, x, b, omega: float, iters: int, forward: bool, backward: bool):
-    """The smoother in plain PyTorch: a row loop; returns a new x."""
+    """The smoother in plain PyTorch: a row loop; returns a new x.  x and b
+    may be multi-RHS blocks [n, k]."""
     x = x.clone()
     n = A.shape[0]  # the padding rows have d = 0 and stay frozen
     for _ in range(iters):
@@ -48,11 +50,18 @@ def smooth_scan_gs_reference(A: ELL, diag, x, b, omega: float, iters: int, forwa
 
 def smooth_scan_gs(A: ELL, diag, x, b, omega: float, iters: int, forward: bool, backward: bool):
     """``iters`` forward and/or backward natural-order sweeps of x on A·x = b
-    (x, b and diag flat at ``A.rows_padded``); returns a new x."""
+    (x, b and diag flat at ``A.rows_padded``); returns a new x.  Multi-RHS
+    blocks x, b [n, k] run the kernel column by column on the card."""
     if x.device.type == "cpu":
         return smooth_scan_gs_reference(A, diag, x, b, omega, iters, forward, backward)
     if x.device.type != "cuda":
         raise ValueError(f"smooth_scan_gs runs on cuda or cpu tensors, not {x.device}")
+    if x.dim() == 2:
+        cols = [
+            smooth_scan_gs(A, diag, x[:, j].contiguous(), b[:, j].contiguous(), omega, iters, forward, backward)
+            for j in range(x.shape[1])
+        ]
+        return torch.stack(cols, dim=1)
     rows = A.rows_padded
     for name, t in (("x", x), ("b", b), ("diag", diag)):
         check_vector(name, t, A.data, rows)

@@ -29,13 +29,14 @@ class Sweep3DCache(TiledSweepCache):
     """K7's cache: a 3-D LatND level, its 1/diag and its periodic coloring."""
 
 
-def build_sweep3d_cache(A, dinv, color_table, n_colors, omega, iters, fwd, bwd) -> Optional[Sweep3DCache]:
+def build_sweep3d_cache(A, dinv, color_table, n_colors, omega, iters, fwd, bwd, fallback=None) -> Optional[Sweep3DCache]:
     """K7 for a square 3-D LatND level ``A`` with 1/diag ``dinv``
     [rows_padded] and the ``lattice_coloring_nd`` table ``color_table``;
-    None (logged) past the kernel's shape limits."""
+    None (logged) past the kernel's shape limits.  ``fallback``, the
+    level's masked multicolor cache, runs a multi-RHS x."""
     if len(A.row_dims) != 3 or any(tuple(b) != (1, 1) for b in A.bases):
         raise ValueError("K7 smooths square 3-D LatND levels")
-    return tiled_sweep_cache(Sweep3DCache, A, dinv, color_table, n_colors, omega, iters, fwd, bwd)
+    return tiled_sweep_cache(Sweep3DCache, A, dinv, color_table, n_colors, omega, iters, fwd, bwd, fallback)
 
 
 def smooth_sweep3d_reference(cache: Sweep3DCache, x, b):

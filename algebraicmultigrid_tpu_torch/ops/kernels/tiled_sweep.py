@@ -67,6 +67,9 @@ class TiledSweepCache:
     forward: bool
     backward: bool
     nd: int                                 # 2 (K5) or 3 (K7)
+    # the level's masked multicolor cache, which runs a multi-RHS x[n, k]
+    # (the JAX package's ``fallback`` field); None where none was built
+    fallback: Any = None
 
     @property
     def steps(self) -> Tuple[int, ...]:
@@ -109,12 +112,13 @@ def plan_box(nd: int, dims, offsets, n_steps: int, itemsize: int):
 
 
 def tiled_sweep_cache(
-    cls, A, dinv, color_table, n_colors: int, omega: float, iters: int, fwd: bool, bwd: bool,
+    cls, A, dinv, color_table, n_colors: int, omega: float, iters: int, fwd: bool, bwd: bool, fallback=None,
 ) -> Optional[TiledSweepCache]:
     """The whole-sweep cache (of class ``cls``) of a lattice level (``A`` a
     Lat2D, or a 3-D LatND with bases (1, 1)), or None — logged — when the
     level is past the kernel's limits (then the level keeps its masked
-    sweep)."""
+    sweep).  ``fallback`` is the level's masked multicolor cache, kept for
+    multi-RHS blocks."""
     tab = np.asarray(color_table, dtype=np.int64)
     nd = len(A.row_dims)
     if tab.ndim != nd or nd not in (2, 3):
@@ -134,7 +138,7 @@ def tiled_sweep_cache(
     return cls(
         A=A, dinv=dinv, dims=dims, offsets=offsets, periods=periods,
         color_table=tuple(int(c) for c in tab.ravel()), n_colors=int(n_colors), box=box,
-        omega=float(omega), iter=int(iters), forward=bool(fwd), backward=bool(bwd), nd=nd,
+        omega=float(omega), iter=int(iters), forward=bool(fwd), backward=bool(bwd), nd=nd, fallback=fallback,
     )
 
 

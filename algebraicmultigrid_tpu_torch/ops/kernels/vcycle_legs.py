@@ -19,15 +19,16 @@ cooperative launch) and a plain PyTorch version beside it
 ``fused_updown_reference``).  The port's CUDA sources (these legs, the
 whole-tail kernel ``csrc/tail_kernel.cu``, the whole-subcycle kernel
 ``csrc/subcycle_kernel.cu``, the BSG SpMV ``csrc/bsg_spmv.cu``, the
-natural-order GS sweep ``csrc/scan_gs.cu`` and the whole-sweep kernels K5
-``csrc/gs_sweep.cu`` and K7 ``csrc/sweep3d.cu``) build into one library
+natural-order GS sweep ``csrc/scan_gs.cu``, the whole-sweep kernels K5
+``csrc/gs_sweep.cu`` and K7 ``csrc/sweep3d.cu``, and the slab stencil K8
+``csrc/halo_stencil.cu``) build into one library
 at first use — one ``nvcc`` process per source for ``sm_90a``, all started
 together, then one link — loaded with ``ctypes``.  The wrappers take the
 plain version only for tensors on the CPU; on a CUDA tensor they launch the
 kernel or raise.  ``launches`` counts the kernel launches of every wrapper
 of that library (``tail`` is the whole-tail kernel's, ``sub`` the
-whole-subcycle kernel's, ``bsg`` the BSG SpMV's, ``scan_gs`` the natural-order sweep's, ``gs`` K5's and ``sweep3d``
-K7's).
+whole-subcycle kernel's, ``bsg`` the BSG SpMV's, ``scan_gs`` the natural-order sweep's, ``gs`` K5's, ``sweep3d``
+K7's and ``halo`` K8's).
 
 Left for later (as in the JAX package, they are not on the SA main path):
 the non-factored R/P-plane branches and bf16 coefficient storage.
@@ -70,7 +71,7 @@ SOURCES = tuple(
     CSRC / f
     for f in (
         "vcycle_legs.cu", "tail_kernel.cu", "subcycle_kernel.cu", "bsg_spmv.cu", "scan_gs.cu", "gs_sweep.cu",
-        "sweep3d.cu",
+        "sweep3d.cu", "halo_stencil.cu",
     )
 )
 HEADERS = (CSRC / "stencil.cuh", CSRC / "tail_levels.cuh", CSRC / "sweep_tile.cuh")
@@ -80,7 +81,9 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 MAX_OFFSETS = 32
 MAX_COLOR_CELLS = 64
 
-launches = {"down": 0, "up": 0, "updown": 0, "tail": 0, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0}
+launches = {
+    "down": 0, "up": 0, "updown": 0, "tail": 0, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,13 +399,14 @@ _SIGNATURES = {
     "amg_scan_gs_{}": [_P] * 6 + [_I, _I, _D, _I, _I, _I, _P],
     "amg_gs_sweep_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
     "amg_sweep3d_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
+    "amg_halo_stencil_{}": [_P, _P, _L, _P, _P, _IP] + [_I] * 5 + [_P],
 }
 
 
 def load_library():
     """Build (at first use) and load the port's CUDA library: the legs, the
-    whole-tail and whole-subcycle kernels, the BSG SpMV, the natural-order GS sweep and the
-    whole-sweep kernels K5 and K7."""
+    whole-tail and whole-subcycle kernels, the BSG SpMV, the natural-order GS sweep, the
+    whole-sweep kernels K5 and K7 and the slab stencil K8."""
     global _lib
     if _lib is not None:
         return _lib

@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .lattice_op import _axis_take
+from .lattice_op import _axis_take, grid_first, grid_last
 from .sparse import round_up
 
 __all__ = ["LatND", "latnd_from_spec", "latnd_spmv"]
@@ -74,30 +74,22 @@ def latnd_from_spec(spec, dtype, device, row_pad: int = 8) -> LatND:
 
 
 def latnd_spmv(A: LatND, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x for a flat (padded) x; returns a flat y of length rows_padded."""
+    """y = A·x for a flat (padded) x, or a multi-RHS block ``x[n, k]``;
+    returns y of length rows_padded (by k)."""
     N = len(A.row_dims)
-    n_c = int(np.prod(A.col_dims))
-    if x.shape[0] >= n_c:
-        x_log = x[:n_c]
-    else:
-        x_log = torch.nn.functional.pad(x, (0, n_c - x.shape[0]))
-    X = x_log.reshape(A.col_dims)
+    X = grid_first(x, int(np.prod(A.col_dims)), A.col_dims)  # [(k,) *col_dims]
+    lead = X.dim() - N
     margins = [max((abs(d[a]) for d in A.offsets), default=0) for a in range(N)]
     pads = []
     for m in reversed(margins):  # F.pad takes the last axis first
         pads += [m, m]
     Xp = torch.nn.functional.pad(X, pads)
 
-    y = torch.zeros(A.row_dims, dtype=torch.promote_types(A.data.dtype, x.dtype), device=x.device)
+    y = torch.zeros(X.shape[:lead] + tuple(A.row_dims), dtype=torch.promote_types(A.data.dtype, x.dtype),
+                    device=x.device)
     for k, d in enumerate(A.offsets):
         g = Xp
         for a in range(N):
-            g = _axis_take(g, a, d[a], margins[a], A.row_dims[a], A.bases[a])
+            g = _axis_take(g, lead + a, d[a], margins[a], A.row_dims[a], A.bases[a])
         y = y + A.data[k] * g
-
-    n_r = int(np.prod(A.row_dims))
-    y = y.reshape(n_r)
-    pad = A.rows_padded - n_r
-    if pad > 0:
-        y = torch.nn.functional.pad(y, (0, pad))
-    return y
+    return grid_last(y, int(np.prod(A.row_dims)), A.rows_padded, x.dim() == 2)

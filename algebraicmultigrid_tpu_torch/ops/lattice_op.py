@@ -22,7 +22,7 @@ import torch
 
 from .sparse import round_up
 
-__all__ = ["Lat2D", "lat2d_from_spec", "expand_planes", "lat2d_spmv"]
+__all__ = ["Lat2D", "lat2d_from_spec", "expand_planes", "lat2d_spmv", "pad_rows"]
 
 
 def expand_planes(spec, dtype, device) -> torch.Tensor:
@@ -91,28 +91,43 @@ def _axis_take(Xp, axis: int, d: int, m: int, W_row: int, base: Tuple[int, int])
     raise ValueError(f"unsupported rational base {base}")
 
 
+def pad_rows(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Zero-pad the leading (row) axis of a flat vector or an [n, k] block."""
+    return torch.nn.functional.pad(v, (0, 0) * (v.dim() - 1) + (lo, hi))
+
+
+def grid_first(x: torch.Tensor, n: int, dims) -> torch.Tensor:
+    """The first n rows of a padded level vector (zero-extended when
+    shorter) as the grid ``dims``; a multi-RHS block ``x[n, k]`` becomes
+    [k, *dims], the right-hand sides leading."""
+    x_log = x[:n] if x.shape[0] >= n else pad_rows(x, 0, n - x.shape[0])
+    if x.dim() == 1:
+        return x_log.reshape(dims)
+    return x_log.T.reshape((x.shape[1],) + tuple(dims))
+
+
+def grid_last(y: torch.Tensor, n: int, rows_padded: int, rhs: bool) -> torch.Tensor:
+    """Inverse of :func:`grid_first` for an output grid of n cells: the
+    flat (or, with ``rhs``, [rows, k]) level vector padded to
+    ``rows_padded`` rows."""
+    y = y.reshape(-1, n).T if rhs else y.reshape(n)
+    return pad_rows(y, 0, rows_padded - n) if rows_padded > n else y
+
+
 def lat2d_spmv(A: Lat2D, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x for a flat (padded) x; returns a flat y of length rows_padded."""
+    """y = A·x for a flat (padded) x, or a multi-RHS block ``x[n, k]``;
+    returns y of length rows_padded (by k)."""
     WxR, WyR = A.row_dims
     WxC, WyC = A.col_dims
-    n_c = WxC * WyC
-    if x.shape[0] >= n_c:
-        x_log = x[:n_c]
-    else:
-        x_log = torch.nn.functional.pad(x, (0, n_c - x.shape[0]))
-    X = x_log.reshape(WxC, WyC)
+    X = grid_first(x, WxC * WyC, (WxC, WyC))  # [(k,) WxC, WyC]
+    ax, ay = X.dim() - 2, X.dim() - 1
     mx = max((abs(dx) for dx, _ in A.offsets), default=0)
     my = max((abs(dy) for _, dy in A.offsets), default=0)
     Xp = torch.nn.functional.pad(X, (my, my, mx, mx))
 
-    y = torch.zeros((WxR, WyR), dtype=torch.promote_types(A.data.dtype, x.dtype), device=x.device)
+    y = torch.zeros(X.shape[:-2] + (WxR, WyR), dtype=torch.promote_types(A.data.dtype, x.dtype), device=x.device)
     for k, (dx, dy) in enumerate(A.offsets):
-        g = _axis_take(Xp, 0, dx, mx, WxR, A.base_x)
-        g = _axis_take(g, 1, dy, my, WyR, A.base_y)
+        g = _axis_take(Xp, ax, dx, mx, WxR, A.base_x)
+        g = _axis_take(g, ay, dy, my, WyR, A.base_y)
         y = y + A.data[k] * g
-
-    y = y.reshape(WxR * WyR)
-    pad = A.rows_padded - WxR * WyR
-    if pad > 0:
-        y = torch.nn.functional.pad(y, (0, pad))
-    return y
+    return grid_last(y, WxR * WyR, A.rows_padded, x.dim() == 2)

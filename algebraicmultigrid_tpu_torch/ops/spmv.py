@@ -17,7 +17,9 @@ __all__ = ["ell_spmv"]
 
 
 def ell_spmv(A: ELL, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` for a flat x of length >= ``A.shape[1]`` (level vectors
-    stay padded); returns y of length ``A.rows_padded``.  Padding slots read
-    x[0] and multiply it by a stored 0."""
-    return (A.data * x[A.cols]).sum(dim=1)
+    """``y = A @ x`` for x of length >= ``A.shape[1]`` (level vectors stay
+    padded), flat or a multi-RHS block ``x[n, k]``; returns y of length
+    ``A.rows_padded`` (by k).  Padding slots read x[0] and multiply it by a
+    stored 0."""
+    data = A.data if x.dim() == 1 else A.data.unsqueeze(-1)
+    return (data * x[A.cols]).sum(dim=1)

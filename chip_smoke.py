@@ -8,8 +8,8 @@ Runs, in order, and exits non-zero on the first failure:
    ``fused_updown``; ``csrc/tail_kernel.cu`` with K4 ``fused_tail``;
    ``csrc/subcycle_kernel.cu`` with K9 ``fused_subcycle``;
    ``csrc/bsg_spmv.cu`` with K6; ``csrc/scan_gs.cu``; ``csrc/gs_sweep.cu``
-   with K5 and ``csrc/sweep3d.cu`` with K7), one ``nvcc`` per source, all
-   started together, then one link;
+   with K5; ``csrc/sweep3d.cu`` with K7 and ``csrc/halo_stencil.cu`` with
+   K8), one ``nvcc`` per source, all started together, then one link;
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes of the 4096² problem — K1/K2/K3 at level 0 (4096²)
    and level 1 (1366²), K4 on the tail (456² … 6² plus the 2×2 coarse
@@ -78,7 +78,24 @@ Runs, in order, and exits non-zero on the first failure:
     within 4 rounds, K9 launched, K1/K2 only at L0, no K4) and 400
     ``run_fixed_cycles`` on b = A·1 (relres < 1e-5, exactly updown 399,
     sub 400, down 1, up 1, tail 0); and times a V-cycle and a fixed cycle
-    with and without the subcycle.
+    with and without the subcycle;
+13. spawns 4 ranks of the slab-sharded tier on the one card (gloo, the edge
+    rows staged through host memory); each sets up the flagship of phase
+    4 and its 4-slab hierarchy (a 1024 × 4096 fine slab), drives K8
+    through ``lat2d_spmv_halo(overlap=True)`` 5 times with the counters
+    zeroed just before (exactly 10 K8 launches: interior and boundary
+    parts), holds K8 against its plain version on the same halo and
+    against ``overlap=False`` at 4096² (float32 and float64, to 1e-6 and
+    1e-14 relative), on slabs of exactly 2·reach rows and 77 columns and
+    on the 9-point L2 (456²), and runs the slab V-cycle from zero and
+    ``solve_lattice_sharded(tol=1e-6)`` on b = A·1; this process gathers
+    the slabs against the single-card SpMV of the whole grid, the V-cycle
+    against n_sh = 1 (2e-5) and the single-card masked-sweep cycle (2e-4),
+    the solve against its tolerance, scipy's float64 residual (< 1e-4) and
+    n_sh = 1's iterations (±1), and times K8 on the whole 4096² grid (one
+    slab), its plain version and ``torch.sparse.mm`` on the same operator
+    as CSR.  With 4 or more cards the same runs under NCCL, a card per
+    rank; with fewer it prints that NCCL across cards was not run.
 
 The last two lines of output are the card's ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``; the line before them lists every
@@ -129,6 +146,7 @@ SOURCES = {
     "gs_sweep": "algebraicmultigrid_tpu_torch/csrc/gs_sweep.cu",
     "sweep3d": "algebraicmultigrid_tpu_torch/csrc/sweep3d.cu",
     "fused_subcycle": "algebraicmultigrid_tpu_torch/csrc/subcycle_kernel.cu",
+    "halo_stencil": "algebraicmultigrid_tpu_torch/csrc/halo_stencil.cu",
 }
 REPLACES = {
     "fused_down": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:1432",
@@ -141,10 +159,12 @@ REPLACES = {
     "gs_sweep": "algebraicmultigrid_tpu/ops/pallas/gs_kernel.py:298",
     "sweep3d": "algebraicmultigrid_tpu/ops/pallas/sweep3d_kernel.py:209",
     "fused_subcycle": "algebraicmultigrid_tpu/ops/pallas/subcycle_kernel.py:310",
+    "halo_stencil": "algebraicmultigrid_tpu/parallel/async_halo.py:80",
 }
 COUNTER = {
     "fused_down": "down", "fused_up": "up", "fused_updown": "updown", "fused_tail": "tail",
     "bsg_spmv": "bsg", "scan_gs": "scan_gs", "gs_sweep": "gs", "sweep3d": "sweep3d", "fused_subcycle": "sub",
+    "halo_stencil": "halo",
 }
 # the unstructured problem: bench.py's scrambled Poisson
 NU = 1024
@@ -481,7 +501,7 @@ def fixed_cycles(device, ml, h):
     if not np.isfinite(xh).all() or not relres < CYCLES_RELRES:
         raise AssertionError(f"relres_after_cycles {relres} >= {CYCLES_RELRES}")
     want = {"updown": CYCLES - 1, "tail": CYCLES, "down": CYCLES + 1, "up": CYCLES + 1, "sub": 0, "bsg": 0,
-            "scan_gs": 0, "gs": 0, "sweep3d": 0}
+            "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0}
     if counts != want:
         raise AssertionError(f"fixed-cycle launches {counts} != {want}")
     if not all(fixed_rel[k] <= tol for k, tol in FIXED_RTOL.items()):
@@ -1183,6 +1203,297 @@ def subcycle_path(device, ml):
     return row, solve_counts, cycle_counts
 
 
+# --------------------------------------------------------------------------
+# the slab-sharded tier and K8 (phase 13)
+# --------------------------------------------------------------------------
+
+SLAB_RANKS = 4
+SLAB_TIMEOUT_S = 900
+HALO_CALLS = 5  # K8 calls per rank on the main path, 2 launches each
+HALO_RTOL = {"float32": 1e-6, "float64": 1e-14}
+HALO_COARSE_LEVEL = 2  # the flagship's L2, 456² with the 9-point stencil
+SLAB_CYCLE_RTOL = 2e-5  # 4 slabs against 1: the JAX test's shard-invariance bound
+SLAB_DEVICE_RTOL = 2e-4  # against the single-card masked-sweep cycle, as the JAX test
+SLAB_SOLVE_TOL = 1e-6
+# scipy's f64 check of the f32 answer: its rounding floor (ROADMAP C), not 1e-8
+SLAB_SOLVE_TRUE = 1e-4
+
+
+def halo_specs(ml, n_sh):
+    """The K8 cases: the flagship's fine operator (4096², 5-point), a grid
+    of 2·n_sh × 77 (slabs of exactly 2·reach rows, a width no multiple of
+    32) and the flagship's L2 (9-point)."""
+    import algebraicmultigrid_tpu_torch as amt
+
+    return {
+        "fine": ml.levels[0].A.spec,
+        "thin": amt.poisson((77, 2 * n_sh), lattice=True).spec,
+        "coarse": ml.levels[HALO_COARSE_LEVEL].A.spec,
+    }
+
+
+def halo_x(spec, dtype):
+    """The case's x over the whole grid: standard normal from seed 0."""
+    import torch
+
+    Wx, Wy = spec.row_dims
+    return torch.as_tensor(np.random.default_rng(0).standard_normal(Wx * Wy), dtype=getattr(torch, dtype))
+
+
+def slab_rhs(h, seed=0):
+    """A standard-normal b on the true fine grid, zero on the padding."""
+    Wx, Wy = h.fine_dims
+    b = np.zeros(h.fine_pdims, dtype=np.float32)
+    b[:Wx, :Wy] = np.random.default_rng(seed).standard_normal((Wx, Wy))
+    return b
+
+
+def slab_rank(mesh):
+    """Phase 13 on one rank: the flagship's setup and slab hierarchy, K8
+    through ``lat2d_spmv_halo(overlap=True)`` with the counters zeroed just
+    before (the main path), K8 against its plain version on the same halo
+    and against ``overlap=False`` in every case, its time with the ranks
+    sharing the card, the slab V-cycle from zero and the sharded solve."""
+    import torch
+
+    from algebraicmultigrid_tpu_torch.ops.kernels.halo_stencil import halo_stencil_reference
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec
+    from algebraicmultigrid_tpu_torch.parallel import cycle_lattice_sharded, lat2d_spmv_halo, shard_slab, solve_lattice_sharded
+    from algebraicmultigrid_tpu_torch.parallel.halo import exchange_rows, slab_operator
+    from algebraicmultigrid_tpu_torch.parallel.lattice_cycle import slab_hierarchy
+
+    out = {}
+    t0 = time.perf_counter()
+    ml = setup(N)
+    t1 = time.perf_counter()
+    h = slab_hierarchy(ml, mesh)
+    torch.cuda.synchronize()
+    out["setup_s"], out["slab_build_s"] = t1 - t0, time.perf_counter() - t1
+    specs = halo_specs(ml, mesh.n_sh)
+
+    A = lat2d_from_spec(specs["fine"], torch.float32, mesh.device, row_pad=8)
+    Wx, Wy = A.row_dims
+    xs = shard_slab(halo_x(specs["fine"], "float32"), mesh, Wx, Wy)
+    zero_counts()
+    for _ in range(HALO_CALLS):
+        y = lat2d_spmv_halo(A, xs, mesh, overlap=True)
+    torch.cuda.synchronize()
+    out["counts"] = read_counts()
+    out["halo_shared_ms"] = time_ms(lambda: lat2d_spmv_halo(A, xs, mesh, overlap=True))
+    del A, xs, y
+
+    out["halo"] = {}
+    for name, spec in specs.items():
+        for dtype in ("float32", "float64"):
+            A = lat2d_from_spec(spec, getattr(torch, dtype), mesh.device, row_pad=8)
+            Wx, Wy = A.row_dims
+            xs = shard_slab(halo_x(spec, dtype), mesh, Wx, Wy)
+            got = lat2d_spmv_halo(A, xs, mesh, overlap=True)
+            data, loc, _, reach, _ = slab_operator(A, mesh)
+            X = xs.reshape(loc, Wy)
+            halo = torch.stack(exchange_rows(X[:reach], X[loc - reach :], mesh))
+            ref = torch.empty_like(X)
+            for part in ("interior", "boundary"):
+                halo_stencil_reference(data, X, halo, A.offsets, part, ref)
+            plain = lat2d_spmv_halo(A, xs, mesh)
+            torch.cuda.synchronize()
+            out["halo"][name, dtype] = dict(
+                y=got.cpu().numpy(), loc=loc, Wy=Wy, n_off=len(A.offsets), plain_err=errors(got, ref.reshape(-1)),
+                exchange_err=errors(got, plain),
+            )
+            del A, xs, got, ref, plain
+
+    b = torch.as_tensor(slab_rhs(h), device=mesh.device)
+    if h.levels[0].sharded:
+        loc = h.fine_pdims[0] // mesh.n_sh
+        b = b[mesh.rank * loc : (mesh.rank + 1) * loc]
+    out["cycle"] = cycle_lattice_sharded(h, torch.zeros_like(b), b, mesh).cpu().numpy()
+    A0 = ml.levels[0].A
+    t2 = time.perf_counter()
+    x, it, relres = solve_lattice_sharded(ml, A0 @ np.ones(A0.shape[0]), mesh=mesh, tol=SLAB_SOLVE_TOL,
+                                          maxiter=100, log=True)
+    out["solve_s"] = time.perf_counter() - t2
+    out["solve"] = (x if mesh.rank == 0 else None, it, relres)
+    out["pdims"] = [(lv.pdims, lv.sharded) for lv in h.levels]
+    return out
+
+
+def lat2d_csr(A):
+    """The Lat2D operator as a CSR tensor on its device (for the library
+    SpMV beside K8)."""
+    import torch
+
+    Wx, Wy = A.row_dims
+    dev = A.data.device
+    i = torch.arange(Wx, device=dev)[:, None].expand(Wx, Wy)
+    j = torch.arange(Wy, device=dev)[None, :].expand(Wx, Wy)
+    rows, cols, vals = [], [], []
+    for k, (dx, dy) in enumerate(A.offsets):
+        ok = (i + dx >= 0) & (i + dx < Wx) & (j + dy >= 0) & (j + dy < Wy)
+        rows.append((i * Wy + j)[ok])
+        cols.append(((i + dx) * Wy + j + dy)[ok])
+        vals.append(A.data[k][ok])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+                                  (Wx * Wy, Wx * Wy))
+    return coo.coalesce().to_sparse_csr()
+
+
+def check_slab_ranks(res, backend, ml, device):
+    """Every rank's K8 checks, exact launch counts, and the cases' slabs
+    gathered against the single-card SpMV of the whole grid; returns the
+    largest K8 error against its plain version."""
+    import torch
+
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec, lat2d_spmv
+
+    worst = 0.0
+    for rank, r in enumerate(res):
+        log(f"slab rank {rank} ({backend}): setup_s {r['setup_s']!r} slab_build_s {r['slab_build_s']!r}"
+            f" solve_s {r['solve_s']!r} launches on the main path {r['counts']}"
+            f" K8 {r['halo_shared_ms']!r} ms with {len(res)} ranks sharing the card")
+        want = dict.fromkeys(r["counts"], 0)
+        want["halo"] = 2 * HALO_CALLS
+        if r["counts"] != want:
+            raise AssertionError(f"rank {rank}: {HALO_CALLS} overlapped SpMVs launched {r['counts']} != {want}")
+        for (name, dtype), c in r["halo"].items():
+            (pa, pr), (ea, er) = c["plain_err"], c["exchange_err"]
+            log(f"kernel halo_stencil rank {rank} {name} slab {c['loc']}x{c['Wy']} offsets {c['n_off']} {dtype}:"
+                f" max_rel_err {pr!r} max_abs_err {pa!r} against overlap=False {er!r}")
+            if not (pr <= HALO_RTOL[dtype] and er <= HALO_RTOL[dtype]):
+                raise AssertionError(f"rank {rank}: K8 {name} {dtype} disagrees: {pr} / {er}")
+            worst = max(worst, pa)
+    for (name, dtype) in res[0]["halo"]:
+        spec = halo_specs(ml, len(res))[name]
+        if name == "coarse" and len(spec.offsets) != 9:
+            raise AssertionError(f"L{HALO_COARSE_LEVEL} has {len(spec.offsets)} offsets, not 9")
+        A = lat2d_from_spec(spec, getattr(torch, dtype), device, row_pad=8)
+        n = A.shape[0]
+        whole = lat2d_spmv(A, halo_x(spec, dtype).to(device))[:n]
+        got = torch.as_tensor(np.concatenate([r["halo"][name, dtype]["y"] for r in res]))
+        e = errors(got, whole)
+        log(f"slab SpMV {name} {dtype} ({backend}, {len(res)} ranks) against the single-card SpMV:"
+            f" max_rel_err {e[1]!r}")
+        if not e[1] <= HALO_RTOL[dtype]:
+            raise AssertionError(f"{name} {dtype}: the sharded SpMV disagrees with the single-card one: {e}")
+    return worst
+
+
+def check_slab_solve(res, ml, it1, backend):
+    """The 4-slab V-cycle against the one-slab and single-card ones and the
+    sharded solve against its own tolerance, scipy's and n_sh = 1's
+    iterations."""
+    _, it, relres = res[0]["solve"]
+    x = res[0]["solve"][0]
+    A0 = ml.levels[0].A
+    b = A0 @ np.ones(A0.shape[0])
+    true = float(np.linalg.norm(b - A0 @ x) / np.linalg.norm(b))
+    log(f"solve_lattice_sharded ({backend}, {len(res)} ranks): iterations {it} relres {relres!r}"
+        f" scipy f64 relres {true!r}; one slab {it1} iterations")
+    if not all(r["solve"][1] == it for r in res):
+        raise AssertionError(f"the ranks disagree on the iterations: {[r['solve'][1] for r in res]}")
+    if not (np.isfinite(x).all() and relres < SLAB_SOLVE_TOL and true < SLAB_SOLVE_TRUE and abs(it - it1) <= 1):
+        raise AssertionError(f"sharded solve: {it} iterations (one slab {it1}), relres {relres}, scipy {true}")
+
+
+def slab_path(device, ml):
+    """Phase 13: 4 gloo ranks on the one card, K8 and the slab tier at
+    4096², held against n_sh = 1 and the single-card engine in this
+    process; K8 timed here on the whole grid; NCCL across cards when the
+    machine has them."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels.halo_stencil import halo_stencil_reference
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec
+    from algebraicmultigrid_tpu_torch.parallel import cycle_lattice_sharded, lat2d_spmv_halo, make_row_mesh, run_ranks
+    from algebraicmultigrid_tpu_torch.parallel import solve_lattice_sharded
+    from algebraicmultigrid_tpu_torch.parallel.lattice_cycle import slab_hierarchy
+
+    t0 = time.perf_counter()
+    res = run_ranks(slab_rank, SLAB_RANKS, backend="gloo", device=device, timeout_s=SLAB_TIMEOUT_S)
+    log(f"slab tier: {SLAB_RANKS} gloo ranks on one card answered in {time.perf_counter() - t0!r} s;"
+        f" levels (pdims, sharded) {res[0]['pdims']}")
+    worst = check_slab_ranks(res, "gloo", ml, device)
+
+    # n_sh = 1 in this process: the cycle, the single-card cycle, the solve
+    mesh1 = make_row_mesh(device=device)
+    h1 = slab_hierarchy(ml, mesh1)
+    b = torch.as_tensor(slab_rhs(h1), device=device)
+    x1 = cycle_lattice_sharded(h1, torch.zeros_like(b), b, mesh1).cpu().numpy()
+    Wx, Wy = h1.fine_dims
+    del h1
+    x4 = np.concatenate([r["cycle"] for r in res])
+    hd = build_device_hierarchy(ml, device=device, dtype=torch.float32, fused=False, tail=False, sweeps=False)
+    bd = torch.zeros(hd.fine_padded, device=device)
+    bd[: Wx * Wy] = b[:Wx, :Wy].reshape(-1)
+    xd = _one_iteration(hd, amt.V(), torch.zeros_like(bd), bd)[: Wx * Wy].reshape(Wx, Wy).cpu().numpy()
+    del hd, bd, b
+    e1 = errors(torch.as_tensor(x4[:Wx, :Wy]), torch.as_tensor(x1[:Wx, :Wy]))[1]
+    ed = errors(torch.as_tensor(x4[:Wx, :Wy]), torch.as_tensor(xd))[1]
+    log(f"slab V-cycle from zero, {SLAB_RANKS} slabs: against one slab {e1!r}, against the single-card"
+        f" masked-sweep cycle {ed!r}")
+    if not (e1 <= SLAB_CYCLE_RTOL and ed <= SLAB_DEVICE_RTOL):
+        raise AssertionError(f"slab V-cycle: {e1} against one slab, {ed} against the single-card cycle")
+    A0 = ml.levels[0].A
+    _, it1, rr1 = solve_lattice_sharded(ml, A0 @ np.ones(A0.shape[0]), mesh=mesh1, tol=SLAB_SOLVE_TOL,
+                                        maxiter=100, log=True)
+    log(f"solve_lattice_sharded (one slab): iterations {it1} relres {rr1!r}")
+    check_slab_solve(res, ml, it1, "gloo")
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
+
+    # K8 on the whole grid (no neighbours: interior + boundary, zero halo)
+    A = lat2d_from_spec(ml.levels[0].A.spec, torch.float32, device, row_pad=8)
+    x = halo_x(ml.levels[0].A.spec, "float32").to(device)
+    n = A.shape[0]
+    y = torch.empty((Wx, Wy), device=device)
+    X = x.reshape(Wx, Wy)
+
+    def plain():
+        halo_stencil_reference(A.data, X, None, A.offsets, "interior", y)
+        halo_stencil_reference(A.data, X, None, A.offsets, "boundary", y)
+
+    got = lat2d_spmv_halo(A, x, mesh1, overlap=True)
+    plain()
+    torch.cuda.synchronize()
+    abs_err, rel_err = errors(got, y.reshape(-1))
+    S = lat2d_csr(A)
+    xcol = x[:, None].contiguous()
+    lib_err = errors(torch.sparse.mm(S, xcol)[:, 0], got)[1]
+    row = dict(
+        max_abs_err=max(worst, abs_err), ms=time_ms(lambda: lat2d_spmv_halo(A, x, mesh1, overlap=True)),
+        plain_ms=time_ms(plain), library_ms=time_ms(lambda: torch.sparse.mm(S, xcol)),
+        bound_ms=(len(A.offsets) + 2) * n * 4 / HBM_BYTES_S * 1e3, bound_by="bytes",
+    )
+    del S, xcol
+    log(f"kernel halo_stencil one slab {Wx}x{Wy}: max_rel_err {rel_err!r} kernel {row['ms']!r} ms"
+        f" plain {row['plain_ms']!r} ms torch.sparse.mm {row['library_ms']!r} ms (rel diff {lib_err!r})"
+        f" bound {row['bound_ms']!r} ms (bytes)")
+    if not rel_err <= HALO_RTOL["float32"]:
+        raise AssertionError(f"K8 on one slab disagrees with its plain version: {rel_err}")
+    row["launches"] = res[0]["counts"]["halo"]
+    row["launches_per_rank"] = [r["counts"]["halo"] for r in res]
+    row["shared_card_ms"] = [r["halo_shared_ms"] for r in res]
+    del A, x, y, X, got
+    torch.cuda.empty_cache()
+
+    if torch.cuda.device_count() >= SLAB_RANKS:
+        res_n = run_ranks(slab_rank, SLAB_RANKS, backend="nccl", timeout_s=SLAB_TIMEOUT_S)
+        check_slab_ranks(res_n, "nccl", ml, device)
+        check_slab_solve(res_n, ml, it1, "nccl")
+        x4n = np.concatenate([r["cycle"] for r in res_n])
+        en = errors(torch.as_tensor(x4n[:Wx, :Wy]), torch.as_tensor(x1[:Wx, :Wy]))[1]
+        if not en <= SLAB_CYCLE_RTOL:
+            raise AssertionError(f"nccl slab V-cycle against one slab: {en}")
+        row["nccl"] = True
+    else:
+        log(f"NCCL across cards was not run on this machine: it has {torch.cuda.device_count()} card(s),"
+            f" the phase needs {SLAB_RANKS}")
+        row["nccl"] = False
+    return row
+
+
 def main():
     import torch
 
@@ -1224,6 +1535,9 @@ def main():
     rows_k5, counts_fb, cycle_fb, _ = lattice_fwd_bwd(device)
     torch.cuda.empty_cache()
     row_sub, counts_sub, cycle_sub = subcycle_path(device, ml)
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
+    row_halo = slab_path(device, ml)
 
     kernels = []
     for name, rs in rows.items():
@@ -1259,6 +1573,10 @@ def main():
         launches=cycle_sub["sub"], launches_solve=counts_sub["sub"], max_abs_err=row_sub["max_abs_err"],
         ms=row_sub["ms"], plain_ms=row_sub["plain_ms"], bound_ms=row_sub["bound_ms"], bound_by=row_sub["bound_by"],
         library_ms=None, route_ms=row_sub["route_ms"], tail_at_l1_ms=row_sub["tail_at_l1_ms"],
+    ))
+    kernels.append(dict(
+        name="halo_stencil", route="cuda", source=SOURCES["halo_stencil"], replaces=REPLACES["halo_stencil"],
+        **row_halo,
     ))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,8 +1,11 @@
 """The port on a CUDA card: the fused-leg, updown, whole-tail,
-whole-subcycle, BSG SpMV, natural-order GS and whole-sweep (K5, K7) kernels
-against their plain versions, and one cycle, the fixed-cycle loop and a refined solve on the
-card against the CPU, on the lattice path, on an unstructured (scrambled
-Poisson) hierarchy, on a 3-D lattice and on a forward/backward GS lattice.
+whole-subcycle, BSG SpMV, natural-order GS, whole-sweep (K5, K7) and slab
+stencil (K8) kernels against their plain versions, and one cycle, the
+fixed-cycle loop and a refined solve on the card against the CPU, on the
+lattice path, on an unstructured (scrambled Poisson) hierarchy, on a 3-D
+lattice and on a forward/backward GS lattice; multi-RHS cycles (K6 and
+scan_gs per column, K5's masked fallback); the slab SpMV on one slab and on
+two gloo ranks sharing the card.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so on a machine without JAX run it without the suite's conftest:
@@ -121,7 +124,7 @@ def test_cuda_fixed_cycles_match_cpu(ml):
         counts[dev] = {k: vl.launches[k] - before[k] for k in before}
     assert _rel(out["cuda"], out["cpu"]) < 1e-12
     assert counts["cuda"] == {
-        "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0,
+        "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
     }
     assert not any(counts["cpu"].values())
 
@@ -429,3 +432,148 @@ def test_cuda_fwd_bwd_cycle_runs_k5(ml):
         out[dev] = _one_iteration(h, amt.V(), torch.zeros_like(b), b)
         assert vl.launches["gs"] - before == (2 * len(h.levels) if dev == "cuda" else 0)
     assert _rel(out["cuda"], out["cpu"]) < 1e-12
+
+
+def _block(n, pad, seed, dtype):
+    X = torch.zeros((pad, 2), dtype=dtype)
+    X[:n] = torch.as_tensor(np.random.default_rng(seed).standard_normal((n, 2)), dtype=dtype)
+    return X.cuda()
+
+
+def test_cuda_multi_rhs_unstructured_cycle(ml_unstructured):
+    """A block [n, 2] through the unstructured hierarchy on the card: K6 and
+    scan_gs run once per column, and each column equals the cycle of that
+    column alone."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    h = build_device_hierarchy(ml_unstructured, device="cuda", dtype=torch.float32)
+    B = _block(h.n_fine, h.fine_padded, 19, torch.float32)
+    per = {}
+    for j in range(2):
+        before = dict(vl.launches)
+        col = _one_iteration(h, amt.V(), torch.zeros_like(B[:, j]), B[:, j].contiguous())
+        per[j] = ({k: vl.launches[k] - before[k] for k in before}, col)
+    before = dict(vl.launches)
+    both = _one_iteration(h, amt.V(), torch.zeros_like(B), B)
+    torch.cuda.synchronize()
+    counts = {k: vl.launches[k] - before[k] for k in before}
+    assert counts["bsg"] == 2 * per[0][0]["bsg"] > 0 and counts["scan_gs"] == 2 * per[0][0]["scan_gs"] > 0
+    for j in range(2):
+        assert _rel(both[:, j], per[j][1]) < TOL
+
+
+def test_cuda_multi_rhs_k5_level_uses_masked_fallback(ml):
+    """A block through a forward/backward GS hierarchy on the card: no K5
+    launch (the masked fallback runs it), as in the JAX package, and the
+    columns agree with the flat cycles, which do launch K5."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    ml_fb = amt.structured_smoothed_aggregation(
+        amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3),
+        presmoother=amt.GaussSeidel(ordering="multicolor", sweep=amt.ForwardSweep()),
+        postsmoother=amt.GaussSeidel(ordering="multicolor", sweep=amt.BackwardSweep()), **SETUP_KW,
+    )
+    h = build_device_hierarchy(ml_fb, device="cuda", dtype=torch.float64)
+    B = _block(N * N, h.fine_padded, 20, torch.float64)
+    before = vl.launches["gs"]
+    both = _one_iteration(h, amt.V(), torch.zeros_like(B), B)
+    torch.cuda.synchronize()
+    assert vl.launches["gs"] == before
+    for j in range(2):
+        col = _one_iteration(h, amt.V(), torch.zeros_like(B[:, j]), B[:, j].contiguous())
+        assert _rel(both[:, j], col) < 1e-12
+    assert vl.launches["gs"] == before + 2 * 2 * len(h.levels)
+
+
+def _cross(reach):
+    """A (2·reach + 1)-point cross along each axis: reach 1 is the 5-point
+    stencil, reach 2 the 9-point one of a fourth-order Laplacian."""
+    offs = [(0, 0)]
+    for d in range(1, reach + 1):
+        offs += [(d, 0), (-d, 0), (0, d), (0, -d)]
+    return tuple(offs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reach", [1, 2])
+@pytest.mark.parametrize("shape", ["thin-77", "odd-131", "wide-256"])
+def test_cuda_halo_stencil_matches_plain_version(shape, reach, dtype):
+    """K8's two parts against their plain version: a slab of exactly
+    2·reach rows (no interior rows: one launch), an odd width and a wide
+    one, with a random halo and the planes a row slab of larger planes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.halo_stencil import halo_stencil, halo_stencil_reference
+
+    kind, wy = shape.split("-")
+    Wy = int(wy)
+    loc = {"thin": 2 * reach, "odd": 37, "wide": 64}[kind]
+    offs = _cross(reach)
+    gen = torch.Generator().manual_seed(reach * 1000 + Wy)
+    planes = torch.randn((len(offs), loc + 9, Wy), generator=gen, dtype=dtype).cuda()
+    data = planes[:, 4 : 4 + loc]  # read in place: a slab of larger planes
+    x = torch.randn((loc, Wy), generator=gen, dtype=dtype).cuda()
+    halo = torch.randn((2, reach, Wy), generator=gen, dtype=dtype).cuda()
+    tol = 1e-6 if dtype == torch.float32 else 1e-14
+    before = vl.launches["halo"]
+    got = torch.full_like(x, float("nan"))
+    halo_stencil(data, x, None, offs, "interior", got)
+    halo_stencil(data, x, halo, offs, "boundary", got)
+    torch.cuda.synchronize()
+    want = torch.empty_like(x)
+    halo_stencil_reference(data, x, None, offs, "interior", want)
+    halo_stencil_reference(data, x, halo, offs, "boundary", want)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < tol
+    assert vl.launches["halo"] == before + (1 if kind == "thin" else 2)
+    with pytest.raises(ValueError):
+        halo_stencil(data, x, halo[:, :, :-1].contiguous(), offs, "boundary", got)
+
+
+def test_cuda_one_slab_halo_spmv_matches_lat2d_spmv(ml):
+    """lat2d_spmv_halo with overlap=True on one slab (K8 with zero halos,
+    two launches) and with overlap=False against the whole-grid SpMV."""
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec, lat2d_spmv
+    from algebraicmultigrid_tpu_torch.parallel import lat2d_spmv_halo, make_row_mesh
+
+    mesh = make_row_mesh(device="cuda")
+    for lvl in (0, 1):
+        spec = ml.levels[lvl].A.spec
+        A = lat2d_from_spec(spec, torch.float32, "cuda", row_pad=8)
+        n = A.shape[0]
+        x = _vec(n, n, 18)
+        want = lat2d_spmv(A, x)[:n]
+        before = vl.launches["halo"]
+        got = lat2d_spmv_halo(A, x, mesh, overlap=True)
+        torch.cuda.synchronize()
+        assert vl.launches["halo"] == before + 2
+        assert _rel(got, want) < 1e-6
+        assert _rel(lat2d_spmv_halo(A, x, mesh), want) < 1e-6
+
+
+def test_cuda_halo_spmv_on_gloo_ranks_sharing_the_card():
+    """Two gloo ranks on one card (edge rows staged through host memory):
+    both forms of the slab SpMV against the single-card SpMV."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec, lat2d_spmv
+    from algebraicmultigrid_tpu_torch.parallel import run_ranks
+    from torch_port_common import halo_case, halo_rank
+
+    names = ("p64", "thin")
+    res = run_ranks(halo_rank, 2, names, device="cuda", timeout_s=300)
+    for name in names:
+        spec = halo_case(name, 2)
+        Wx, Wy = spec.row_dims
+        for dtype in ("float32", "float64"):
+            dt = getattr(torch, dtype)
+            x = torch.as_tensor(np.random.default_rng(0).standard_normal(Wx * Wy), dtype=dt).cuda()
+            want = lat2d_spmv(lat2d_from_spec(spec, dt, "cuda", row_pad=8), x)[: Wx * Wy].cpu().numpy()
+            for which in (0, 1):
+                got = np.concatenate([r[name, dtype][which] for r in res])
+                assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()

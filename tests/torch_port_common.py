@@ -235,3 +235,157 @@ def jax_sub_to_numpy(h):
         row_dims=s.dims, col_dims=s.cdims, omega=s.omega, iter=sm.iter,
         forward=sm.forward, backward=sm.backward,
     )
+
+
+# --------------------------------------------------------------------------
+# the slab-sharded tier: what one rank computes (run in-process for n_sh = 1
+# and on spawned gloo ranks through ``parallel.run_ranks`` for more)
+# --------------------------------------------------------------------------
+
+SLAB_N = 216  # tests/test_sharded_lattice.py's grid and setup
+SLAB_KW = dict(proxy=72, cut_rows=2000, min_proxy_dim=16)
+SLAB_DTYPES = ("float32", "float64")
+SLAB_CYCLES = ("v", "w", "f")
+
+
+def slab_problem(pkg, smoothers=False):
+    """The 216² structured-SA hierarchy of ``pkg`` (the JAX package or the
+    port); ``smoothers``: Jacobi pre, backward multicolor SOR post."""
+    kw = dict(SLAB_KW, aggregate=pkg.StructuredAggregation(box=3))
+    if smoothers:
+        kw.update(presmoother=pkg.Jacobi(0.6, iter=2),
+                  postsmoother=pkg.SOR(1.1, pkg.BackwardSweep(), ordering="multicolor"))
+    return pkg.structured_smoothed_aggregation(pkg.poisson((SLAB_N, SLAB_N), lattice=True), **kw)
+
+
+def slab_rhs(pdims, seed):
+    """A standard-normal right-hand side on the true grid, zero on the
+    padding, as the padded fine grid [Wxp, Wyp] (float64)."""
+    b = np.zeros(pdims)
+    b[:SLAB_N, :SLAB_N] = np.random.default_rng(seed).standard_normal((SLAB_N, SLAB_N))
+    return b
+
+
+def _rows_of(grid, h, mesh):
+    """This rank's rows of a padded fine grid."""
+    if not (h.levels[0].sharded and mesh.n_sh > 1):
+        return grid
+    loc = h.fine_pdims[0] // mesh.n_sh
+    return grid[mesh.rank * loc : (mesh.rank + 1) * loc]
+
+
+def slab_rank(mesh):
+    """One rank's slabs of every slab-tier result the tests compare: the
+    V/W/F cycles from zero and the fine matvec in float32 and float64, the
+    Jacobi/SOR hierarchy's V-cycle, and ``solve_lattice_sharded`` (x, iters,
+    relres) on b = A·1 to 1e-6."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.parallel import (
+        build_slab_hierarchy,
+        cycle_lattice_sharded,
+        matvec_lattice_sharded,
+        solve_lattice_sharded,
+    )
+
+    ml = slab_problem(amt)
+    out = {}
+    for dtype in SLAB_DTYPES:
+        h = build_slab_hierarchy(ml, mesh.n_sh, dtype=dtype).to_rank(mesh.rank, mesh.device)
+        b = torch.as_tensor(_rows_of(slab_rhs(h.fine_pdims, 1), h, mesh), device=mesh.device).to(getattr(torch, dtype))
+        for cyc in SLAB_CYCLES:
+            out[dtype, cyc] = cycle_lattice_sharded(h, torch.zeros_like(b), b, mesh, cyc).cpu().numpy()
+        out[dtype, "matvec"] = matvec_lattice_sharded(h, b, mesh).cpu().numpy()
+    h2 = build_slab_hierarchy(slab_problem(amt, smoothers=True), mesh.n_sh).to_rank(mesh.rank, mesh.device)
+    b2 = torch.as_tensor(_rows_of(slab_rhs(h2.fine_pdims, 3), h2, mesh), dtype=torch.float32, device=mesh.device)
+    out["smoothers", "v"] = cycle_lattice_sharded(h2, torch.zeros_like(b2), b2, mesh).cpu().numpy()
+    A = ml.levels[0].A
+    out["solve"] = solve_lattice_sharded(ml, A @ np.ones(A.shape[0]), mesh=mesh, tol=1e-6, maxiter=40, log=True)
+    return out
+
+
+def halo_case(name, n_sh):
+    """The LatticeSpec of a named square Lat2D operator: ``"p64"``/``"p128"``
+    the 5-point Poisson grid, ``"sa9"`` the
+    9-point coarse level L1 (64²) of the 192² structured-SA hierarchy,
+    ``"thin"`` a 5-point grid of 2·n_sh × 77 (slabs of exactly 2·reach
+    rows, a width that is no multiple of 32)."""
+    import algebraicmultigrid_tpu_torch as amt
+
+    if name == "sa9":
+        ml = amt.structured_smoothed_aggregation(
+            amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3), **SETUP_KW
+        )
+        spec = ml.levels[1].A.spec
+    else:
+        dims = {"p64": (64, 64), "p128": (128, 128), "thin": (77, 2 * n_sh)}[name]  # (ny, nx)
+        spec = amt.poisson(dims, lattice=True).spec
+    return spec
+
+
+def halo_rank(mesh, names, dtypes=SLAB_DTYPES):
+    """This rank's slab of y = A·x for each named case and dtype, through
+    ``lat2d_spmv_halo`` with ``overlap=False`` and ``overlap=True``; x is
+    standard normal from seed 0 over the whole grid."""
+    import torch
+
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec
+    from algebraicmultigrid_tpu_torch.parallel import lat2d_spmv_halo, shard_slab
+
+    out = {}
+    for name in names:
+        spec = halo_case(name, mesh.n_sh)
+        Wx, Wy = spec.row_dims
+        x = np.random.default_rng(0).standard_normal(Wx * Wy)
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            A = lat2d_from_spec(spec, dt, mesh.device, row_pad=8)
+            xs = shard_slab(torch.as_tensor(x, dtype=dt), mesh, Wx, Wy)
+            out[name, dtype] = tuple(
+                lat2d_spmv_halo(A, xs, mesh, overlap=ov).cpu().numpy() for ov in (False, True)
+            )
+    return out
+
+
+def failing_rank(mesh):
+    """A rank function that fails on rank 1 (the launcher must report it)."""
+    if mesh.rank == 1:
+        raise ValueError("rank 1 gives up")
+    return mesh.rank
+
+
+# --------------------------------------------------------------------------
+# multi-RHS blocks
+# --------------------------------------------------------------------------
+
+K = 2  # right-hand sides
+
+
+def rhs_block(n, pad=0, seed=0, dtype=None):
+    """[n + pad, K] torch block, standard normal on the first n rows
+    (float64 unless ``dtype``)."""
+    import torch
+
+    X = np.zeros((n + pad, K))
+    X[:n] = np.random.default_rng(seed).standard_normal((n, K))
+    return torch.as_tensor(X, dtype=dtype or torch.float64)
+
+
+def multi_rhs_cycles(ml_j, ml_t, n, seed, **build_kw):
+    """(port hierarchy, port x, JAX x) of one V-cycle from zero on a block
+    B [n, K], float64; ``build_kw`` go to the port's builder."""
+    import jax.numpy as jnp
+    import torch
+
+    import algebraicmultigrid_tpu as amg
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu.models.device import _one_iteration as cycle_j, build_device_hierarchy as build_j
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration as cycle_t, build_device_hierarchy
+
+    h_t = build_device_hierarchy(ml_t, device="cpu", dtype=torch.float64, **build_kw)
+    h_j = build_j(ml_j, dtype=jnp.float64)
+    B = rhs_block(n, pad=h_t.fine_padded - n, seed=seed)
+    want = np.asarray(cycle_j(h_j, amg.V(), jnp.zeros(B.shape), jnp.asarray(B.numpy())))
+    got = cycle_t(h_t, amt.V(), torch.zeros_like(B), B).numpy()
+    return h_t, got, want
