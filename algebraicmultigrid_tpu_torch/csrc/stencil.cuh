@@ -33,11 +33,6 @@ struct ColorGrid {
   int tab[kMaxColorCells];
 };
 
-struct Steps {
-  int n;
-  int s[kMaxSteps];
-};
-
 // sum_k A[k, i, j] * x[i + dx_k, j + dy_k], zero outside the grid
 template <typename T>
 __device__ __forceinline__ T stencil_at(const T* __restrict__ A, const T* x,
@@ -236,13 +231,6 @@ inline int make_colors(ColorGrid* cg, const int* tab, int a, int b) {
   cg->a = a;
   cg->b = b;
   for (int t = 0; t < a * b; ++t) cg->tab[t] = tab[t];
-  return 0;
-}
-
-inline int make_steps(Steps* s, const int* steps, int n_steps) {
-  if (n_steps < 1 || n_steps > kMaxSteps) return 1;
-  s->n = n_steps;
-  for (int t = 0; t < n_steps; ++t) s->s[t] = steps[t];
   return 0;
 }
 

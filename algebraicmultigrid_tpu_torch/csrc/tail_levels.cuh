@@ -8,19 +8,31 @@
 // the correction x += Tup - S (A Tup), Tup = T * upsample_k(x_c), and the
 // postsmooth.  Every level below the entry starts from the zero guess.
 //
-// Every pass is a grid-stride loop and dependent passes are separated by
-// grid.sync().  Levels of at most kBlockCells cells and the coarse solve run
-// inside block 0 alone, with __syncthreads() between passes, while the
-// other blocks wait at the next grid barrier.  Color steps run in place,
-// race free within a step because no two coupled cells share a color.  The
-// restriction sums each coarse cell's k x k box of T (r - A g) in the same
-// pass, one thread per coarse cell.
+// Barriers.  A grid level with a tile (LevelDesc::tile_x > 0) runs each
+// leg as one tiled phase (leg_tile.cuh: the tile plus a halo in shared
+// memory, every color step there, halo erosion in place of barriers), so a
+// leg costs one grid barrier; its down leg writes x to the level's x_mid
+// and its up leg reads x_mid and writes x, so no tile reads cells that
+// another tile of the same phase writes.  A grid level without a tile runs
+// every pass as a grid-stride loop followed by grid.sync().  Levels of at
+// most kBlockCells cells and the coarse solve run inside block 0 alone,
+// pass by pass with __syncthreads(), while the other blocks wait at the
+// next grid barrier.  On an H100 (kernel_variants.py, its diagnostics)
+// these block-0 passes take most of K4's 0.36 ms and the tiled grid levels
+// the rest; walking the block-0 levels' tiles one after the other in block
+// 0 took K4 to 0.53 ms (each tile's loads wait in turn).  At 4096^2 (grid levels 456^2 and 153^2, 7 color steps
+// a leg) that is 2 + 1 + 2 = 5 grid barriers a cycle (4 in K4, which needs
+// none after its last write), where one barrier a pass took 35.  Color
+// steps of the passes run in place, race free within a step because no
+// two coupled cells share a color.  The restriction sums each coarse
+// cell's k x k box of T (r - A g) in the same pass, one thread per coarse
+// cell.
 //
 // The per-level descriptors (plane pointers, shapes, stencil, coloring,
-// steps) exceed the kernel-parameter space, so they live in a device array
-// of TailLevel, filled once per cache by amg_tail_fill_level and copied
-// into shared memory at kernel start (load_levels).  One work buffer holds
-// every level's x, b, r, g and the coarse vectors.
+// steps, tiles) exceed the kernel-parameter space, so they live in a
+// device array of LevelDesc, filled once per cache by amg_tail_fill_level
+// and copied into shared memory at kernel start (load_levels).  One work
+// buffer holds every level's x, b, r, g, x_mid and the coarse vectors.
 
 #pragma once
 
@@ -29,7 +41,7 @@
 
 #include <cstdint>
 
-#include "stencil.cuh"
+#include "leg_tile.cuh"
 
 namespace amg {
 
@@ -39,23 +51,6 @@ constexpr int kMaxTailLevels = 16;
 // a descriptor table holds a tail, or a subcycle's top level and its tail
 constexpr int kMaxTableLevels = kMaxTailLevels + 1;
 constexpr int kBlockCells = 4096;
-
-struct TailLevel {
-  const void* A;  // [nA, Wx, Wy] stencil planes
-  const void* dinv;
-  const void* Tp;
-  const void* S;
-  int64_t x_off;  // element offsets into the work buffer (level 0 uses the
-  int64_t b_off;  // call's x_out and b_in instead of x_off and b_off)
-  int64_t r_off;
-  int64_t g_off;
-  int Wx, Wy, Wxc, Wyc, k;
-  int n_steps;
-  int steps[kMaxSteps];
-  double omega;
-  Stencil st;
-  ColorGrid cg;
-};
 
 struct Span {  // the blocks first, first + stride, ... share a level's cells
   int first;
@@ -72,9 +67,9 @@ struct BlockBarrier {
 };
 
 // copy n descriptors from the device table into shared memory
-__device__ __forceinline__ void load_levels(TailLevel* sh, const TailLevel* lv,
+__device__ __forceinline__ void load_levels(LevelDesc* sh, const LevelDesc* lv,
                                             int n) {
-  const int words = n * (int)(sizeof(TailLevel) / sizeof(int));
+  const int words = n * (int)(sizeof(LevelDesc) / sizeof(int));
   const int* src = (const int*)lv;
   int* dst = (int*)sh;
   for (int w = threadIdx.x; w < words; w += blockDim.x) dst[w] = src[w];
@@ -84,7 +79,7 @@ __device__ __forceinline__ void load_levels(TailLevel* sh, const TailLevel* lv,
 // presmooth, residual and restriction of one level; x_in == nullptr is the
 // zero start
 template <typename T, typename Barrier>
-__device__ void level_down(const TailLevel& L, T* x, const T* x_in,
+__device__ void level_down(const LevelDesc& L, T* x, const T* x_in,
                            const T* b, T* r, T* g, T* bc, Span sp,
                            Barrier bar) {
   const T* A = (const T*)L.A;
@@ -115,7 +110,7 @@ __device__ void level_down(const TailLevel& L, T* x, const T* x_in,
 
 // correction from the coarse x, then postsmooth
 template <typename T, typename Barrier>
-__device__ void level_up(const TailLevel& L, T* x, const T* b, const T* xc,
+__device__ void level_up(const LevelDesc& L, T* x, const T* b, const T* xc,
                          Span sp, Barrier bar) {
   const T* A = (const T*)L.A;
   const T* dinv = (const T*)L.dinv;
@@ -141,13 +136,15 @@ __device__ void level_up(const TailLevel& L, T* x, const T* b, const T* xc,
 // One V-cycle over the n_lvl levels of sh (in shared memory): levels
 // [0, n_grid) on the whole grid, levels [n_grid, n_lvl) and the coarse solve
 // on block 0.  Level 0 reads x_in (nullptr: the zero start) and b_in and
-// writes x_out.  Every thread of the grid reaches every grid.sync() (no
-// early return), and the call ends on a grid barrier after its last write.
+// writes x_out.  A tiled level's tile buffers are at smem + smem_off.  Every
+// thread of the grid reaches every grid.sync() (no early return); with
+// final_barrier the call ends on a grid barrier after its last write.
 template <typename T>
-__device__ void tail_cycle(const TailLevel* sh, int n_lvl, int n_grid,
+__device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
                            T* work, T* x_out, const T* x_in, const T* b_in,
                            const T* __restrict__ Mc, int n7, int64_t b7_off,
-                           int64_t x7_off) {
+                           int64_t x7_off, unsigned char* smem,
+                           unsigned smem_off, bool final_barrier) {
   GridBarrier gbar{coop::this_grid()};
   BlockBarrier bbar;
   const Span gspan{(int)blockIdx.x, (int)gridDim.x};
@@ -167,8 +164,26 @@ __device__ void tail_cycle(const TailLevel* sh, int n_lvl, int n_grid,
     level_down<T>(sh[l], X(l), l == 0 ? x_in : (const T*)nullptr, B(l),
                   work + sh[l].r_off, work + sh[l].g_off, BC(l), sp, bar);
   };
+  // the tiles of a grid level, spread over the blocks
+  auto for_tiles = [&](const LevelDesc& L, auto f) {
+    const int ty = tiles_of(L.Wy, L.tile_y);
+    const int n = tiles_of(L.Wx, L.tile_x) * ty;
+    for (int t = blockIdx.x; t < n; t += gridDim.x) f(t / ty, t % ty);
+  };
 
-  for (int l = 0; l < n_grid; ++l) down(l, gspan, gbar);
+  for (int l = 0; l < n_grid; ++l) {
+    const LevelDesc& L = sh[l];
+    if (L.tile_x > 0) {
+      const T* xin = l == 0 ? x_in : (const T*)nullptr;
+      for_tiles(L, [&](int ti, int tj) {
+        tile_leg<T>(L, smem, smem_off, ti, tj, xin, (const T*)nullptr, B(l),
+                    work + L.m_off, BC(l));
+      });
+      gbar();
+    } else {
+      down(l, gspan, gbar);
+    }
+  }
   if (blockIdx.x == 0) {
     for (int l = n_grid; l < n_lvl; ++l) down(l, bspan, bbar);
     const T* b7 = work + b7_off;
@@ -185,7 +200,16 @@ __device__ void tail_cycle(const TailLevel* sh, int n_lvl, int n_grid,
   }
   gbar();
   for (int l = n_grid - 1; l >= 0; --l) {
-    level_up<T>(sh[l], X(l), B(l), XC(l), gspan, gbar);
+    const LevelDesc& L = sh[l];
+    if (L.tile_x > 0) {
+      for_tiles(L, [&](int ti, int tj) {
+        tile_leg<T>(L, smem, smem_off, ti, tj, (const T*)(work + L.m_off),
+                    XC(l), B(l), X(l), (T*)nullptr);
+      });
+      if (l > 0 || final_barrier) gbar();
+    } else {
+      level_up<T>(L, X(l), B(l), XC(l), gspan, gbar);
+    }
   }
 }
 

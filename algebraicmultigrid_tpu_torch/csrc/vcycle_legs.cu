@@ -15,52 +15,57 @@
 // does ~2 flops per byte read, far below the H100's ~20 flops/byte f32
 // balance point, so every pass is memory-bound.
 //
-// Design.  The TPU kernel keeps a tile plus a halo in VMEM and runs every
-// color step on it with halo over-compute; that shape exists because the TPU
-// runs the grid in order on one core.  Here blocks run in parallel with no
-// order, so each color step is one pass over the whole level: the periodic
-// lattice coloring guarantees no two coupled cells share a color, so every
-// cell of color c updates in place without races, and the pass boundary is
-// the grid-wide barrier between steps.  K1 and K2 make each pass its own
-// launch (the launch boundary is the barrier); K3 is one cooperative launch
-// whose passes are grid-stride loops separated by grid.sync() — the card's
-// counterpart of the TPU's in-order grid — which halves the level's
-// launches per cycle.  The first step of a leg reads x from the input and
-// writes every cell of the output, so a leg never copies x separately and a
-// zero start reads no x.  The correction forms Tup = T * x_c[i/k, j/k] on
-// the fly at each stencil neighbour instead of writing a Tup plane.  The
-// restriction writes T*(r - A g) per fine cell (coalesced, one thread a
-// cell), then sums each (clipped) k x k box with one thread per coarse cell.
-// (Summing the boxes straight from the stencil, one thread per coarse cell,
-// read every plane at stride k: 18% of a V-cycle's device time on an H100.)
-// Fusing the steps with shared-memory tiles and halos, and TMA, is later
-// work: this version re-reads the stencil planes once per step.
+// Design of K1 and K2.  Blocks run in parallel with no order, so each color
+// step is one pass over the whole level: the periodic lattice coloring
+// guarantees no two coupled cells share a color, so every cell of color c
+// updates in place without races, and the launch boundary is the barrier
+// between steps.  The first step of a leg reads x from the input and
+// writes every cell of the output, so a leg never copies x separately and
+// a zero start reads no x.  The correction forms Tup = T * x_c[i/k, j/k]
+// on the fly at each stencil neighbour instead of writing a Tup plane.
+// The restriction writes T*(r - A g) per fine cell (coalesced, one thread a
+// cell), then sums each (clipped) k x k box with one thread per coarse
+// cell.  (Summing the boxes straight from the stencil, one thread per
+// coarse cell, read every plane at stride k: 18% of a V-cycle's device time
+// on an H100.)  These legs re-read the stencil planes once per pass.
 //
+// Design of K3 (leg_tile.cuh has the halo argument).  The TPU kernel keeps
+// a tile plus a halo in VMEM and reads the coefficient planes once; so does
+// this one: one ordinary launch, one block a tile of the level (extents
+// multiples of k, planned by the wrapper from the shapes), x over the tile
+// plus a halo of (n_steps + 2) * reach cells in shared memory, the
+// correction, every color step, r, g and the restriction of the tile's
+// coarse cells there, and only x over the tile and b_c written back.  No
+// grid barrier: halo erosion makes the tiles independent.  (Its first
+// version, a cooperative launch of 9 grid-wide passes with r and g in
+// device memory, took 2.26 ms at 4096^2 on an H100 against a 0.225 ms
+// byte bound.)
+
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns a CUDA error code (cudaGetLastError() after the launches) for
 // the wrapper to check.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "stencil.cuh"
+#include "leg_tile.cuh"
 
 namespace {
 
-namespace coop = cooperative_groups;
 using amg::ColorGrid;
 using amg::Stencil;
-using amg::Steps;
 
 constexpr int kThreads = 256;
-// K3's cooperative grid: large blocks, registers capped at 32 to keep 2048
-// threads per SM (K3 at 4096^2 on an H100, kernel_variants.py: 2.26 ms at
-// 1024 threads x 2 blocks per SM, 2.31 ms at 256 x 8, 3.28 ms at 256
-// threads with 40 registers)
-constexpr int kCoopThreads = 1024;
-constexpr int kCoopMinBlocks = 2;
+// K3's block: one tile (leg_tile.cuh) a block.  A 5- or 9-point level
+// whose box fits its thread map keeps its coefficients in registers
+// (tile_leg_reg: warps, cells a thread down and across, so a box of up to
+// (warps x down) x (32 x across) cells: 64 x 64 for both, the wrapper's
+// REG_BOX); any other level runs tile_updown, the planes read in place,
+// with kUpdownThreads threads.
+constexpr int kUpdownThreads = 256;
+constexpr int kReg5Warps = 32, kReg5Rows = 2, kReg5Cols = 2;
+constexpr int kReg9Warps = 16, kReg9Rows = 4, kReg9Cols = 2;
 
 template <typename T>
 __global__ void color_step_kernel(T* x_out, const T* x_in,
@@ -130,44 +135,70 @@ __global__ void correct_kernel(T* __restrict__ x_out,
   }
 }
 
-// K3: up(i) then down(i+1) in one cooperative launch.  Every thread runs
-// every pass and reaches every grid.sync() (no early return).
-template <typename T>
-__global__ void __launch_bounds__(kCoopThreads, kCoopMinBlocks)
-    updown_kernel(T* x_out, const T* __restrict__ x_in,
-                  const T* __restrict__ b, const T* __restrict__ A,
-                  const T* __restrict__ dinv, const T* __restrict__ Tp,
-                  const T* __restrict__ S, const T* __restrict__ xc, T* r,
-                  T* g, T* bc, Stencil st, ColorGrid cg, Steps steps, T omega,
-                  int Wx, int Wy, int Wxc, int Wyc, int k) {
-  coop::grid_group grid = coop::this_grid();
-  const int first = blockIdx.x;
-  const int stride = gridDim.x;
-
-  amg::for_cells(Wx, Wy, first, stride, [&](int i, int j) {
-    amg::correct_cell(x_out, x_in, xc, A, Tp, S, st, i, j, Wx, Wy, Wyc, k);
-  });
-  grid.sync();
-  for (int s = 0; s < steps.n; ++s) {
-    const int color = steps.s[s];
-    amg::for_cells(Wx, Wy, first, stride, [&](int i, int j) {
-      amg::step_cell(x_out, (const T*)x_out, b, A, dinv, st, cg, color, omega,
-                     i, j, Wx, Wy, false);
-    });
-    grid.sync();
+// the level's descriptor, a kernel parameter, into shared memory for the
+// dynamic indexing of its stencil, coloring and steps
+__device__ __forceinline__ void copy_desc(amg::LevelDesc* sh,
+                                          const amg::LevelDesc& L) {
+  const int* src = reinterpret_cast<const int*>(&L);
+  int* dst = reinterpret_cast<int*>(sh);
+  for (int w = threadIdx.x; w < (int)(sizeof(amg::LevelDesc) / sizeof(int));
+       w += blockDim.x) {
+    dst[w] = src[w];
   }
-  amg::for_cells(Wx, Wy, first, stride, [&](int i, int j) {
-    amg::residual_cell(r, g, (const T*)x_out, b, A, S, st, i, j, Wx, Wy);
-  });
-  grid.sync();
-  amg::for_cells(Wx, Wy, first, stride, [&](int i, int j) {
-    r[(int64_t)i * Wy + j] =
-        amg::term_at((const T*)r, (const T*)g, A, Tp, st, i, j, Wx, Wy);
-  });
-  grid.sync();
-  amg::for_cells(Wxc, Wyc, first, stride, [&](int I, int J) {
-    amg::box_cell(bc, (const T*)r, I, J, Wx, Wy, Wyc, k);
-  });
+  __syncthreads();
+}
+
+// K3: up(i) then down(i+1), one block a tile
+template <typename T, int K>
+__global__ void __launch_bounds__(kUpdownThreads)
+    updown_tile_kernel(T* x_out, const T* x_in, const T* b, const T* xc,
+                       T* bc, const __grid_constant__ amg::LevelDesc L) {
+  extern __shared__ __align__(16) unsigned char updown_smem[];
+  __shared__ amg::LevelDesc sh;
+  copy_desc(&sh, L);
+  amg::tile_updown<K, T>(sh, updown_smem, 0, blockIdx.y, blockIdx.x, x_in, xc,
+                         b, x_out, bc);
+}
+
+// K3 with the coefficients in registers
+template <typename T, int K, int NOFF, int WARPS, int CI, int CJ>
+__global__ void __launch_bounds__(WARPS * 32)
+    updown_reg_kernel(T* x_out, const T* x_in, const T* b, const T* xc,
+                      T* bc, const __grid_constant__ amg::LevelDesc L) {
+  extern __shared__ __align__(16) unsigned char updown_smem[];
+  __shared__ amg::LevelDesc sh;
+  copy_desc(&sh, L);
+  amg::tile_leg_reg<T, K, NOFF, WARPS, CI, CJ>(
+      sh, updown_smem, 0, blockIdx.y, blockIdx.x, x_in, xc, b, x_out, bc);
+}
+
+template <typename Kernel, typename T>
+int launch_updown(Kernel fn, int threads, dim3 grid, size_t smem,
+                  cudaStream_t stream, T* x_out, const T* x_in, const T* b,
+                  const T* xc, T* bc, const amg::LevelDesc& L) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<grid, threads, smem, stream>>>(x_out, x_in, b, xc, bc, L);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int K>
+int launch_updown_k(int n_off, bool reg, dim3 grid, size_t smem,
+                    cudaStream_t stream, T* x_out, const T* x_in, const T* b,
+                    const T* xc, T* bc, const amg::LevelDesc& L) {
+  if (reg && n_off == 5) {
+    return launch_updown(
+        updown_reg_kernel<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols>,
+        kReg5Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
+  }
+  if (reg && n_off == 9) {
+    return launch_updown(
+        updown_reg_kernel<T, K, 9, kReg9Warps, kReg9Rows, kReg9Cols>,
+        kReg9Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
+  }
+  return launch_updown(updown_tile_kernel<T, K>, kUpdownThreads, grid, smem,
+                       stream, x_out, x_in, b, xc, bc, L);
 }
 
 dim3 grid_for(int rows, int cols) {
@@ -237,24 +268,32 @@ int fused_up(T* x_out, const T* x_in, const T* b, const T* A, const T* dinv,
 
 template <typename T>
 int fused_updown(T* x_out, const T* x_in, const T* b, const T* A,
-                 const T* dinv, const T* Tp, const T* S, const T* xc, T* r,
-                 T* g, T* bc, const int* offs, int n_off, const int* ctab,
-                 int ca, int cb, const int* steps, int n_steps, double omega,
-                 int Wx, int Wy, int Wxc, int Wyc, int k, void* stream_ptr) {
-  Stencil st;
-  ColorGrid cg;
-  Steps sl;
-  if (amg::make_stencil(&st, offs, n_off) ||
-      amg::make_colors(&cg, ctab, ca, cb) ||
-      amg::make_steps(&sl, steps, n_steps) || (k != 2 && k != 3)) {
+                 const T* dinv, const T* Tp, const T* S, const T* xc, T* bc,
+                 const int* offs, int n_off, const int* ctab, int ca, int cb,
+                 const int* steps, int n_steps, double omega, int Wx, int Wy,
+                 int Wxc, int Wyc, int k, int tile_x, int tile_y,
+                 void* stream_ptr) {
+  amg::LevelDesc L;
+  if (amg::fill_level(&L, A, dinv, Tp, S, 0, 0, 0, 0, 0, Wx, Wy, Wxc, Wyc, k,
+                      tile_x, tile_y, offs, n_off, ctab, ca, cb, steps,
+                      n_steps, omega) ||
+      tile_x < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  T om = (T)omega;
-  void* args[] = {&x_out, &x_in, &b,  &A,  &dinv,  &Tp, &S,  &xc,
-                  &r,     &g,    &bc, &st, &cg,    &sl, &om, &Wx,
-                  &Wy,    &Wxc,  &Wyc, &k};
-  return amg::launch_cooperative((const void*)updown_kernel<T>, kCoopThreads,
-                                 args, (cudaStream_t)stream_ptr);
+  const dim3 grid(amg::tiles_of(Wy, tile_y), amg::tiles_of(Wx, tile_x));
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  const int halo = amg::leg_halo(n_steps, L.reach, true);
+  const bool reg = (n_off == 5 && tile_x + 2 * halo <= kReg5Warps * kReg5Rows &&
+                    tile_y + 2 * halo <= 32 * kReg5Cols) ||
+                   (n_off == 9 && tile_x + 2 * halo <= kReg9Warps * kReg9Rows &&
+                    tile_y + 2 * halo <= 32 * kReg9Cols);
+  const size_t smem =
+      amg::tile_smem_bytes(tile_x, tile_y, halo, L.reach, (int)sizeof(T));
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  return k == 2 ? launch_updown_k<T, 2>(n_off, reg, grid, smem, stream, x_out,
+                                        x_in, b, xc, bc, L)
+                : launch_updown_k<T, 3>(n_off, reg, grid, smem, stream, x_out,
+                                        x_in, b, xc, bc, L);
 }
 
 }  // namespace
@@ -286,14 +325,14 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const T* A,
   extern "C" int amg_fused_updown_##SUFFIX(                                   \
       void* x_out, const void* x_in, const void* b, const void* A,            \
       const void* dinv, const void* Tp, const void* S, const void* xc,        \
-      void* r, void* g, void* bc, const int* offs, int n_off,                 \
-      const int* ctab, int ca, int cb, const int* steps, int n_steps,         \
-      double omega, int Wx, int Wy, int Wxc, int Wyc, int k, void* stream) {  \
+      void* bc, const int* offs, int n_off, const int* ctab, int ca, int cb,  \
+      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,   \
+      int Wyc, int k, int tile_x, int tile_y, void* stream) {                 \
     return fused_updown<T>((T*)x_out, (const T*)x_in, (const T*)b,            \
                            (const T*)A, (const T*)dinv, (const T*)Tp,         \
-                           (const T*)S, (const T*)xc, (T*)r, (T*)g, (T*)bc,   \
-                           offs, n_off, ctab, ca, cb, steps, n_steps, omega,  \
-                           Wx, Wy, Wxc, Wyc, k, stream);                      \
+                           (const T*)S, (const T*)xc, (T*)bc, offs, n_off,    \
+                           ctab, ca, cb, steps, n_steps, omega, Wx, Wy, Wxc,  \
+                           Wyc, k, tile_x, tile_y, stream);                   \
   }
 
 AMG_DEFINE_LEGS(f32, float)

@@ -785,7 +785,8 @@ def run_fixed_cycles(h: DeviceHierarchy, x, b, n_cycles: int):
     :func:`_one_iteration`.  When the top level has fused legs (and the tail
     does not start there), the loop is: the down leg once, then per cycle
     the sub-hierarchy's V-cycle and the cross-cycle ``fused_updown`` (up of
-    this cycle and down of the next in one launch), and a last sub-cycle and
+    this cycle and down of the next in one launch; the up then the down leg
+    on a level whose legs have no updown tile), and a last sub-cycle and
     up leg.  Its rounding differs from the iterated cycles by the deduped
     boundary step of the double sweep."""
     fused = h.levels[0].fused if h.levels else None
@@ -804,7 +805,11 @@ def run_fixed_cycles(h: DeviceHierarchy, x, b, n_cycles: int):
     xf, bc = fused_down(fused, x, b)
     for _ in range(n_cycles - 1):
         xc = _subsolve(h, fit_len(bc, n_next), 1)
-        xf, bc = fused_updown(fused, xf, b, xc)
+        if fused.updown_tile is None:
+            # past the tiled updown's limits (decided when the cache was built)
+            xf, bc = fused_down(fused, fused_up(fused, xf, b, xc), b)
+        else:
+            xf, bc = fused_updown(fused, xf, b, xc)
     xc = _subsolve(h, fit_len(bc, n_next), 1)
     return fused_up(fused, xf, b, xc)
 

@@ -12,8 +12,9 @@ iteration.
 
 The CUDA kernel (``csrc/subcycle_kernel.cu``) is one cooperative launch in
 three phases: level ``start`` in 2-D tiles with the color steps in shared
-memory, the tail recursion of ``csrc/tail_levels.cuh`` (K4's code), then
-level ``start`` again in the same tiles.  ``fused_subcycle_reference`` is
+memory (``csrc/leg_tile.cuh``, K3's device code), the tail recursion of
+``csrc/tail_levels.cuh`` (K4's code), then level ``start`` again in the
+same tiles.  ``fused_subcycle_reference`` is
 its plain PyTorch version: the plain down leg, the plain tail and the plain
 up leg.  ``fused_subcycle`` takes the plain version only for tensors on the
 CPU; on a CUDA tensor it launches the kernel or raises.  Its launches count
@@ -40,15 +41,18 @@ from .tail_kernel import (
     fused_tail_reference,
 )
 from .vcycle_legs import (
-    FusedLegCache,
     SUFFIX,
+    FusedLegCache,
     build_level_legs,
     check_vector,
     fused_down_reference,
     fused_up_reference,
     launches,
+    leg_halo,
     load_library,
     raise_on,
+    reg_want,
+    tile_smem_bytes,
 )
 
 __all__ = [
@@ -63,10 +67,9 @@ __all__ = [
 MAX_ROWS = 2_500_000
 # the JAX gate's limit on the level's stencil reach
 MAX_REACH = 2
-# edge of a tile's interior (rounded down to a multiple of k); shrunk until
-# phase A's shared memory fits a block.  K9 at L1 of 4096² on an H100
-# (kernel_variants.py subcycle, f32): 1.03 ms with 72, 1.10 with 96, 1.13
-# with 48, 1.24 with 36, 1.63 with 24
+# edge of a tile's interior (rounded down to a multiple of k), cut to the
+# register box of a 5- or 9-point level (45 at L1 of 4096²) and shrunk
+# until the block's shared memory holds it
 TILE = 72
 
 
@@ -95,19 +98,25 @@ def _reach(offs) -> int:
     return max((max(abs(dx), abs(dy)) for dx, dy in offs), default=0)
 
 
-def _smem_bytes(tile: int, steps: int, reach: int, itemsize: int, table: int) -> int:
-    """Dynamic shared memory of a block: the descriptor table, then phase
-    A's box of x plus r and g over the tile and one reach (phase C's box is
-    smaller)."""
-    ed = tile + 2 * (steps * reach + 2 * reach)
-    g = tile + 2 * reach
-    return table + (ed * ed + 2 * g * g) * itemsize
+def _table_bytes(n_tail: int, level_bytes: int) -> int:
+    """The descriptor table at the head of the dynamic shared memory,
+    rounded to 16 bytes (csrc/subcycle_kernel.cu ``table_bytes``)."""
+    return -(-level_bytes * (n_tail + 1) // 16) * 16
+
+
+def subcycle_smem(top: FusedLegCache, tail: FusedTailCache, tile: int, level_bytes: int) -> int:
+    """Dynamic shared memory of a block: the descriptor table, then the
+    larger of phase A's tile buffers and the tail's tiled levels'."""
+    halo = leg_halo(len(top.steps), _reach(top.offsA), True)
+    own = tile_smem_bytes(tile, tile, halo, _reach(top.offsA), top.A.element_size())
+    return _table_bytes(len(tail.levels), level_bytes) + max(own, tail.smem)
 
 
 def make_fused_subcycle_cache(top: FusedLegCache, tail: FusedTailCache, tile: int = TILE) -> FusedSubcycleCache:
     """Assemble the cache from the top level's leg cache and the tail below
-    it; also the entry of ``convert.hierarchy_from_numpy``.  On a card the
-    tile shrinks (by k) until phase A's shared memory fits a block."""
+    it; also the entry of ``convert.hierarchy_from_numpy``.  A 5- or
+    9-point level's tile is cut to the register box (``reg_want``); on a
+    card the tile shrinks (by k) until the block's shared memory holds it."""
     if tuple(tail.levels[0].row_dims) != tuple(top.col_dims):
         raise ValueError("the tail does not start at the top level's coarse grid")
     Wx, Wy = top.row_dims
@@ -119,16 +128,16 @@ def make_fused_subcycle_cache(top: FusedLegCache, tail: FusedTailCache, tile: in
         raise ValueError("the subcycle kernel indexes a level's cells in 32 bits")
     steps = tuple(top.steps)
     reach = _reach(top.offsA)
+    tile = reg_want([tile], len(top.offsA), leg_halo(len(steps), reach, True), k)[0]
     tile = max(k, tile - tile % k)
     desc = None
     if top.A.device.type == "cuda":
         lib = load_library()
-        table = lib.amg_tail_level_bytes() * (len(tail.levels) + 1)
-        itemsize = top.A.element_size()
-        while tile > k and _smem_bytes(tile, len(steps), reach, itemsize, table) > lib.amg_subcycle_smem_limit():
+        level_bytes = lib.amg_tail_level_bytes()
+        while tile > k and subcycle_smem(top, tail, tile, level_bytes) > lib.amg_subcycle_smem_limit():
             tile -= k
         per, _, _ = _work_layout(tail.levels)
-        desc = _descriptor((top,) + tuple(tail.levels), [(0, 0, 0, 0)] + per)
+        desc = _descriptor((top,) + tuple(tail.levels), [(0,) * 5] + per, ((tile, tile),) + tail.tiles)
     return FusedSubcycleCache(top=top, tail=tail, steps=steps, reach=reach, tile=tile, desc=desc)
 
 
@@ -201,12 +210,11 @@ def fused_subcycle(cache: FusedSubcycleCache, b):
     x_out = torch.empty_like(b)
     if b.shape[0] > n:
         x_out[n:].zero_()
-    hd, hu = cache.halos
+    smem = subcycle_smem(top, tail, cache.tile, lib.amg_tail_level_bytes())
     err = getattr(lib, f"amg_fused_subcycle_{SUFFIX[b.dtype]}")(
         cache.desc.data_ptr(), len(tail.levels), n_grid, scratch.data_ptr(), x_out.data_ptr(),
         b.data_ptr(), x_mid.data_ptr(), bc.data_ptr(), xc.data_ptr(), tail.Mc.data_ptr(), tail.n7,
-        b7, x7, cache.tile, top.k, hd, hu, cache.reach,
-        torch.cuda.current_stream(b.device).cuda_stream,
+        b7, x7, smem, torch.cuda.current_stream(b.device).cuda_stream,
     )
     raise_on(err, "fused_subcycle kernel")
     launches["sub"] += 1

@@ -8,8 +8,12 @@ the dense coarse solve x_c = Mc·b_c at the bottom (Mc = R⁻¹Qᵀ, or the
 pseudo-inverse when the coarse operator is singular).
 
 The CUDA kernel (``csrc/tail_kernel.cu``) is one cooperative launch per
-call; ``fused_tail_reference`` is its plain PyTorch version, the recursion
-of the plain legs.  ``fused_tail`` takes the plain version only for tensors
+call: the levels of more than ``BLOCK_CELLS`` cells run each leg as one
+phase of independent tiles (the tile plus a halo in shared memory, K3's
+device code, planned here from the shapes), one grid barrier a leg, and the
+smaller levels and the coarse solve run inside one block, pass by pass.
+``fused_tail_reference`` is its plain PyTorch version, the recursion of the
+plain legs.  ``fused_tail`` takes the plain version only for tensors
 on the CPU; on a CUDA tensor it launches the kernel or raises.  Its launches
 count under ``launches["tail"]`` of ``vcycle_legs``.
 
@@ -33,16 +37,22 @@ import numpy as np
 import torch
 
 from .vcycle_legs import (
-    FusedLegCache,
+    MAX_STEPS,
+    SMEM_LIMIT,
     SUFFIX,
+    FusedLegCache,
     build_level_legs,
     check_vector,
     fused_down_reference,
     fused_up_reference,
     launches,
+    leg_halo,
     load_library,
+    plan_tile,
     raise_on,
+    reg_want,
     stencil_args,
+    tile_smem_bytes,
 )
 
 __all__ = [
@@ -51,6 +61,8 @@ __all__ = [
     "make_fused_tail_cache",
     "fused_tail",
     "fused_tail_reference",
+    "tail_smem",
+    "tail_tiles",
 ]
 
 MAX_COARSE_ROWS = 4096
@@ -59,6 +71,14 @@ MAX_LEVELS = 16
 # reach limits of the JAX gate (its 8-cell halo), kept so both packages
 # pick the same tail
 _H = 8
+# levels of more cells run on the whole grid (csrc/tail_levels.cuh
+# kBlockCells), in tiles of this size (rounded down to multiples of k, cut
+# to the register box: 45 x 45 for the 9-point levels of 4096², one tile
+# a block at 456²), chosen by kernel_variants.py
+BLOCK_CELLS = 4096
+TAIL_TILE = (48, 48)
+# shared memory kept for the descriptor table (17 LevelDesc of < 1 KB)
+TABLE_RESERVE = 17 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,16 +90,52 @@ class FusedTailCache:
     Mc: torch.Tensor       # [n7, n7] dense coarse solve operator
     dims7: Tuple[int, int]  # coarse grid (W7x, W7y)
     work_len: int          # elements of the kernel's work buffer
-    desc: Optional[torch.Tensor] = None  # uint8 TailLevel table (CUDA only)
+    # per level its tile, (0, 0) where the level runs pass by pass (in one
+    # block, or on the grid where no tile fits)
+    tiles: Tuple[Tuple[int, int], ...] = ()
+    desc: Optional[torch.Tensor] = None  # uint8 LevelDesc table (CUDA only)
 
     @property
     def n7(self) -> int:
         return self.dims7[0] * self.dims7[1]
 
+    @property
+    def smem(self) -> int:
+        """Bytes of dynamic shared memory the tiled levels take."""
+        return tail_smem(self.levels, self.tiles)
+
+
+def tail_tiles(levels, want=TAIL_TILE):
+    """Each level's tile: the levels of more than ``BLOCK_CELLS`` cells in
+    tiles of about ``want`` (cut to the register box for a 5- or 9-point
+    level) whose down leg's buffers fit a block's shared memory beside the
+    descriptor table, else (0, 0): the level runs pass by pass."""
+    out = []
+    for L in levels:
+        tile = None
+        if L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS:
+            halo = leg_halo(len(L.steps), L.reach, True)
+            tile = plan_tile(
+                L.row_dims, L.k, halo, L.reach, L.A.element_size(), reg_want(want, len(L.offsA), halo, L.k),
+                SMEM_LIMIT - TABLE_RESERVE,
+            )
+        out.append(tile or (0, 0))
+    return tuple(out)
+
+
+def tail_smem(levels, tiles) -> int:
+    """The largest tiled level's tile buffers (its down leg's: the up leg's
+    halo is smaller), in bytes."""
+    return max(
+        (tile_smem_bytes(*t, leg_halo(len(L.steps), L.reach, True), L.reach, L.A.element_size())
+         for L, t in zip(levels, tiles) if t[0] > 0),
+        default=0,
+    )
+
 
 def _work_layout(levels):
-    """Element offsets (x, b, r, g) per level and (b7, x7) in one work
-    buffer; level 0's x and b are the call's own vectors."""
+    """Element offsets (x, b, r, g, x_mid) per level and (b7, x7) in one
+    work buffer; level 0's x and b are the call's own vectors."""
     off = 0
     per = []
     for i, L in enumerate(levels):
@@ -88,32 +144,33 @@ def _work_layout(levels):
         if i > 0:
             xo, bo = off, off + n
             off += 2 * n
-        per.append((xo, bo, off, off + n))
-        off += 2 * n
+        per.append((xo, bo, off, off + n, off + 2 * n))
+        off += 3 * n
     n7 = levels[-1].col_dims[0] * levels[-1].col_dims[1]
     return per, (off, off + n7), off + 2 * n7
 
 
-def _descriptor(levels, per) -> torch.Tensor:
-    """The kernel's TailLevel table, filled by the library and copied to the
+def _descriptor(levels, per, tiles) -> torch.Tensor:
+    """The kernels' LevelDesc table, filled by the library and copied to the
     card once."""
     lib = load_library()
     size = lib.amg_tail_level_bytes()
     table = (ctypes.c_char * (size * len(levels)))()
-    for i, (L, (xo, bo, ro, go)) in enumerate(zip(levels, per)):
+    for i, (L, offs, tile) in enumerate(zip(levels, per, tiles)):
         err = lib.amg_tail_fill_level(
             ctypes.addressof(table), i,
             L.A.data_ptr(), L.dinv.data_ptr(), L.T.data_ptr(), L.S.data_ptr(),
-            xo, bo, ro, go, *L.row_dims, *L.col_dims, L.k, *stencil_args(L, L.steps),
+            *offs, *L.row_dims, *L.col_dims, L.k, *tile, *stencil_args(L, L.steps),
         )
         raise_on(err, f"tail descriptor of level {i}")
     host = torch.frombuffer(bytearray(table), dtype=torch.uint8)
     return host.to(levels[0].A.device)
 
 
-def make_fused_tail_cache(levels, Mc: torch.Tensor) -> FusedTailCache:
+def make_fused_tail_cache(levels, Mc: torch.Tensor, tile=TAIL_TILE) -> FusedTailCache:
     """Assemble the cache from per-level leg caches (fine → coarse) and the
-    coarse operator; also the entry of ``convert.hierarchy_from_numpy``."""
+    coarse operator, with the grid levels' tiles planned from the shapes;
+    also the entry of ``convert.hierarchy_from_numpy``."""
     levels = tuple(levels)
     if not levels or len(levels) > MAX_LEVELS:
         raise ValueError(f"a tail has 1..{MAX_LEVELS} levels, got {len(levels)}")
@@ -127,8 +184,9 @@ def make_fused_tail_cache(levels, Mc: torch.Tensor) -> FusedTailCache:
     if tuple(Mc.shape) != (n7, n7):
         raise ValueError(f"coarse operator {tuple(Mc.shape)} does not fit the grid {dims7}")
     per, _, work_len = _work_layout(levels)
-    desc = _descriptor(levels, per) if Mc.device.type == "cuda" else None
-    return FusedTailCache(levels=levels, Mc=Mc.contiguous(), dims7=dims7, work_len=work_len, desc=desc)
+    tiles = tail_tiles(levels, tile)
+    desc = _descriptor(levels, per, tiles) if Mc.device.type == "cuda" else None
+    return FusedTailCache(levels=levels, Mc=Mc.contiguous(), dims7=dims7, work_len=work_len, tiles=tiles, desc=desc)
 
 
 # --------------------------------------------------------------------------
@@ -167,8 +225,9 @@ def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int 
     """The whole-tail cache for ``levels[start:]`` plus the coarse solve, or
     None when the tail's first level has more than ``max_rows`` rows or any
     tail level fails the gate: fused legs as ``build_level_legs`` builds
-    them, the JAX tail's reach limits, chained grids, and a final grid of at
-    most 4096 rows."""
+    them, the JAX tail's reach limits, at most 64 color steps a leg (the
+    kernel's descriptor), chained grids, and a final grid of at most 4096
+    rows."""
     tail = levels[start:]
     if not tail or tail[0].A.shape[0] > max_rows or len(tail) > MAX_LEVELS:
         return None
@@ -176,6 +235,8 @@ def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int 
     for level in tail:
         leg = build_level_legs(level, dtype, device)
         if leg is None or not _reach_ok(level, leg.k) or (legs and legs[-1].col_dims != leg.row_dims):
+            return None
+        if len(leg.steps) > MAX_STEPS:  # the kernel's descriptor holds 64
             return None
         legs.append(leg)
     W7x, W7y = legs[-1].col_dims
@@ -234,7 +295,7 @@ def fused_tail(cache: FusedTailCache, x, b, x_zero: bool = False):
     err = getattr(lib, f"amg_fused_tail_{SUFFIX[x.dtype]}")(
         cache.desc.data_ptr(), len(cache.levels), n_grid, work.data_ptr(), x_out.data_ptr(),
         None if x_zero else x.data_ptr(), b.data_ptr(), cache.Mc.data_ptr(), cache.n7, b7, x7,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        cache.smem, torch.cuda.current_stream(x.device).cuda_stream,
     )
     raise_on(err, "fused_tail kernel")
     launches["tail"] += 1

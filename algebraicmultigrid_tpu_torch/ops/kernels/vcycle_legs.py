@@ -14,7 +14,8 @@ and the smoothing scale S = ω·D̃⁻¹, so P = (I − diag(S)·A)·T and R = P
   cycle at the top level.
 
 Each leg has a hand-written CUDA kernel (``csrc/vcycle_legs.cu``; K3 is one
-cooperative launch) and a plain PyTorch version beside it
+launch of independent tiles, each the tile plus a halo in shared memory,
+``csrc/leg_tile.cuh``) and a plain PyTorch version beside it
 (``fused_down_reference``, ``fused_up_reference``,
 ``fused_updown_reference``).  The port's CUDA sources (these legs, the
 whole-tail kernel ``csrc/tail_kernel.cu``, the whole-subcycle kernel
@@ -28,7 +29,8 @@ plain version only for tensors on the CPU; on a CUDA tensor they launch the
 kernel or raise.  ``launches`` counts the kernel launches of every wrapper
 of that library (``tail`` is the whole-tail kernel's, ``sub`` the
 whole-subcycle kernel's, ``bsg`` the BSG SpMV's, ``scan_gs`` the natural-order sweep's, ``gs`` K5's, ``sweep3d``
-K7's and ``halo`` K8's).
+K7's and ``halo`` K8's); ``level_launches`` counts the leg kernels' launches
+by level.
 
 Left for later (as in the JAX package, they are not on the SA main path):
 the non-factored R/P-plane branches and bf16 coefficient storage.
@@ -36,6 +38,7 @@ the non-factored R/P-plane branches and bf16 coefficient storage.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -60,6 +63,12 @@ __all__ = [
     "fused_down_reference",
     "fused_up_reference",
     "fused_updown_reference",
+    "leg_halo",
+    "plan_tile",
+    "plan_updown",
+    "reg_want",
+    "tile_smem_bytes",
+    "with_updown_plan",
     "launches",
     "build_library",
     "load_library",
@@ -74,16 +83,32 @@ SOURCES = tuple(
         "sweep3d.cu", "halo_stencil.cu",
     )
 )
-HEADERS = (CSRC / "stencil.cuh", CSRC / "tail_levels.cuh", CSRC / "sweep_tile.cuh")
+HEADERS = (CSRC / "stencil.cuh", CSRC / "leg_tile.cuh", CSRC / "tail_levels.cuh", CSRC / "sweep_tile.cuh")
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # the kernels' fixed parameter-struct capacities (csrc/stencil.cuh)
 MAX_OFFSETS = 32
 MAX_COLOR_CELLS = 64
+MAX_STEPS = 64
+# shared memory a block may take on an H100 (227 KB), less room for the
+# static level descriptor of the tiled kernels (csrc/leg_tile.cuh LevelDesc)
+SMEM_LIMIT = 232_448
+DESC_RESERVE = 1024
+# K3's tile (fine cells along x, y; rounded down to multiples of k), chosen
+# by kernel_variants.py; the stencil sizes whose coefficients the tiled legs
+# keep in registers, on a box (tile + 2 halo) of at most REG_BOX cells a
+# side (the thread maps of csrc/vcycle_legs.cu and csrc/leg_tile.cuh)
+UPDOWN_TILE = (48, 48)
+REG_OFFSETS = (5, 9)
+REG_BOX = 64
+# the tiles of a level are a CUDA grid's second dimension
+MAX_TILE_ROWS = 65_535
 
 launches = {
     "down": 0, "up": 0, "updown": 0, "tail": 0, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
 }
+# the leg kernels' launches by level: (counter, fine grid dims) -> count
+level_launches = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +129,9 @@ class FusedLegCache:
     iter: int
     forward: bool
     backward: bool
+    # K3's tile, from plan_updown when the cache is built; None: the level
+    # is past the tiled kernel's limits and its updown runs K2 then K1
+    updown_tile: Optional[Tuple[int, int]] = None
 
     @property
     def steps(self) -> Tuple[int, ...]:
@@ -112,6 +140,73 @@ class FusedLegCache:
     @property
     def steps2(self) -> Tuple[int, ...]:
         return steps2_list(self.n_colors, self.iter, self.forward, self.backward, self.omega)
+
+    @property
+    def reach(self) -> int:
+        return max((max(abs(dx), abs(dy)) for dx, dy in self.offsA), default=0)
+
+
+def leg_halo(n_steps: int, reach: int, restriction: bool) -> int:
+    """Cells of halo a tile of a leg needs (csrc/leg_tile.cuh): its steps
+    erode ``reach`` cells each, and a restriction two reaches more."""
+    return (n_steps + (2 if restriction else 0)) * reach
+
+
+def tile_smem_bytes(tx: int, ty: int, halo: int, reach: int, itemsize: int) -> int:
+    """Shared memory of one tile (csrc/leg_tile.cuh ``tile_smem_bytes``): x
+    over the box, Tup over the box plus one reach or r and g over the tile
+    plus one reach, and a color byte per box cell."""
+    e = (tx + 2 * halo) * (ty + 2 * halo)
+    up = (tx + 2 * halo + 2 * reach) * (ty + 2 * halo + 2 * reach)
+    rg = 2 * (tx + 2 * reach) * (ty + 2 * reach)
+    return (e + max(up, rg)) * itemsize + -(-e // 16) * 16
+
+
+def reg_want(want, n_off: int, halo: int, k: int):
+    """``want`` cut so that a 5- or 9-point level's box fits ``REG_BOX``
+    cells a side, where the tiled legs keep the coefficients in registers;
+    ``want`` itself for other stencils or where no k × k tile fits."""
+    if n_off in REG_OFFSETS and REG_BOX - 2 * halo >= k:
+        return [min(w, REG_BOX - 2 * halo) for w in want]
+    return want
+
+
+def plan_tile(row_dims, k: int, halo: int, reach: int, itemsize: int, want, limit: int):
+    """(tile_x, tile_y) for a leg in tiles on a ``row_dims`` level: ``want``
+    rounded down to multiples of k, no larger than the grid (rounded up to
+    k), the larger extent shrunk by k until a block's shared memory
+    ``limit`` holds it; None when a k × k tile does not fit or the tiles'
+    rows exceed a CUDA grid dimension."""
+    tile = [max(k, min(w - w % k, -(-W // k) * k)) for w, W in zip(want, row_dims)]
+    while tile_smem_bytes(*tile, halo, reach, itemsize) > limit:
+        a = 0 if tile[0] >= tile[1] else 1
+        if tile[a] <= k:
+            return None
+        tile[a] -= k
+    if -(-row_dims[0] // tile[0]) > MAX_TILE_ROWS:
+        return None
+    return tuple(tile)
+
+
+def plan_updown(row_dims, k: int, offs, n_steps2: int, itemsize: int, want=UPDOWN_TILE):
+    """K3's tile on a level, or None when the level is past the tiled
+    kernel's limits (more than 64 steps in the double sweep, or no tile fits
+    a block's shared memory): decided from the shapes, once, when the leg
+    cache is built.  A 5- or 9-point level takes the largest tile up to
+    ``want`` whose box fits ``REG_BOX`` cells a side, where the kernel keeps
+    the coefficients in registers, if a k × k tile fits there; other levels
+    read them in place at every pass."""
+    if not 1 <= n_steps2 <= MAX_STEPS:
+        return None
+    reach = max((max(abs(dx), abs(dy)) for dx, dy in offs), default=0)
+    halo = leg_halo(n_steps2, reach, True)
+    return plan_tile(row_dims, k, halo, reach, itemsize, reg_want(want, len(offs), halo, k), SMEM_LIMIT - DESC_RESERVE)
+
+
+def with_updown_plan(cache: "FusedLegCache", want=UPDOWN_TILE) -> "FusedLegCache":
+    """The cache with K3's tile planned from its shapes."""
+    tile = plan_updown(cache.row_dims, cache.k, cache.offsA, len(cache.steps2), cache.A.element_size(), want)
+    return dataclasses.replace(cache, updown_tile=tile)
 
 
 def _factored_ok(specT, k, dims, cdims) -> bool:
@@ -181,7 +276,7 @@ def build_fused_leg_cache(
         S = S[torch.as_tensor(cxS, device=device)][:, torch.as_tensor(cyS, device=device)]
     else:
         S = torch.as_tensor(np.asarray(scale[1], dtype=np_dtype).reshape(Wx, Wy), device=device)
-    return FusedLegCache(
+    return with_updown_plan(FusedLegCache(
         A=A,
         dinv=dinv.contiguous(),
         T=T.contiguous(),
@@ -196,7 +291,7 @@ def build_fused_leg_cache(
         iter=int(iters),
         forward=bool(fwd),
         backward=bool(bwd),
-    )
+    ))
 
 
 def build_level_legs(level, dtype, device) -> Optional[FusedLegCache]:
@@ -393,9 +488,9 @@ _STENCIL = [_IP, _I, _IP, _I, _I, _IP, _I, _D]  # offs, n_off, colors a x b, ste
 _SIGNATURES = {
     "amg_fused_down_{}": [_P] * 10 + _STENCIL + [_I] * 5 + [_P],
     "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 4 + [_P],
-    "amg_fused_updown_{}": [_P] * 11 + _STENCIL + [_I] * 5 + [_P],
-    "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _P],
-    "amg_fused_subcycle_{}": [_P, _I, _I] + [_P] * 7 + [_I, _L, _L] + [_I] * 5 + [_P],
+    "amg_fused_updown_{}": [_P] * 9 + _STENCIL + [_I] * 7 + [_P],
+    "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
+    "amg_fused_subcycle_{}": [_P, _I, _I] + [_P] * 7 + [_I, _L, _L, _I, _P],
     "amg_scan_gs_{}": [_P] * 6 + [_I, _I, _D, _I, _I, _I, _P],
     "amg_gs_sweep_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
     "amg_sweep3d_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
@@ -422,7 +517,8 @@ def load_library():
     lib.amg_tail_level_bytes.argtypes, lib.amg_tail_level_bytes.restype = [], _I
     lib.amg_tail_block_cells.argtypes, lib.amg_tail_block_cells.restype = [], _I
     lib.amg_subcycle_smem_limit.argtypes, lib.amg_subcycle_smem_limit.restype = [], _I
-    lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L] + [_I] * 5 + _STENCIL
+    lib.amg_tile_smem_bytes.argtypes, lib.amg_tile_smem_bytes.restype = [_I] * 5, _I
+    lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L] + [_I] * 7 + _STENCIL
     lib.amg_tail_fill_level.restype = _I
     lib.amg_bsg_spmv_f32.argtypes = [_P] * 5 + [_L, _I, _I, _L, _P]
     lib.amg_bsg_spmv_f32.restype = _I
@@ -509,6 +605,7 @@ def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
     )
     raise_on(err, "fused_down kernel")
     launches["down"] += 1
+    level_launches["down", cache.row_dims] += 1
     return x_out, bc
 
 
@@ -527,30 +624,34 @@ def fused_up(cache: FusedLegCache, x, b, xc):
     )
     raise_on(err, "fused_up kernel")
     launches["up"] += 1
+    level_launches["up", cache.row_dims] += 1
     return x_out
 
 
 def fused_updown(cache: FusedLegCache, x, b, xc):
     """(x', b_c') = down(up(x, x_c)) across the cycle boundary in one
-    cooperative launch: returns the corrected and twice-smoothed x at
-    ``x``'s (padded) length and the next cycle's coarse rhs at Wxc·Wyc."""
+    launch of independent tiles: returns the corrected and twice-smoothed x
+    at ``x``'s (padded) length and the next cycle's coarse rhs at Wxc·Wyc.
+    A level with no planned tile (``cache.updown_tile`` None) has no K3 on
+    the card; ``run_fixed_cycles`` runs K2 then K1 there."""
     if x.device.type == "cpu":
         return fused_updown_reference(cache, x, b, xc)
+    if cache.updown_tile is None:
+        raise ValueError(f"level {cache.row_dims} is past the tiled updown kernel's limits: run K2 then K1")
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
     if n >= 2**31:
         raise ValueError("fused_updown indexes a level's cells in 32 bits")
     fn, x_out = _prepare(cache, "fused_updown", x, [("x", x, n), ("b", b, n), ("xc", xc, Wxc * Wyc)])
-    r = torch.empty((Wx, Wy), dtype=x.dtype, device=x.device)
-    g = torch.empty_like(r)
     bc = torch.empty(Wxc * Wyc, dtype=x.dtype, device=x.device)
     err = fn(
         x_out.data_ptr(), x.data_ptr(), b.data_ptr(),
         cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr(),
-        xc.data_ptr(), r.data_ptr(), g.data_ptr(), bc.data_ptr(),
-        *stencil_args(cache, cache.steps2), Wx, Wy, Wxc, Wyc, cache.k, _stream(x),
+        xc.data_ptr(), bc.data_ptr(), *stencil_args(cache, cache.steps2), Wx, Wy, Wxc, Wyc, cache.k,
+        *cache.updown_tile, _stream(x),
     )
     raise_on(err, "fused_updown kernel")
     launches["updown"] += 1
+    level_launches["updown", cache.row_dims] += 1
     return x_out, bc

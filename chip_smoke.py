@@ -15,7 +15,8 @@ Runs, in order, and exits non-zero on the first failure:
    and level 1 (1366²), K4 on the tail (456² … 6² plus the 2×2 coarse
    solve), ``x_zero`` both ways where the kernel takes it — to max relative
    error <= 1e-5 in float32, and times kernel, plain version and the same
-   work through the K1/K2 legs with CUDA events;
+   work through the K1/K2 legs with CUDA events; K3 (tiled) and K4 (tiled
+   grid levels) beside the times of the per-pass designs they replaced;
 4. drives the main path once — structured SA setup of
    ``poisson((4096, 4096), lattice=True)`` with box-3 aggregation, lowering to
    the card, ``solve_refined(tol=1e-8)`` — with the launch counters zeroed
@@ -23,8 +24,9 @@ Runs, in order, and exits non-zero on the first failure:
    relative residual < 1e-8 within 4 rounds and launches of K1, K2 and K4;
 5. runs ``run_fixed_cycles`` (the updown loop) for 400 cycles from x = 0 on
    ``bench.py``'s right-hand side A·1, with the counters zeroed just
-   before: ms per cycle, relative residual after the cycles (< 1e-5) and
-   exactly updown 399, tail 400, down 401, up 401 launches; and holds 3
+   before: ms per cycle, relative residual after the cycles (< 1e-5),
+   exactly updown 399, tail 400, down 401, up 401 launches, and the leg
+   launches by level (K1/K2 once at L0, 400 times at L1); and holds 3
    fixed cycles against 3 iterated cycles (float32 in the 2-norm to 1e-5,
    float64 to 1e-10);
 6. checks the solve against a direct solve, and one cycle on the card
@@ -136,6 +138,11 @@ FIXED_RTOL = {"float32": KERNEL_RTOL, "float64": 1e-10}
 # outside the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
+# the per-pass designs that the tiled K3 and K4 (and K9 on K4's tail)
+# replaced, and the fixed cycle on them: ms measured by this script's
+# phases 3, 5 and 12 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6),
+# printed beside this run's
+FIRST_DESIGN_MS = {"fused_updown": 2.260, "fused_tail": 0.395, "fused_subcycle": 1.037, "fixed_cycle": "3.33-3.39"}
 SOURCES = {
     "fused_down": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
     "fused_up": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
@@ -383,10 +390,17 @@ def compare_kernels(device, ml):
                 + f": max_rel_err {r['max_rel_err']!r} max_abs_err {r['max_abs_err']!r}"
                 + f" kernel {r['ms']!r} ms plain {r['plain_ms']!r} ms"
                 + (f" legs {r['legs_ms']!r} ms" if "legs_ms" in r else "")
+                + (f" first design {FIRST_DESIGN_MS[name]!r} ms" if name in FIRST_DESIGN_MS and r["level"] == lvl0(name)
+                   else "")
                 + f" bound {r['bound_ms']!r} ms ({r['bound_by']})")
             if not r["max_rel_err"] <= KERNEL_RTOL:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
     return rows
+
+
+def lvl0(name):
+    """The level at which a kernel's first-design time was taken."""
+    return EXPECT_TAIL_START if name == "fused_tail" else 0
 
 
 def zero_counts():
@@ -394,6 +408,17 @@ def zero_counts():
 
     for key in vl.launches:
         vl.launches[key] = 0
+    vl.level_launches.clear()
+
+
+def read_level_counts():
+    """The leg kernels' launches by level: {counter: {"Wx×Wy": count}}."""
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    out = {}
+    for (name, dims), count in sorted(vl.level_launches.items()):
+        out.setdefault(name, {})[f"{dims[0]}x{dims[1]}"] = count
+    return out
 
 
 def read_counts():
@@ -422,6 +447,7 @@ def main_path(device, ml, setup_s):
     )
     t3 = time.perf_counter()
     counts = read_counts()
+    by_level = read_level_counts()
 
     levels = len(ml.levels) + 1
     oc = ml.operator_complexity()
@@ -432,7 +458,7 @@ def main_path(device, ml, setup_s):
     log(f"setup_s {setup_s!r} lowering_s {t2 - t1!r} solve_s {t3 - t2!r}")
     log(f"refine rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']} history {hist}")
     log(f"solve_relres {relres!r}")
-    log(f"launches in the solve {counts}")
+    log(f"launches in the solve {counts}; leg launches by level {by_level}")
 
     bv = torch.zeros(h.fine_padded, device=device)
     bv[: N * N] = torch.as_tensor(b, dtype=torch.float32, device=device)
@@ -441,7 +467,7 @@ def main_path(device, ml, setup_s):
     h_plain = amt.build_device_hierarchy(ml, device=device, dtype=torch.float32, fused=False, tail=False)
     plain_vcycle_ms = time_ms(lambda: _one_iteration(h_plain, amt.V(), xv, bv), reps=10)
     del h_plain
-    log(f"vcycle_ms kernels {vcycle_ms!r} plain {plain_vcycle_ms!r}")
+    log(f"vcycle_ms (CUDA events) kernels {vcycle_ms!r} plain {plain_vcycle_ms!r}")
 
     if not (x.shape == (N * N,) and np.isfinite(x).all()):
         raise AssertionError("solution is not a finite vector of the problem's size")
@@ -453,7 +479,7 @@ def main_path(device, ml, setup_s):
         raise AssertionError(f"solve_relres {relres} >= {TOL} after {len(hist) - 1} rounds")
     if not all(counts[k] > 0 for k in ("down", "up", "tail")):
         raise AssertionError(f"the solve did not launch every kernel of its path: {counts}")
-    return h, counts
+    return h, counts, by_level, vcycle_ms
 
 
 def fixed_cycles(device, ml, h):
@@ -477,11 +503,13 @@ def fixed_cycles(device, ml, h):
     stop.record()
     torch.cuda.synchronize()
     counts = read_counts()
+    by_level = read_level_counts()
     ms_per_cycle = start.elapsed_time(stop) / CYCLES
     xh = x[: N * N].double().cpu().numpy()
     relres = float(np.linalg.norm(b - ml.levels[0].A @ xh) / np.linalg.norm(b))
-    log(f"fixed cycles {CYCLES}: ms_per_cycle {ms_per_cycle!r} relres_after_cycles {relres!r}")
-    log(f"launches in the fixed cycles {counts}")
+    log(f"fixed cycles {CYCLES}: ms_per_cycle (CUDA events) {ms_per_cycle!r}"
+        f" (first design {FIRST_DESIGN_MS['fixed_cycle']} ms) relres_after_cycles {relres!r}")
+    log(f"launches in the fixed cycles {counts}; leg launches by level {by_level}")
 
     fixed_rel = {}
     h64 = amt.build_device_hierarchy(ml, device=device, dtype=torch.float64)
@@ -504,9 +532,13 @@ def fixed_cycles(device, ml, h):
             "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0}
     if counts != want:
         raise AssertionError(f"fixed-cycle launches {counts} != {want}")
+    l0, l1 = (f"{d[0]}x{d[1]}" for d in (h.levels[0].fused.row_dims, h.levels[1].fused.row_dims))
+    want_levels = {"down": {l0: 1, l1: CYCLES}, "up": {l0: 1, l1: CYCLES}, "updown": {l0: CYCLES - 1}}
+    if by_level != want_levels:
+        raise AssertionError(f"fixed-cycle leg launches by level {by_level} != {want_levels}")
     if not all(fixed_rel[k] <= tol for k, tol in FIXED_RTOL.items()):
         raise AssertionError(f"fixed cycles disagree with iterated cycles: {fixed_rel}")
-    return counts, ms_per_cycle
+    return counts, by_level, ms_per_cycle
 
 
 def small_reference(device):
@@ -1129,7 +1161,8 @@ def subcycle_path(device, ml):
         if not rel <= KERNEL_RTOL:
             raise AssertionError(f"{key} disagrees with K9: {rel}")
     del h_t1
-    log(f"kernel fused_subcycle L1 {row['dims']}: kernel {row['ms']!r} ms plain {row['plain_ms']!r} ms"
+    log(f"kernel fused_subcycle L1 {row['dims']}: kernel {row['ms']!r} ms"
+        f" (first design {FIRST_DESIGN_MS['fused_subcycle']!r} ms) plain {row['plain_ms']!r} ms"
         f" legs+K4 {row['route_ms']!r} ms K4 from L1 {row['tail_at_l1_ms']!r} ms"
         f" bound {row['bound_ms']!r} ms ({row['bound_by']})")
 
@@ -1516,8 +1549,8 @@ def main():
     setup_s = time.perf_counter() - t
     rows = compare_kernels(device, ml)
     torch.cuda.empty_cache()
-    h, solve_counts = main_path(device, ml, setup_s)
-    cycle_counts, _ = fixed_cycles(device, ml, h)
+    h, solve_counts, solve_levels, vcycle_ms = main_path(device, ml, setup_s)
+    cycle_counts, cycle_levels, fixed_ms = fixed_cycles(device, ml, h)
     del h
     torch.cuda.empty_cache()
     small_reference(device)
@@ -1542,13 +1575,22 @@ def main():
     kernels = []
     for name, rs in rows.items():
         first = rs[0]  # L0 (the tail's entry level for K4), x read from its input
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=cycle_counts[COUNTER[name]], launches_solve=solve_counts[COUNTER[name]],
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=None,
-        ))
+        )
+        if name in FIRST_DESIGN_MS:
+            row["first_design_ms"] = FIRST_DESIGN_MS[name]
+        if name in ("fused_down", "fused_up", "fused_updown"):
+            # per level: L1's time (x read from its input) and the launches
+            l1 = next(r for r in rs if r["level"] == 1)
+            row.update(l1_ms=l1["ms"], l1_plain_ms=l1["plain_ms"], l1_bound_ms=l1["bound_ms"],
+                       launches_by_level=cycle_levels.get(COUNTER[name], {}),
+                       launches_solve_by_level=solve_levels.get(COUNTER[name], {}))
+        kernels.append(row)
     for name, rs in rows_u.items():
         first = rs[0]  # K6 at L0, scan_gs at L3
         kernels.append(dict(
@@ -1573,11 +1615,14 @@ def main():
         launches=cycle_sub["sub"], launches_solve=counts_sub["sub"], max_abs_err=row_sub["max_abs_err"],
         ms=row_sub["ms"], plain_ms=row_sub["plain_ms"], bound_ms=row_sub["bound_ms"], bound_by=row_sub["bound_by"],
         library_ms=None, route_ms=row_sub["route_ms"], tail_at_l1_ms=row_sub["tail_at_l1_ms"],
+        first_design_ms=FIRST_DESIGN_MS["fused_subcycle"],
     ))
     kernels.append(dict(
         name="halo_stencil", route="cuda", source=SOURCES["halo_stencil"], replaces=REPLACES["halo_stencil"],
         **row_halo,
     ))
+    log(f"flagship {N}x{N} f32, CUDA events: fixed cycle {fixed_ms!r} ms (first design"
+        f" {FIRST_DESIGN_MS['fixed_cycle']} ms), V-cycle {vcycle_ms!r} ms; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,18 +1,29 @@
-"""Time the cooperative kernels (K3 ``fused_updown``, K4 ``fused_tail``)
-under alternative launch shapes and cell loops, on one NVIDIA card; with
+"""Time the tiled and cooperative kernels under alternative launch shapes,
+tiles and barrier schemes, on one NVIDIA card: by default the updown leg
+K3 (``fused_updown``) and the whole-tail kernel K4 (``fused_tail``); with
 the argument ``sweeps``, the whole-sweep kernels K7 (``sweep3d``, at L0 of
 256³, symmetric GS) and K5 (``gs_sweep``, at 4096², forward GS) under
 alternative thread blocks and loaded boxes; with ``subcycle``, the
-whole-subcycle kernel K9 (``fused_subcycle``, at L1 of 4096²) under
-alternative thread blocks (1024 threads, one block an SM, as K4; smaller
-blocks, several an SM, as K5) and tile edges.
+whole-subcycle kernel K9 (``fused_subcycle``, at L1 of 4096²) with its tiled
+levels in registers or read in place (``sub_in_place``) and under
+alternative tile edges.
 
 Each variant is the tree's CUDA sources with a few lines edited, built into
 its own library (all builds run in parallel) and swapped in under the same
-wrappers; the tree's own build is the variant ``tree``.  At 4096², in two
-rounds, it prints each variant's K3 time at L0 (4096²) and L1 (1366²), its
-K4 time (x = 0), one fixed cycle (``run_fixed_cycles``) and K3's error
-against its plain version, then the same work through K2 + K1.  Run from the
+wrappers; the tree's own build is the variant ``tree``.  By default, at
+4096², in two rounds, it prints for each variant K3's time at L0 (4096²)
+under each tile of ``UPDOWN_TILES_L0`` and at L1 (1366²) under each of
+``UPDOWN_TILES_L1``, with its error against its plain version; K4's time
+(x = 0) under each tail tile of ``TAIL_TILES``; and one fixed cycle
+(``run_fixed_cycles``) with the planned tiles; then the same work as K3
+through K2 + K1.  The K3 variants run the 5-point register path with
+two 512-thread blocks an SM of 4 cells a thread (``k3_reg5_2x512``, a box
+of up to 32 x 64 cells), or turn the register path off (``k3_in_place``:
+every step reads the planes from L1/L2).  The K4 variants read the tiled
+levels' planes in place (``k4_in_place``) or run every grid level pass by
+pass (``k4_grid_passes``: one grid barrier a pass, the first design's 35);
+two diagnostics split K4's time, dropping its block-0 levels and coarse
+solve (``k4_diag_no_block0``) or its grid levels (``k4_diag_no_grid``).  Run from the
 repository root:
 
     python3 kernel_variants.py [sweeps | subcycle]
@@ -37,34 +48,36 @@ import numpy as np
 N = 4096
 ROUNDS = 2
 
-CHUNK_LOOP = '''template <typename F>
-__device__ __forceinline__ void for_cells(int Wx, int Wy, int first,
-                                          int stride, F&& f) {
-  const int chunks = (Wy + blockDim.x - 1) / blockDim.x;
-  for (int v = first; v < Wx * chunks; v += stride) {
-    const int i = v / chunks;
-    const int j = (v - i * chunks) * blockDim.x + threadIdx.x;
-    if (j < Wy) f(i, j);
-  }
-}
-
-'''
-
 # name -> [(file, old text, new text)]
 VARIANTS = {
     "tree": [],
-    "k3_256x8": [
-        ("vcycle_legs.cu", "kCoopThreads = 1024;", "kCoopThreads = 256;"),
-        ("vcycle_legs.cu", "kCoopMinBlocks = 2;", "kCoopMinBlocks = 8;"),
+    "k3_reg5_2x512": [
+        ("vcycle_legs.cu", "kReg5Warps = 32, kReg5Rows = 2,", "kReg5Warps = 16, kReg5Rows = 2,"),
+        ("vcycle_legs.cu", "__launch_bounds__(WARPS * 32)", "__launch_bounds__(WARPS * 32, 2)"),
     ],
-    "k3_256x1": [
-        ("vcycle_legs.cu", "kCoopThreads = 1024;", "kCoopThreads = 256;"),
-        ("vcycle_legs.cu", "kCoopMinBlocks = 2;", "kCoopMinBlocks = 1;"),
+    "k3_in_place": [
+        ("vcycle_legs.cu", "const bool reg = (n_off == 5", "const bool reg = false && (n_off == 5"),
     ],
-    "row_chunk_loop": [("stencil.cuh", "for_cells", None)],
-    "k4_all_grid": [("tail_kernel.cu", "kBlockCells = 4096;", "kBlockCells = 0;")],
-    "k4_512": [("tail_kernel.cu", "kTailThreads = 1024;", "kTailThreads = 512;")],
+    "k4_in_place": [("leg_tile.cuh", "if (fits && L.st.n == 9) {", "if (false) {")],
+    "k4_grid_passes": [("tail_levels.cuh", "if (L.tile_x > 0) {", "if (false) {")],
+    # diagnostics, not designs (their results are wrong, their errors say
+    # so): K4 without its block-0 levels and coarse solve, or without its
+    # grid levels, to split its time
+    "k4_diag_no_block0": [("tail_levels.cuh", "  if (blockIdx.x == 0) {", "  if (false) {")],
+    "k4_diag_no_grid": [
+        ("tail_levels.cuh", "for (int l = 0; l < n_grid; ++l) {", "for (int l = 0; l < 0; ++l) {"),
+        ("tail_levels.cuh", "for (int l = n_grid - 1; l >= 0; --l) {", "for (int l = -1; l >= 0; --l) {"),
+    ],
 }
+# K3 tiles.  L0 (5-point, halo 7): (48, 48) is the planned register box
+# (62 x 62); (18, 48) fits the 2 x 512 variant's 32-row box; in the tree
+# every tile but (48, 66) (a 62 x 80 box, planes read in place) runs in
+# registers.  L1 (9-point, halo 15): (33, 33) in registers, (24, 30) in
+# place.
+UPDOWN_TILES_L0 = [(18, 48), (24, 48), (48, 48), (48, 66)]
+UPDOWN_TILES_L1 = [(33, 33), (24, 30)]
+# K4 tail tiles (cut to the register box where they exceed it)
+TAIL_TILES = [(18, 18), (27, 27), (48, 48)]
 
 
 SWEEP_VARIANTS = {
@@ -82,30 +95,15 @@ SWEEP_VARIANTS = {
 }
 SUB_VARIANTS = {
     "tree": [],
-    "sub512x2": [
-        ("subcycle_kernel.cu", "kSubThreads = 1024;", "kSubThreads = 512;"),
-        ("subcycle_kernel.cu", "kSubMinBlocks = 1;", "kSubMinBlocks = 2;"),
-    ],
-    "sub256x4": [
-        ("subcycle_kernel.cu", "kSubThreads = 1024;", "kSubThreads = 256;"),
-        ("subcycle_kernel.cu", "kSubMinBlocks = 1;", "kSubMinBlocks = 4;"),
-    ],
-    "sub256x2": [
-        ("subcycle_kernel.cu", "kSubThreads = 1024;", "kSubThreads = 256;"),
-        ("subcycle_kernel.cu", "kSubMinBlocks = 1;", "kSubMinBlocks = 2;"),
-    ],
+    "sub_in_place": [("leg_tile.cuh", "if (fits && L.st.n == 9) {", "if (false) {")],
 }
-SUB_TILES = (24, 36, 48, 72, 96)
+SUB_TILES = (18, 27, 36, 45)
 # (12, 12, 64) is lifted to (14, 14, 64): a one-step-per-halo tile keeps 8 cells
 BOXES_3D = [(14, 14, 64), (20, 20, 64), (16, 16, 64), (24, 24, 64), (14, 16, 128), (32, 32, 32)]
 BOXES_2D = [(1, 32, 64), (1, 64, 128), (1, 32, 128), (1, 16, 128), (1, 64, 64), (1, 16, 256)]
 
 
 def edit(text, old, new):
-    if new is None:  # swap the for_cells loop for the row-chunk loop
-        a = text.index("template <typename F>")
-        b = text.index("// ---- host-side helpers")
-        return text[:a] + CHUNK_LOOP + text[b:]
     if old not in text:
         raise SystemExit(f"variant edit no longer matches the source: {old!r}")
     return text.replace(old, new)
@@ -212,6 +210,65 @@ def subcycle(use):
             print(f"round {rnd} {name:10s} tile {hh.sub.tile:3d}: fixed cycle {fc!r} ms", flush=True)
 
 
+def legs_and_tail(use):
+    """K3 at L0/L1 of 4096² per tile, K4 per tail tile, a fixed cycle, per
+    source variant; then K2 + K1 at L0/L1."""
+    import dataclasses
+
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    import chip_smoke as cs
+
+    use("tree")
+    ml = cs.setup(N)
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    L0, L1 = h.levels[0].fused, h.levels[1].fused
+    gen = torch.Generator().manual_seed(0)
+
+    def vec(m, length):
+        v = torch.zeros(length)
+        v[:m] = torch.randn(m, generator=gen)
+        return v.cuda()
+
+    n0, n1 = N * N, L1.row_dims[0] * L1.row_dims[1]
+    nc0, nc1 = L0.col_dims[0] * L0.col_dims[1], L1.col_dims[0] * L1.col_dims[1]
+    legs = {0: (L0, vec(n0, h.fine_padded), vec(n0, h.fine_padded), vec(nc0, nc0)),
+            1: (L1, vec(n1, n1), vec(n1, n1), vec(nc1, nc1))}
+    refs = {lvl: vl.fused_updown_reference(*args) for lvl, args in legs.items()}
+    bt = vec(h.levels[2].A.shape[0], h.levels[2].A.rows_padded)
+    ref_t = tk.fused_tail_reference(h.tail, torch.zeros_like(bt), bt, x_zero=True)
+    bf = torch.zeros(h.fine_padded, device="cuda")
+    bf[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
+    tails = {t: tk.make_fused_tail_cache(h.tail.levels, h.tail.Mc, tile=t) for t in TAIL_TILES}
+    for rnd in range(ROUNDS):
+        for name in VARIANTS:
+            use(name)
+            for lvl, tiles in ((0, UPDOWN_TILES_L0), (1, UPDOWN_TILES_L1)):
+                f, x, b, xc = legs[lvl]
+                for tile in tiles:
+                    ft = dataclasses.replace(f, updown_tile=tile)
+                    err = max(cs.errors(g, r)[1] for g, r in zip(vl.fused_updown(ft, x, b, xc), refs[lvl]))
+                    ms = cs.time_ms(lambda: vl.fused_updown(ft, x, b, xc))
+                    print(f"round {rnd} {name:15s} K3 L{lvl} tile {tile}: {ms!r} ms  max_rel_err {err!r}", flush=True)
+            for tile, c in tails.items():
+                err = cs.errors(tk.fused_tail(c, torch.zeros_like(bt), bt, x_zero=True), ref_t)[1]
+                ms = cs.time_ms(lambda: tk.fused_tail(c, torch.zeros_like(bt), bt, x_zero=True), reps=50)
+                print(f"round {rnd} {name:15s} K4 tail tile {tile} (planned {c.tiles[:2]}): {ms!r} ms"
+                      f"  max_rel_err {err!r}", flush=True)
+            fc = cs.time_ms(lambda: run_fixed_cycles(h, torch.zeros_like(bf), bf, 50), reps=2) / 50
+            print(f"round {rnd} {name:15s} fixed cycle {fc!r} ms (K3 tile {L0.updown_tile},"
+                  f" tail tiles {h.tail.tiles[:2]})", flush=True)
+    use("tree")
+    for lvl, (f, x, b, xc) in legs.items():
+        ms = cs.time_ms(lambda: vl.fused_down(f, vl.fused_up(f, x, b, xc), b))
+        print(f"K2 + K1 at L{lvl}: {ms!r} ms")
+
+
 def main():
     import torch
 
@@ -248,39 +305,7 @@ def main():
             subcycle(use)
             print(card)
             return 0
-        use("tree")
-        ml = cs.setup(N)
-        h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
-        L0, L1 = h.levels[0], h.levels[1]
-        gen = torch.Generator().manual_seed(0)
-
-        def vec(m, length):
-            v = torch.zeros(length)
-            v[:m] = torch.randn(m, generator=gen)
-            return v.cuda()
-
-        x0, b0 = vec(N * N, h.fine_padded), vec(N * N, h.fine_padded)
-        xc0 = vec(L0.R.shape[0], L0.R.shape[0])
-        x1, b1 = vec(L1.A.shape[0], L1.A.rows_padded), vec(L1.A.shape[0], L1.A.rows_padded)
-        xc1 = vec(L1.R.shape[0], L1.R.shape[0])
-        bt = vec(h.levels[2].A.shape[0], h.levels[2].A.rows_padded)
-        bf = torch.zeros(h.fine_padded, device="cuda")
-        bf[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
-        ref = vl.fused_updown_reference(L0.fused, x0, b0, xc0)
-        for rnd in range(ROUNDS):
-            for name in VARIANTS:
-                use(name)
-                err = max(cs.errors(g, r)[1] for g, r in zip(vl.fused_updown(L0.fused, x0, b0, xc0), ref))
-                u0 = cs.time_ms(lambda: vl.fused_updown(L0.fused, x0, b0, xc0))
-                u1 = cs.time_ms(lambda: vl.fused_updown(L1.fused, x1, b1, xc1))
-                tl = cs.time_ms(lambda: tk.fused_tail(h.tail, torch.zeros_like(bt), bt, x_zero=True), reps=50)
-                fc = cs.time_ms(lambda: run_fixed_cycles(h, torch.zeros_like(bf), bf, 50), reps=2) / 50
-                print(f"round {rnd} {name:15s} K3 L0 {u0!r} ms  K3 L1 {u1!r} ms  K4 {tl!r} ms"
-                      f"  fixed cycle {fc!r} ms  K3 max_rel_err {err!r}", flush=True)
-        use("tree")
-        legs0 = cs.time_ms(lambda: vl.fused_down(L0.fused, vl.fused_up(L0.fused, x0, b0, xc0), b0))
-        legs1 = cs.time_ms(lambda: vl.fused_down(L1.fused, vl.fused_up(L1.fused, x1, b1, xc1), b1))
-        print(f"K2 + K1: L0 {legs0!r} ms  L1 {legs1!r} ms")
+        legs_and_tail(use)
     print(card)
     return 0
 

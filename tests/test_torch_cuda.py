@@ -70,34 +70,132 @@ def test_cuda_legs_match_plain_versions(ml, lvl, dtype):
     assert vl.launches["up"] == before["up"] + 1
 
 
+_SMALL = {}
+
+
+def _small(n, box):
+    """The structured-SA hierarchy of poisson((n, n)) with box-k
+    aggregation, set up once per module."""
+    import algebraicmultigrid_tpu_torch as amt
+
+    if (n, box) not in _SMALL:
+        _SMALL[n, box] = amt.structured_smoothed_aggregation(
+            amt.poisson((n, n), lattice=True), aggregate=amt.StructuredAggregation(box=box), **SETUP_KW
+        )
+    return _SMALL[n, box]
+
+
+# K3 cases: (hierarchy n, box, level) or (synthetic grid, k, stencil points,
+# tile (None: planned)).  200 = 3·66 + 2 and 200 = 2·100 give ragged last
+# tiles and, at L1 of the box-2 hierarchy, a 13-point stencil of reach 2
+UPDOWN_CASES = [
+    ("h", 192, 3, 0), ("h", 192, 3, 1), ("h", 200, 3, 0), ("h", 200, 3, 1), ("h", 200, 2, 0), ("h", 200, 2, 1),
+    ("s", (37, 41), 3, 5, (6, 12)), ("s", (37, 41), 2, 9, None), ("s", (64, 70), 3, 9, (12, 6)),
+    ("s", (64, 70), 2, 5, (6, 12)), ("s", (300, 257), 3, 9, None),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("lvl", [0, 1])
-def test_cuda_updown_matches_plain_version(ml, lvl, dtype):
+@pytest.mark.parametrize("case", UPDOWN_CASES, ids=str)
+def test_cuda_updown_matches_plain_version(ml, case, dtype):
+    """K3 against its plain version on hierarchy levels and on synthetic
+    ragged levels (k = 2 and 3, 5- and 9-point, planned and given tiles)."""
+    import dataclasses
+
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from torch_port_common import synthetic_leg_cache
 
-    L = build_device_hierarchy(ml, device="cuda", dtype=dtype, tail=False).levels[lvl]
-    n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
-    x, b, xc = _vec(n, pad, 1, dtype), _vec(n, pad, 2, dtype), _vec(nc, nc, 3, dtype)
-    tol = TOL if dtype == torch.float32 else 1e-12
+    if case[0] == "h":
+        _, n, box, lvl = case
+        f = build_device_hierarchy(_small(n, box), device="cuda", dtype=dtype, tail=False).levels[lvl].fused
+    else:
+        _, dims, k, n_off, tile = case
+        f = synthetic_leg_cache(dims, k, n_off, seed=sum(dims), dtype=dtype, device="cuda")
+        if tile is not None:
+            f = dataclasses.replace(f, updown_tile=tile)
+    Wx, Wy = f.row_dims
+    n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
+    x, b, xc = _vec(n, n + 3, 1, dtype), _vec(n, n + 3, 2, dtype), _vec(nc, nc, 3, dtype)
     before = vl.launches["updown"]
-    got = vl.fused_updown(L.fused, x, b, xc)
-    ref = vl.fused_updown_reference(L.fused, x, b, xc)
+    if f.updown_tile is None:
+        # past the plan: L1 of the box-2 hierarchy (13 points, 29 steps of
+        # reach 2) has no tile that fits a block; no kernel, no launch
+        assert case == ("h", 200, 2, 1)
+        with pytest.raises(ValueError):
+            vl.fused_updown(f, x, b, xc)
+        assert vl.launches["updown"] == before
+        return
+    tol = TOL if dtype == torch.float32 else 1e-12
+    got = vl.fused_updown(f, x, b, xc)
+    ref = vl.fused_updown_reference(f, x, b, xc)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert g.shape == r.shape and _rel(g, r) < tol
     assert vl.launches["updown"] == before + 1
 
 
+def test_cuda_tile_smem_matches_the_plan():
+    """The wrappers' tile plans use the kernels' shared-memory formula,
+    block-cell limit and descriptor size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    lib = vl.load_library()
+    assert lib.amg_tail_block_cells() == tk.BLOCK_CELLS
+    assert lib.amg_tail_level_bytes() * 17 <= tk.TABLE_RESERVE
+    assert lib.amg_tail_level_bytes() <= vl.DESC_RESERVE
+    for args in ((48, 48, 7, 1, 4), (45, 45, 9, 1, 8), (34, 34, 62, 2, 4), (6, 12, 0, 1, 8)):
+        assert lib.amg_tile_smem_bytes(*args) == vl.tile_smem_bytes(*args)
+
+
+def test_cuda_fixed_cycles_past_the_updown_plan(ml):
+    """A top level past K3's plan (17 symmetric GS sweeps: 69 steps in the
+    double sweep) runs K2 then K1 in the fixed-cycle loop, as the CPU does."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.config import GaussSeidel
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    gs = GaussSeidel(ordering="multicolor", iter=17)
+    ml17 = amt.structured_smoothed_aggregation(
+        amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3), presmoother=gs,
+        postsmoother=gs, **SETUP_KW,
+    )
+    out, counts, level0 = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        # no tail either: its 9-point levels' legs have 103 color steps
+        h = build_device_hierarchy(ml17, device=dev, dtype=torch.float64, tail_max_rows=5000)
+        assert h.levels[0].fused.updown_tile is None and h.tail is None
+        b = _vec(N * N, h.fine_padded, 6, torch.float64).to(dev)
+        before = dict(vl.launches)
+        vl.level_launches.clear()
+        out[dev] = run_fixed_cycles(h, torch.zeros_like(b), b, 3)
+        counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+        level0[dev] = {name: vl.level_launches[name, (N, N)] for name in ("down", "up", "updown")}
+    assert _rel(out["cuda"], out["cpu"]) < 1e-12
+    assert level0["cuda"] == {"down": 3, "up": 3, "updown": 0}
+    assert counts["cuda"]["updown"] == counts["cuda"]["tail"] == 0
+    assert not any(counts["cpu"].values())
+
+
+# (n, box) of the tail cases: at 200² the tail's first level (67², or 200²
+# itself) is a ragged grid level in tiles
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("rows", [5000, 250_000])
-def test_cuda_tail_matches_plain_version(ml, rows, dtype):
+@pytest.mark.parametrize("problem", [(192, 3), (200, 3)], ids=str)
+def test_cuda_tail_matches_plain_version(ml, problem, rows, dtype):
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
-    from algebraicmultigrid_tpu_torch.ops.kernels.tail_kernel import fused_tail, fused_tail_reference
+    from algebraicmultigrid_tpu_torch.ops.kernels.tail_kernel import BLOCK_CELLS, fused_tail, fused_tail_reference
 
-    h = build_device_hierarchy(ml, device="cuda", dtype=dtype, tail_max_rows=rows)
+    mlp = _small(*problem)
+    h = build_device_hierarchy(mlp, device="cuda", dtype=dtype, tail_max_rows=rows)
     assert h.tail is not None and h.tail_start == (1 if rows == 5000 else 0)
+    for L, tile in zip(h.tail.levels, h.tail.tiles):
+        assert (tile[0] > 0) == (L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS)
     L = h.levels[h.tail_start]
     n, pad = L.A.shape[0], L.A.rows_padded
     x, b = _vec(n, pad, 4, dtype), _vec(n, pad, 5, dtype)
@@ -130,17 +228,23 @@ def test_cuda_fixed_cycles_match_cpu(ml):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("tile", [48, 9])
-def test_cuda_subcycle_matches_plain_version(ml, tile, dtype):
+@pytest.mark.parametrize("problem,tile", [((192, 600), 45), ((192, 600), 9), ((600, 5000), 45), ((600, 5000), 33)],
+                         ids=str)
+def test_cuda_subcycle_matches_plain_version(ml, problem, tile, dtype):
     """K9 at L1 of the 192² problem (64² = 3·21 + 1: partial tiles and a
-    clipped coarse edge) with the tail at L2, in 48-cell tiles (four) and
-    9-cell tiles (more tiles than some grids have blocks)."""
+    clipped coarse edge) with the tail at L2, in 45-cell tiles (four, the
+    largest register box) and 9-cell tiles (more tiles than some grids have
+    blocks); and at L1 of the 600² problem (200²) with the tail at L2 (67²,
+    a ragged grid level in tiles of phase B)."""
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
     from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
 
-    h = build_device_hierarchy(ml, device="cuda", dtype=dtype, tail_max_rows=600, subcycle=True)
+    n, rows = problem
+    mlp = ml if n == N else _small(n, 3)
+    h = build_device_hierarchy(mlp, device="cuda", dtype=dtype, tail_max_rows=rows, subcycle=True)
     assert (h.tail_start, h.sub_start) == (2, 1)
+    assert (h.tail.tiles[0][0] > 0) == (n == 600)
     cache = sk.make_fused_subcycle_cache(h.sub.top, h.sub.tail, tile=tile)
     assert cache.tile == tile
     L = h.levels[1]
