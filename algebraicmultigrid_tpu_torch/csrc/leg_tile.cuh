@@ -32,13 +32,12 @@
 // coefficient planes are read through __restrict__ pointers: in K4 and K9
 // the vectors (x, b, x_c) are written by earlier phases of the same launch.
 //
-// Two paths, picked from the shapes: the coefficients in registers
-// (tile_leg_reg, 5- and 9-point levels whose box fits the thread map), or
-// read in place at every pass (any stencil).  In the second a block of any
-// multiple of 32 threads walks the box in rows, lane by lane along the
-// contiguous axis (warp w takes rows w, w + nw, ...), so there is no
-// division per cell.  A byte per box cell holds its color (0xFF outside
-// the grid), read by every step.
+// Each thread keeps its cells' coefficients in registers (tile_leg_reg), so
+// a tile is taken only by a 5- or 9-point level whose box (tile + 2 halo)
+// fits the block's thread map, 64 x 64 cells: the wrappers plan it from the
+// shapes, and a level past it runs K2 then K1 (K3) or pass by pass (K4,
+// K9).  Such a box's buffers take at most ~100 KB of shared memory.  A byte
+// per box cell holds its color (0xFF outside the grid), read by every step.
 
 #pragma once
 
@@ -229,92 +228,6 @@ __device__ void box_tup(const LevelDesc& L, const TileSmem<T>& sm,
   });
 }
 
-// The box's colors and its starting x: x_in (nullptr: zero) plus, with xc,
-// the correction; 0 outside the grid.  Planes are read in place.
-template <int K, typename T>
-__device__ void box_start(const LevelDesc& L, const TileSmem<T>& sm,
-                          const Box& bx, const T* x_in, const T* xc) {
-  const T* __restrict__ A = (const T*)L.A;
-  const T* __restrict__ S = (const T*)L.S;
-  const int Wx = L.Wx, Wy = L.Wy, r = L.reach;
-  const int64_t plane = (int64_t)Wx * Wy;
-  const int E1 = bx.E1;
-  for_rect(0, bx.E0, 0, E1, [&](int e0, int e1) {
-    const int i = bx.ox + e0, j = bx.oy + e1;
-    sm.cs[e0 * E1 + e1] =
-        inside(i, j, Wx, Wy)
-            ? (unsigned char)L.cg.tab[(i % L.cg.a) * L.cg.b + (j % L.cg.b)]
-            : kOutside;
-  });
-  if (xc == nullptr) {
-    for_rect(0, bx.E0, 0, E1, [&](int e0, int e1) {
-      const int i = bx.ox + e0, j = bx.oy + e1;
-      sm.xs[e0 * E1 + e1] = (x_in != nullptr && inside(i, j, Wx, Wy))
-                                ? x_in[(int64_t)i * Wy + j]
-                                : T(0);
-    });
-    __syncthreads();
-    return;
-  }
-  box_tup<K, T>(L, sm, bx, xc);
-  __syncthreads();
-  const int U1 = E1 + 2 * r;
-  for_rect(0, bx.E0, 0, E1, [&](int e0, int e1) {
-    const int i = bx.ox + e0, j = bx.oy + e1;
-    T v = T(0);
-    if (inside(i, j, Wx, Wy)) {
-      const int64_t c = (int64_t)i * Wy + j;
-      const int u = (e0 + r) * U1 + (e1 + r);
-      T acc = T(0);
-      for (int q = 0; q < L.st.n; ++q) {
-        acc += A[q * plane + c] * sm.sc[u + L.st.dx[q] * U1 + L.st.dy[q]];
-      }
-      v = x_in[c] + (sm.sc[u] - S[c] * acc);
-    }
-    sm.xs[e0 * E1 + e1] = v;
-  });
-  __syncthreads();
-}
-
-// Every color step of the leg on the box, eroding reach cells a step.
-template <typename T>
-__device__ void box_steps(const LevelDesc& L, const TileSmem<T>& sm,
-                          const Box& bx, const T* b) {
-  const T* __restrict__ A = (const T*)L.A;
-  const T* __restrict__ dinv = (const T*)L.dinv;
-  const int Wy = L.Wy, r = L.reach, E1 = bx.E1;
-  const int64_t plane = (int64_t)L.Wx * Wy;
-  const T omega = (T)L.omega;
-  for (int s = 0; s < L.n_steps; ++s) {
-    const int lo = (s + 1) * r;
-    const unsigned char color = (unsigned char)L.steps[s];
-    for_rect(lo, bx.E0 - lo, lo, E1 - lo, [&](int e0, int e1) {
-      const int e = e0 * E1 + e1;
-      if (sm.cs[e] != color) return;
-      const int64_t c = (int64_t)(bx.ox + e0) * Wy + (bx.oy + e1);
-      T acc = T(0);
-      for (int q = 0; q < L.st.n; ++q) {
-        acc += A[q * plane + c] * sm.xs[e + L.st.dx[q] * E1 + L.st.dy[q]];
-      }
-      sm.xs[e] = sm.xs[e] + omega * dinv[c] * (b[c] - acc);
-    });
-    __syncthreads();
-  }
-}
-
-// x over the tile to out
-template <typename T>
-__device__ void tile_store(const LevelDesc& L, const TileSmem<T>& sm,
-                           const Box& bx, T* out) {
-  const int Wx = L.Wx, Wy = L.Wy;
-  for_rect(0, bx.tx, 0, bx.ty, [&](int t0, int t1) {
-    const int i = bx.i0 + t0, j = bx.j0 + t1;
-    if (inside(i, j, Wx, Wy)) {
-      out[(int64_t)i * Wy + j] = sm.xs[(t0 + bx.h) * bx.E1 + (t1 + bx.h)];
-    }
-  });
-}
-
 // The tile's coarse cells of b_c from T (r - A g) on the tile (ts, over
 // the tile plus one reach): each its clipped k x k box, column by column.
 template <typename T>
@@ -339,109 +252,16 @@ __device__ void box_sums(const LevelDesc& L, const Box& bx, const T* ts,
   });
 }
 
-// r = b - A x and g = S r on the tile plus one reach, T (r - A g) on the
-// tile, and the tile's coarse cells of b_c.  Ends on a block barrier.
-template <typename T>
-__device__ void tile_restrict(const LevelDesc& L, const TileSmem<T>& sm,
-                              const Box& bx, const T* b, T* bc) {
-  const T* __restrict__ A = (const T*)L.A;
-  const T* __restrict__ Tp = (const T*)L.Tp;
-  const T* __restrict__ S = (const T*)L.S;
-  const int Wx = L.Wx, Wy = L.Wy, r = L.reach, E1 = bx.E1;
-  const int64_t plane = (int64_t)Wx * Wy;
-  const int G0 = bx.tx + 2 * r, G1 = bx.ty + 2 * r;
-  T* rs = sm.sc;
-  T* gs = sm.sc + G0 * G1;
-  for_rect(0, G0, 0, G1, [&](int u0, int u1) {
-    const int i = bx.i0 - r + u0, j = bx.j0 - r + u1;
-    T rv = T(0), gv = T(0);
-    if (inside(i, j, Wx, Wy)) {
-      const int64_t c = (int64_t)i * Wy + j;
-      const int e = (u0 + bx.h - r) * E1 + (u1 + bx.h - r);
-      T acc = T(0);
-      for (int q = 0; q < L.st.n; ++q) {
-        acc += A[q * plane + c] * sm.xs[e + L.st.dx[q] * E1 + L.st.dy[q]];
-      }
-      rv = b[c] - acc;
-      gv = S[c] * rv;
-    }
-    rs[u0 * G1 + u1] = rv;
-    gs[u0 * G1 + u1] = gv;
-  });
-  __syncthreads();
-  // T (r - A g) over r on the tile: a cell reads only its own r
-  for_rect(0, bx.tx, 0, bx.ty, [&](int t0, int t1) {
-    const int i = bx.i0 + t0, j = bx.j0 + t1;
-    if (!inside(i, j, Wx, Wy)) return;
-    const int64_t c = (int64_t)i * Wy + j;
-    const int u = (t0 + r) * G1 + (t1 + r);
-    T acc = T(0);
-    for (int q = 0; q < L.st.n; ++q) {
-      acc += A[q * plane + c] * gs[u + L.st.dx[q] * G1 + L.st.dy[q]];
-    }
-    rs[u] = Tp[c] * (rs[u] - acc);
-  });
-  __syncthreads();
-  box_sums<T>(L, bx, rs, bc);
-  __syncthreads();
-}
-
-// The three legs on tile (ti, tj) of level L, the planes read in place.
-// `base + offset` is the block's dynamic shared memory for the tile.  Each
-// ends on a block barrier.
-
-// K3: x_out = steps(x_in + P x_c) on the tile, b_c for its coarse cells
-template <int K, typename T>
-__device__ void tile_updown(const LevelDesc& L, unsigned char* base,
-                            unsigned offset, int ti, int tj, const T* x_in,
-                            const T* xc, const T* b, T* x_out, T* bc) {
-  const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
-                          leg_halo(L.n_steps, L.reach, true));
-  const TileSmem<T> sm = tile_buffers<T>(base, offset, bx, L.reach);
-  box_start<K, T>(L, sm, bx, x_in, xc);
-  box_steps<T>(L, sm, bx, b);
-  tile_store<T>(L, sm, bx, x_out);
-  tile_restrict<T>(L, sm, bx, b, bc);
-}
-
-// down leg: presmooth from x_in (nullptr: zero), x to x_out, b_c
-template <typename T>
-__device__ void tile_down(const LevelDesc& L, unsigned char* base,
-                          unsigned offset, int ti, int tj, const T* x_in,
-                          const T* b, T* x_out, T* bc) {
-  const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
-                          leg_halo(L.n_steps, L.reach, true));
-  const TileSmem<T> sm = tile_buffers<T>(base, offset, bx, L.reach);
-  box_start<2, T>(L, sm, bx, x_in, (const T*)nullptr);
-  box_steps<T>(L, sm, bx, b);
-  tile_store<T>(L, sm, bx, x_out);
-  tile_restrict<T>(L, sm, bx, b, bc);
-}
-
-// up leg: x_out = steps(x_mid + P x_c) on the tile
-template <int K, typename T>
-__device__ void tile_up(const LevelDesc& L, unsigned char* base,
-                        unsigned offset, int ti, int tj, const T* x_mid,
-                        const T* xc, const T* b, T* x_out) {
-  const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
-                          leg_halo(L.n_steps, L.reach, false));
-  const TileSmem<T> sm = tile_buffers<T>(base, offset, bx, L.reach);
-  box_start<K, T>(L, sm, bx, x_mid, xc);
-  box_steps<T>(L, sm, bx, b);
-  tile_store<T>(L, sm, bx, x_out);
-  __syncthreads();
-}
-
-// ---- legs with their coefficients in registers --------------------------
+// ---- the leg of one tile ------------------------------------------------
 //
-// The legs above read the planes in place at every pass, so each color step
-// is a chain of dependent loads per cell and a tile is latency-bound (K3 at
-// 4096^2 on an H100: 1.8-2.1 ms, kernel_variants.py).  Here thread
-// (w, lane) of WARPS warps owns the box cells (w + WARPS a, lane + 32 c),
-// a < CI, c < CJ, and loads their NOFF planes, dinv and b into registers
-// once, all in flight together; the steps read only shared memory.  The box
-// must fit (WARPS CI) x (32 CJ) cells (the wrappers' plans see to it).  The
-// same arithmetic in the same order as the legs above.
+// Thread (w, lane) of WARPS warps owns the box cells (w + WARPS a,
+// lane + 32 c), a < CI, c < CJ, and loads their NOFF planes, dinv and b
+// into registers once, all in flight together; the steps read only shared
+// memory.  (Reading the planes in place at every step makes each step a
+// chain of dependent loads per cell: K3 at 4096^2 took 1.8-2.1 ms that way
+// on an H100, kernel_variants.py, against 0.95 ms here.)  The box must fit
+// (WARPS CI) x (32 CJ) cells: the wrappers' plans give a tile only to 5-
+// and 9-point levels whose box fits; a box past it traps.
 //
 // One function for the three legs: with xc the correction of x_in, else x
 // starts from x_in (nullptr: zero); with bc the restriction (the halo of a
@@ -452,6 +272,9 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
                              const T* xc, const T* b, T* x_out, T* bc) {
   const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
                           leg_halo(L.n_steps, L.reach, bc != nullptr));
+  if (bx.E0 > WARPS * CI || bx.E1 > 32 * CJ || blockDim.x != WARPS * 32) {
+    __trap();
+  }
   const TileSmem<T> sm = tile_buffers<T>(base, offset, bx, L.reach);
   const T* __restrict__ A = (const T*)L.A;
   const T* __restrict__ dinv = (const T*)L.dinv;
@@ -658,27 +481,20 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
 constexpr int kLegWarps = 16, kLegRows = 4, kLegCols = 2;
 
 // A leg of a tiled level in the whole-tail and whole-subcycle kernels (see
-// tile_leg_reg for the arguments): in registers for a 5- or 9-point level
-// whose box fits the thread map of a kLegWarps-warp block, else with the
-// planes read in place.
+// tile_leg_reg for the arguments); the plan gives tiles to 5- and 9-point
+// levels only.
 template <typename T, int K>
 __device__ void tile_leg_k(const LevelDesc& L, unsigned char* base,
                            unsigned offset, int ti, int tj, const T* x_in,
                            const T* xc, const T* b, T* x_out, T* bc) {
-  const int h = leg_halo(L.n_steps, L.reach, bc != nullptr);
-  const bool fits = blockDim.x == kLegWarps * 32 &&
-                    L.tile_x + 2 * h <= kLegWarps * kLegRows &&
-                    L.tile_y + 2 * h <= 32 * kLegCols;
-  if (fits && L.st.n == 9) {
+  if (L.st.n == 9) {
     tile_leg_reg<T, K, 9, kLegWarps, kLegRows, kLegCols>(
         L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
-  } else if (fits && L.st.n == 5) {
+  } else if (L.st.n == 5) {
     tile_leg_reg<T, K, 5, kLegWarps, kLegRows, kLegCols>(
         L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
-  } else if (xc != nullptr) {
-    tile_up<K, T>(L, base, offset, ti, tj, x_in, xc, b, x_out);
   } else {
-    tile_down<T>(L, base, offset, ti, tj, x_in, b, x_out, bc);
+    __trap();
   }
 }
 

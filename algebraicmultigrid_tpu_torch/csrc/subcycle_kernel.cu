@@ -8,17 +8,11 @@
 // plus the dense coarse solve, then the factored prolong-correct and the
 // postsmooth of level t -- in three phases separated by grid.sync():
 //
-//   A  level t in 2-D tiles: each block loads no x (the zero start), runs
-//      every presmooth color step on its tile plus a halo in shared memory,
-//      forms r = b - A x and g = S r over the tile plus one reach, then
-//      T (r - A g) over the tile and the box-k sums of the coarse cells the
-//      tile owns; it writes its tile of x to x_mid and those cells to b_c;
-//   B  the tail recursion of tail_levels.cuh (K4's code) from the zero
-//      guess on b_c, writing x_c;
-//   C  level t in the same tiles: each block loads exact x_mid over its
-//      tile plus a halo, adds Tup - S (A Tup) with Tup = T upsample_k(x_c)
-//      formed on the fly, runs the postsmooth steps in shared memory and
-//      writes its tile of x.
+//   A  level t's down leg from zero: every presmooth color step, r = b - A x,
+//      g = S r and the box-k sums of T (r - A g); x to x_mid, b_c;
+//   B  the tail recursion from the zero guess on b_c, writing x_c;
+//   C  level t's up leg: x_mid + Tup - S (A Tup), Tup = T upsample_k(x_c)
+//      formed on the fly, then the postsmooth steps; x to x_out.
 //
 // What bounds it on the card: at 4096^2 level t is L1 (1366^2, 9 planes,
 // ~0.1 GB in f32, a ~0.035 ms byte bound with the tail's planes) and the
@@ -29,20 +23,23 @@
 // per-pass L1 legs take (~0.6 ms).
 //
 // Design.  The TPU kernel walks full-width slabs of level t in order on one
-// core and keeps x_mid and the coarse vectors in VMEM.  Here the blocks take
-// square tiles of level t in a grid-stride loop, in no order, and run the
-// down leg from zero (phase A) and the up leg (phase C) with the shared
-// tile code of leg_tile.cuh (K3's): the tile plus a halo of
-// (n_steps + 2) * reach (A) or n_steps * reach (C) in shared memory, every
-// color step there, the owned coarse cells of the restriction summed in the
-// order of stencil.cuh::restrict_cell.  Level t is read in place (unpadded
-// planes, b and D^-1).  Phase B is K4's tail_cycle, with its grid levels
-// tiled the same way.  The wrapper passes x_mid, b_c, x_c, the tail's work
+// core and keeps x_mid and the coarse vectors in VMEM.  Here the three
+// phases are K4's recursion (tail_levels.cuh tail_cycle) over level t and
+// its tail, from the zero guess: level t is the table's first level, so
+// phase A is its down leg from zero, phase B the tail, phase C its up leg.
+// Level t takes the tail's plan like any grid level: a 5- or 9-point level
+// whose box fits the register map runs each leg as one tiled phase
+// (leg_tile.cuh, K3's code: the tile plus a halo of (n_steps + 2) * reach
+// (A) or n_steps * reach (C) in shared memory, every color step there, the
+// owned coarse cells summed in the order of stencil.cuh::restrict_cell),
+// any other level pass by pass, and a level of at most kBlockCells cells
+// in block 0.  At 4096^2 (L1, L2, L3 tiled) that is 3 + 1 + 2 = 6 grid
+// barriers.  Level t is read in place (unpadded planes, b and D^-1); x_mid,
+// b_c and x_c live in the tail's work buffer.  The wrapper passes that
 // buffer and the dynamic shared memory size (the descriptors, then the
 // largest tile's buffers); the kernel allocates nothing.  The grid is as
 // many blocks as fit on the card at once (launch_cooperative).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -51,7 +48,7 @@
 
 namespace {
 
-using amg::kMaxTailLevels;
+using amg::kMaxTableLevels;
 using amg::LevelDesc;
 
 // one block an SM with the tiled legs' thread map, as K4 (leg_tile.cuh
@@ -61,79 +58,48 @@ constexpr int kSubMinBlocks = 1;
 
 // the descriptor table's bytes at the head of dynamic shared memory,
 // rounded up so the tile buffers after it stay 16-byte aligned
-__host__ __device__ inline unsigned table_bytes(int n_tail) {
-  return (unsigned)((sizeof(LevelDesc) * (n_tail + 1) + 15) / 16 * 16);
+__host__ __device__ inline unsigned table_bytes(int n_lvl) {
+  return (unsigned)((sizeof(LevelDesc) * n_lvl + 15) / 16 * 16);
 }
 
-// lv[0] is level t, lv[1 .. n_tail] its tail.  Dynamic shared memory holds
-// the n_tail + 1 descriptors, then the tile buffers.  Every thread of the
-// grid reaches every grid.sync() (no early return).
+// lv[0] is level t, lv[1 .. n_lvl - 1] its tail.  Dynamic shared memory
+// holds the n_lvl descriptors, then the tile buffers.
 template <typename T>
 __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
-    subcycle_kernel(const LevelDesc* lv, int n_tail, int n_grid, T* work,
-                    T* x_out, const T* b, T* x_mid, T* bc, T* xc,
-                    const T* __restrict__ Mc, int n7, int64_t b7_off,
-                    int64_t x7_off) {
+    subcycle_kernel(const LevelDesc* lv, int n_lvl, int n_grid, T* work,
+                    T* x_out, const T* b, const T* __restrict__ Mc, int n7,
+                    int64_t b7_off, int64_t x7_off) {
   extern __shared__ __align__(16) unsigned char sub_smem[];
   LevelDesc* sh = reinterpret_cast<LevelDesc*>(sub_smem);
-  amg::load_levels(sh, lv, n_tail + 1);
-  const unsigned off = table_bytes(n_tail);
-  const LevelDesc& L = sh[0];
-  const int tiles_y = amg::tiles_of(L.Wy, L.tile_y);
-  const int tiles = amg::tiles_of(L.Wx, L.tile_x) * tiles_y;
-
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    amg::tile_leg<T>(L, sub_smem, off, t / tiles_y, t % tiles_y,
-                     (const T*)nullptr, (const T*)nullptr, b, x_mid, bc);
-  }
-  cooperative_groups::this_grid().sync();
-  amg::tail_cycle<T>(sh + 1, n_tail, n_grid, work, xc, nullptr, bc, Mc, n7,
-                     b7_off, x7_off, sub_smem, off, true);
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    amg::tile_leg<T>(L, sub_smem, off, t / tiles_y, t % tiles_y, x_mid, xc, b,
-                     x_out, (T*)nullptr);
-  }
+  amg::load_levels(sh, lv, n_lvl);
+  amg::tail_cycle<T>(sh, n_lvl, n_grid, work, x_out, nullptr, b, Mc, n7,
+                     b7_off, x7_off, sub_smem, table_bytes(n_lvl), false);
 }
 
 template <typename T>
-int fused_subcycle(const void* desc, int n_tail, int n_grid, T* work,
-                   T* x_out, const T* b, T* x_mid, T* bc, T* xc, const T* Mc,
-                   int n7, int64_t b7_off, int64_t x7_off, int smem,
-                   void* stream_ptr) {
-  if (n_tail < 1 || n_tail > kMaxTailLevels || n_grid < 0 ||
-      n_grid > n_tail || n7 < 1 || smem < (int)table_bytes(n_tail)) {
+int fused_subcycle(const void* desc, int n_lvl, int n_grid, T* work,
+                   T* x_out, const T* b, const T* Mc, int n7, int64_t b7_off,
+                   int64_t x7_off, int smem, void* stream_ptr) {
+  if (n_lvl < 2 || n_lvl > kMaxTableLevels || n_grid < 0 || n_grid > n_lvl ||
+      n7 < 1 || smem < (int)table_bytes(n_lvl)) {
     return (int)cudaErrorInvalidValue;
   }
   const LevelDesc* lv = (const LevelDesc*)desc;
-  void* args[] = {&lv,   &n_tail, &n_grid, &work, &x_out, &b,     &x_mid,
-                  &bc,   &xc,     &Mc,     &n7,   &b7_off, &x7_off};
+  void* args[] = {&lv, &n_lvl, &n_grid, &work,   &x_out,
+                  &b,  &Mc,    &n7,     &b7_off, &x7_off};
   return amg::launch_cooperative((const void*)subcycle_kernel<T>, kSubThreads,
                                  args, (cudaStream_t)stream_ptr, (size_t)smem);
 }
 
 }  // namespace
 
-// Bytes of shared memory a block may take (the wrapper sizes the tile to
-// fit the descriptors and the tile buffers in it).
-extern "C" int amg_subcycle_smem_limit() {
-  int dev = 0;
-  int optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess) {
-    return -1;
-  }
-  return optin;
-}
-
 #define AMG_DEFINE_SUBCYCLE(SUFFIX, T)                                       \
   extern "C" int amg_fused_subcycle_##SUFFIX(                                \
-      const void* desc, int n_tail, int n_grid, void* work, void* x_out,     \
-      const void* b, void* x_mid, void* bc, void* xc, const void* Mc,        \
-      int n7, long long b7_off, long long x7_off, int smem, void* stream) {  \
-    return fused_subcycle<T>(desc, n_tail, n_grid, (T*)work, (T*)x_out,      \
-                             (const T*)b, (T*)x_mid, (T*)bc, (T*)xc,         \
-                             (const T*)Mc, n7, (int64_t)b7_off,              \
+      const void* desc, int n_lvl, int n_grid, void* work, void* x_out,      \
+      const void* b, const void* Mc, int n7, long long b7_off,               \
+      long long x7_off, int smem, void* stream) {                            \
+    return fused_subcycle<T>(desc, n_lvl, n_grid, (T*)work, (T*)x_out,       \
+                             (const T*)b, (const T*)Mc, n7, (int64_t)b7_off, \
                              (int64_t)x7_off, smem, stream);                 \
   }
 

@@ -24,16 +24,16 @@
 // barrier; levels of at most kBlockCells cells (51^2 and below at 4096^2)
 // and the coarse solve run inside block 0 alone, with __syncthreads()
 // between passes, while the other blocks wait at the next grid barrier.
-// A tiled level keeps its coefficients in registers (tile_leg_reg), so its
-// color steps read only shared memory.  Grid barriers a cycle at 4096^2, counted from tail_cycle: 2 down + 1
-// after block 0 + 1 between the two up legs = 4 (the first version, one
-// grid-stride pass a color step, residual, restriction and correction:
-// 2 x 9 + 1 + 2 x 8 = 35, 0.395 ms on an H100).  A grid level whose tile
-// does not fit a block's shared memory keeps those passes (its tile is 0 x
-// 0, decided by the wrapper's plan from the shapes).  One 512-thread block
-// per SM.  Planes stay unpadded and stencil reads outside the grid are
-// guarded to zero (the TPU's halo and one-hot selector matmuls do not carry
-// over).  The wrapper passes one work buffer for every level's x, b, r, g,
+// A tiled level keeps its coefficients in registers (tile_leg_reg), so
+// its color steps read only shared memory.  Grid barriers a cycle at
+// 4096^2, counted from tail_cycle: 2 down + 1 after block 0 + 1 between
+// the two up legs = 4 (the first version, one grid-stride pass a color
+// step, residual, restriction and correction: 2 x 9 + 1 + 2 x 8 = 35,
+// 0.395 ms on an H100).  A grid level with no tile (not 5- or 9-point, or
+// its box past the register map; decided by the wrapper's plan from the
+// shapes) keeps those passes.  One 512-thread block per SM.  Planes stay
+// unpadded and stencil reads outside the grid are guarded to zero (the
+// TPU's halo and one-hot selector matmuls do not carry over).  The wrapper passes one work buffer for every level's x, b, r, g,
 // x_mid and the coarse vectors, and the tiles' dynamic shared memory size;
 // the kernel allocates nothing.
 

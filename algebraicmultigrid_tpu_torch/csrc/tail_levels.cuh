@@ -8,23 +8,24 @@
 // the correction x += Tup - S (A Tup), Tup = T * upsample_k(x_c), and the
 // postsmooth.  Every level below the entry starts from the zero guess.
 //
-// Barriers.  A grid level with a tile (LevelDesc::tile_x > 0) runs each
-// leg as one tiled phase (leg_tile.cuh: the tile plus a halo in shared
-// memory, every color step there, halo erosion in place of barriers), so a
-// leg costs one grid barrier; its down leg writes x to the level's x_mid
-// and its up leg reads x_mid and writes x, so no tile reads cells that
-// another tile of the same phase writes.  A grid level without a tile runs
-// every pass as a grid-stride loop followed by grid.sync().  Levels of at
-// most kBlockCells cells and the coarse solve run inside block 0 alone,
-// pass by pass with __syncthreads(), while the other blocks wait at the
-// next grid barrier.  On an H100 (kernel_variants.py, its diagnostics)
-// these block-0 passes take most of K4's 0.36 ms and the tiled grid levels
-// the rest; walking the block-0 levels' tiles one after the other in block
-// 0 took K4 to 0.53 ms (each tile's loads wait in turn).  At 4096^2 (grid levels 456^2 and 153^2, 7 color steps
-// a leg) that is 2 + 1 + 2 = 5 grid barriers a cycle (4 in K4, which needs
-// none after its last write), where one barrier a pass took 35.  Color
-// steps of the passes run in place, race free within a step because no
-// two coupled cells share a color.  The restriction sums each coarse
+// Barriers.  A grid level with a tile (LevelDesc::tile_x > 0: a 5- or
+// 9-point level whose box fits leg_tile.cuh's register map) runs each leg
+// as one tiled phase (the tile plus a halo in shared memory, every color
+// step there, halo erosion in place of barriers), so a leg costs one grid
+// barrier; its down leg writes x to the level's x_mid and its up leg reads
+// x_mid and writes x, so no tile reads cells that another tile of the same
+// phase writes.  A grid level without a tile runs every pass as a
+// grid-stride loop followed by grid.sync().  Levels of at most kBlockCells
+// cells and the coarse solve run inside block 0 alone, pass by pass with
+// __syncthreads(), while the other blocks wait at the next grid barrier.
+// On an H100 (kernel_variants.py, its diagnostics) these block-0 passes
+// take most of K4's 0.36 ms and the tiled grid levels the rest; walking
+// the block-0 levels' tiles one after the other in block 0 took K4 to
+// 0.53 ms (each tile's loads wait in turn).  At 4096^2 (grid levels 456^2
+// and 153^2, 7 color steps a leg) K4 has 2 + 1 + 1 = 4 grid barriers a
+// cycle (none after its last write), where one barrier a pass took 35.
+// Color steps of the passes run in place, race free within a step because
+// no two coupled cells share a color.  The restriction sums each coarse
 // cell's k x k box of T (r - A g) in the same pass, one thread per coarse
 // cell.
 //

@@ -35,8 +35,9 @@
 // multiples of k, planned by the wrapper from the shapes), x over the tile
 // plus a halo of (n_steps + 2) * reach cells in shared memory, the
 // correction, every color step, r, g and the restriction of the tile's
-// coarse cells there, and only x over the tile and b_c written back.  No
-// grid barrier: halo erosion makes the tiles independent.  (Its first
+// coarse cells there, and only x over the tile and b_c written back, each
+// thread's coefficients held in registers across the steps.  No grid
+// barrier: halo erosion makes the tiles independent.  (Its first
 // version, a cooperative launch of 9 grid-wide passes with r and g in
 // device memory, took 2.26 ms at 4096^2 on an H100 against a 0.225 ms
 // byte bound.)
@@ -57,13 +58,11 @@ using amg::ColorGrid;
 using amg::Stencil;
 
 constexpr int kThreads = 256;
-// K3's block: one tile (leg_tile.cuh) a block.  A 5- or 9-point level
-// whose box fits its thread map keeps its coefficients in registers
-// (tile_leg_reg: warps, cells a thread down and across, so a box of up to
-// (warps x down) x (32 x across) cells: 64 x 64 for both, the wrapper's
-// REG_BOX); any other level runs tile_updown, the planes read in place,
-// with kUpdownThreads threads.
-constexpr int kUpdownThreads = 256;
+// K3's block: one tile (leg_tile.cuh) a block, each thread keeping its
+// cells' coefficients in registers (tile_leg_reg: warps, cells a thread
+// down and across, so a box of up to (warps x down) x (32 x across) cells:
+// 64 x 64 for both, the wrapper's REG_BOX).  Only 5- and 9-point levels
+// whose box fits take K3; the wrapper plans no tile for others.
 constexpr int kReg5Warps = 32, kReg5Rows = 2, kReg5Cols = 2;
 constexpr int kReg9Warps = 16, kReg9Rows = 4, kReg9Cols = 2;
 
@@ -149,18 +148,6 @@ __device__ __forceinline__ void copy_desc(amg::LevelDesc* sh,
 }
 
 // K3: up(i) then down(i+1), one block a tile
-template <typename T, int K>
-__global__ void __launch_bounds__(kUpdownThreads)
-    updown_tile_kernel(T* x_out, const T* x_in, const T* b, const T* xc,
-                       T* bc, const __grid_constant__ amg::LevelDesc L) {
-  extern __shared__ __align__(16) unsigned char updown_smem[];
-  __shared__ amg::LevelDesc sh;
-  copy_desc(&sh, L);
-  amg::tile_updown<K, T>(sh, updown_smem, 0, blockIdx.y, blockIdx.x, x_in, xc,
-                         b, x_out, bc);
-}
-
-// K3 with the coefficients in registers
 template <typename T, int K, int NOFF, int WARPS, int CI, int CJ>
 __global__ void __launch_bounds__(WARPS * 32)
     updown_reg_kernel(T* x_out, const T* x_in, const T* b, const T* xc,
@@ -184,21 +171,17 @@ int launch_updown(Kernel fn, int threads, dim3 grid, size_t smem,
 }
 
 template <typename T, int K>
-int launch_updown_k(int n_off, bool reg, dim3 grid, size_t smem,
-                    cudaStream_t stream, T* x_out, const T* x_in, const T* b,
-                    const T* xc, T* bc, const amg::LevelDesc& L) {
-  if (reg && n_off == 5) {
+int launch_updown_k(int n_off, dim3 grid, size_t smem, cudaStream_t stream,
+                    T* x_out, const T* x_in, const T* b, const T* xc, T* bc,
+                    const amg::LevelDesc& L) {
+  if (n_off == 5) {
     return launch_updown(
         updown_reg_kernel<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols>,
         kReg5Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
   }
-  if (reg && n_off == 9) {
-    return launch_updown(
-        updown_reg_kernel<T, K, 9, kReg9Warps, kReg9Rows, kReg9Cols>,
-        kReg9Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
-  }
-  return launch_updown(updown_tile_kernel<T, K>, kUpdownThreads, grid, smem,
-                       stream, x_out, x_in, b, xc, bc, L);
+  return launch_updown(
+      updown_reg_kernel<T, K, 9, kReg9Warps, kReg9Rows, kReg9Cols>,
+      kReg9Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
 }
 
 dim3 grid_for(int rows, int cols) {
@@ -283,16 +266,17 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const T* A,
   const dim3 grid(amg::tiles_of(Wy, tile_y), amg::tiles_of(Wx, tile_x));
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   const int halo = amg::leg_halo(n_steps, L.reach, true);
-  const bool reg = (n_off == 5 && tile_x + 2 * halo <= kReg5Warps * kReg5Rows &&
-                    tile_y + 2 * halo <= 32 * kReg5Cols) ||
-                   (n_off == 9 && tile_x + 2 * halo <= kReg9Warps * kReg9Rows &&
-                    tile_y + 2 * halo <= 32 * kReg9Cols);
+  const int E0 = tile_x + 2 * halo, E1 = tile_y + 2 * halo;
+  const bool fits =
+      (n_off == 5 && E0 <= kReg5Warps * kReg5Rows && E1 <= 32 * kReg5Cols) ||
+      (n_off == 9 && E0 <= kReg9Warps * kReg9Rows && E1 <= 32 * kReg9Cols);
+  if (!fits) return (int)cudaErrorInvalidValue;
   const size_t smem =
       amg::tile_smem_bytes(tile_x, tile_y, halo, L.reach, (int)sizeof(T));
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  return k == 2 ? launch_updown_k<T, 2>(n_off, reg, grid, smem, stream, x_out,
+  return k == 2 ? launch_updown_k<T, 2>(n_off, grid, smem, stream, x_out,
                                         x_in, b, xc, bc, L)
-                : launch_updown_k<T, 3>(n_off, reg, grid, smem, stream, x_out,
+                : launch_updown_k<T, 3>(n_off, grid, smem, stream, x_out,
                                         x_in, b, xc, bc, L);
 }
 

@@ -10,11 +10,12 @@ tail_start − 1`` when built with ``subcycle=True`` (the JAX package's
 ``AMG_PALLAS_SUB=1``), in every V-cycle and in every ``run_fixed_cycles``
 iteration.
 
-The CUDA kernel (``csrc/subcycle_kernel.cu``) is one cooperative launch in
-three phases: level ``start`` in 2-D tiles with the color steps in shared
-memory (``csrc/leg_tile.cuh``, K3's device code), the tail recursion of
-``csrc/tail_levels.cuh`` (K4's code), then level ``start`` again in the
-same tiles.  ``fused_subcycle_reference`` is
+The CUDA kernel (``csrc/subcycle_kernel.cu``) is one cooperative launch of
+K4's recursion (``csrc/tail_levels.cuh``) over level ``start`` and its
+tail, level ``start`` planned as a tail level (``tail_tiles``): its down
+leg from zero, the tail, its up leg, a level in tiles running each leg
+with the color steps in shared memory (``csrc/leg_tile.cuh``, K3's device
+code).  ``fused_subcycle_reference`` is
 its plain PyTorch version: the plain down leg, the plain tail and the plain
 up leg.  ``fused_subcycle`` takes the plain version only for tensors on the
 CPU; on a CUDA tensor it launches the kernel or raises.  Its launches count
@@ -39,6 +40,8 @@ from .tail_kernel import (
     _work_layout,
     build_fused_tail_cache,
     fused_tail_reference,
+    tail_smem,
+    tail_tiles,
 )
 from .vcycle_legs import (
     SUFFIX,
@@ -48,11 +51,8 @@ from .vcycle_legs import (
     fused_down_reference,
     fused_up_reference,
     launches,
-    leg_halo,
     load_library,
     raise_on,
-    reg_want,
-    tile_smem_bytes,
 )
 
 __all__ = [
@@ -67,78 +67,59 @@ __all__ = [
 MAX_ROWS = 2_500_000
 # the JAX gate's limit on the level's stencil reach
 MAX_REACH = 2
-# edge of a tile's interior (rounded down to a multiple of k), cut to the
-# register box of a 5- or 9-point level (45 at L1 of 4096²) and shrunk
-# until the block's shared memory holds it
-TILE = 72
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedSubcycleCache:
-    """The top level's factored legs, the tail below it and, on a card, the
+    """The top level's factored legs, the tail below it, every level's tile
+    (``tail_tiles`` of the top level and the tail's) and, on a card, the
     kernel's descriptor table (the top level, then the tail's levels)."""
 
     top: FusedLegCache
     tail: FusedTailCache
-    steps: Tuple[int, ...]
-    reach: int
-    tile: int = TILE
+    tiles: Tuple[Tuple[int, int], ...]
     desc: Optional[torch.Tensor] = None
 
     @property
-    def halos(self) -> Tuple[int, int]:
-        """(phase A, phase C) halo of a tile: A needs x exact two reaches
-        beyond the tile (r and g, then T(r − A·g)); C's correction is exact
-        on the whole box, so only the color steps erode it."""
-        grown = len(self.steps) * self.reach
-        return grown + 2 * self.reach, grown
+    def levels(self) -> Tuple[FusedLegCache, ...]:
+        return (self.top,) + tuple(self.tail.levels)
+
+    @property
+    def steps(self) -> Tuple[int, ...]:
+        return tuple(self.top.steps)
 
 
 def _reach(offs) -> int:
     return max((max(abs(dx), abs(dy)) for dx, dy in offs), default=0)
 
 
-def _table_bytes(n_tail: int, level_bytes: int) -> int:
-    """The descriptor table at the head of the dynamic shared memory,
-    rounded to 16 bytes (csrc/subcycle_kernel.cu ``table_bytes``)."""
-    return -(-level_bytes * (n_tail + 1) // 16) * 16
+def subcycle_smem(cache: FusedSubcycleCache, level_bytes: int) -> int:
+    """Dynamic shared memory of a block: the descriptor table, rounded to
+    16 bytes (csrc/subcycle_kernel.cu ``table_bytes``), then the largest
+    tiled level's tile buffers."""
+    table = -(-level_bytes * len(cache.levels) // 16) * 16
+    return table + tail_smem(cache.levels, cache.tiles)
 
 
-def subcycle_smem(top: FusedLegCache, tail: FusedTailCache, tile: int, level_bytes: int) -> int:
-    """Dynamic shared memory of a block: the descriptor table, then the
-    larger of phase A's tile buffers and the tail's tiled levels'."""
-    halo = leg_halo(len(top.steps), _reach(top.offsA), True)
-    own = tile_smem_bytes(tile, tile, halo, _reach(top.offsA), top.A.element_size())
-    return _table_bytes(len(tail.levels), level_bytes) + max(own, tail.smem)
-
-
-def make_fused_subcycle_cache(top: FusedLegCache, tail: FusedTailCache, tile: int = TILE) -> FusedSubcycleCache:
+def make_fused_subcycle_cache(top: FusedLegCache, tail: FusedTailCache) -> FusedSubcycleCache:
     """Assemble the cache from the top level's leg cache and the tail below
-    it; also the entry of ``convert.hierarchy_from_numpy``.  A 5- or
-    9-point level's tile is cut to the register box (``reg_want``); on a
-    card the tile shrinks (by k) until the block's shared memory holds it."""
+    it, every level's tile planned from the shapes; also the entry of
+    ``convert.hierarchy_from_numpy``."""
     if tuple(tail.levels[0].row_dims) != tuple(top.col_dims):
         raise ValueError("the tail does not start at the top level's coarse grid")
     Wx, Wy = top.row_dims
-    Wxc, Wyc = top.col_dims
     k = top.k
-    if (Wxc, Wyc) != (-(-Wx // k), -(-Wy // k)):
+    if tuple(top.col_dims) != (-(-Wx // k), -(-Wy // k)):
         raise ValueError(f"coarse grid {top.col_dims} is not the box-{k} grid of {top.row_dims}")
     if Wx * Wy >= 2**31:
         raise ValueError("the subcycle kernel indexes a level's cells in 32 bits")
-    steps = tuple(top.steps)
-    reach = _reach(top.offsA)
-    tile = reg_want([tile], len(top.offsA), leg_halo(len(steps), reach, True), k)[0]
-    tile = max(k, tile - tile % k)
+    levels = (top,) + tuple(tail.levels)
+    tiles = tail_tiles(levels)
     desc = None
     if top.A.device.type == "cuda":
-        lib = load_library()
-        level_bytes = lib.amg_tail_level_bytes()
-        while tile > k and subcycle_smem(top, tail, tile, level_bytes) > lib.amg_subcycle_smem_limit():
-            tile -= k
-        per, _, _ = _work_layout(tail.levels)
-        desc = _descriptor((top,) + tuple(tail.levels), [(0,) * 5] + per, ((tile, tile),) + tail.tiles)
-    return FusedSubcycleCache(top=top, tail=tail, steps=steps, reach=reach, tile=tile, desc=desc)
+        per, _, _ = _work_layout(levels)
+        desc = _descriptor(levels, per, tiles)
+    return FusedSubcycleCache(top=top, tail=tail, tiles=tiles, desc=desc)
 
 
 def build_fused_subcycle_cache(
@@ -200,21 +181,20 @@ def fused_subcycle(cache: FusedSubcycleCache, b):
     if cache.desc is None or cache.desc.device != b.device:
         raise ValueError("the subcycle cache was not built on this card")
     lib = load_library()
-    _, (b7, x7), work_len = _work_layout(tail.levels)
+    levels = cache.levels
+    _, (b7, x7), work_len = _work_layout(levels)
     block_cells = lib.amg_tail_block_cells()
-    n_grid = sum(1 for L in tail.levels if L.row_dims[0] * L.row_dims[1] > block_cells)
-    nt = tail.levels[0].row_dims[0] * tail.levels[0].row_dims[1]
-    # one scratch buffer: the tail's work, then x_mid, b_c and x_c
-    scratch = torch.empty(work_len + n + 2 * nt, dtype=b.dtype, device=b.device)
-    x_mid, bc, xc = torch.split(scratch[work_len:], [n, nt, nt])
+    n_grid = sum(1 for L in levels if L.row_dims[0] * L.row_dims[1] > block_cells)
+    # every level's r, g, x_mid and the coarse vectors; the top level's x
+    # and b are the call's
+    work = torch.empty(work_len, dtype=b.dtype, device=b.device)
     x_out = torch.empty_like(b)
     if b.shape[0] > n:
         x_out[n:].zero_()
-    smem = subcycle_smem(top, tail, cache.tile, lib.amg_tail_level_bytes())
     err = getattr(lib, f"amg_fused_subcycle_{SUFFIX[b.dtype]}")(
-        cache.desc.data_ptr(), len(tail.levels), n_grid, scratch.data_ptr(), x_out.data_ptr(),
-        b.data_ptr(), x_mid.data_ptr(), bc.data_ptr(), xc.data_ptr(), tail.Mc.data_ptr(), tail.n7,
-        b7, x7, smem, torch.cuda.current_stream(b.device).cuda_stream,
+        cache.desc.data_ptr(), len(levels), n_grid, work.data_ptr(), x_out.data_ptr(), b.data_ptr(),
+        tail.Mc.data_ptr(), tail.n7, b7, x7, subcycle_smem(cache, lib.amg_tail_level_bytes()),
+        torch.cuda.current_stream(b.device).cuda_stream,
     )
     raise_on(err, "fused_subcycle kernel")
     launches["sub"] += 1

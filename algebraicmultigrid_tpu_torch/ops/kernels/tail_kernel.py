@@ -38,7 +38,6 @@ import torch
 
 from .vcycle_legs import (
     MAX_STEPS,
-    SMEM_LIMIT,
     SUFFIX,
     FusedLegCache,
     build_level_legs,
@@ -50,7 +49,6 @@ from .vcycle_legs import (
     load_library,
     plan_tile,
     raise_on,
-    reg_want,
     stencil_args,
     tile_smem_bytes,
 )
@@ -72,13 +70,11 @@ MAX_LEVELS = 16
 # pick the same tail
 _H = 8
 # levels of more cells run on the whole grid (csrc/tail_levels.cuh
-# kBlockCells), in tiles of this size (rounded down to multiples of k, cut
-# to the register box: 45 x 45 for the 9-point levels of 4096², one tile
+# kBlockCells), in tiles of this size (cut to the register box and rounded
+# down to multiples of k: 45 x 45 for the 9-point levels of 4096², one tile
 # a block at 456²), chosen by kernel_variants.py
 BLOCK_CELLS = 4096
 TAIL_TILE = (48, 48)
-# shared memory kept for the descriptor table (17 LevelDesc of < 1 KB)
-TABLE_RESERVE = 17 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +87,7 @@ class FusedTailCache:
     dims7: Tuple[int, int]  # coarse grid (W7x, W7y)
     work_len: int          # elements of the kernel's work buffer
     # per level its tile, (0, 0) where the level runs pass by pass (in one
-    # block, or on the grid where no tile fits)
+    # block, or on the grid where the plan gives none)
     tiles: Tuple[Tuple[int, int], ...] = ()
     desc: Optional[torch.Tensor] = None  # uint8 LevelDesc table (CUDA only)
 
@@ -105,20 +101,16 @@ class FusedTailCache:
         return tail_smem(self.levels, self.tiles)
 
 
-def tail_tiles(levels, want=TAIL_TILE):
+def tail_tiles(levels):
     """Each level's tile: the levels of more than ``BLOCK_CELLS`` cells in
-    tiles of about ``want`` (cut to the register box for a 5- or 9-point
-    level) whose down leg's buffers fit a block's shared memory beside the
-    descriptor table, else (0, 0): the level runs pass by pass."""
+    tiles of about ``TAIL_TILE`` (``plan_tile``: a 5- or 9-point level whose
+    box fits the register map), else (0, 0): the level runs pass by pass."""
     out = []
     for L in levels:
         tile = None
         if L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS:
             halo = leg_halo(len(L.steps), L.reach, True)
-            tile = plan_tile(
-                L.row_dims, L.k, halo, L.reach, L.A.element_size(), reg_want(want, len(L.offsA), halo, L.k),
-                SMEM_LIMIT - TABLE_RESERVE,
-            )
+            tile = plan_tile(L.row_dims, L.k, len(L.offsA), halo, TAIL_TILE)
         out.append(tile or (0, 0))
     return tuple(out)
 
@@ -167,7 +159,7 @@ def _descriptor(levels, per, tiles) -> torch.Tensor:
     return host.to(levels[0].A.device)
 
 
-def make_fused_tail_cache(levels, Mc: torch.Tensor, tile=TAIL_TILE) -> FusedTailCache:
+def make_fused_tail_cache(levels, Mc: torch.Tensor) -> FusedTailCache:
     """Assemble the cache from per-level leg caches (fine → coarse) and the
     coarse operator, with the grid levels' tiles planned from the shapes;
     also the entry of ``convert.hierarchy_from_numpy``."""
@@ -184,7 +176,7 @@ def make_fused_tail_cache(levels, Mc: torch.Tensor, tile=TAIL_TILE) -> FusedTail
     if tuple(Mc.shape) != (n7, n7):
         raise ValueError(f"coarse operator {tuple(Mc.shape)} does not fit the grid {dims7}")
     per, _, work_len = _work_layout(levels)
-    tiles = tail_tiles(levels, tile)
+    tiles = tail_tiles(levels)
     desc = _descriptor(levels, per, tiles) if Mc.device.type == "cuda" else None
     return FusedTailCache(levels=levels, Mc=Mc.contiguous(), dims7=dims7, work_len=work_len, tiles=tiles, desc=desc)
 

@@ -66,7 +66,6 @@ __all__ = [
     "leg_halo",
     "plan_tile",
     "plan_updown",
-    "reg_want",
     "tile_smem_bytes",
     "with_updown_plan",
     "launches",
@@ -90,14 +89,11 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 MAX_OFFSETS = 32
 MAX_COLOR_CELLS = 64
 MAX_STEPS = 64
-# shared memory a block may take on an H100 (227 KB), less room for the
-# static level descriptor of the tiled kernels (csrc/leg_tile.cuh LevelDesc)
-SMEM_LIMIT = 232_448
-DESC_RESERVE = 1024
-# K3's tile (fine cells along x, y; rounded down to multiples of k), chosen
-# by kernel_variants.py; the stencil sizes whose coefficients the tiled legs
-# keep in registers, on a box (tile + 2 halo) of at most REG_BOX cells a
-# side (the thread maps of csrc/vcycle_legs.cu and csrc/leg_tile.cuh)
+# K3's tile (fine cells along x, y), chosen by kernel_variants.py; the
+# stencil sizes whose coefficients the tiled legs keep in registers, and
+# the side of the largest box (tile + 2 halo) their thread maps hold (the
+# thread maps of csrc/vcycle_legs.cu and csrc/leg_tile.cuh).  Such a box's
+# buffers take at most ~100 KB of a block's shared memory.
 UPDOWN_TILE = (48, 48)
 REG_OFFSETS = (5, 9)
 REG_BOX = 64
@@ -162,50 +158,35 @@ def tile_smem_bytes(tx: int, ty: int, halo: int, reach: int, itemsize: int) -> i
     return (e + max(up, rg)) * itemsize + -(-e // 16) * 16
 
 
-def reg_want(want, n_off: int, halo: int, k: int):
-    """``want`` cut so that a 5- or 9-point level's box fits ``REG_BOX``
-    cells a side, where the tiled legs keep the coefficients in registers;
-    ``want`` itself for other stencils or where no k × k tile fits."""
-    if n_off in REG_OFFSETS and REG_BOX - 2 * halo >= k:
-        return [min(w, REG_BOX - 2 * halo) for w in want]
-    return want
-
-
-def plan_tile(row_dims, k: int, halo: int, reach: int, itemsize: int, want, limit: int):
+def plan_tile(row_dims, k: int, n_off: int, halo: int, want):
     """(tile_x, tile_y) for a leg in tiles on a ``row_dims`` level: ``want``
+    cut so that the box (tile + 2·halo) fits ``REG_BOX`` cells a side,
     rounded down to multiples of k, no larger than the grid (rounded up to
-    k), the larger extent shrunk by k until a block's shared memory
-    ``limit`` holds it; None when a k × k tile does not fit or the tiles'
-    rows exceed a CUDA grid dimension."""
-    tile = [max(k, min(w - w % k, -(-W // k) * k)) for w, W in zip(want, row_dims)]
-    while tile_smem_bytes(*tile, halo, reach, itemsize) > limit:
-        a = 0 if tile[0] >= tile[1] else 1
-        if tile[a] <= k:
-            return None
-        tile[a] -= k
+    k); None for a stencil of other than 5 or 9 points, where no k × k tile
+    fits the box, or where the tiles' rows exceed a CUDA grid dimension."""
+    side = REG_BOX - 2 * halo
+    if n_off not in REG_OFFSETS or side < k:
+        return None
+    tile = tuple(min(min(w, side) // k * k, -(-W // k) * k) for w, W in zip(want, row_dims))
     if -(-row_dims[0] // tile[0]) > MAX_TILE_ROWS:
         return None
-    return tuple(tile)
+    return tile
 
 
-def plan_updown(row_dims, k: int, offs, n_steps2: int, itemsize: int, want=UPDOWN_TILE):
+def plan_updown(row_dims, k: int, offs, n_steps2: int):
     """K3's tile on a level, or None when the level is past the tiled
-    kernel's limits (more than 64 steps in the double sweep, or no tile fits
-    a block's shared memory): decided from the shapes, once, when the leg
-    cache is built.  A 5- or 9-point level takes the largest tile up to
-    ``want`` whose box fits ``REG_BOX`` cells a side, where the kernel keeps
-    the coefficients in registers, if a k × k tile fits there; other levels
-    read them in place at every pass."""
+    kernel's limits (more than 64 steps in the double sweep, a stencil of
+    other than 5 or 9 points, or no k × k tile whose box fits ``REG_BOX``):
+    decided from the shapes, once, when the leg cache is built."""
     if not 1 <= n_steps2 <= MAX_STEPS:
         return None
     reach = max((max(abs(dx), abs(dy)) for dx, dy in offs), default=0)
-    halo = leg_halo(n_steps2, reach, True)
-    return plan_tile(row_dims, k, halo, reach, itemsize, reg_want(want, len(offs), halo, k), SMEM_LIMIT - DESC_RESERVE)
+    return plan_tile(row_dims, k, len(offs), leg_halo(n_steps2, reach, True), UPDOWN_TILE)
 
 
-def with_updown_plan(cache: "FusedLegCache", want=UPDOWN_TILE) -> "FusedLegCache":
+def with_updown_plan(cache: "FusedLegCache") -> "FusedLegCache":
     """The cache with K3's tile planned from its shapes."""
-    tile = plan_updown(cache.row_dims, cache.k, cache.offsA, len(cache.steps2), cache.A.element_size(), want)
+    tile = plan_updown(cache.row_dims, cache.k, cache.offsA, len(cache.steps2))
     return dataclasses.replace(cache, updown_tile=tile)
 
 
@@ -490,7 +471,7 @@ _SIGNATURES = {
     "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 4 + [_P],
     "amg_fused_updown_{}": [_P] * 9 + _STENCIL + [_I] * 7 + [_P],
     "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
-    "amg_fused_subcycle_{}": [_P, _I, _I] + [_P] * 7 + [_I, _L, _L, _I, _P],
+    "amg_fused_subcycle_{}": [_P, _I, _I, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_scan_gs_{}": [_P] * 6 + [_I, _I, _D, _I, _I, _I, _P],
     "amg_gs_sweep_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
     "amg_sweep3d_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
@@ -516,7 +497,6 @@ def load_library():
             fn.argtypes, fn.restype = args, _I
     lib.amg_tail_level_bytes.argtypes, lib.amg_tail_level_bytes.restype = [], _I
     lib.amg_tail_block_cells.argtypes, lib.amg_tail_block_cells.restype = [], _I
-    lib.amg_subcycle_smem_limit.argtypes, lib.amg_subcycle_smem_limit.restype = [], _I
     lib.amg_tile_smem_bytes.argtypes, lib.amg_tile_smem_bytes.restype = [_I] * 5, _I
     lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L] + [_I] * 7 + _STENCIL
     lib.amg_tail_fill_level.restype = _I

@@ -139,9 +139,10 @@ FIXED_RTOL = {"float32": KERNEL_RTOL, "float64": 1e-10}
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 # the per-pass designs that the tiled K3 and K4 (and K9 on K4's tail)
-# replaced, and the fixed cycle on them: ms measured by this script's
-# phases 3, 5 and 12 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6),
-# printed beside this run's
+# replaced, and the fixed cycle on them: recorded constants, not measured
+# in this run (this script's phases 3, 5 and 12 on an NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md §6), printed in the log beside this run's times
+# and never in the kernels line
 FIRST_DESIGN_MS = {"fused_updown": 2.260, "fused_tail": 0.395, "fused_subcycle": 1.037, "fixed_cycle": "3.33-3.39"}
 SOURCES = {
     "fused_down": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
@@ -390,8 +391,8 @@ def compare_kernels(device, ml):
                 + f": max_rel_err {r['max_rel_err']!r} max_abs_err {r['max_abs_err']!r}"
                 + f" kernel {r['ms']!r} ms plain {r['plain_ms']!r} ms"
                 + (f" legs {r['legs_ms']!r} ms" if "legs_ms" in r else "")
-                + (f" first design {FIRST_DESIGN_MS[name]!r} ms" if name in FIRST_DESIGN_MS and r["level"] == lvl0(name)
-                   else "")
+                + (f" (first design, recorded: {FIRST_DESIGN_MS[name]!r} ms)"
+                   if name in FIRST_DESIGN_MS and r["level"] == lvl0(name) else "")
                 + f" bound {r['bound_ms']!r} ms ({r['bound_by']})")
             if not r["max_rel_err"] <= KERNEL_RTOL:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
@@ -508,7 +509,7 @@ def fixed_cycles(device, ml, h):
     xh = x[: N * N].double().cpu().numpy()
     relres = float(np.linalg.norm(b - ml.levels[0].A @ xh) / np.linalg.norm(b))
     log(f"fixed cycles {CYCLES}: ms_per_cycle (CUDA events) {ms_per_cycle!r}"
-        f" (first design {FIRST_DESIGN_MS['fixed_cycle']} ms) relres_after_cycles {relres!r}")
+        f" (first design, recorded: {FIRST_DESIGN_MS['fixed_cycle']} ms) relres_after_cycles {relres!r}")
     log(f"launches in the fixed cycles {counts}; leg launches by level {by_level}")
 
     fixed_rel = {}
@@ -1097,7 +1098,7 @@ def compare_subcycle(cache, b, where):
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, ref)
     key = str(b.dtype).removeprefix("torch.")
-    log(f"kernel fused_subcycle {where} {cache.top.row_dims} {key} tile {cache.tile} halos {cache.halos}:"
+    log(f"kernel fused_subcycle {where} {cache.top.row_dims} {key} tiles {cache.tiles}:"
         f" max_rel_err {rel_err!r} max_abs_err {abs_err!r}")
     if not rel_err <= SUB_RTOL[key]:
         raise AssertionError(f"fused_subcycle {where} {key} disagrees with its plain version: {rel_err}")
@@ -1118,7 +1119,7 @@ def subcycle_path(device, ml):
     t0 = time.perf_counter()
     h = amt.get_device_hierarchy(ml, device=device, dtype=torch.float32, subcycle=True)
     torch.cuda.synchronize()
-    log(f"subcycle {N}x{N}: tail_start {h.tail_start} sub_start {h.sub_start} tile {h.sub and h.sub.tile}"
+    log(f"subcycle {N}x{N}: tail_start {h.tail_start} sub_start {h.sub_start} tiles {h.sub and h.sub.tiles}"
         f" lowering_s {time.perf_counter() - t0!r}")
     if (h.sub_start, h.tail_start) != (EXPECT_SUB_START, EXPECT_TAIL_START) or h.sub.top is not h.levels[1].fused:
         raise AssertionError(f"sub_start {h.sub_start}, tail_start {h.tail_start}: not"
@@ -1136,7 +1137,7 @@ def subcycle_path(device, ml):
     # K9 at L1, float32 (timed) and float64, against its plain version
     b = vec(n1, pad1)
     x_sub, abs32 = compare_subcycle(h.sub, b, "L1")
-    row = dict(level=1, dims=h.sub.top.row_dims, tile=h.sub.tile, max_abs_err=abs32,
+    row = dict(level=1, dims=h.sub.top.row_dims, tile=h.sub.tiles[0], max_abs_err=abs32,
                ms=time_ms(lambda: sk.fused_subcycle(h.sub, b)),
                plain_ms=time_ms(lambda: sk.fused_subcycle_reference(h.sub, b)))
     row["bound_ms"], row["bound_by"] = bound(*sub_work(h.sub), 4)
@@ -1162,11 +1163,12 @@ def subcycle_path(device, ml):
             raise AssertionError(f"{key} disagrees with K9: {rel}")
     del h_t1
     log(f"kernel fused_subcycle L1 {row['dims']}: kernel {row['ms']!r} ms"
-        f" (first design {FIRST_DESIGN_MS['fused_subcycle']!r} ms) plain {row['plain_ms']!r} ms"
+        f" (first design, recorded: {FIRST_DESIGN_MS['fused_subcycle']!r} ms) plain {row['plain_ms']!r} ms"
         f" legs+K4 {row['route_ms']!r} ms K4 from L1 {row['tail_at_l1_ms']!r} ms"
         f" bound {row['bound_ms']!r} ms ({row['bound_by']})")
 
-    # the 192² problem: a second size with partial tiles and a clipped edge
+    # the 192² problem: a second size, its L1 (64²) within one block and a
+    # clipped coarse edge
     ml_s = setup(SMALL, proxy=64, cut_rows=2000, min_proxy_dim=16)
     abs_small = []
     for dtype in (torch.float32, torch.float64):
@@ -1582,8 +1584,6 @@ def main():
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=None,
         )
-        if name in FIRST_DESIGN_MS:
-            row["first_design_ms"] = FIRST_DESIGN_MS[name]
         if name in ("fused_down", "fused_up", "fused_updown"):
             # per level: L1's time (x read from its input) and the launches
             l1 = next(r for r in rs if r["level"] == 1)
@@ -1615,13 +1615,12 @@ def main():
         launches=cycle_sub["sub"], launches_solve=counts_sub["sub"], max_abs_err=row_sub["max_abs_err"],
         ms=row_sub["ms"], plain_ms=row_sub["plain_ms"], bound_ms=row_sub["bound_ms"], bound_by=row_sub["bound_by"],
         library_ms=None, route_ms=row_sub["route_ms"], tail_at_l1_ms=row_sub["tail_at_l1_ms"],
-        first_design_ms=FIRST_DESIGN_MS["fused_subcycle"],
     ))
     kernels.append(dict(
         name="halo_stencil", route="cuda", source=SOURCES["halo_stencil"], replaces=REPLACES["halo_stencil"],
         **row_halo,
     ))
-    log(f"flagship {N}x{N} f32, CUDA events: fixed cycle {fixed_ms!r} ms (first design"
+    log(f"flagship {N}x{N} f32, CUDA events: fixed cycle {fixed_ms!r} ms (first design, recorded:"
         f" {FIRST_DESIGN_MS['fixed_cycle']} ms), V-cycle {vcycle_ms!r} ms; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)

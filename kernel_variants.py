@@ -4,9 +4,9 @@ K3 (``fused_updown``) and the whole-tail kernel K4 (``fused_tail``); with
 the argument ``sweeps``, the whole-sweep kernels K7 (``sweep3d``, at L0 of
 256³, symmetric GS) and K5 (``gs_sweep``, at 4096², forward GS) under
 alternative thread blocks and loaded boxes; with ``subcycle``, the
-whole-subcycle kernel K9 (``fused_subcycle``, at L1 of 4096²) with its tiled
-levels in registers or read in place (``sub_in_place``) and under
-alternative tile edges.
+whole-subcycle kernel K9 (``fused_subcycle``, at L1 of 4096²) with its
+levels tiled or pass by pass (``sub_grid_passes``) and under alternative
+tile edges.
 
 Each variant is the tree's CUDA sources with a few lines edited, built into
 its own library (all builds run in parallel) and swapped in under the same
@@ -14,27 +14,26 @@ wrappers; the tree's own build is the variant ``tree``.  By default, at
 4096², in two rounds, it prints for each variant K3's time at L0 (4096²)
 under each tile of ``UPDOWN_TILES_L0`` and at L1 (1366²) under each of
 ``UPDOWN_TILES_L1``, with its error against its plain version; K4's time
-(x = 0) under each tail tile of ``TAIL_TILES``; and one fixed cycle
+(x = 0) under each tail tile of ``TAIL_TILES`` (set as
+``tail_kernel.TAIL_TILE`` before its cache is built); and one fixed cycle
 (``run_fixed_cycles``) with the planned tiles; then the same work as K3
-through K2 + K1.  The K3 variants run the 5-point register path with
-two 512-thread blocks an SM of 4 cells a thread (``k3_reg5_2x512``, a box
-of up to 32 x 64 cells), or turn the register path off (``k3_in_place``:
-every step reads the planes from L1/L2).  The K4 variants read the tiled
-levels' planes in place (``k4_in_place``) or run every grid level pass by
-pass (``k4_grid_passes``: one grid barrier a pass, the first design's 35);
-two diagnostics split K4's time, dropping its block-0 levels and coarse
-solve (``k4_diag_no_block0``) or its grid levels (``k4_diag_no_grid``).  Run from the
-repository root:
+through K2 + K1.  The K3 variant runs the 5-point register path with two
+512-thread blocks an SM of 4 cells a thread (``k3_reg5_2x512``, a box of up
+to 32 x 64 cells).  The K4 variant runs every grid level pass by pass
+(``k4_grid_passes``: one grid barrier a pass, the first design's 35); two
+diagnostics split K4's time, dropping its block-0 levels and coarse solve
+(``k4_diag_no_block0``) or its grid levels (``k4_diag_no_grid``).  Run from
+the repository root:
 
     python3 kernel_variants.py [sweeps | subcycle]
 
 In ``sweeps`` mode each source variant runs with each box of ``BOXES_3D``
 / ``BOXES_2D`` (the tile plus halo that ``tiled_sweep.plan_box`` starts
 from), with the error against the plain version.  In ``subcycle`` mode each
-source variant runs K9 with each tile edge of ``SUB_TILES`` (the cache
-shrinks a tile whose shared memory does not fit), with the error against
-the plain version, and a fixed cycle (``run_fixed_cycles``) at each
-variant's default tile.
+source variant runs K9 with each tile edge of ``SUB_TILES`` (set as
+``tail_kernel.TAIL_TILE``, cut to the register box by the plan), with the
+error against the plain version, and a fixed cycle (``run_fixed_cycles``)
+at the planned tiles.
 """
 
 import subprocess
@@ -55,10 +54,6 @@ VARIANTS = {
         ("vcycle_legs.cu", "kReg5Warps = 32, kReg5Rows = 2,", "kReg5Warps = 16, kReg5Rows = 2,"),
         ("vcycle_legs.cu", "__launch_bounds__(WARPS * 32)", "__launch_bounds__(WARPS * 32, 2)"),
     ],
-    "k3_in_place": [
-        ("vcycle_legs.cu", "const bool reg = (n_off == 5", "const bool reg = false && (n_off == 5"),
-    ],
-    "k4_in_place": [("leg_tile.cuh", "if (fits && L.st.n == 9) {", "if (false) {")],
     "k4_grid_passes": [("tail_levels.cuh", "if (L.tile_x > 0) {", "if (false) {")],
     # diagnostics, not designs (their results are wrong, their errors say
     # so): K4 without its block-0 levels and coarse solve, or without its
@@ -69,14 +64,13 @@ VARIANTS = {
         ("tail_levels.cuh", "for (int l = n_grid - 1; l >= 0; --l) {", "for (int l = -1; l >= 0; --l) {"),
     ],
 }
-# K3 tiles.  L0 (5-point, halo 7): (48, 48) is the planned register box
-# (62 x 62); (18, 48) fits the 2 x 512 variant's 32-row box; in the tree
-# every tile but (48, 66) (a 62 x 80 box, planes read in place) runs in
-# registers.  L1 (9-point, halo 15): (33, 33) in registers, (24, 30) in
-# place.
-UPDOWN_TILES_L0 = [(18, 48), (24, 48), (48, 48), (48, 66)]
+# K3 tiles, each box within the register map's 64 x 64 cells.  L0
+# (5-point, halo 7): (48, 48) is the planned box (62 x 62); (18, 48) fits
+# the 2 x 512 variant's 32-row box.  L1 (9-point, halo 15): (33, 33) is
+# the planned box (63 x 63).
+UPDOWN_TILES_L0 = [(18, 48), (24, 48), (48, 48)]
 UPDOWN_TILES_L1 = [(33, 33), (24, 30)]
-# K4 tail tiles (cut to the register box where they exceed it)
+# K4 tail tiles (cut to the register box by the plan)
 TAIL_TILES = [(18, 18), (27, 27), (48, 48)]
 
 
@@ -95,7 +89,7 @@ SWEEP_VARIANTS = {
 }
 SUB_VARIANTS = {
     "tree": [],
-    "sub_in_place": [("leg_tile.cuh", "if (fits && L.st.n == 9) {", "if (false) {")],
+    "sub_grid_passes": [("tail_levels.cuh", "if (L.tile_x > 0) {", "if (false) {")],
 }
 SUB_TILES = (18, 27, 36, 45)
 # (12, 12, 64) is lifted to (14, 14, 64): a one-step-per-halo tile keeps 8 cells
@@ -183,9 +177,11 @@ def subcycle(use):
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
 
     import chip_smoke as cs
 
+    planned = tk.TAIL_TILE
     ml = cs.setup(N)
     h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32, subcycle=True)
     top, tail = h.sub.top, h.sub.tail
@@ -200,14 +196,16 @@ def subcycle(use):
     for rnd in range(ROUNDS):
         for name in SUB_VARIANTS:
             use(name)
-            for tile in SUB_TILES:
-                c = sk.make_fused_subcycle_cache(top, tail, tile=tile)
+            for edge in SUB_TILES:
+                tk.TAIL_TILE = (edge, edge)
+                c = sk.make_fused_subcycle_cache(top, tail)
                 err = cs.errors(sk.fused_subcycle(c, b), want)[1]
                 ms = cs.time_ms(lambda: sk.fused_subcycle(c, b))
-                print(f"round {rnd} {name:10s} tile {c.tile:3d}: K9 {ms!r} ms  max_rel_err {err!r}", flush=True)
+                print(f"round {rnd} {name:15s} tiles {c.tiles[:3]}: K9 {ms!r} ms  max_rel_err {err!r}", flush=True)
+            tk.TAIL_TILE = planned
             hh = dataclasses.replace(h, sub=sk.make_fused_subcycle_cache(top, tail))
             fc = cs.time_ms(lambda: run_fixed_cycles(hh, torch.zeros_like(bf), bf, 50), reps=2) / 50
-            print(f"round {rnd} {name:10s} tile {hh.sub.tile:3d}: fixed cycle {fc!r} ms", flush=True)
+            print(f"round {rnd} {name:15s} tiles {hh.sub.tiles[:3]}: fixed cycle {fc!r} ms", flush=True)
 
 
 def legs_and_tail(use):
@@ -244,7 +242,11 @@ def legs_and_tail(use):
     ref_t = tk.fused_tail_reference(h.tail, torch.zeros_like(bt), bt, x_zero=True)
     bf = torch.zeros(h.fine_padded, device="cuda")
     bf[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
-    tails = {t: tk.make_fused_tail_cache(h.tail.levels, h.tail.Mc, tile=t) for t in TAIL_TILES}
+    planned, tails = tk.TAIL_TILE, {}
+    for t in TAIL_TILES:
+        tk.TAIL_TILE = t
+        tails[t] = tk.make_fused_tail_cache(h.tail.levels, h.tail.Mc)
+    tk.TAIL_TILE = planned
     for rnd in range(ROUNDS):
         for name in VARIANTS:
             use(name)

@@ -73,21 +73,26 @@ def test_cuda_legs_match_plain_versions(ml, lvl, dtype):
 _SMALL = {}
 
 
-def _small(n, box):
+def _small(n, box, iters=1):
     """The structured-SA hierarchy of poisson((n, n)) with box-k
-    aggregation, set up once per module."""
+    aggregation (and ``iters`` multicolor GS sweeps where not 1), set up
+    once per module."""
     import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.config import GaussSeidel
 
-    if (n, box) not in _SMALL:
-        _SMALL[n, box] = amt.structured_smoothed_aggregation(
-            amt.poisson((n, n), lattice=True), aggregate=amt.StructuredAggregation(box=box), **SETUP_KW
+    if (n, box, iters) not in _SMALL:
+        gs = {} if iters == 1 else dict(presmoother=GaussSeidel(ordering="multicolor", iter=iters),
+                                        postsmoother=GaussSeidel(ordering="multicolor", iter=iters))
+        _SMALL[n, box, iters] = amt.structured_smoothed_aggregation(
+            amt.poisson((n, n), lattice=True), aggregate=amt.StructuredAggregation(box=box), **gs, **SETUP_KW
         )
-    return _SMALL[n, box]
+    return _SMALL[n, box, iters]
 
 
 # K3 cases: (hierarchy n, box, level) or (synthetic grid, k, stencil points,
 # tile (None: planned)).  200 = 3·66 + 2 and 200 = 2·100 give ragged last
-# tiles and, at L1 of the box-2 hierarchy, a 13-point stencil of reach 2
+# tiles and, at L1 of the box-2 hierarchy, a 13-point stencil, which K3
+# does not take
 UPDOWN_CASES = [
     ("h", 192, 3, 0), ("h", 192, 3, 1), ("h", 200, 3, 0), ("h", 200, 3, 1), ("h", 200, 2, 0), ("h", 200, 2, 1),
     ("s", (37, 41), 3, 5, (6, 12)), ("s", (37, 41), 2, 9, None), ("s", (64, 70), 3, 9, (12, 6)),
@@ -119,8 +124,8 @@ def test_cuda_updown_matches_plain_version(ml, case, dtype):
     x, b, xc = _vec(n, n + 3, 1, dtype), _vec(n, n + 3, 2, dtype), _vec(nc, nc, 3, dtype)
     before = vl.launches["updown"]
     if f.updown_tile is None:
-        # past the plan: L1 of the box-2 hierarchy (13 points, 29 steps of
-        # reach 2) has no tile that fits a block; no kernel, no launch
+        # past the plan: L1 of the box-2 hierarchy (13 points) has no
+        # tile; no kernel, no launch
         assert case == ("h", 200, 2, 1)
         with pytest.raises(ValueError):
             vl.fused_updown(f, x, b, xc)
@@ -137,7 +142,8 @@ def test_cuda_updown_matches_plain_version(ml, case, dtype):
 
 def test_cuda_tile_smem_matches_the_plan():
     """The wrappers' tile plans use the kernels' shared-memory formula,
-    block-cell limit and descriptor size."""
+    block-cell limit and descriptor size (under the 1 KB a descriptor that
+    test_register_boxes_fit_shared_memory allows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
@@ -145,8 +151,7 @@ def test_cuda_tile_smem_matches_the_plan():
 
     lib = vl.load_library()
     assert lib.amg_tail_block_cells() == tk.BLOCK_CELLS
-    assert lib.amg_tail_level_bytes() * 17 <= tk.TABLE_RESERVE
-    assert lib.amg_tail_level_bytes() <= vl.DESC_RESERVE
+    assert lib.amg_tail_level_bytes() <= 1024
     for args in ((48, 48, 7, 1, 4), (45, 45, 9, 1, 8), (34, 34, 62, 2, 4), (6, 12, 0, 1, 8)):
         assert lib.amg_tile_smem_bytes(*args) == vl.tile_smem_bytes(*args)
 
@@ -181,21 +186,28 @@ def test_cuda_fixed_cycles_past_the_updown_plan(ml):
     assert not any(counts["cpu"].values())
 
 
-# (n, box) of the tail cases: at 200² the tail's first level (67², or 200²
-# itself) is a ragged grid level in tiles
+# (n, box, GS sweeps) of the tail cases: at 200² the tail's first level
+# (67², or 200² itself) is a ragged grid level in tiles; with 5 sweeps (31
+# color steps a leg) its box is past the register map and it runs pass by
+# pass on the grid
+TAIL_START = {(5000, 1): 1, (250_000, 1): 0, (5000, 5): 1}
+TAIL_CASES = [((n, 3, 1), rows) for n in (192, 200) for rows in (5000, 250_000)] + [((200, 3, 5), 5000)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("rows", [5000, 250_000])
-@pytest.mark.parametrize("problem", [(192, 3), (200, 3)], ids=str)
+@pytest.mark.parametrize("problem,rows", TAIL_CASES, ids=str)
 def test_cuda_tail_matches_plain_version(ml, problem, rows, dtype):
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
     from algebraicmultigrid_tpu_torch.ops.kernels.tail_kernel import BLOCK_CELLS, fused_tail, fused_tail_reference
 
-    mlp = _small(*problem)
-    h = build_device_hierarchy(mlp, device="cuda", dtype=dtype, tail_max_rows=rows)
-    assert h.tail is not None and h.tail_start == (1 if rows == 5000 else 0)
+    n, box, iters = problem
+    h = build_device_hierarchy(_small(n, box, iters), device="cuda", dtype=dtype, tail_max_rows=rows)
+    assert h.tail is not None and h.tail_start == TAIL_START[rows, iters]
     for L, tile in zip(h.tail.levels, h.tail.tiles):
-        assert (tile[0] > 0) == (L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS)
+        assert (tile[0] > 0) == (L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS and iters == 1)
+    if iters > 1:
+        assert h.tail.levels[0].row_dims == (67, 67) and h.tail.tiles[0] == (0, 0)
     L = h.levels[h.tail_start]
     n, pad = L.A.shape[0], L.A.rows_padded
     x, b = _vec(n, pad, 4, dtype), _vec(n, pad, 5, dtype)
@@ -227,31 +239,37 @@ def test_cuda_fixed_cycles_match_cpu(ml):
     assert not any(counts["cpu"].values())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("problem,tile", [((192, 600), 45), ((192, 600), 9), ((600, 5000), 45), ((600, 5000), 33)],
-                         ids=str)
-def test_cuda_subcycle_matches_plain_version(ml, problem, tile, dtype):
-    """K9 at L1 of the 192² problem (64² = 3·21 + 1: partial tiles and a
-    clipped coarse edge) with the tail at L2, in 45-cell tiles (four, the
-    largest register box) and 9-cell tiles (more tiles than some grids have
-    blocks); and at L1 of the 600² problem (200²) with the tail at L2 (67²,
-    a ragged grid level in tiles of phase B)."""
-    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
-    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
-    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+# K9 cases: (n, tail rows, GS sweeps, tail tile edge (None: TAIL_TILE))
+SUB_CASES = [(192, 600, 1, None), (600, 5000, 1, None), (600, 5000, 1, 33), (600, 5000, 1, 9), (600, 5000, 5, None)]
 
-    n, rows = problem
-    mlp = ml if n == N else _small(n, 3)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", SUB_CASES, ids=str)
+def test_cuda_subcycle_matches_plain_version(ml, case, dtype, monkeypatch):
+    """K9 at L1 with the tail at L2: of the 192² problem (64², within one
+    block), and of the 600² problem (200² = 3·66 + 2: partial tiles and a
+    clipped coarse edge, with the tail's 67² a grid level too) in 45-cell
+    tiles (the largest register box), 33- and 9-cell tiles (more tiles than
+    some grids have blocks), and with 5 GS sweeps pass by pass on the grid
+    (its box past the register map)."""
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    n, rows, iters, edge = case
+    if edge is not None:
+        monkeypatch.setattr(tk, "TAIL_TILE", (edge, edge))
+    mlp = ml if n == N else _small(n, 3, iters)
     h = build_device_hierarchy(mlp, device="cuda", dtype=dtype, tail_max_rows=rows, subcycle=True)
     assert (h.tail_start, h.sub_start) == (2, 1)
-    assert (h.tail.tiles[0][0] > 0) == (n == 600)
-    cache = sk.make_fused_subcycle_cache(h.sub.top, h.sub.tail, tile=tile)
-    assert cache.tile == tile
+    want = (0, 0) if n == N or iters > 1 else (edge or 45,) * 2
+    assert h.sub.tiles[0] == want and h.sub.tiles[1:] == h.tail.tiles
     L = h.levels[1]
     b = _vec(L.A.shape[0], L.A.rows_padded, 7, dtype)
     before = vl.launches["sub"]
-    got = sk.fused_subcycle(cache, b)
-    ref = sk.fused_subcycle_reference(cache, b)
+    got = sk.fused_subcycle(h.sub, b)
+    ref = sk.fused_subcycle_reference(h.sub, b)
     torch.cuda.synchronize()
     assert got.shape == ref.shape == b.shape
     assert _rel(got, ref) < (TOL if dtype == torch.float32 else 1e-12)

@@ -17,6 +17,7 @@ import torch
 
 from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
 from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import SMEM_LIMIT
 from torch_port_common import LEG_OFFSETS, N, SETUP_KW, synthetic_leg_cache
 
 OFFS5, OFFS9 = LEG_OFFSETS[5], LEG_OFFSETS[9]
@@ -118,16 +119,12 @@ TILES = [(6, 12), (12, 6), "planned"]
 
 
 def _tile(c, want, leg):
-    if want == "planned":
-        if leg == "updown":
-            return c.updown_tile
-        # the tail's plan for a grid level of this shape
-        halo = vl.leg_halo(len(c.steps), c.reach, True)
-        want = vl.reg_want(tk.TAIL_TILE, len(c.offsA), halo, c.k)
-        return vl.plan_tile(c.row_dims, c.k, halo, c.reach, 8, want, vl.SMEM_LIMIT - tk.TABLE_RESERVE)
-    tile = vl.plan_tile(c.row_dims, c.k, 0, c.reach, 8, want, vl.SMEM_LIMIT)
-    assert tile == tuple(w - w % c.k for w in want)
-    return tile
+    if want != "planned":
+        return want
+    if leg == "updown":
+        return c.updown_tile
+    # the tail's plan for a grid level of this shape
+    return vl.plan_tile(c.row_dims, c.k, len(c.offsA), vl.leg_halo(len(c.steps), c.reach, True), tk.TAIL_TILE)
 
 
 @pytest.mark.parametrize("want", TILES, ids=str)
@@ -175,33 +172,44 @@ def test_a_halo_short_by_one_reach_shows():
 
 
 def test_updown_plan_limits():
-    """The plan: tiles in multiples of k within the grid; a 5- or 9-point
-    level's box within the register path's 64 cells a side, other levels'
-    within a block's shared memory; none past 64 steps or where no tile
-    fits."""
-    limit = vl.SMEM_LIMIT - vl.DESC_RESERVE
-    assert vl.plan_updown((4096, 4096), 3, OFFS5, 5, 4) == (48, 48)  # box 62
-    assert vl.plan_updown((1366, 1366), 3, OFFS9, 13, 4) == (33, 33)  # box 63
-    assert vl.plan_updown((37, 41), 3, OFFS5, 5, 8) == (39, 42)
+    """The plan: tiles in multiples of k within the grid, the box (tile +
+    2·halo) within the register map's 64 cells a side; none for a stencil
+    of other than 5 or 9 points, past 64 steps, or where no k × k tile's
+    box fits."""
+    assert vl.plan_updown((4096, 4096), 3, OFFS5, 5) == (48, 48)  # box 62
+    assert vl.plan_updown((1366, 1366), 3, OFFS9, 13) == (33, 33)  # box 63
+    assert vl.plan_updown((37, 41), 3, OFFS5, 5) == (39, 42)
+    assert vl.plan_updown((4096, 4096), 2, OFFS5, 5) == (48, 48)  # box 62
+    assert vl.plan_updown((4096, 4096), 2, OFFS9, 29) == (2, 2)  # box 2 + 62
+    # 13 points (L1 of a box-2 hierarchy): K2 then K1, whatever the steps
     offs13 = OFFS9 + ((-2, 0), (2, 0), (0, -2), (0, 2))
-    for steps, itemsize in ((5, 4), (5, 8), (29, 4)):
-        tile = vl.plan_updown((100, 100), 2, offs13, steps, itemsize)
-        halo = vl.leg_halo(steps, 2, True)
-        assert tile[0] % 2 == tile[1] % 2 == 0 and vl.tile_smem_bytes(*tile, halo, 2, itemsize) <= limit
-        if tile != (48, 48):
-            # the larger extent was shrunk one k at a time until the tile fit
-            grown = (tile[0] + 2, tile[1]) if tile[0] >= tile[1] else (tile[0], tile[1] + 2)
-            assert vl.tile_smem_bytes(*grown, halo, 2, itemsize) > limit
-    # L1 of a box-2 hierarchy in float64: 29 steps of reach 2, no tile fits
-    assert vl.plan_updown((100, 100), 2, offs13, 29, 8) is None
-    assert vl.plan_updown((4096, 4096), 3, OFFS5, 65, 4) is None
-    assert vl.plan_updown((4096, 4096), 3, OFFS9, 64, 8) is None
-    assert vl.plan_tile((4096, 4096), 3, 200, 1, 8, (48, 48), vl.SMEM_LIMIT) is None
+    for steps in (1, 5, 29):
+        assert vl.plan_updown((100, 100), 2, offs13, steps) is None
+    assert vl.plan_updown((4096, 4096), 3, OFFS9, 29) is None  # 2 cells left < k
+    assert vl.plan_updown((4096, 4096), 3, OFFS5, 65) is None
+    assert vl.plan_updown((4096, 4096), 3, OFFS9, 64) is None
+    assert vl.plan_tile((4096, 4096), 3, 9, 31, (48, 48)) is None
+    assert vl.plan_tile((200_000, 10), 2, 5, 7, (2, 2)) is None  # 100k tile rows
     long = leg_cache((40, 40), 2, 5, seed=1, iters=16)
     assert len(long.steps2) == 65 and long.updown_tile is None
     e, up, rg = 62 * 62, 64 * 64, 2 * 50 * 50
     colors = 3856  # a byte a box cell, to 16 bytes
     assert vl.tile_smem_bytes(48, 48, 7, 1, 4) == (e + max(up, rg)) * 4 + colors
+
+
+def test_register_boxes_fit_shared_memory():
+    """Every tile the plans can give (a box of at most 64 cells a side, any
+    halo, reach up to 10, float64), with the largest descriptor table of the
+    whole-tail kernels, fits an H100 block's shared memory."""
+    worst = 0
+    for reach in range(1, 11):
+        for n in range(1, vl.MAX_STEPS + 1):
+            halo = vl.leg_halo(n, reach, True)
+            side = vl.REG_BOX - 2 * halo
+            if side >= 2:
+                worst = max(worst, vl.tile_smem_bytes(side, side, halo, reach, 8))
+    table = 17 * 1024  # 17 LevelDesc of < 1 KB (checked on the card)
+    assert 0 < worst and worst + table <= SMEM_LIMIT
 
 
 def test_tail_tiles_on_the_flagship_shapes():
