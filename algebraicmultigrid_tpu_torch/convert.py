@@ -73,7 +73,7 @@ from .ops.kernels.gs_sweep import build_gs_sweep_cache
 from .ops.kernels.subcycle_kernel import make_fused_subcycle_cache
 from .ops.kernels.sweep3d import build_sweep3d_cache
 from .ops.kernels.tail_kernel import make_fused_tail_cache
-from .ops.kernels.vcycle_legs import FusedLegCache, with_updown_plan
+from .ops.kernels.vcycle_legs import FusedLegCache, with_tile_plans
 from .ops.lattice_nd_op import LatND
 from .ops.lattice_op import Lat2D
 from .ops.sparse import ELL
@@ -177,7 +177,7 @@ def _fused(d, dtype, device):
     if d is None:
         return None
 
-    return with_updown_plan(FusedLegCache(
+    return with_tile_plans(FusedLegCache(
         A=_tensor(d["A"], dtype, device),
         dinv=_tensor(d["dinv"], dtype, device),
         T=_tensor(d["T"], dtype, device),

@@ -1,6 +1,6 @@
 // One leg of the factored V-cycle on a Lat2D level, computed tile by tile
 // with the tile plus a halo of x in shared memory: the device code of the
-// updown leg K3 (vcycle_legs.cu), of the tail levels of the whole-tail
+// legs K1, K2 and K3 (vcycle_legs.cu), of the tail levels of the whole-tail
 // kernel K4 (tail_levels.cuh) and of the top level of the whole-subcycle
 // kernel K9 (subcycle_kernel.cu).
 //
@@ -29,15 +29,16 @@
 //
 // Every cell sums its stencil in offset order, as stencil.cuh does, and
 // each coarse cell its box column by column, as box_cell does.  Only the
-// coefficient planes are read through __restrict__ pointers: in K4 and K9
+// coefficient planes are read through the non-coherent path: in K4 and K9
 // the vectors (x, b, x_c) are written by earlier phases of the same launch.
 //
 // Each thread keeps its cells' coefficients in registers (tile_leg_reg), so
 // a tile is taken only by a 5- or 9-point level whose box (tile + 2 halo)
 // fits the block's thread map, 64 x 64 cells: the wrappers plan it from the
-// shapes, and a level past it runs K2 then K1 (K3) or pass by pass (K4,
-// K9).  Such a box's buffers take at most ~100 KB of shared memory.  A byte
-// per box cell holds its color (0xFF outside the grid), read by every step.
+// shapes, and a level past it runs K2 then K1 (K3) or pass by pass (K1,
+// K2, K4, K9).  Such a box's buffers take at most ~100 KB of shared
+// memory.  A byte per box cell holds its color (0xFF outside the grid),
+// read by every step.
 
 #pragma once
 
@@ -252,6 +253,70 @@ __device__ void box_sums(const LevelDesc& L, const Box& bx, const T* ts,
   });
 }
 
+// ---- where a tile's inputs come from ------------------------------------
+//
+// A source gives what a tile reads at its box cell (e0, e1) (flat index e =
+// e0 * E1 + e1, grid index g, `in`: inside the grid; zero outside): a
+// coefficient plane q, dinv, b, x (zero where the leg starts from zero), S
+// and T; and Tup = T * upsample_k(x_c) at (u0, u1) of the box plus one
+// reach.  DeviceIn reads device memory, the coefficient planes through the
+// non-coherent path; vcycle_legs.cu's pipelined up leg reads a copy of the
+// box staged in shared memory.
+
+template <typename T, int K>
+struct DeviceIn {
+  const T* A;
+  const T* dinv;
+  const T* Tp;
+  const T* S;
+  const T* x;   // nullptr: zero
+  const T* xc;  // nullptr: no correction
+  const T* b;
+  int64_t plane;
+  int Wx, Wy, Wyc, r, ox, oy;
+
+  __device__ T a(int q, int, bool in, int64_t g) const {
+    return in ? __ldg(A + q * plane + g) : T(0);
+  }
+  __device__ T d(int, bool in, int64_t g) const {
+    return in ? __ldg(dinv + g) : T(0);
+  }
+  __device__ T rhs(int, bool in, int64_t g) const { return in ? b[g] : T(0); }
+  __device__ T xv(int, bool in, int64_t g) const {
+    return in && x != nullptr ? x[g] : T(0);
+  }
+  __device__ T s(int, bool in, int64_t g) const {
+    return in ? __ldg(S + g) : T(0);
+  }
+  __device__ T t(int, bool in, int64_t g) const {
+    return in ? __ldg(Tp + g) : T(0);
+  }
+  __device__ T tup(int u0, int u1) const {
+    const int i = ox - r + u0, j = oy - r + u1;
+    return inside(i, j, Wx, Wy) ? __ldg(Tp + (int64_t)i * Wy + j) *
+                                      xc[coarse_of<K>(i, j, Wyc)]
+                                : T(0);
+  }
+};
+
+template <typename T, int K>
+__device__ __forceinline__ DeviceIn<T, K> device_in(const LevelDesc& L,
+                                                    const Box& bx, const T* x,
+                                                    const T* xc, const T* b) {
+  return DeviceIn<T, K>{(const T*)L.A, (const T*)L.dinv, (const T*)L.Tp,
+                        (const T*)L.S, x, xc, b, (int64_t)L.Wx * L.Wy, L.Wx,
+                        L.Wy, L.Wyc, L.reach, bx.ox, bx.oy};
+}
+
+// box cell (e0, e1) in r and g's area (the tile plus one reach) / the tile
+__device__ __forceinline__ bool in_rg(const Box& bx, int r, int e0, int e1) {
+  return e0 >= bx.h - r && e0 < bx.h + bx.tx + r && e1 >= bx.h - r &&
+         e1 < bx.h + bx.ty + r;
+}
+__device__ __forceinline__ bool in_tile(const Box& bx, int e0, int e1) {
+  return e0 >= bx.h && e0 < bx.h + bx.tx && e1 >= bx.h && e1 < bx.h + bx.ty;
+}
+
 // ---- the leg of one tile ------------------------------------------------
 //
 // Thread (w, lane) of WARPS warps owns the box cells (w + WARPS a,
@@ -263,56 +328,65 @@ __device__ void box_sums(const LevelDesc& L, const Box& bx, const T* ts,
 // (WARPS CI) x (32 CJ) cells: the wrappers' plans give a tile only to 5-
 // and 9-point levels whose box fits; a box past it traps.
 //
-// One function for the three legs: with xc the correction of x_in, else x
-// starts from x_in (nullptr: zero); with bc the restriction (the halo of a
-// down leg), else only x over the tile is written.  Ends on a block barrier.
-template <typename T, int K, int NOFF, int WARPS, int CI, int CJ>
-__device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
-                             unsigned offset, int ti, int tj, const T* x_in,
-                             const T* xc, const T* b, T* x_out, T* bc) {
-  const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
-                          leg_halo(L.n_steps, L.reach, bc != nullptr));
-  if (bx.E0 > WARPS * CI || bx.E1 > 32 * CJ || blockDim.x != WARPS * 32) {
-    __trap();
-  }
-  const TileSmem<T> sm = tile_buffers<T>(base, offset, bx, L.reach);
-  const T* __restrict__ A = (const T*)L.A;
-  const T* __restrict__ dinv = (const T*)L.dinv;
-  const T* __restrict__ Tp = (const T*)L.Tp;
-  const T* __restrict__ S = (const T*)L.S;
+// A leg is tile_load (the first memory phase, ending on a barrier) then
+// tile_run.  With EARLY every read of the tile is in tile_load (x before
+// its correction, S and T too, into registers and the tile buffers), so a
+// tile waits on device memory once; without it the correction reads x and
+// S, the restriction S and T, each in its own phase (K3, K4, K9).
+
+// the owned cells' registers; s and t only with EARLY
+template <typename T, int NOFF, int CI, int CJ>
+struct CellRegs {
+  T a[CI][CJ][NOFF];
+  T d[CI][CJ];
+  T b[CI][CJ];
+  T s[CI][CJ];
+  T t[CI][CJ];
+};
+
+// The owned cells' coefficients and colors; x over the box (EARLY or no
+// correction), Tup over the box plus one reach (a correction); with EARLY
+// also S where the leg reads it (the box for a correction, r and g's area
+// for a restriction) and T on the tile.  Ends on a block barrier.
+template <typename T, int K, int NOFF, int WARPS, int CI, int CJ, bool EARLY,
+          class Src>
+__device__ __forceinline__ void tile_load(const LevelDesc& L,
+                                          const TileSmem<T>& sm, const Box& bx,
+                                          const Src& src, bool correct,
+                                          bool restriction,
+                                          CellRegs<T, NOFF, CI, CJ>& R) {
   const int Wx = L.Wx, Wy = L.Wy, r = L.reach, E0 = bx.E0, E1 = bx.E1;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int64_t plane = (int64_t)Wx * Wy;
-
-  // the stencil's offsets in the box; those of the Tup and r/g areas are
-  // formed in their phases, so that fewer registers stay live
-  int sx[NOFF];
-#pragma unroll
-  for (int q = 0; q < NOFF; ++q) sx[q] = L.st.dx[q] * E1 + L.st.dy[q];
-
-  // the owned cells' coefficients and colors
-  T ca[CI][CJ][NOFF], cd[CI][CJ], cb[CI][CJ];
 #pragma unroll
   for (int a = 0; a < CI; ++a) {
 #pragma unroll
     for (int c = 0; c < CJ; ++c) {
       const int e0 = w + WARPS * a, e1 = lane + 32 * c;
       const int i = bx.ox + e0, j = bx.oy + e1;
-      const bool in = e0 < E0 && e1 < E1 && inside(i, j, Wx, Wy);
+      const bool box = e0 < E0 && e1 < E1;
+      const bool in = box && inside(i, j, Wx, Wy);
       const int64_t g = in ? (int64_t)i * Wy + j : 0;
+      const int e = box ? e0 * E1 + e1 : 0;
 #pragma unroll
-      for (int q = 0; q < NOFF; ++q) ca[a][c][q] = in ? A[q * plane + g] : T(0);
-      cd[a][c] = in ? dinv[g] : T(0);
-      cb[a][c] = in ? b[g] : T(0);
-      if (e0 < E0 && e1 < E1) {
-        sm.cs[e0 * E1 + e1] =
+      for (int q = 0; q < NOFF; ++q) R.a[a][c][q] = src.a(q, e, in, g);
+      R.d[a][c] = src.d(e, in, g);
+      R.b[a][c] = src.rhs(e, in, g);
+      if constexpr (EARLY) {
+        R.s[a][c] = correct || (restriction && in_rg(bx, r, e0, e1))
+                        ? src.s(e, in, g)
+                        : T(0);
+        R.t[a][c] = restriction && in_tile(bx, e0, e1) ? src.t(e, in, g)
+                                                       : T(0);
+      }
+      if (box) {
+        sm.cs[e] =
             in ? (unsigned char)L.cg.tab[(i % L.cg.a) * L.cg.b + (j % L.cg.b)]
                : kOutside;
+        if (EARLY || !correct) sm.xs[e] = src.xv(e, in, g);
       }
     }
   }
-
-  if (xc != nullptr) {
+  if (correct) {
     // Tup over the box plus one reach: from the thread map where it fits
     // (each thread's loads in flight together), else cell by cell
     const int U0 = E0 + 2 * r, U1 = E1 + 2 * r;
@@ -323,11 +397,7 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
 #pragma unroll
         for (int c = 0; c < CJ; ++c) {
           const int u0 = w + WARPS * a, u1 = lane + 32 * c;
-          const int i = bx.ox - r + u0, j = bx.oy - r + u1;
-          tv[a][c] = u0 < U0 && u1 < U1 && inside(i, j, Wx, Wy)
-                         ? Tp[(int64_t)i * Wy + j] *
-                               xc[coarse_of<K>(i, j, L.Wyc)]
-                         : T(0);
+          tv[a][c] = u0 < U0 && u1 < U1 ? src.tup(u0, u1) : T(0);
         }
       }
 #pragma unroll
@@ -338,11 +408,38 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
           if (u0 < U0 && u1 < U1) sm.sc[u0 * U1 + u1] = tv[a][c];
         }
       }
+    } else if constexpr (EARLY) {
+      __trap();  // the plans give an EARLY correction a Tup area that fits
     } else {
-      box_tup<K, T>(L, sm, bx, xc);
+      box_tup<K, T>(L, sm, bx, src.xc);
     }
-    __syncthreads();
-    // the correction over the box
+  }
+  __syncthreads();
+}
+
+// The rest of the leg, from registers and shared memory: the correction
+// (x = x_in + (Tup - S (A Tup)) over the box), the color steps, and either
+// x over the tile to x_out or the restriction (r and g on the tile plus one
+// reach, T (r - A g) on the tile, the tile's coarse cells of b_c) with x
+// over the tile.  Ends on a block barrier.
+template <typename T, int NOFF, int WARPS, int CI, int CJ, bool EARLY,
+          class Src>
+__device__ __forceinline__ void tile_run(const LevelDesc& L,
+                                         const TileSmem<T>& sm, const Box& bx,
+                                         const Src& src,
+                                         const CellRegs<T, NOFF, CI, CJ>& R,
+                                         bool correct, T* x_out, T* bc) {
+  const int Wy = L.Wy, r = L.reach, E0 = bx.E0, E1 = bx.E1, h = bx.h;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+
+  // the stencil's offsets in the box; those of the Tup and r/g areas are
+  // formed in their phases, so that fewer registers stay live
+  int sx[NOFF];
+#pragma unroll
+  for (int q = 0; q < NOFF; ++q) sx[q] = L.st.dx[q] * E1 + L.st.dy[q];
+
+  if (correct) {
+    const int U1 = E1 + 2 * r;
     int su[NOFF];
 #pragma unroll
     for (int q = 0; q < NOFF; ++q) su[q] = L.st.dx[q] * U1 + L.st.dy[q];
@@ -359,27 +456,18 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
           const int u = (e0 + r) * U1 + (e1 + r);
           T acc = T(0);
 #pragma unroll
-          for (int q = 0; q < NOFF; ++q) acc += ca[a][c][q] * sm.sc[u + su[q]];
-          v = x_in[g] + (sm.sc[u] - S[g] * acc);
+          for (int q = 0; q < NOFF; ++q) acc += R.a[a][c][q] * sm.sc[u + su[q]];
+          if constexpr (EARLY) {
+            v = sm.xs[e] + (sm.sc[u] - R.s[a][c] * acc);
+          } else {
+            v = src.xv(e, true, g) + (sm.sc[u] - src.s(e, true, g) * acc);
+          }
         }
         sm.xs[e] = v;
       }
     }
-  } else {
-#pragma unroll
-    for (int a = 0; a < CI; ++a) {
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        const int e0 = w + WARPS * a, e1 = lane + 32 * c;
-        if (e0 >= E0 || e1 >= E1) continue;
-        const int e = e0 * E1 + e1;
-        sm.xs[e] = x_in != nullptr && sm.cs[e] != kOutside
-                       ? x_in[(int64_t)(bx.ox + e0) * Wy + (bx.oy + e1)]
-                       : T(0);
-      }
-    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // the color steps
   const T omega = (T)L.omega;
@@ -396,14 +484,13 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
         if (sm.cs[e] != color) continue;
         T acc = T(0);
 #pragma unroll
-        for (int q = 0; q < NOFF; ++q) acc += ca[a][c][q] * sm.xs[e + sx[q]];
-        sm.xs[e] = sm.xs[e] + omega * cd[a][c] * (cb[a][c] - acc);
+        for (int q = 0; q < NOFF; ++q) acc += R.a[a][c][q] * sm.xs[e + sx[q]];
+        sm.xs[e] = sm.xs[e] + omega * R.d[a][c] * (R.b[a][c] - acc);
       }
     }
     __syncthreads();
   }
 
-  const int h = bx.h;
   if (bc == nullptr) {
 #pragma unroll
     for (int a = 0; a < CI; ++a) {
@@ -438,9 +525,13 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
       if (sm.cs[e] != kOutside) {
         T acc = T(0);
 #pragma unroll
-        for (int q = 0; q < NOFF; ++q) acc += ca[a][c][q] * sm.xs[e + sx[q]];
-        rv = cb[a][c] - acc;
-        gv = S[(int64_t)(bx.ox + e0) * Wy + (bx.oy + e1)] * rv;
+        for (int q = 0; q < NOFF; ++q) acc += R.a[a][c][q] * sm.xs[e + sx[q]];
+        rv = R.b[a][c] - acc;
+        if constexpr (EARLY) {
+          gv = R.s[a][c] * rv;
+        } else {
+          gv = src.s(e, true, (int64_t)(bx.ox + e0) * Wy + (bx.oy + e1)) * rv;
+        }
       }
       rs[u0 * G1 + u1] = rv;
       gs[u0 * G1 + u1] = gv;
@@ -465,14 +556,43 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
       const int u = (t0 + r) * G1 + (t1 + r);
       T acc = T(0);
 #pragma unroll
-      for (int q = 0; q < NOFF; ++q) acc += ca[a][c][q] * gs[u + sg[q]];
-      rs[u] = Tp[g] * (rs[u] - acc);
+      for (int q = 0; q < NOFF; ++q) acc += R.a[a][c][q] * gs[u + sg[q]];
+      T tv;
+      if constexpr (EARLY) {
+        tv = R.t[a][c];
+      } else {
+        tv = src.t(e, true, g);
+      }
+      rs[u] = tv * (rs[u] - acc);
       x_out[g] = sm.xs[e];
     }
   }
   __syncthreads();
   box_sums<T>(L, bx, rs, bc);
   __syncthreads();
+}
+
+// One leg of tile (ti, tj) from device memory.  With xc the correction of
+// x_in, else x starts from x_in (nullptr: zero); with bc the restriction
+// (the halo of a down leg), else only x over the tile is written.  Ends on
+// a block barrier.
+template <typename T, int K, int NOFF, int WARPS, int CI, int CJ,
+          bool EARLY = false>
+__device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
+                             unsigned offset, int ti, int tj, const T* x_in,
+                             const T* xc, const T* b, T* x_out, T* bc) {
+  const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
+                          leg_halo(L.n_steps, L.reach, bc != nullptr));
+  if (bx.E0 > WARPS * CI || bx.E1 > 32 * CJ || blockDim.x != WARPS * 32) {
+    __trap();
+  }
+  const TileSmem<T> sm = tile_buffers<T>(base, offset, bx, L.reach);
+  const DeviceIn<T, K> src = device_in<T, K>(L, bx, x_in, xc, b);
+  CellRegs<T, NOFF, CI, CJ> R;
+  tile_load<T, K, NOFF, WARPS, CI, CJ, EARLY>(L, sm, bx, src, xc != nullptr,
+                                              bc != nullptr, R);
+  tile_run<T, NOFF, WARPS, CI, CJ, EARLY>(L, sm, bx, src, R, xc != nullptr,
+                                          x_out, bc);
 }
 
 // The thread map of the whole-tail and whole-subcycle kernels' tiled legs:

@@ -15,32 +15,33 @@
 // does ~2 flops per byte read, far below the H100's ~20 flops/byte f32
 // balance point, so every pass is memory-bound.
 //
-// Design of K1 and K2.  Blocks run in parallel with no order, so each color
-// step is one pass over the whole level: the periodic lattice coloring
-// guarantees no two coupled cells share a color, so every cell of color c
-// updates in place without races, and the launch boundary is the barrier
-// between steps.  The first step of a leg reads x from the input and
-// writes every cell of the output, so a leg never copies x separately and
-// a zero start reads no x.  The correction forms Tup = T * x_c[i/k, j/k]
-// on the fly at each stencil neighbour instead of writing a Tup plane.
-// The restriction writes T*(r - A g) per fine cell (coalesced, one thread a
-// cell), then sums each (clipped) k x k box with one thread per coarse
-// cell.  (Summing the boxes straight from the stencil, one thread per
-// coarse cell, read every plane at stride k: 18% of a V-cycle's device time
-// on an H100.)  These legs re-read the stencil planes once per pass.
+// Design of K1, K2 and K3 (leg_tile.cuh has the halo argument).  The TPU
+// kernels keep a tile plus a halo in VMEM and read the coefficient planes
+// once; so do these: one ordinary launch, one block a tile of the level
+// (extents multiples of k, planned by the wrapper from the shapes), x over
+// the tile plus a halo of n_steps * reach cells (two reaches more with a
+// restriction) in shared memory, the correction, every color step, r, g
+// and the restriction of the tile's coarse cells there, and only x over
+// the tile and b_c written back, each thread's coefficients held in
+// registers across the steps.  No grid barrier: halo erosion makes the
+// tiles independent.  K1's tiles read everything in one memory phase;
+// K2's on a 5-point float32 level are walked by one block an SM with the
+// next tile's box staged in shared memory meanwhile (the pipelined up
+// leg).  On an H100 (kernel_variants.py legs) these were the fastest of
+// the variants for each leg: K1 at 4096^2 0.55 ms against 0.66 with K3's
+// phases and 0.71 pipelined, K2 0.53 against 0.56-0.58 in tiles.
 //
-// Design of K3 (leg_tile.cuh has the halo argument).  The TPU kernel keeps
-// a tile plus a halo in VMEM and reads the coefficient planes once; so does
-// this one: one ordinary launch, one block a tile of the level (extents
-// multiples of k, planned by the wrapper from the shapes), x over the tile
-// plus a halo of (n_steps + 2) * reach cells in shared memory, the
-// correction, every color step, r, g and the restriction of the tile's
-// coarse cells there, and only x over the tile and b_c written back, each
-// thread's coefficients held in registers across the steps.  No grid
-// barrier: halo erosion makes the tiles independent.  (Its first
-// version, a cooperative launch of 9 grid-wide passes with r and g in
-// device memory, took 2.26 ms at 4096^2 on an H100 against a 0.225 ms
-// byte bound.)
+// A level with no tile (13 points, more than 64 steps, a box past the
+// register map) runs K1 and K2 pass by pass, as their first design did:
+// one pass over the level per color step (the periodic lattice coloring
+// leaves no two coupled cells the same color, so a color updates in place
+// and the launch boundary is the barrier between steps), the first step
+// reading x_in and writing all of x_out; the correction forms Tup = T *
+// x_c[i/k, j/k] at each stencil neighbour; the restriction writes T*(r -
+// A g) per fine cell, then sums each (clipped) k x k box with one thread
+// per coarse cell.  Those passes re-read the planes once each: K1 took
+// 1.385 ms at 4096^2 that way, K3's first version (a cooperative launch
+// of 9 grid-wide passes) 2.26 ms, against a ~0.22 ms byte bound.
 
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns a CUDA error code (cudaGetLastError() after the launches) for
@@ -58,11 +59,12 @@ using amg::ColorGrid;
 using amg::Stencil;
 
 constexpr int kThreads = 256;
-// K3's block: one tile (leg_tile.cuh) a block, each thread keeping its
-// cells' coefficients in registers (tile_leg_reg: warps, cells a thread
-// down and across, so a box of up to (warps x down) x (32 x across) cells:
-// 64 x 64 for both, the wrapper's REG_BOX).  Only 5- and 9-point levels
-// whose box fits take K3; the wrapper plans no tile for others.
+// The tiled legs' block: one tile (leg_tile.cuh) a block, each thread
+// keeping its cells' coefficients in registers (tile_leg_reg: warps, cells
+// a thread down and across, so a box of up to (warps x down) x (32 x
+// across) cells: 64 x 64 for both, the wrapper's REG_BOX).  Only 5- and
+// 9-point levels whose box fits take a tile; the wrapper plans none for
+// others.
 constexpr int kReg5Warps = 32, kReg5Rows = 2, kReg5Cols = 2;
 constexpr int kReg9Warps = 16, kReg9Rows = 4, kReg9Cols = 2;
 
@@ -147,22 +149,209 @@ __device__ __forceinline__ void copy_desc(amg::LevelDesc* sh,
   __syncthreads();
 }
 
-// K3: up(i) then down(i+1), one block a tile
-template <typename T, int K, int NOFF, int WARPS, int CI, int CJ>
+// K1, K2 and K3 on a tiled level, one block a tile: a down leg (xc
+// nullptr), an up leg (bc nullptr) or the updown leg (both)
+template <typename T, int K, int NOFF, int WARPS, int CI, int CJ, bool EARLY>
 __global__ void __launch_bounds__(WARPS * 32)
-    updown_reg_kernel(T* x_out, const T* x_in, const T* b, const T* xc,
-                      T* bc, const __grid_constant__ amg::LevelDesc L) {
-  extern __shared__ __align__(16) unsigned char updown_smem[];
+    leg_reg_kernel(T* x_out, const T* x_in, const T* b, const T* xc, T* bc,
+                   const __grid_constant__ amg::LevelDesc L) {
+  extern __shared__ __align__(16) unsigned char leg_smem[];
   __shared__ amg::LevelDesc sh;
   copy_desc(&sh, L);
-  amg::tile_leg_reg<T, K, NOFF, WARPS, CI, CJ>(
-      sh, updown_smem, 0, blockIdx.y, blockIdx.x, x_in, xc, b, x_out, bc);
+  amg::tile_leg_reg<T, K, NOFF, WARPS, CI, CJ, EARLY>(
+      sh, leg_smem, 0, blockIdx.y, blockIdx.x, x_in, xc, b, x_out, bc);
+}
+
+// ---- the pipelined up leg (K2 on 5-point levels) ------------------------
+//
+// One block an SM walks the level's tiles.  While a tile corrects and
+// steps from its registers and tile buffers, the next tile's box lands in
+// a stage in shared memory through cp.async, so the SM's loads overlap its
+// work.  The stage holds the box planes (A, dinv, b, x, S), T over the box
+// plus one reach and x_c over that area's coarse cells; zero outside the
+// grid (cp.async zero-fills).
+
+// one element from device to shared memory, zero where !valid
+template <typename T>
+__device__ __forceinline__ void cp_async_el(T* dst, const T* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"((int)sizeof(T)),
+               "r"(valid ? (int)sizeof(T) : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// bytes of a tile's stage, to 16
+__host__ __device__ inline unsigned stage_bytes(int E0, int E1, int noff,
+                                                int reach, int k,
+                                                int itemsize) {
+  const int U0 = E0 + 2 * reach, U1 = E1 + 2 * reach;
+  const int words =
+      (noff + 4) * E0 * E1 + U0 * U1 + (U0 / k + 2) * (U1 / k + 2);
+  return ((unsigned)words * itemsize + 15u) / 16u * 16u;
+}
+
+// the coarse cells of T over the box plus one reach: rows ci0.., columns
+// cj0.., xw a row in the stage
+struct CoarseArea {
+  int ci0, ci1, cj0, cj1, xw;
+};
+
+__device__ __forceinline__ CoarseArea coarse_area(const amg::LevelDesc& L,
+                                                  const amg::Box& bx, int K) {
+  const int r = L.reach, U0 = bx.E0 + 2 * r, U1 = bx.E1 + 2 * r;
+  CoarseArea ca;
+  ca.ci0 = max(bx.ox - r, 0) / K;
+  ca.ci1 = (min(bx.ox - r + U0, L.Wx) - 1) / K;
+  ca.cj0 = max(bx.oy - r, 0) / K;
+  ca.cj1 = (min(bx.oy - r + U1, L.Wy) - 1) / K;
+  ca.xw = U1 / K + 2;
+  return ca;
+}
+
+// a tile's inputs from its stage (the interface of amg::DeviceIn; an up
+// leg reads no T on its box)
+template <typename T, int K>
+struct StagedIn {
+  const T* st;
+  const T* tp;   // T over the box plus one reach
+  const T* xcs;  // x_c over its coarse cells
+  int n, noff, U1, Wx, Wy, r, ox, oy, ci0, cj0, xw;
+
+  __device__ T a(int q, int e, bool in, int64_t) const {
+    return in ? st[q * n + e] : T(0);
+  }
+  __device__ T d(int e, bool in, int64_t) const {
+    return in ? st[noff * n + e] : T(0);
+  }
+  __device__ T rhs(int e, bool in, int64_t) const {
+    return in ? st[(noff + 1) * n + e] : T(0);
+  }
+  __device__ T xv(int e, bool in, int64_t) const {
+    return in ? st[(noff + 2) * n + e] : T(0);
+  }
+  __device__ T s(int e, bool in, int64_t) const {
+    return in ? st[(noff + 3) * n + e] : T(0);
+  }
+  __device__ T t(int, bool, int64_t) const { return T(0); }
+  __device__ T tup(int u0, int u1) const {
+    const int i = ox - r + u0, j = oy - r + u1;
+    return amg::inside(i, j, Wx, Wy)
+               ? tp[u0 * U1 + u1] * xcs[(i / K - ci0) * xw + (j / K - cj0)]
+               : T(0);
+  }
+};
+
+template <typename T, int K>
+__device__ __forceinline__ StagedIn<T, K> staged_in(const amg::LevelDesc& L,
+                                                    const amg::Box& bx,
+                                                    const T* st, int noff) {
+  const int n = bx.E0 * bx.E1, r = L.reach;
+  const int U0 = bx.E0 + 2 * r, U1 = bx.E1 + 2 * r;
+  const CoarseArea ca = coarse_area(L, bx, K);
+  const T* tp = st + (noff + 4) * n;
+  return StagedIn<T, K>{st, tp, tp + U0 * U1, n, noff, U1, L.Wx, L.Wy, r,
+                        bx.ox, bx.oy, ca.ci0, ca.cj0, ca.xw};
+}
+
+// issue the cp.async of a tile's stage (the caller commits the group)
+template <typename T, int K, int NOFF>
+__device__ void stage_tile(const amg::LevelDesc& L, const amg::Box& bx, T* st,
+                           const T* x, const T* b, const T* xc) {
+  const int n = bx.E0 * bx.E1, E1 = bx.E1, r = L.reach;
+  const int64_t plane = (int64_t)L.Wx * L.Wy;
+  const T* A = (const T*)L.A;
+  const T* dinv = (const T*)L.dinv;
+  const T* Tp = (const T*)L.Tp;
+  const T* S = (const T*)L.S;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int e0 = e / E1, e1 = e - e0 * E1;
+    const int i = bx.ox + e0, j = bx.oy + e1;
+    const bool in = amg::inside(i, j, L.Wx, L.Wy);
+    const int64_t g = in ? (int64_t)i * L.Wy + j : 0;
+#pragma unroll
+    for (int q = 0; q < NOFF; ++q) {
+      cp_async_el(st + q * n + e, A + q * plane + g, in);
+    }
+    cp_async_el(st + NOFF * n + e, dinv + g, in);
+    cp_async_el(st + (NOFF + 1) * n + e, b + g, in);
+    cp_async_el(st + (NOFF + 2) * n + e, x + g, in);
+    cp_async_el(st + (NOFF + 3) * n + e, S + g, in);
+  }
+  const int U0 = bx.E0 + 2 * r, U1 = E1 + 2 * r;
+  T* tp = st + (NOFF + 4) * n;
+  for (int u = threadIdx.x; u < U0 * U1; u += blockDim.x) {
+    const int u0 = u / U1, u1 = u - u0 * U1;
+    const int i = bx.ox - r + u0, j = bx.oy - r + u1;
+    const bool in = amg::inside(i, j, L.Wx, L.Wy);
+    cp_async_el(tp + u, Tp + (in ? (int64_t)i * L.Wy + j : 0), in);
+  }
+  const CoarseArea ca = coarse_area(L, bx, K);
+  T* xcs = tp + U0 * U1;
+  const int cols = ca.cj1 - ca.cj0 + 1, cells = (ca.ci1 - ca.ci0 + 1) * cols;
+  for (int v = threadIdx.x; v < cells; v += blockDim.x) {
+    const int v0 = v / cols, v1 = v - v0 * cols;
+    cp_async_el(xcs + v0 * ca.xw + v1,
+                xc + (int64_t)(ca.ci0 + v0) * L.Wyc + (ca.cj0 + v1), true);
+  }
+}
+
+// K2 on a 5-point level, pipelined
+template <typename T, int K>
+__global__ void __launch_bounds__(kReg5Warps * 32)
+    up_pipe_kernel(T* x_out, const T* x_in, const T* b, const T* xc, T*,
+                   const __grid_constant__ amg::LevelDesc L) {
+  extern __shared__ __align__(16) unsigned char pipe_smem[];
+  __shared__ amg::LevelDesc sh;
+  copy_desc(&sh, L);
+  const int h = amg::leg_halo(sh.n_steps, sh.reach, false);
+  const int ntj = amg::tiles_of(sh.Wy, sh.tile_y);
+  const int nt = amg::tiles_of(sh.Wx, sh.tile_x) * ntj;
+  const int E0 = sh.tile_x + 2 * h, E1 = sh.tile_y + 2 * h;
+  if (E0 > kReg5Warps * kReg5Rows || E1 > 32 * kReg5Cols || sh.st.n != 5) {
+    __trap();
+  }
+  T* st = reinterpret_cast<T*>(pipe_smem);
+  const unsigned off = stage_bytes(E0, E1, 5, sh.reach, K, (int)sizeof(T));
+  auto box_of = [&](int t) {
+    return amg::make_box(t / ntj, t % ntj, sh.tile_x, sh.tile_y, h);
+  };
+  if ((int)blockIdx.x < nt) {
+    stage_tile<T, K, 5>(sh, box_of(blockIdx.x), st, x_in, b, xc);
+  }
+  cp_async_commit();
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    cp_async_wait_all();
+    __syncthreads();
+    const amg::Box bx = box_of(t);
+    const amg::TileSmem<T> sm =
+        amg::tile_buffers<T>(pipe_smem, off, bx, sh.reach);
+    const StagedIn<T, K> src = staged_in<T, K>(sh, bx, st, 5);
+    amg::CellRegs<T, 5, kReg5Rows, kReg5Cols> R;
+    amg::tile_load<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols, true>(
+        sh, sm, bx, src, true, false, R);
+    // the stage is free: the next tile's loads fly while this one works
+    if (t + (int)gridDim.x < nt) {
+      stage_tile<T, K, 5>(sh, box_of(t + gridDim.x), st, x_in, b, xc);
+    }
+    cp_async_commit();
+    amg::tile_run<T, 5, kReg5Warps, kReg5Rows, kReg5Cols, true>(
+        sh, sm, bx, src, R, true, x_out, (T*)nullptr);
+  }
+  cp_async_wait_all();
 }
 
 template <typename Kernel, typename T>
-int launch_updown(Kernel fn, int threads, dim3 grid, size_t smem,
-                  cudaStream_t stream, T* x_out, const T* x_in, const T* b,
-                  const T* xc, T* bc, const amg::LevelDesc& L) {
+int launch_leg(Kernel fn, int threads, dim3 grid, size_t smem,
+               cudaStream_t stream, T* x_out, const T* x_in, const T* b,
+               const T* xc, T* bc, const amg::LevelDesc& L) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -170,18 +359,72 @@ int launch_updown(Kernel fn, int threads, dim3 grid, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K>
-int launch_updown_k(int n_off, dim3 grid, size_t smem, cudaStream_t stream,
-                    T* x_out, const T* x_in, const T* b, const T* xc, T* bc,
-                    const amg::LevelDesc& L) {
+template <typename T, int K, bool EARLY>
+int launch_tiles_k(int n_off, dim3 grid, size_t smem, cudaStream_t stream,
+                   T* x_out, const T* x_in, const T* b, const T* xc, T* bc,
+                   const amg::LevelDesc& L) {
   if (n_off == 5) {
-    return launch_updown(
-        updown_reg_kernel<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols>,
+    return launch_leg(
+        leg_reg_kernel<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols, EARLY>,
         kReg5Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
   }
-  return launch_updown(
-      updown_reg_kernel<T, K, 9, kReg9Warps, kReg9Rows, kReg9Cols>,
+  return launch_leg(
+      leg_reg_kernel<T, K, 9, kReg9Warps, kReg9Rows, kReg9Cols, EARLY>,
       kReg9Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
+}
+
+// A leg of a tiled level (L.tile_x > 0) as one launch: the updown leg K3
+// (xc and bc), a down leg K1 (bc) or an up leg K2 (xc), the up leg
+// pipelined where asked.  K1's tiles read all they need in their first
+// memory phase (leg_tile.cuh EARLY), K2's and K3's x, S and T in later
+// phases, a pipelined K2 its staged box in its first (kernel_variants.py
+// legs: the fastest for each leg on an H100).  A pipelined leg needs its
+// Tup area, not only its box, within the thread map.
+template <typename T>
+int run_tiles(const amg::LevelDesc& L, int n_off, bool pipelined,
+              cudaStream_t stream, T* x_out, const T* x_in, const T* b,
+              const T* xc, T* bc) {
+  const bool down = bc != nullptr, up = xc != nullptr;
+  const bool early = down && !up;
+  const int halo = amg::leg_halo(L.n_steps, L.reach, down);
+  const int E0 = L.tile_x + 2 * halo, E1 = L.tile_y + 2 * halo;
+  const int wide = pipelined ? 2 * L.reach : 0;
+  const int F0 = E0 + wide, F1 = E1 + wide;
+  const bool fits =
+      (n_off == 5 && F0 <= kReg5Warps * kReg5Rows && F1 <= 32 * kReg5Cols) ||
+      (n_off == 9 && F0 <= kReg9Warps * kReg9Rows && F1 <= 32 * kReg9Cols);
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const int ntx = amg::tiles_of(L.Wx, L.tile_x);
+  const int nty = amg::tiles_of(L.Wy, L.tile_y);
+  const size_t tile =
+      amg::tile_smem_bytes(L.tile_x, L.tile_y, halo, L.reach, (int)sizeof(T));
+  if (pipelined) {
+    if (n_off != 5 || down || !up) return (int)cudaErrorInvalidValue;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem =
+        stage_bytes(E0, E1, 5, L.reach, L.k, (int)sizeof(T)) + tile;
+    const dim3 grid(ntx * nty < sms ? ntx * nty : sms);
+    return launch_leg(L.k == 2 ? up_pipe_kernel<T, 2> : up_pipe_kernel<T, 3>,
+                      kReg5Warps * 32, grid, smem, stream, x_out, x_in, b, xc,
+                      bc, L);
+  }
+  if (ntx > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(nty, ntx);
+  if (L.k == 2) {
+    return early ? launch_tiles_k<T, 2, true>(n_off, grid, tile, stream, x_out,
+                                              x_in, b, xc, bc, L)
+                 : launch_tiles_k<T, 2, false>(n_off, grid, tile, stream,
+                                               x_out, x_in, b, xc, bc, L);
+  }
+  return early ? launch_tiles_k<T, 3, true>(n_off, grid, tile, stream, x_out,
+                                            x_in, b, xc, bc, L)
+               : launch_tiles_k<T, 3, false>(n_off, grid, tile, stream, x_out,
+                                             x_in, b, xc, bc, L);
 }
 
 dim3 grid_for(int rows, int cols) {
@@ -205,19 +448,32 @@ void run_steps(T* x_out, const T* x_in, const T* b, const T* A,
   }
 }
 
+// K1: on a tiled level (tile_x > 0) one launch of tiles (r and g unused),
+// else pass by pass
 template <typename T>
 int fused_down(T* x_out, const T* x_in, const T* b, const T* A,
                const T* dinv, const T* Tp, const T* S, T* r, T* g, T* bc,
                const int* offs, int n_off, const int* ctab, int ca, int cb,
                const int* steps, int n_steps, double omega, int Wx, int Wy,
-               int Wxc, int Wyc, int k, void* stream_ptr) {
+               int Wxc, int Wyc, int k, int tile_x, int tile_y,
+               void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (tile_x > 0) {
+    amg::LevelDesc L;
+    if (amg::fill_level(&L, A, dinv, Tp, S, 0, 0, 0, 0, 0, Wx, Wy, Wxc, Wyc,
+                        k, tile_x, tile_y, offs, n_off, ctab, ca, cb, steps,
+                        n_steps, omega)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return run_tiles<T>(L, n_off, false, stream, x_out, x_in, b,
+                        (const T*)nullptr, bc);
+  }
   Stencil st;
   ColorGrid cg;
   if (amg::make_stencil(&st, offs, n_off) ||
       amg::make_colors(&cg, ctab, ca, cb) || n_steps < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
   run_steps<T>(x_out, x_in, b, A, dinv, st, cg, steps, n_steps, (T)omega, Wx,
                Wy, true, stream);
   residual_scale_kernel<T><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
@@ -229,19 +485,30 @@ int fused_down(T* x_out, const T* x_in, const T* b, const T* A,
   return (int)cudaGetLastError();
 }
 
+// K2: on a tiled level one launch of tiles, else pass by pass
 template <typename T>
 int fused_up(T* x_out, const T* x_in, const T* b, const T* A, const T* dinv,
              const T* Tp, const T* S, const T* xc, const int* offs,
              int n_off, const int* ctab, int ca, int cb, const int* steps,
-             int n_steps, double omega, int Wx, int Wy, int Wyc, int k,
-             void* stream_ptr) {
+             int n_steps, double omega, int Wx, int Wy, int Wxc, int Wyc,
+             int k, int tile_x, int tile_y, int pipelined, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (tile_x > 0) {
+    amg::LevelDesc L;
+    if (amg::fill_level(&L, A, dinv, Tp, S, 0, 0, 0, 0, 0, Wx, Wy, Wxc, Wyc,
+                        k, tile_x, tile_y, offs, n_off, ctab, ca, cb, steps,
+                        n_steps, omega)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return run_tiles<T>(L, n_off, pipelined != 0, stream, x_out, x_in, b, xc,
+                        (T*)nullptr);
+  }
   Stencil st;
   ColorGrid cg;
   if (amg::make_stencil(&st, offs, n_off) ||
       amg::make_colors(&cg, ctab, ca, cb) || (k != 2 && k != 3)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
   correct_kernel<T><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
       x_out, x_in, xc, A, Tp, S, st, Wx, Wy, Wyc, k);
   run_steps<T>(x_out, x_out, b, A, dinv, st, cg, steps, n_steps, (T)omega,
@@ -263,21 +530,8 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const T* A,
       tile_x < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(amg::tiles_of(Wy, tile_y), amg::tiles_of(Wx, tile_x));
-  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-  const int halo = amg::leg_halo(n_steps, L.reach, true);
-  const int E0 = tile_x + 2 * halo, E1 = tile_y + 2 * halo;
-  const bool fits =
-      (n_off == 5 && E0 <= kReg5Warps * kReg5Rows && E1 <= 32 * kReg5Cols) ||
-      (n_off == 9 && E0 <= kReg9Warps * kReg9Rows && E1 <= 32 * kReg9Cols);
-  if (!fits) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      amg::tile_smem_bytes(tile_x, tile_y, halo, L.reach, (int)sizeof(T));
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  return k == 2 ? launch_updown_k<T, 2>(n_off, grid, smem, stream, x_out,
-                                        x_in, b, xc, bc, L)
-                : launch_updown_k<T, 3>(n_off, grid, smem, stream, x_out,
-                                        x_in, b, xc, bc, L);
+  return run_tiles<T>(L, n_off, false, (cudaStream_t)stream_ptr, x_out, x_in,
+                      b, xc, bc);
 }
 
 }  // namespace
@@ -288,23 +542,24 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const T* A,
       const void* dinv, const void* Tp, const void* S, void* r, void* g,      \
       void* bc, const int* offs, int n_off, const int* ctab, int ca, int cb,  \
       const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,   \
-      int Wyc, int k, void* stream) {                                         \
+      int Wyc, int k, int tile_x, int tile_y, void* stream) {                 \
     return fused_down<T>((T*)x_out, (const T*)x_in, (const T*)b,              \
                          (const T*)A, (const T*)dinv, (const T*)Tp,           \
                          (const T*)S, (T*)r, (T*)g, (T*)bc, offs, n_off,      \
                          ctab, ca, cb, steps, n_steps, omega, Wx, Wy, Wxc,    \
-                         Wyc, k, stream);                                     \
+                         Wyc, k, tile_x, tile_y, stream);                     \
   }                                                                           \
   extern "C" int amg_fused_up_##SUFFIX(                                       \
       void* x_out, const void* x_in, const void* b, const void* A,            \
       const void* dinv, const void* Tp, const void* S, const void* xc,        \
       const int* offs, int n_off, const int* ctab, int ca, int cb,            \
-      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wyc,   \
-      int k, void* stream) {                                                  \
+      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,   \
+      int Wyc, int k, int tile_x, int tile_y, int pipelined, void* stream) {  \
     return fused_up<T>((T*)x_out, (const T*)x_in, (const T*)b, (const T*)A,   \
                        (const T*)dinv, (const T*)Tp, (const T*)S,             \
                        (const T*)xc, offs, n_off, ctab, ca, cb, steps,        \
-                       n_steps, omega, Wx, Wy, Wyc, k, stream);               \
+                       n_steps, omega, Wx, Wy, Wxc, Wyc, k, tile_x, tile_y,   \
+                       pipelined, stream);                                    \
   }                                                                           \
   extern "C" int amg_fused_updown_##SUFFIX(                                   \
       void* x_out, const void* x_in, const void* b, const void* A,            \

@@ -30,15 +30,15 @@ import numpy as np
 import torch
 
 from ..coloring import color_steps
-from .vcycle_legs import MAX_COLOR_CELLS, MAX_OFFSETS, SUFFIX, _ints, _stream, check_vector, launches, load_library, raise_on
+from .vcycle_legs import (
+    MAX_COLOR_CELLS, MAX_OFFSETS, SMEM_LIMIT, SUFFIX, _ints, _stream, check_vector, launches, load_library, raise_on,
+)
 
 __all__ = ["TiledSweepCache", "plan_box", "tiled_sweep_cache", "tiled_sweep_reference", "launch_tiled_sweep"]
 
 log = logging.getLogger(__name__)
 
 MAX_STEPS = 64  # csrc/stencil.cuh kMaxSteps
-# an SM's shared memory for one block (227 KB of the H100's 228)
-SMEM_LIMIT = 232_448
 # the loaded box (tile + halo) per axis, chosen by kernel_variants.py
 # sweeps: 3-D boxes of 14 x 14 x 64 cells (50 KB of float32, four blocks
 # an SM), 2-D boxes of 32 x 64 cells

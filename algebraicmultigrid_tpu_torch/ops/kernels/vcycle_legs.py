@@ -66,8 +66,11 @@ __all__ = [
     "leg_halo",
     "plan_tile",
     "plan_updown",
+    "plan_down",
+    "plan_up",
+    "plan_up_pipelined",
     "tile_smem_bytes",
-    "with_updown_plan",
+    "with_tile_plans",
     "launches",
     "build_library",
     "load_library",
@@ -89,14 +92,24 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 MAX_OFFSETS = 32
 MAX_COLOR_CELLS = 64
 MAX_STEPS = 64
-# K3's tile (fine cells along x, y), chosen by kernel_variants.py; the
+# The tiles (fine cells along x, y) the plans start from, each cut to the
+# register box: K3's, K1's and K2's, chosen by kernel_variants.py; the
 # stencil sizes whose coefficients the tiled legs keep in registers, and
 # the side of the largest box (tile + 2 halo) their thread maps hold (the
 # thread maps of csrc/vcycle_legs.cu and csrc/leg_tile.cuh).  Such a box's
 # buffers take at most ~100 KB of a block's shared memory.
 UPDOWN_TILE = (48, 48)
+DOWN_TILE = (64, 64)
+UP_TILE = (64, 64)
 REG_OFFSETS = (5, 9)
 REG_BOX = 64
+# the stencil size of the pipelined K2 (a stage of the next tile's box in
+# shared memory beside the current tile's buffers); an SM's shared memory
+# for one block (227 KB of the H100's 228), and room in it for a kernel's
+# static level descriptor
+PIPE_OFFSETS = 5
+SMEM_LIMIT = 232_448
+DESC_BYTES = 1024
 # the tiles of a level are a CUDA grid's second dimension
 MAX_TILE_ROWS = 65_535
 
@@ -128,6 +141,12 @@ class FusedLegCache:
     # K3's tile, from plan_updown when the cache is built; None: the level
     # is past the tiled kernel's limits and its updown runs K2 then K1
     updown_tile: Optional[Tuple[int, int]] = None
+    # K1's and K2's tiles (plan_down, plan_up); None: the leg runs pass by
+    # pass.  up_pipelined: K2's tiles are walked with the next tile's box
+    # staged in shared memory (plan_up_pipelined)
+    down_tile: Optional[Tuple[int, int]] = None
+    up_tile: Optional[Tuple[int, int]] = None
+    up_pipelined: bool = False
 
     @property
     def steps(self) -> Tuple[int, ...]:
@@ -173,21 +192,68 @@ def plan_tile(row_dims, k: int, n_off: int, halo: int, want):
     return tile
 
 
+def _plan_leg(row_dims, k: int, offs, n_steps: int, restriction: bool, margin: int, want):
+    """A leg's tile for ``n_steps`` color steps: None past 64 steps, else
+    ``plan_tile`` for its halo plus ``margin`` reaches."""
+    if not 1 <= n_steps <= MAX_STEPS:
+        return None
+    reach = max((max(abs(dx), abs(dy)) for dx, dy in offs), default=0)
+    return plan_tile(row_dims, k, len(offs), leg_halo(n_steps, reach, restriction) + margin * reach, want)
+
+
 def plan_updown(row_dims, k: int, offs, n_steps2: int):
     """K3's tile on a level, or None when the level is past the tiled
     kernel's limits (more than 64 steps in the double sweep, a stencil of
     other than 5 or 9 points, or no k × k tile whose box fits ``REG_BOX``):
     decided from the shapes, once, when the leg cache is built."""
-    if not 1 <= n_steps2 <= MAX_STEPS:
-        return None
-    reach = max((max(abs(dx), abs(dy)) for dx, dy in offs), default=0)
-    return plan_tile(row_dims, k, len(offs), leg_halo(n_steps2, reach, True), UPDOWN_TILE)
+    return _plan_leg(row_dims, k, offs, n_steps2, True, 0, UPDOWN_TILE)
 
 
-def with_updown_plan(cache: "FusedLegCache") -> "FusedLegCache":
-    """The cache with K3's tile planned from its shapes."""
-    tile = plan_updown(cache.row_dims, cache.k, cache.offsA, len(cache.steps2))
-    return dataclasses.replace(cache, updown_tile=tile)
+def plan_down(row_dims, k: int, offs, n_steps: int):
+    """K1's tile on a level, or None (the leg runs pass by pass): as
+    ``plan_updown``, for the single step list, from ``DOWN_TILE``."""
+    return _plan_leg(row_dims, k, offs, n_steps, True, 0, DOWN_TILE)
+
+
+def plan_up(row_dims, k: int, offs, n_steps: int):
+    """K2's tile on a level, or None: its box plus one reach (where Tup is
+    formed) within the register box, from ``UP_TILE``."""
+    return _plan_leg(row_dims, k, offs, n_steps, False, 1, UP_TILE)
+
+
+def stage_bytes(box, n_off: int, reach: int, k: int, itemsize: int) -> int:
+    """Shared memory of the pipelined K2's stage (csrc/vcycle_legs.cu
+    ``stage_bytes``): the box planes (A, dinv, b, x, S), T over the box
+    plus one reach and x_c over its coarse cells; to 16 bytes."""
+    E0, E1 = box
+    U0, U1 = E0 + 2 * reach, E1 + 2 * reach
+    words = (n_off + 4) * E0 * E1 + U0 * U1 + (U0 // k + 2) * (U1 // k + 2)
+    return -(-words * itemsize // 16) * 16
+
+
+def plan_up_pipelined(cache: "FusedLegCache", itemsize: int) -> bool:
+    """Whether a level's tiled K2 runs pipelined: a 5-point level whose
+    stage and tile buffers fit a block's shared memory (float32 at the
+    flagship's L0; not float64)."""
+    if len(cache.offsA) != PIPE_OFFSETS or cache.up_tile is None:
+        return False
+    r, h = cache.reach, leg_halo(len(cache.steps), cache.reach, False)
+    tile = cache.up_tile
+    box = (tile[0] + 2 * h, tile[1] + 2 * h)
+    need = stage_bytes(box, PIPE_OFFSETS, r, cache.k, itemsize) + tile_smem_bytes(*tile, h, r, itemsize)
+    return need <= SMEM_LIMIT - DESC_BYTES
+
+
+def with_tile_plans(cache: "FusedLegCache") -> "FusedLegCache":
+    """The cache with K3's, K1's and K2's tiles planned from its shapes."""
+    n = len(cache.steps)
+    c = dataclasses.replace(
+        cache,
+        updown_tile=plan_updown(cache.row_dims, cache.k, cache.offsA, len(cache.steps2)),
+        down_tile=plan_down(cache.row_dims, cache.k, cache.offsA, n),
+        up_tile=plan_up(cache.row_dims, cache.k, cache.offsA, n),
+    )
+    return dataclasses.replace(c, up_pipelined=plan_up_pipelined(c, c.A.element_size()))
 
 
 def _factored_ok(specT, k, dims, cdims) -> bool:
@@ -257,7 +323,7 @@ def build_fused_leg_cache(
         S = S[torch.as_tensor(cxS, device=device)][:, torch.as_tensor(cyS, device=device)]
     else:
         S = torch.as_tensor(np.asarray(scale[1], dtype=np_dtype).reshape(Wx, Wy), device=device)
-    return with_updown_plan(FusedLegCache(
+    return with_tile_plans(FusedLegCache(
         A=A,
         dinv=dinv.contiguous(),
         T=T.contiguous(),
@@ -467,8 +533,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _D = ctypes.c_double
 _STENCIL = [_IP, _I, _IP, _I, _I, _IP, _I, _D]  # offs, n_off, colors a x b, steps, omega
 _SIGNATURES = {
-    "amg_fused_down_{}": [_P] * 10 + _STENCIL + [_I] * 5 + [_P],
-    "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 4 + [_P],
+    "amg_fused_down_{}": [_P] * 10 + _STENCIL + [_I] * 7 + [_P],
+    "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 8 + [_P],
     "amg_fused_updown_{}": [_P] * 9 + _STENCIL + [_I] * 7 + [_P],
     "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_fused_subcycle_{}": [_P, _I, _I, _P, _P, _P, _P, _I, _L, _L, _I, _P],
@@ -564,24 +630,39 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _tile_args(cache: FusedLegCache, tile, name: str):
+    """(tile_x, tile_y) for a leg's C entry point: its planned tile, or
+    (0, 0) for the pass-by-pass route."""
+    if tile is None:
+        return 0, 0
+    if cache.row_dims[0] * cache.row_dims[1] >= 2**31:
+        raise ValueError(f"{name} indexes a tiled level's cells in 32 bits")
+    return tile
+
+
 def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
     """(x', b_c) = (presmooth(x, b), R·(b − A·x')); ``x_zero`` asserts x is
     the zero vector (coarse-level cycles start from it), so x is not read.
-    Returns x' at ``x``'s (padded) length and b_c at Wxc·Wyc."""
+    Returns x' at ``x``'s (padded) length and b_c at Wxc·Wyc.  A level with
+    a planned tile (``cache.down_tile``) runs one launch of independent
+    tiles; any other, pass by pass."""
     if x.device.type == "cpu":
         return fused_down_reference(cache, x, b, x_zero=x_zero)
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
+    tile = _tile_args(cache, cache.down_tile, "fused_down")
     fn, x_out = _prepare(cache, "fused_down", x, [("x", x, n), ("b", b, n)])
-    r = torch.empty((Wx, Wy), dtype=x.dtype, device=x.device)
-    g = torch.empty_like(r)
+    # r and g planes only for the pass-by-pass route
+    rg = [None, None]
+    if cache.down_tile is None:
+        rg = [torch.empty((Wx, Wy), dtype=x.dtype, device=x.device) for _ in range(2)]
     bc = torch.empty(Wxc * Wyc, dtype=x.dtype, device=x.device)
     err = fn(
         x_out.data_ptr(), None if x_zero else x.data_ptr(), b.data_ptr(),
         cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr(),
-        r.data_ptr(), g.data_ptr(), bc.data_ptr(),
-        *stencil_args(cache, cache.steps), Wx, Wy, Wxc, Wyc, cache.k, _stream(x),
+        *(None if t is None else t.data_ptr() for t in rg), bc.data_ptr(),
+        *stencil_args(cache, cache.steps), Wx, Wy, Wxc, Wyc, cache.k, *tile, _stream(x),
     )
     raise_on(err, "fused_down kernel")
     launches["down"] += 1
@@ -590,17 +671,21 @@ def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
 
 
 def fused_up(cache: FusedLegCache, x, b, xc):
-    """x = postsmooth(x + P·x_c, b); returns x at ``x``'s (padded) length."""
+    """x = postsmooth(x + P·x_c, b); returns x at ``x``'s (padded) length.
+    Tiled (``cache.up_tile``; pipelined where ``cache.up_pipelined``) or
+    pass by pass, as ``fused_down``."""
     if x.device.type == "cpu":
         return fused_up_reference(cache, x, b, xc)
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
+    tile = _tile_args(cache, cache.up_tile, "fused_up")
     fn, x_out = _prepare(cache, "fused_up", x, [("x", x, n), ("b", b, n), ("xc", xc, Wxc * Wyc)])
     err = fn(
         x_out.data_ptr(), x.data_ptr(), b.data_ptr(),
         cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr(),
-        xc.data_ptr(), *stencil_args(cache, cache.steps), Wx, Wy, Wyc, cache.k, _stream(x),
+        xc.data_ptr(), *stencil_args(cache, cache.steps), Wx, Wy, Wxc, Wyc, cache.k, *tile,
+        int(cache.up_pipelined), _stream(x),
     )
     raise_on(err, "fused_up kernel")
     launches["up"] += 1

@@ -15,13 +15,16 @@ Runs, in order, and exits non-zero on the first failure:
    and level 1 (1366²), K4 on the tail (456² … 6² plus the 2×2 coarse
    solve), ``x_zero`` both ways where the kernel takes it — to max relative
    error <= 1e-5 in float32, and times kernel, plain version and the same
-   work through the K1/K2 legs with CUDA events; K3 (tiled) and K4 (tiled
-   grid levels) beside the times of the per-pass designs they replaced;
+   work through the K1/K2 legs with CUDA events; asserts K1/K2 tiled at L0
+   and L1 as their plans say and times them in turns (tiled, pass, pass,
+   tiled) against the same legs pass by pass; the tiled K1–K4 beside the
+   times of the per-pass designs they replaced;
 4. drives the main path once — structured SA setup of
    ``poisson((4096, 4096), lattice=True)`` with box-3 aggregation, lowering to
    the card, ``solve_refined(tol=1e-8)`` — with the launch counters zeroed
    just before it, and asserts 8 levels, operator complexity 1.225,
-   relative residual < 1e-8 within 4 rounds and launches of K1, K2 and K4;
+   relative residual < 1e-8 within 4 rounds, launches of K1, K2 and K4,
+   and K1/K2 tiled at L0 and L1;
 5. runs ``run_fixed_cycles`` (the updown loop) for 400 cycles from x = 0 on
    ``bench.py``'s right-hand side A·1, with the counters zeroed just
    before: ms per cycle, relative residual after the cycles (< 1e-5),
@@ -138,12 +141,16 @@ FIXED_RTOL = {"float32": KERNEL_RTOL, "float64": 1e-10}
 # outside the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
-# the per-pass designs that the tiled K3 and K4 (and K9 on K4's tail)
-# replaced, and the fixed cycle on them: recorded constants, not measured
-# in this run (this script's phases 3, 5 and 12 on an NVIDIA H100 80GB
-# HBM3 at 700 W, PERF.md §6), printed in the log beside this run's times
-# and never in the kernels line
-FIRST_DESIGN_MS = {"fused_updown": 2.260, "fused_tail": 0.395, "fused_subcycle": 1.037, "fixed_cycle": "3.33-3.39"}
+# the per-pass designs that the tiled K1, K2 (by level), K3 and K4 (and K9
+# on K4's tail) replaced, and the fixed cycle before K3 and K4 were tiled:
+# recorded constants, not measured in this run (this script's phases 3, 5
+# and 12 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6), printed in the
+# log beside this run's times and never in the kernels line
+FIRST_DESIGN_MS = {
+    ("fused_down", 0): 1.385, ("fused_down", 1): 0.346, ("fused_up", 0): 1.094, ("fused_up", 1): 0.287,
+    ("fused_updown", 0): 2.260, ("fused_tail", EXPECT_TAIL_START): 0.395, ("fused_subcycle", 1): 1.037,
+}
+FIRST_DESIGN_FIXED_CYCLE_MS = "3.33-3.39"
 SOURCES = {
     "fused_down": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
     "fused_up": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
@@ -215,6 +222,13 @@ def time_ms(fn, reps=TIMED_REPS):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def in_turns(fn_a, fn_b, reps=TIMED_REPS):
+    """Milliseconds of a and b timed in turns (a, b, b, a): (mean a, mean
+    b, the four times)."""
+    t = [time_ms(f, reps) for f in (fn_a, fn_b, fn_b, fn_a)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
 def setup(n, **kwargs):
@@ -306,7 +320,10 @@ def tail_work(tail, x_zero):
 
 def compare_kernels(device, ml):
     """Phase 3: every kernel against its plain version at the main path's
-    shapes, with kernel, plain and K1/K2-route times."""
+    shapes, with kernel, plain and K1/K2-route times; K1/K2 tiled as
+    planned at L0 and L1, timed in turns against their pass-by-pass route."""
+    import dataclasses
+
     import torch
 
     import algebraicmultigrid_tpu_torch as amt
@@ -326,18 +343,31 @@ def compare_kernels(device, ml):
 
     rows = {name: [] for name in ("fused_down", "fused_up", "fused_updown", "fused_tail")}
 
-    def record(name, got, ref, fn, plain, work, **extra):
+    def record(name, got, ref, fn, plain, work, route=None, **extra):
+        """A row: errors against the plain version, kernel and plain times;
+        with ``route`` (the same leg pass by pass) its error, and kernel
+        and route timed in turns."""
         errs = [errors(g, r) for g, r in zip(got, ref)]
-        rows[name].append(dict(
-            extra, max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
-            ms=time_ms(fn), plain_ms=time_ms(plain), work=work,
-        ))
+        row = dict(extra, max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs), work=work)
+        if route is None:
+            row["ms"] = time_ms(fn)
+        else:
+            out = route()
+            row["route_rel_err"] = max(errors(g, r)[1] for g, r in zip(out if isinstance(out, tuple) else [out], ref))
+            row["ms"], row["route_ms"], row["turns_ms"] = in_turns(fn, route)
+        row["plain_ms"] = time_ms(plain)
+        rows[name].append(row)
 
     for lvl in (0, 1):
         L = h.levels[lvl]
         f = L.fused
         if f is None:
             raise AssertionError(f"level {lvl} has no fused legs")
+        planned = (vl.plan_down(f.row_dims, f.k, f.offsA, len(f.steps)),
+                   vl.plan_up(f.row_dims, f.k, f.offsA, len(f.steps)))
+        if None in planned or (f.down_tile, f.up_tile) != planned:
+            raise AssertionError(f"level {lvl}'s K1/K2 tiles {(f.down_tile, f.up_tile)} are not the plan's {planned}")
+        passed = dataclasses.replace(f, down_tile=None, up_tile=None, up_pipelined=False)
         n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
         x, b, xc = vec(n, pad), vec(n, pad), vec(nc, nc)
         for x_zero in (False, True):
@@ -347,12 +377,14 @@ def compare_kernels(device, ml):
                 lambda: vl.fused_down(f, x, b, x_zero=x_zero),
                 lambda: vl.fused_down_reference(f, x, b, x_zero=x_zero),
                 leg_work(f, f.steps, False, True, x_zero=x_zero),
-                level=lvl, dims=f.row_dims, x_zero=x_zero,
+                route=lambda: vl.fused_down(passed, x, b, x_zero=x_zero),
+                level=lvl, dims=f.row_dims, x_zero=x_zero, leg_route="tiles", tile=f.down_tile,
             )
         record(
             "fused_up", [vl.fused_up(f, x, b, xc)], [vl.fused_up_reference(f, x, b, xc)],
             lambda: vl.fused_up(f, x, b, xc), lambda: vl.fused_up_reference(f, x, b, xc),
-            leg_work(f, f.steps, True, False), level=lvl, dims=f.row_dims,
+            leg_work(f, f.steps, True, False), route=lambda: vl.fused_up(passed, x, b, xc),
+            level=lvl, dims=f.row_dims, leg_route="pipelined" if f.up_pipelined else "tiles", tile=f.up_tile,
         )
         record(
             "fused_updown", vl.fused_updown(f, x, b, xc), vl.fused_updown_reference(f, x, b, xc),
@@ -389,19 +421,19 @@ def compare_kernels(device, ml):
             log(f"kernel {name} L{r['level']} {r['dims']}"
                 + (f" x_zero={r['x_zero']}" if "x_zero" in r else "")
                 + f": max_rel_err {r['max_rel_err']!r} max_abs_err {r['max_abs_err']!r}"
+                + (f" {r['leg_route']} {r['tile']}" if "leg_route" in r else "")
                 + f" kernel {r['ms']!r} ms plain {r['plain_ms']!r} ms"
                 + (f" legs {r['legs_ms']!r} ms" if "legs_ms" in r else "")
-                + (f" (first design, recorded: {FIRST_DESIGN_MS[name]!r} ms)"
-                   if name in FIRST_DESIGN_MS and r["level"] == lvl0(name) else "")
+                + (f" pass route {r['route_ms']!r} ms (in turns, kernel/route/route/kernel:"
+                   f" {r['turns_ms']!r}; route max_rel_err {r['route_rel_err']!r})" if "route_ms" in r else "")
+                + (f" (first design, recorded: {FIRST_DESIGN_MS[name, r['level']]!r} ms)"
+                   if (name, r["level"]) in FIRST_DESIGN_MS and not r.get("x_zero") else "")
                 + f" bound {r['bound_ms']!r} ms ({r['bound_by']})")
             if not r["max_rel_err"] <= KERNEL_RTOL:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
+            if not r.get("route_rel_err", 0.0) <= KERNEL_RTOL:
+                raise AssertionError(f"{name}'s pass route disagrees with the plain version: {r}")
     return rows
-
-
-def lvl0(name):
-    """The level at which a kernel's first-design time was taken."""
-    return EXPECT_TAIL_START if name == "fused_tail" else 0
 
 
 def zero_counts():
@@ -455,7 +487,8 @@ def main_path(device, ml, setup_s):
     relres = float(np.linalg.norm(b - ml.levels[0].A @ x) / np.linalg.norm(b))
     log(f"main path {N}x{N}: levels {levels} operator_complexity {oc!r}")
     log(f"level dims {[L.A.row_dims for L in h.levels]} fused {[L.fused is not None for L in h.levels]}"
-        f" tail_start {h.tail_start}")
+        f" tail_start {h.tail_start}; K1/K2 tiles at L0, L1"
+        f" {[(L.fused.down_tile, L.fused.up_tile, L.fused.up_pipelined) for L in h.levels[:2]]}")
     log(f"setup_s {setup_s!r} lowering_s {t2 - t1!r} solve_s {t3 - t2!r}")
     log(f"refine rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']} history {hist}")
     log(f"solve_relres {relres!r}")
@@ -480,6 +513,8 @@ def main_path(device, ml, setup_s):
         raise AssertionError(f"solve_relres {relres} >= {TOL} after {len(hist) - 1} rounds")
     if not all(counts[k] > 0 for k in ("down", "up", "tail")):
         raise AssertionError(f"the solve did not launch every kernel of its path: {counts}")
+    if not all(L.fused.down_tile and L.fused.up_tile for L in h.levels[:2]):
+        raise AssertionError("the main path's L0 and L1 legs are not tiled")
     return h, counts, by_level, vcycle_ms
 
 
@@ -509,7 +544,7 @@ def fixed_cycles(device, ml, h):
     xh = x[: N * N].double().cpu().numpy()
     relres = float(np.linalg.norm(b - ml.levels[0].A @ xh) / np.linalg.norm(b))
     log(f"fixed cycles {CYCLES}: ms_per_cycle (CUDA events) {ms_per_cycle!r}"
-        f" (first design, recorded: {FIRST_DESIGN_MS['fixed_cycle']} ms) relres_after_cycles {relres!r}")
+        f" (first design, recorded: {FIRST_DESIGN_FIXED_CYCLE_MS} ms) relres_after_cycles {relres!r}")
     log(f"launches in the fixed cycles {counts}; leg launches by level {by_level}")
 
     fixed_rel = {}
@@ -1163,7 +1198,7 @@ def subcycle_path(device, ml):
             raise AssertionError(f"{key} disagrees with K9: {rel}")
     del h_t1
     log(f"kernel fused_subcycle L1 {row['dims']}: kernel {row['ms']!r} ms"
-        f" (first design, recorded: {FIRST_DESIGN_MS['fused_subcycle']!r} ms) plain {row['plain_ms']!r} ms"
+        f" (first design, recorded: {FIRST_DESIGN_MS['fused_subcycle', 1]!r} ms) plain {row['plain_ms']!r} ms"
         f" legs+K4 {row['route_ms']!r} ms K4 from L1 {row['tail_at_l1_ms']!r} ms"
         f" bound {row['bound_ms']!r} ms ({row['bound_by']})")
 
@@ -1590,6 +1625,10 @@ def main():
             row.update(l1_ms=l1["ms"], l1_plain_ms=l1["plain_ms"], l1_bound_ms=l1["bound_ms"],
                        launches_by_level=cycle_levels.get(COUNTER[name], {}),
                        launches_solve_by_level=solve_levels.get(COUNTER[name], {}))
+        if name in ("fused_down", "fused_up"):
+            # the tiled route at L0 and L1 and the pass-by-pass route it replaced, timed in turns
+            row.update(route_ms=first["route_ms"], l1_route_ms=l1["route_ms"],
+                       routes={f"L{r['level']}": r["leg_route"] for r in rs})
         kernels.append(row)
     for name, rs in rows_u.items():
         first = rs[0]  # K6 at L0, scan_gs at L3
@@ -1621,7 +1660,7 @@ def main():
         **row_halo,
     ))
     log(f"flagship {N}x{N} f32, CUDA events: fixed cycle {fixed_ms!r} ms (first design, recorded:"
-        f" {FIRST_DESIGN_MS['fixed_cycle']} ms), V-cycle {vcycle_ms!r} ms; card {card}")
+        f" {FIRST_DESIGN_FIXED_CYCLE_MS} ms), V-cycle {vcycle_ms!r} ms; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ the argument ``sweeps``, the whole-sweep kernels K7 (``sweep3d``, at L0 of
 alternative thread blocks and loaded boxes; with ``subcycle``, the
 whole-subcycle kernel K9 (``fused_subcycle``, at L1 of 4096²) with its
 levels tiled or pass by pass (``sub_grid_passes``) and under alternative
-tile edges.
+tile edges; with ``legs``, the down and up legs K1 (``fused_down``) and K2
+(``fused_up``) at L0 and L1 of 4096² under alternative tiles, routes and
+load phases.
 
 Each variant is the tree's CUDA sources with a few lines edited, built into
 its own library (all builds run in parallel) and swapped in under the same
@@ -17,15 +19,13 @@ under each tile of ``UPDOWN_TILES_L0`` and at L1 (1366²) under each of
 (x = 0) under each tail tile of ``TAIL_TILES`` (set as
 ``tail_kernel.TAIL_TILE`` before its cache is built); and one fixed cycle
 (``run_fixed_cycles``) with the planned tiles; then the same work as K3
-through K2 + K1.  The K3 variant runs the 5-point register path with two
-512-thread blocks an SM of 4 cells a thread (``k3_reg5_2x512``, a box of up
-to 32 x 64 cells).  The K4 variant runs every grid level pass by pass
+through K2 + K1.  The K4 variant runs every grid level pass by pass
 (``k4_grid_passes``: one grid barrier a pass, the first design's 35); two
 diagnostics split K4's time, dropping its block-0 levels and coarse solve
 (``k4_diag_no_block0``) or its grid levels (``k4_diag_no_grid``).  Run from
 the repository root:
 
-    python3 kernel_variants.py [sweeps | subcycle]
+    python3 kernel_variants.py [legs | sweeps | subcycle]
 
 In ``sweeps`` mode each source variant runs with each box of ``BOXES_3D``
 / ``BOXES_2D`` (the tile plus halo that ``tiled_sweep.plan_box`` starts
@@ -33,7 +33,11 @@ from), with the error against the plain version.  In ``subcycle`` mode each
 source variant runs K9 with each tile edge of ``SUB_TILES`` (set as
 ``tail_kernel.TAIL_TILE``, cut to the register box by the plan), with the
 error against the plain version, and a fixed cycle (``run_fixed_cycles``)
-at the planned tiles.
+at the planned tiles.  In ``legs`` mode each source variant (which legs
+read everything in their first memory phase: ``LEG_VARIANTS``) runs K1
+from x and from zero and K2 under each tile of ``LEG_TILES``, one tile a
+block and, for K2 where its stage fits, pipelined; then the legs pass by
+pass; then K3, K4, a V-cycle and a fixed cycle with the planned tiles.
 """
 
 import subprocess
@@ -50,10 +54,6 @@ ROUNDS = 2
 # name -> [(file, old text, new text)]
 VARIANTS = {
     "tree": [],
-    "k3_reg5_2x512": [
-        ("vcycle_legs.cu", "kReg5Warps = 32, kReg5Rows = 2,", "kReg5Warps = 16, kReg5Rows = 2,"),
-        ("vcycle_legs.cu", "__launch_bounds__(WARPS * 32)", "__launch_bounds__(WARPS * 32, 2)"),
-    ],
     "k4_grid_passes": [("tail_levels.cuh", "if (L.tile_x > 0) {", "if (false) {")],
     # diagnostics, not designs (their results are wrong, their errors say
     # so): K4 without its block-0 levels and coarse solve, or without its
@@ -65,9 +65,8 @@ VARIANTS = {
     ],
 }
 # K3 tiles, each box within the register map's 64 x 64 cells.  L0
-# (5-point, halo 7): (48, 48) is the planned box (62 x 62); (18, 48) fits
-# the 2 x 512 variant's 32-row box.  L1 (9-point, halo 15): (33, 33) is
-# the planned box (63 x 63).
+# (5-point, halo 7): (48, 48) is the planned box (62 x 62).  L1 (9-point,
+# halo 15): (33, 33) is the planned box (63 x 63).
 UPDOWN_TILES_L0 = [(18, 48), (24, 48), (48, 48)]
 UPDOWN_TILES_L1 = [(33, 33), (24, 30)]
 # K4 tail tiles (cut to the register box by the plan)
@@ -86,6 +85,22 @@ SWEEP_VARIANTS = {
         ("sweep_tile.cuh", "y = ND == 3 ? 4 : 8;", "y = ND == 3 ? 8 : 32;"),
         ("sweep_tile.cuh", "z = ND == 3 ? 2 : 1;", "z = ND == 3 ? 4 : 1;"),
     ],
+}
+# K1/K2 (legs mode): in the tree K1's tiles read everything in their first
+# memory phase (leg_tile.cuh EARLY) and K2's read x and S in their
+# correction, as K3's do; down_plain gives K1 K3's phases, up_early gives
+# K2 one memory phase.  K2's pipelined route is a plan flag, swept at run
+# time on 5-point levels.
+LEG_EARLY = "const bool early = down && !up;"
+LEG_VARIANTS = {
+    "tree": [],
+    "down_plain": [("vcycle_legs.cu", LEG_EARLY, "const bool early = false;")],
+    "up_early": [("vcycle_legs.cu", LEG_EARLY, "const bool early = down != up;")],
+}
+# K1/K2 tiles per level and leg (the first is the plan's at 4096²)
+LEG_TILES = {
+    0: {"down": [(54, 54), (48, 48), (36, 54)], "up": [(54, 54), (48, 48), (36, 54)]},
+    1: {"down": [(45, 45), (36, 36), (24, 45)], "up": [(48, 48), (36, 36), (24, 48)]},
 }
 SUB_VARIANTS = {
     "tree": [],
@@ -208,6 +223,85 @@ def subcycle(use):
             print(f"round {rnd} {name:15s} tiles {hh.sub.tiles[:3]}: fixed cycle {fc!r} ms", flush=True)
 
 
+def legs(use):
+    """K1 (from x and from zero) and K2 at L0/L1 of 4096² per source
+    variant, tile and route (one tile a block; K2 also pipelined where its
+    stage fits), and pass by pass; K3, K4 and a V-cycle and a fixed cycle
+    with the planned tiles."""
+    import dataclasses
+
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    import chip_smoke as cs
+
+    use("tree")
+    ml = cs.setup(N)
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+
+    def vec(m, length):
+        v = torch.zeros(length)
+        v[:m] = torch.randn(m, generator=gen)
+        return v.cuda()
+
+    cases, vecs = {}, {}
+    for lvl in (0, 1):
+        f, L = h.levels[lvl].fused, h.levels[lvl]
+        n, nc = L.A.shape[0], L.R.shape[0]
+        x, b, xc = vecs[lvl] = vec(n, L.A.rows_padded), vec(n, L.A.rows_padded), vec(nc, nc)
+        calls = {
+            "down": (vl.fused_down, lambda c, x=x, b=b: (c, x, b), vl.fused_down_reference(f, x, b)),
+            "down0": (vl.fused_down, lambda c, x=x, b=b: (c, x, b, True),
+                      vl.fused_down_reference(f, x, b, x_zero=True)),
+            "up": (vl.fused_up, lambda c, x=x, b=b, xc=xc: (c, x, b, xc), (vl.fused_up_reference(f, x, b, xc),)),
+        }
+        cases[lvl] = (f, calls)
+    bf = torch.zeros(h.fine_padded, device="cuda")
+    bf[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
+    xf = torch.zeros_like(bf)
+    bt = vec(h.levels[2].A.shape[0], h.levels[2].A.rows_padded)
+    f0 = h.levels[0].fused
+    x0, b0, xc0 = vecs[0]
+
+    def timed(fn, c, args, want):
+        got = fn(*args(c))
+        got = got if isinstance(got, tuple) else (got,)
+        err = max(cs.errors(g, r)[1] for g, r in zip(got, want))
+        return cs.time_ms(lambda: fn(*args(c))), err
+
+    for rnd in range(ROUNDS):
+        for name in LEG_VARIANTS:
+            use(name)
+            for lvl, (f, calls) in cases.items():
+                for leg, (fn, args, want) in calls.items():
+                    key = "up" if leg == "up" else "down"
+                    for tile in LEG_TILES[lvl][key]:
+                        base = dataclasses.replace(f, **{f"{key}_tile": tile}, up_pipelined=False)
+                        routes = [("tiles", base)]
+                        if key == "up" and vl.plan_up_pipelined(base, 4):
+                            routes.append(("pipelined", dataclasses.replace(base, up_pipelined=True)))
+                        for route, c in routes:
+                            ms, err = timed(fn, c, args, want)
+                            print(f"round {rnd} {name:10s} L{lvl} {leg:5s} {route:9s} tile {tile}: {ms!r} ms"
+                                  f"  max_rel_err {err!r}", flush=True)
+                c = dataclasses.replace(f, down_tile=None, up_tile=None, up_pipelined=False)
+                for leg, (fn, args, want) in calls.items():
+                    ms, err = timed(fn, c, args, want)
+                    print(f"round {rnd} {name:10s} L{lvl} {leg:5s} pass: {ms!r} ms  max_rel_err {err!r}", flush=True)
+            k3 = cs.time_ms(lambda: vl.fused_updown(f0, x0, b0, xc0))
+            k4 = cs.time_ms(lambda: tk.fused_tail(h.tail, torch.zeros_like(bt), bt, x_zero=True), reps=50)
+            vc = cs.time_ms(lambda: _one_iteration(h, amt.V(), xf, bf), reps=10)
+            fc = cs.time_ms(lambda: run_fixed_cycles(h, xf, bf, 50), reps=2) / 50
+            print(f"round {rnd} {name:10s} planned (L0 {f0.down_tile}/{f0.up_tile} up pipelined {f0.up_pipelined},"
+                  f" L1 {h.levels[1].fused.down_tile}/{h.levels[1].fused.up_tile}): K3 L0 {k3!r} ms K4 {k4!r} ms"
+                  f" V-cycle {vc!r} ms fixed cycle {fc!r} ms", flush=True)
+
+
 def legs_and_tail(use):
     """K3 at L0/L1 of 4096² per tile, K4 per tail tile, a fixed cycle, per
     source variant; then K2 + K1 at L0/L1."""
@@ -278,7 +372,7 @@ def main():
         print("no CUDA card: kernel_variants needs one")
         return 1
     mode = sys.argv[1] if sys.argv[1:] else ""
-    variants = {"sweeps": SWEEP_VARIANTS, "subcycle": SUB_VARIANTS}.get(mode, VARIANTS)
+    variants = {"sweeps": SWEEP_VARIANTS, "subcycle": SUB_VARIANTS, "legs": LEG_VARIANTS}.get(mode, VARIANTS)
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
@@ -305,6 +399,10 @@ def main():
             return 0
         if variants is SUB_VARIANTS:
             subcycle(use)
+            print(card)
+            return 0
+        if variants is LEG_VARIANTS:
+            legs(use)
             print(card)
             return 0
         legs_and_tail(use)

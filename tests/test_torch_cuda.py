@@ -140,6 +140,61 @@ def test_cuda_updown_matches_plain_version(ml, case, dtype):
     assert vl.launches["updown"] == before + 1
 
 
+# K1/K2 cases: (synthetic grid, k, stencil points) or (hierarchy n, box,
+# level), each under its planned route ("planned": tiled, K2 pipelined on
+# 5-point float32 levels), one tile a block ("tiles") and pass by pass
+# ("pass").  L1 of the box-2 200² hierarchy (13 points) has no tile.
+LEG_CASES = [
+    ("s", (37, 41), 3, 5), ("s", (37, 41), 2, 9), ("s", (64, 70), 3, 9), ("s", (64, 70), 2, 5),
+    ("s", (300, 257), 3, 5), ("s", (300, 257), 2, 9), ("h", 200, 2, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("route", ["planned", "tiles", "pass"])
+@pytest.mark.parametrize("case", LEG_CASES, ids=str)
+def test_cuda_tiled_legs_match_plain_versions(ml, case, route, dtype):
+    """K1 (from x and from zero) and K2 against their plain versions on
+    ragged levels (partial last tiles, clipped coarse boxes), k = 2 and 3,
+    5- and 9-point, on every route."""
+    import dataclasses
+
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from torch_port_common import synthetic_leg_cache
+
+    if case[0] == "h":
+        _, n, box, lvl = case
+        f = build_device_hierarchy(_small(n, box), device="cuda", dtype=dtype, tail=False).levels[lvl].fused
+        assert len(f.offsA) == 13 and f.down_tile is None and f.up_tile is None and not f.up_pipelined
+    else:
+        _, dims, k, n_off = case
+        f = synthetic_leg_cache(dims, k, n_off, seed=sum(dims) + 1, dtype=dtype, device="cuda")
+        assert f.down_tile is not None and f.up_tile is not None
+        # K2's stage fits float64 too at (37, 41)'s small box
+        assert f.up_pipelined == (n_off == 5 and (dtype == torch.float32 or dims == (37, 41)))
+    if route == "tiles":
+        f = dataclasses.replace(f, up_pipelined=False)
+    elif route == "pass":
+        f = dataclasses.replace(f, down_tile=None, up_tile=None, up_pipelined=False)
+    Wx, Wy = f.row_dims
+    n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
+    x, b, xc = _vec(n, n + 3, 1, dtype), _vec(n, n + 3, 2, dtype), _vec(nc, nc, 3, dtype)
+    tol = TOL if dtype == torch.float32 else 1e-12
+    before = dict(vl.launches)
+    for x_zero in (False, True):
+        got = vl.fused_down(f, x, b, x_zero=x_zero)
+        ref = vl.fused_down_reference(f, x, b, x_zero=x_zero)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape and _rel(g, r) < tol
+    got = vl.fused_up(f, x, b, xc)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and _rel(got, vl.fused_up_reference(f, x, b, xc)) < tol
+    assert vl.launches["down"] == before["down"] + 2
+    assert vl.launches["up"] == before["up"] + 1
+
+
 def test_cuda_tile_smem_matches_the_plan():
     """The wrappers' tile plans use the kernels' shared-memory formula,
     block-cell limit and descriptor size (under the 1 KB a descriptor that

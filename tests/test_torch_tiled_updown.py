@@ -1,5 +1,6 @@
-"""The tile plans of the tiled legs (K3 ``fused_updown``, and the grid
-levels of K4 ``fused_tail`` and K9 ``fused_subcycle``), checked on the CPU
+"""The tile plans of the tiled legs (K3 ``fused_updown``, K1
+``fused_down`` and K2 ``fused_up``, and the grid levels of K4
+``fused_tail`` and K9 ``fused_subcycle``), checked on the CPU
 before any card: each planned tile's loaded box (the tile plus its halo,
 zero outside the grid) runs the plain leg with the kernel's erosion rule
 (step s updates only the cells at least (s+1)·reach inside the box), and
@@ -18,7 +19,7 @@ import torch
 from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
 from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import SMEM_LIMIT
-from torch_port_common import LEG_OFFSETS, N, SETUP_KW, synthetic_leg_cache
+from torch_port_common import LEG_COLORS, LEG_OFFSETS, N, SETUP_KW, synthetic_leg_cache
 
 OFFS5, OFFS9 = LEG_OFFSETS[5], LEG_OFFSETS[9]
 
@@ -119,11 +120,14 @@ TILES = [(6, 12), (12, 6), "planned"]
 
 
 def _tile(c, want, leg):
+    """A given tile; "planned": K3's plan, or the tail's for a grid level
+    of this shape (both legs); "legs": K1's or K2's plan."""
+    if want == "legs":
+        return {"down": c.down_tile, "up": c.up_tile}[leg]
     if want != "planned":
         return want
     if leg == "updown":
         return c.updown_tile
-    # the tail's plan for a grid level of this shape
     return vl.plan_tile(c.row_dims, c.k, len(c.offsA), vl.leg_halo(len(c.steps), c.reach, True), tk.TAIL_TILE)
 
 
@@ -139,20 +143,21 @@ def test_updown_tiles_stitch_to_the_plain_version(dims, k, n_off, want):
     assert torch.equal(got_bc, ref_bc)
 
 
-@pytest.mark.parametrize("want", TILES, ids=str)
+@pytest.mark.parametrize("want", TILES + ["legs"], ids=str)
 @pytest.mark.parametrize("dims,k,n_off", CASES, ids=str)
 def test_tail_leg_tiles_stitch_to_the_plain_versions(dims, k, n_off, want):
-    """K4's and K9's tiled legs: the down leg from x and from zero, the up
+    """The tiled down and up legs (K1 and K2 under their own plans, "legs";
+    K4's and K9's grid levels): the down leg from x and from zero, the up
     leg from x_mid."""
     c = leg_cache(dims, k, n_off, seed=2 * sum(dims) + k + n_off)
-    tile = _tile(c, want, "tail")
-    assert tile[0] > 0
+    tile_down, tile_up = _tile(c, want, "down"), _tile(c, want, "up")
+    assert tile_down[0] > 0 and tile_up[0] > 0
     x, b, xc = vectors(c, 2)
     for x_zero in (False, True):
-        got = run_tiles(c, tile, "down", None if x_zero else x, b)
+        got = run_tiles(c, tile_down, "down", None if x_zero else x, b)
         ref = vl.fused_down_reference(c, x, b, x_zero=x_zero)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    got_x, _ = run_tiles(c, tile, "up", x, b, xc)
+    got_x, _ = run_tiles(c, tile_up, "up", x, b, xc)
     assert torch.equal(got_x, vl.fused_up_reference(c, x, b, xc))
 
 
@@ -195,6 +200,45 @@ def test_updown_plan_limits():
     e, up, rg = 62 * 62, 64 * 64, 2 * 50 * 50
     colors = 3856  # a byte a box cell, to 16 bytes
     assert vl.tile_smem_bytes(48, 48, 7, 1, 4) == (e + max(up, rg)) * 4 + colors
+
+
+def shape_cache(dims, k, n_off, dtype=torch.float32):
+    """A leg cache with the plans of a ``dims`` level and no planes (the
+    plans read only shapes, stencil, steps and the itemsize)."""
+    grid = LEG_COLORS[n_off]
+    empty = torch.empty(0, dtype=dtype)
+    return vl.with_tile_plans(vl.FusedLegCache(
+        A=empty, dinv=empty, T=empty, S=empty, offsA=LEG_OFFSETS[n_off], color_grid=grid,
+        n_colors=len({c for row in grid for c in row}), k=k, row_dims=dims,
+        col_dims=(-(-dims[0] // k), -(-dims[1] // k)), omega=1.0, iter=1, forward=True, backward=True,
+    ))
+
+
+def test_leg_plan_limits():
+    """K1's and K2's plans: the down leg's box (tile + 2·halo) and the up
+    leg's box plus one reach (its Tup area) within the register map's 64
+    cells a side; K2 pipelined only on 5-point levels in float32, where
+    its stage and tile buffers fit a block; none past 64 steps, for 13
+    points, or where no k × k tile's box fits."""
+    L0 = shape_cache((4096, 4096), 3, 5)  # the flagship's L0: 3 steps
+    assert len(L0.steps) == 3 and (L0.down_tile, L0.up_tile) == ((54, 54), (54, 54))  # boxes 64, 60 (+2)
+    assert L0.up_pipelined
+    # A, dinv, b, x, S over the box; T over the box plus one reach; x_c under it
+    stage = ((5 + 4) * 60 * 60 + 62 * 62 + 22 * 22) * 4
+    assert vl.stage_bytes((60, 60), 5, 1, 3, 4) == stage
+    assert stage + vl.tile_smem_bytes(54, 54, 3, 1, 4) <= vl.SMEM_LIMIT - vl.DESC_BYTES
+    assert not shape_cache((4096, 4096), 3, 5, torch.float64).up_pipelined
+    L1 = shape_cache((1366, 1366), 3, 9)  # L1: 7 steps
+    assert len(L1.steps) == 7 and (L1.down_tile, L1.up_tile) == ((45, 45), (48, 48))  # boxes 63, 62 (+2)
+    assert not L1.up_pipelined
+    assert vl.plan_down((37, 41), 2, OFFS5, 3) == (38, 42)
+    assert vl.plan_up((64, 70), 2, OFFS9, 7) == (48, 48)
+    offs13 = OFFS9 + ((-2, 0), (2, 0), (0, -2), (0, 2))
+    assert vl.plan_down((100, 100), 2, offs13, 5) is None and vl.plan_up((100, 100), 2, offs13, 5) is None
+    assert vl.plan_down((4096, 4096), 3, OFFS5, 65) is None and vl.plan_up((4096, 4096), 3, OFFS5, 65) is None
+    assert vl.plan_down((4096, 4096), 3, OFFS9, 29) is None  # halo 31: 2 cells left < k
+    assert vl.plan_up((4096, 4096), 3, OFFS9, 30) is None  # Tup area: 64 - 2·31 < k
+    assert vl.plan_up((4096, 4096), 2, OFFS9, 30) == (2, 2)
 
 
 def test_register_boxes_fit_shared_memory():
