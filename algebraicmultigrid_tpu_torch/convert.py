@@ -64,12 +64,12 @@ from .models.device import (
     DeviceLevel,
     JacobiCache,
     MaskedMulticolorCache,
-    ScanGSCache,
     multicolor_cache,
 )
 from .ops.banded import SDIA, DenseOp, bt_op
 from .ops.bsg import bsg_op
 from .ops.kernels.gs_sweep import build_gs_sweep_cache
+from .ops.kernels.scan_gs import scan_gs_cache
 from .ops.kernels.subcycle_kernel import make_fused_subcycle_cache
 from .ops.kernels.sweep3d import build_sweep3d_cache
 from .ops.kernels.tail_kernel import make_fused_tail_cache
@@ -159,8 +159,7 @@ def _smoother(d, dtype, device, A):
             omega, iters, fwd, bwd,
         )
     if kind == "ScanGSCache":
-        return ScanGSCache(diag=_tensor(d["diag"], dtype, device), omega=omega, iter=iters,
-                           forward=fwd, backward=bwd)
+        return scan_gs_cache(A, _tensor(d["diag"], dtype, device), omega, iters, fwd, bwd)
     if kind in _SWEEP_KINDS:
         fallback = _smoother(d["fallback"], dtype, device, A) if d.get("fallback") is not None else None
         cache = _SWEEP_KINDS[kind](

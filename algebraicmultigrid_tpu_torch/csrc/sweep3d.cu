@@ -3,23 +3,28 @@
 //
 // Replaces the Pallas TPU kernel _sweep3d_kernel of the JAX package's
 // ops/pallas/sweep3d_kernel.py (pallas_call in _sweep3d_call, via
-// smooth_sweep3d).  The TPU version keeps x-slabs of full y-z planes in
-// VMEM, from a second, halo-padded copy of every plane and an int32 color
-// field; at 256^3 one y-z plane of float32 is 256 KB, over an SM's shared
-// memory, and the copy would be 470 MB.  Here all three axes are tiled, the
-// LatND planes, b and dinv are read in place, the color comes from the
-// coordinates and the periodic table, and only x's tile plus halo is staged
-// in shared memory (csrc/sweep_tile.cuh has the design, the halo argument
-// and what bounds it).
+// smooth_sweep3d).  The TPU version marches over x-slabs of full y-z planes
+// in VMEM; at 256^3 one y-z plane of float32 is 256 KB, over an SM's shared
+// memory.  So a block marches along axis 0 over a y-z column (tile plus
+// halo on axes 1 and 2) and a segment of planes, each plane's x landing
+// once in a ring in shared memory by cp.async and the color steps running
+// as a wavefront a reach behind each other (csrc/sweep_march.cuh, planned
+// by ops/kernels/tiled_sweep.py plan_march).
+//
+// The halo-tile kernel (csrc/sweep_tile.cuh's 3-D instantiation, all three
+// axes tiled), K7's first design, stays as amg_sweep3d_<T>: the march takes
+// every level it takes, and it is only the comparison that chip_smoke.py
+// and the card tests hold the march against.
 //
 // The entry points launch on the caller's stream, allocate nothing and
 // return a CUDA error code for the wrapper to check.
 
+#include "sweep_march.cuh"
 #include "sweep_tile.cuh"
 
 // x_out = the smoother applied to x_in with rhs b on an n0 x n1 x n2 LatND
 // level: A [n_off, n0, n1, n2], dinv [n0 * n1 * n2], offs n_off triples,
-// color table of periods per, ext the loaded box.
+// color table of periods per; the halo-tile kernel with ext the loaded box.
 #define AMG_SWEEP3D_ENTRY(T, SUFFIX)                                           \
   extern "C" int amg_sweep3d_##SUFFIX(                                         \
       void* x_out, const void* x_in, const void* b, const void* A,             \
@@ -31,5 +36,26 @@
                                          omega, stream);                       \
   }
 
+// the same on the march: plan = (E1, E2, seg), the y-z box and the planes
+// a segment owns
+#define AMG_SWEEP3D_MARCH_ENTRY(T, SUFFIX)                                     \
+  extern "C" int amg_sweep3d_march_##SUFFIX(                                   \
+      void* x_out, const void* x_in, const void* b, const void* A,             \
+      const void* dinv, const int* dims, const int* offs, int n_off,           \
+      const int* per, const int* tab, const int* steps, int n_steps,           \
+      const int* plan, double omega, void* stream) {                           \
+    return amg::launch_march_sweep<T>(x_out, x_in, b, A, dinv, dims, offs,     \
+                                      n_off, per, tab, steps, n_steps, plan,   \
+                                      omega, stream);                          \
+  }
+
+// the shared memory of a march block over an E1 x E2 box (the wrapper's
+// plan checks it)
+extern "C" int amg_sweep3d_march_smem_bytes(int E1, int E2, int n_steps, int r0, int itemsize) {
+  return (int)amg::march_smem_bytes(E1, E2, amg::march_ring(n_steps, r0), itemsize);
+}
+
 AMG_SWEEP3D_ENTRY(float, f32)
 AMG_SWEEP3D_ENTRY(double, f64)
+AMG_SWEEP3D_MARCH_ENTRY(float, f32)
+AMG_SWEEP3D_MARCH_ENTRY(double, f64)

@@ -1,6 +1,7 @@
 // One whole multicolor GS/SOR smoother application on a lattice level, as
-// ONE launch: the shared design of K5 (gs_sweep.cu, Lat2D levels) and K7
-// (sweep3d.cu, 3-D LatND levels).
+// ONE launch: K5 (gs_sweep.cu, Lat2D levels) and K7's first design
+// (sweep3d.cu, 3-D LatND levels), which its march (sweep_march.cuh)
+// replaced and which stays as the march's comparison.
 //
 // The smoother runs the color steps c = steps[0], steps[1], ... in order;
 // step c updates every grid cell of color c:

@@ -57,7 +57,7 @@ from ..ops.banded import bt_from_csr, dense_from_csr, mat_vec, sdia_from_csr
 from ..ops.bsg import bsg_from_csr, rcm_permutation
 from ..ops.coloring import color_steps, graph_coloring
 from ..ops.kernels.gs_sweep import GSSweepCache, build_gs_sweep_cache, smooth_gs
-from ..ops.kernels.scan_gs import smooth_scan_gs
+from ..ops.kernels.scan_gs import ScanGSCache, scan_gs_cache, smooth_scan_gs
 from ..ops.kernels.subcycle_kernel import build_fused_subcycle_cache, fused_subcycle
 from ..ops.kernels.sweep3d import Sweep3DCache, build_sweep3d_cache, smooth_sweep3d
 from ..ops.kernels.tail_kernel import build_fused_tail_cache, fused_tail
@@ -120,17 +120,6 @@ class MulticolorCache:
     cols: torch.Tensor  # int64 [n_colors, cmax, width]
     dinv: torch.Tensor  # [n_colors, cmax]
     sizes: Tuple[int, ...]
-    omega: float
-    iter: int
-    forward: bool
-    backward: bool
-
-
-@dataclasses.dataclass(frozen=True)
-class ScanGSCache:
-    """The exact natural-order GS/SOR recurrence over ELL rows."""
-
-    diag: torch.Tensor  # [rows_padded]
     omega: float
     iter: int
     forward: bool
@@ -277,7 +266,7 @@ def _apply_smoother(cache, A, x, b):
     if isinstance(cache, MulticolorCache):
         return _smooth_multicolor(cache, A, x, b)
     if isinstance(cache, ScanGSCache):
-        return smooth_scan_gs(A, cache.diag, x, b, cache.omega, cache.iter, cache.forward, cache.backward)
+        return smooth_scan_gs(A, cache, x, b)
     raise TypeError(f"unknown device smoother cache {type(cache).__name__}")
 
 
@@ -491,8 +480,7 @@ def _build_smoother_cache(config, A_host, A_dev, dtype, device, sym=False, sweep
             raise TypeError("natural-order GS requires the ELL device format")
         d = np.zeros(rows_padded, dtype=np_dt)
         d[: A_host.shape[0]] = A_host.diagonal().astype(np_dt)
-        return ScanGSCache(diag=torch.as_tensor(d, device=device), omega=omega, iter=config.iter,
-                           forward=fwd, backward=bwd)
+        return scan_gs_cache(A_dev, torch.as_tensor(d, device=device), omega, config.iter, fwd, bwd)
     raise TypeError(f"unknown smoother config {config!r}")
 
 

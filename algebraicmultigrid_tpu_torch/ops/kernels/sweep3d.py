@@ -6,23 +6,28 @@ opt-in (``AMG_SWEEP3D=1``) because its TPU compiler crashed on the kernel;
 its semantics are pinned to the masked sweep, and the port makes it the
 default smoother of every 3-D LatND level with no zero diagonal and a
 periodic coloring (``models/device.py``).  The TPU gates on ``nz % 128``
-and on the VMEM budget are its layout and are not ported; the port's own
-shape limit is ``tiled_sweep.plan_box``.  The CUDA kernel
-(``csrc/sweep3d.cu`` on ``csrc/sweep_tile.cuh``) tiles all three axes and
-reads the LatND planes, x, b and D⁻¹ in place — no second, halo-padded copy
-of the planes and no color field — one launch per application.
-``smooth_sweep3d`` launches it on a CUDA tensor and runs the plain version
-(the step-by-step masked sweep, ``tiled_sweep.tiled_sweep_reference``) on a
-CPU tensor.
+and on the VMEM budget are its layout and are not ported.  Like the TPU
+kernel, the CUDA kernel (``csrc/sweep3d.cu``) marches along axis 0: a
+block walks a y-z column (tile plus halo) over a segment of planes, each
+plane's x landing once in a ring in shared memory, the color steps a
+wavefront a reach behind each other (``csrc/sweep_march.cuh``, planned by
+``tiled_sweep.plan_march``); a level past its limits keeps the masked
+sweep.  One launch per application.  ``smooth_sweep3d`` launches it on a
+CUDA tensor and runs the plain version (the step-by-step masked sweep,
+``tiled_sweep.tiled_sweep_reference``) on a CPU tensor.
+``smooth_sweep3d_tile`` runs K7's first design, the halo-tile kernel
+(``csrc/sweep_tile.cuh``), which the march replaced: it is the comparison
+that ``chip_smoke.py`` and the card tests hold the march against.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-from .tiled_sweep import TiledSweepCache, launch_tiled_sweep, tiled_sweep_cache, tiled_sweep_reference
+from .tiled_sweep import TiledSweepCache, launch_tiled_sweep, plan_box, tiled_sweep_cache, tiled_sweep_reference
 
-__all__ = ["Sweep3DCache", "build_sweep3d_cache", "smooth_sweep3d", "smooth_sweep3d_reference"]
+__all__ = ["Sweep3DCache", "build_sweep3d_cache", "smooth_sweep3d", "smooth_sweep3d_reference", "smooth_sweep3d_tile"]
 
 
 class Sweep3DCache(TiledSweepCache):
@@ -47,3 +52,12 @@ def smooth_sweep3d_reference(cache: Sweep3DCache, x, b):
 def smooth_sweep3d(cache: Sweep3DCache, x, b):
     """One smoother application to flat padded x, b; returns a new x."""
     return launch_tiled_sweep(cache, x, b, "sweep3d", "sweep3d")
+
+
+def smooth_sweep3d_tile(cache: Sweep3DCache, x, b):
+    """The same application by K7's first design, the halo-tile kernel, on
+    the box ``plan_box`` gives the level (counted as a K7 launch)."""
+    box, why = plan_box(3, cache.dims, cache.offsets, len(cache.steps), cache.A.data.element_size())
+    if box is None:
+        raise ValueError(f"sweep3d: the halo-tile kernel does not take this level: {why}")
+    return launch_tiled_sweep(dataclasses.replace(cache, box=box, march=None), x, b, "sweep3d", "sweep3d")

@@ -8,10 +8,20 @@ omega)``, in order, the cells of color c take
     x ← x + ω·D⁻¹(b − A·x)
 
 with x read as 0 outside the grid; the padding rows past the level are
-never updated.  The CUDA kernel (``csrc/sweep_tile.cuh``) runs the whole
-application as one launch: a tile of x plus a halo of ``n_steps·reach``
-cells per axis in shared memory, every step there, the tiles independent by
-halo over-compute.  A 2-D level is the grid (1, Wx, Wy) of the same kernel.
+never updated.  Each application is one launch, planned when the cache is
+built:
+
+* K5 (``csrc/sweep_tile.cuh``, ``plan_box``, the cache's ``box``): a tile
+  of x plus a halo of ``n_steps·reach`` cells per axis in shared memory,
+  every step there, the tiles independent by halo over-compute.  A 2-D
+  level is the grid (1, Wx, Wy) of the kernel.
+* K7 (``csrc/sweep_march.cuh``, ``plan_march``, the cache's ``march``): a
+  block marches along axis 0 over a y-z column and a segment of planes,
+  each plane's x landing once in a ring in shared memory and the color
+  steps running as a wavefront a reach behind each other.  The march takes
+  every 3-D level that the halo-tile kernel's 3-D instantiation, K7's
+  first design, takes; that one stays only as the march's comparison
+  (``sweep3d.smooth_sweep3d_tile``).
 
 The plain version (``tiled_sweep_reference``) is the step-by-step masked
 sweep: per step one full stencil pass and a masked blend, the arithmetic of
@@ -31,10 +41,14 @@ import torch
 
 from ..coloring import color_steps
 from .vcycle_legs import (
-    MAX_COLOR_CELLS, MAX_OFFSETS, SMEM_LIMIT, SUFFIX, _ints, _stream, check_vector, launches, load_library, raise_on,
+    MAX_COLOR_CELLS, MAX_OFFSETS, SMEM_LIMIT, SUFFIX, _ints, _stream, check_vector, launches, level_launches,
+    load_library, raise_on,
 )
 
-__all__ = ["TiledSweepCache", "plan_box", "tiled_sweep_cache", "tiled_sweep_reference", "launch_tiled_sweep"]
+__all__ = [
+    "MarchPlan", "TiledSweepCache", "card_shape", "plan_box", "plan_march", "tiled_sweep_cache",
+    "tiled_sweep_reference", "launch_tiled_sweep",
+]
 
 log = logging.getLogger(__name__)
 
@@ -47,6 +61,36 @@ BOX = {2: (1, 32, 64), 3: (14, 14, 64)}
 MIN_TILE = 8
 # the grid's tile counts on axes 0 and 1 are CUDA grid dimensions
 MAX_TILES = 65_535
+# K7's march (csrc/sweep_march.cuh): the y-z box (tile + 2 halo on axes 1
+# and 2) it starts from per itemsize, chosen by kernel_variants.py sweeps;
+# the kernel's own constants: the planes a time step loads, steps and
+# stores (kMarchBatch), the batches loaded ahead (kMarchDepth), the axis-2
+# neighbours a thread updates (kMarchUnit) and the block's threads
+MARCH_BOX = {4: (32, 64), 8: (32, 32)}
+MARCH_BATCH = 4
+MARCH_DEPTH = 1
+MARCH_UNIT = 2
+MARCH_MAX_THREADS = 1024
+# (SMs, shared memory bytes and threads an SM) of the card the segment plan
+# fills where the level is not on one: the H100 SXM the kernels are built
+# for (sm_90a); and the shared memory the card reserves for each block
+H100_SM = (132, 233_472, 2048)
+SM_SMEM_RESERVE = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchPlan:
+    """K7's march on one level: the y-z box and the planes a segment owns;
+    from them, x's ring depth in planes and the block's shared memory."""
+
+    box: Tuple[int, int]
+    seg: int
+    ring: int
+    smem: int
+
+    def args(self) -> Tuple[int, ...]:
+        """The plan as the C entry point takes it."""
+        return (*self.box, self.seg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +105,7 @@ class TiledSweepCache:
     periods: Tuple[int, int, int]
     color_table: Tuple[int, ...]            # flat, C order over periods
     n_colors: int
-    box: Tuple[int, int, int]               # tile + 2·halo per axis
+    box: Optional[Tuple[int, int, int]]     # K5: tile + 2·halo per axis
     omega: float
     iter: int
     forward: bool
@@ -70,6 +114,7 @@ class TiledSweepCache:
     # the level's masked multicolor cache, which runs a multi-RHS x[n, k]
     # (the JAX package's ``fallback`` field); None where none was built
     fallback: Any = None
+    march: Optional[MarchPlan] = None       # K7
 
     @property
     def steps(self) -> Tuple[int, ...]:
@@ -111,6 +156,77 @@ def plan_box(nd: int, dims, offsets, n_steps: int, itemsize: int):
     return tuple(box), None
 
 
+def card_shape(device=None) -> Tuple[int, int, int]:
+    """(SMs, shared memory bytes an SM, threads an SM) of ``device``'s card,
+    from its properties; ``H100_SM`` for a device that is not a card."""
+    if device is None or torch.device(device).type != "cuda":
+        return H100_SM
+    p = torch.cuda.get_device_properties(device)
+    return (p.multi_processor_count, getattr(p, "shared_memory_per_multiprocessor", H100_SM[1]),
+            getattr(p, "max_threads_per_multi_processor", H100_SM[2]))
+
+
+def march_segment(n0: int, h0: int, columns: int, smem: int, threads: int, card=H100_SM) -> int:
+    """The planes a segment owns: the count of segments whose blocks fill
+    whole waves of ``card`` (``card_shape``) best, each block's time taken
+    as its planes (segment plus both end halos), a wave as one block on
+    each of the blocks an SM holds (by shared memory and threads) times the
+    SMs."""
+    sms, sm_smem, sm_threads = card
+    per_sm = max(1, min(sm_smem // max(smem + SM_SMEM_RESERVE, 1), sm_threads // max(threads, 1)))
+    slots = sms * per_sm
+
+    def cost(n_seg):
+        return -(-columns * n_seg // slots) * (-(-n0 // n_seg) + 2 * h0)
+
+    return -(-n0 // min(range(1, n0 + 1), key=cost))
+
+
+def march_ring(n_steps: int, r0: int, batch: int = MARCH_BATCH) -> int:
+    """x's ring depth in planes (``csrc/sweep_march.cuh`` march_ring): with
+    the batch ending at plane M, the planes M − (n_steps+1)·r0 − P + 1 …
+    M + depth·P that time M reads or has in flight, and P − r0 more (the
+    next loads must not reach the planes this time stores)."""
+    return (n_steps + 1) * r0 + batch + MARCH_DEPTH * batch + max(batch - r0, 0)
+
+
+def plan_march(dims, offsets, n_steps: int, itemsize: int, box=None, seg=None, device=None):
+    """(MarchPlan, None), or (None, why) when the level is past the march's
+    limits: more than 64 color steps, a ring that leaves no ``MIN_TILE``
+    tile of the y-z box within an SM's shared memory and the block's
+    threads, or more columns or segments than a CUDA grid dimension holds.
+    The box starts from ``box`` (default ``MARCH_BOX[itemsize]``) and the
+    segment is ``seg`` planes at most (default: ``march_segment`` on
+    ``device``'s card)."""
+    box = MARCH_BOX.get(itemsize, MARCH_BOX[8]) if box is None else box
+    if not 1 <= n_steps <= MAX_STEPS:
+        return None, f"{n_steps} color steps (the kernel takes 1..{MAX_STEPS})"
+    reach = [max(abs(d[a]) for d in offsets) for a in range(3)]
+    halo = [n_steps * r for r in reach]
+    ring = march_ring(n_steps, reach[0])
+    least = [2 * halo[a] + min(MIN_TILE, dims[a]) for a in (1, 2)]
+    ext = [min(max(e, lo), dims[a] + 2 * halo[a]) for e, lo, a in zip(box, least, (1, 2))]
+
+    def threads(e):  # one step unit a thread
+        return e[0] * -(-e[1] // MARCH_UNIT)
+
+    while math.prod(ext) * ring * itemsize > SMEM_LIMIT or threads(ext) > MARCH_MAX_THREADS:
+        a = max(range(2), key=lambda i: ext[i] - least[i])
+        if ext[a] <= least[a]:
+            need = math.prod(least) * ring * itemsize
+            return None, (f"a y-z box of {least} cells with a ring of {ring} planes needs {need} bytes of shared"
+                          f" memory (limit {SMEM_LIMIT}) and {threads(least)} threads (limit {MARCH_MAX_THREADS})")
+        ext[a] = max(least[a], (ext[a] + least[a]) // 2)
+    smem = math.prod(ext) * ring * itemsize
+    tiles = [-(-dims[a + 1] // (ext[a] - 2 * halo[a + 1])) for a in range(2)]
+    if seg is None:
+        seg = march_segment(dims[0], halo[0], tiles[0] * tiles[1], smem, threads(ext), card_shape(device))
+    n_seg = -(-dims[0] // seg)
+    if max(tiles[0], n_seg) > MAX_TILES:
+        return None, f"{tiles[0]} columns on axis 1 and {n_seg} segments (each takes at most {MAX_TILES})"
+    return MarchPlan(box=tuple(ext), seg=-(-dims[0] // n_seg), ring=ring, smem=smem), None
+
+
 def tiled_sweep_cache(
     cls, A, dinv, color_table, n_colors: int, omega: float, iters: int, fwd: bool, bwd: bool, fallback=None,
 ) -> Optional[TiledSweepCache]:
@@ -125,11 +241,13 @@ def tiled_sweep_cache(
         raise ValueError(f"a {tab.ndim}-D color table for a {nd}-D level")
     dims, offsets, periods = _as3(A.row_dims, A.offsets, tab.shape)
     steps = color_steps(int(n_colors), int(iters), bool(fwd), bool(bwd), float(omega))
-    why = None
+    box = march = None
     if len(offsets) > MAX_OFFSETS:
         why = f"{len(offsets)} offsets (the kernel takes {MAX_OFFSETS})"
     elif tab.size > MAX_COLOR_CELLS:
         why = f"a color table of {tab.size} cells (the kernel takes {MAX_COLOR_CELLS})"
+    elif nd == 3:
+        march, why = plan_march(dims, offsets, len(steps), A.data.element_size(), device=A.data.device)
     else:
         box, why = plan_box(nd, dims, offsets, len(steps), A.data.element_size())
     if why is not None:
@@ -139,6 +257,7 @@ def tiled_sweep_cache(
         A=A, dinv=dinv, dims=dims, offsets=offsets, periods=periods,
         color_table=tuple(int(c) for c in tab.ravel()), n_colors=int(n_colors), box=box,
         omega=float(omega), iter=int(iters), forward=bool(fwd), backward=bool(bwd), nd=nd, fallback=fallback,
+        march=march,
     )
 
 
@@ -196,8 +315,10 @@ def tiled_sweep_reference(cache: TiledSweepCache, x, b):
 
 def launch_tiled_sweep(cache: TiledSweepCache, x, b, entry: str, counter: str):
     """Run the smoother: the plain version on a CPU tensor, else one launch
-    of ``amg_<entry>_<f32|f64>`` (counted under ``launches[counter]``) or
-    an exception."""
+    of ``amg_<entry>_march_<f32|f64>`` on a cache with a march plan or
+    ``amg_<entry>_<f32|f64>`` on its tile box (counted under
+    ``launches[counter]`` and, by grid, ``level_launches``) or an
+    exception."""
     if x.device.type == "cpu":
         return tiled_sweep_reference(cache, x, b)
     if x.device.type != "cuda":
@@ -214,13 +335,17 @@ def launch_tiled_sweep(cache: TiledSweepCache, x, b, entry: str, counter: str):
     x_out = torch.empty_like(x)
     if x.shape[0] > n:
         x_out[n:] = x[n:]
-    fn = getattr(load_library(), f"amg_{entry}_{SUFFIX[x.dtype]}")
+    march = cache.march is not None
+    if not march and cache.box is None:
+        raise ValueError(f"{entry}: the cache has no plan")
+    fn = getattr(load_library(), f"amg_{entry}{'_march' if march else ''}_{SUFFIX[x.dtype]}")
     err = fn(
         x_out.data_ptr(), x.data_ptr(), b.data_ptr(), planes.data_ptr(), cache.dinv.data_ptr(),
         _ints(cache.dims), _ints([v for d in cache.offsets for v in d]), len(cache.offsets),
-        _ints(cache.periods), _ints(cache.color_table), _ints(steps), len(steps), _ints(cache.box),
-        cache.omega, _stream(x),
+        _ints(cache.periods), _ints(cache.color_table), _ints(steps), len(steps),
+        _ints(cache.march.args() if march else cache.box), cache.omega, _stream(x),
     )
     raise_on(err, f"{entry} kernel")
     launches[counter] += 1
+    level_launches[counter, cache.dims] += 1
     return x_out

@@ -29,8 +29,8 @@ plain version only for tensors on the CPU; on a CUDA tensor they launch the
 kernel or raise.  ``launches`` counts the kernel launches of every wrapper
 of that library (``tail`` is the whole-tail kernel's, ``sub`` the
 whole-subcycle kernel's, ``bsg`` the BSG SpMV's, ``scan_gs`` the natural-order sweep's, ``gs`` K5's, ``sweep3d``
-K7's and ``halo`` K8's); ``level_launches`` counts the leg kernels' launches
-by level.
+K7's and ``halo`` K8's); ``level_launches`` counts the leg and whole-sweep
+kernels' launches by level.
 
 Left for later (as in the JAX package, they are not on the SA main path):
 the non-factored R/P-plane branches and bf16 coefficient storage.
@@ -85,7 +85,9 @@ SOURCES = tuple(
         "sweep3d.cu", "halo_stencil.cu",
     )
 )
-HEADERS = (CSRC / "stencil.cuh", CSRC / "leg_tile.cuh", CSRC / "tail_levels.cuh", CSRC / "sweep_tile.cuh")
+HEADERS = tuple(
+    CSRC / f for f in ("stencil.cuh", "leg_tile.cuh", "tail_levels.cuh", "sweep_tile.cuh", "sweep_march.cuh")
+)
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # the kernels' fixed parameter-struct capacities (csrc/stencil.cuh)
@@ -116,7 +118,7 @@ MAX_TILE_ROWS = 65_535
 launches = {
     "down": 0, "up": 0, "updown": 0, "tail": 0, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
 }
-# the leg kernels' launches by level: (counter, fine grid dims) -> count
+# the leg and whole-sweep kernels' launches by level: (counter, grid dims) -> count
 level_launches = collections.Counter()
 
 
@@ -538,9 +540,10 @@ _SIGNATURES = {
     "amg_fused_updown_{}": [_P] * 9 + _STENCIL + [_I] * 7 + [_P],
     "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_fused_subcycle_{}": [_P, _I, _I, _P, _P, _P, _P, _I, _L, _L, _I, _P],
-    "amg_scan_gs_{}": [_P] * 6 + [_I, _I, _D, _I, _I, _I, _P],
+    "amg_scan_gs_{}": [_P] * 9 + [_I, _I, _I, _D, _I, _I, _I, _I, _P],
     "amg_gs_sweep_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
     "amg_sweep3d_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
+    "amg_sweep3d_march_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
     "amg_halo_stencil_{}": [_P, _P, _L, _P, _P, _IP] + [_I] * 5 + [_P],
 }
 
@@ -566,6 +569,8 @@ def load_library():
     lib.amg_tile_smem_bytes.argtypes, lib.amg_tile_smem_bytes.restype = [_I] * 5, _I
     lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L] + [_I] * 7 + _STENCIL
     lib.amg_tail_fill_level.restype = _I
+    lib.amg_scan_gs_smem_bytes.argtypes, lib.amg_scan_gs_smem_bytes.restype = [_I] * 5, _I
+    lib.amg_sweep3d_march_smem_bytes.argtypes, lib.amg_sweep3d_march_smem_bytes.restype = [_I] * 5, _I
     lib.amg_bsg_spmv_f32.argtypes = [_P] * 5 + [_L, _I, _I, _L, _P]
     lib.amg_bsg_spmv_f32.restype = _I
     _lib = lib

@@ -8,8 +8,9 @@ Runs, in order, and exits non-zero on the first failure:
    ``fused_updown``; ``csrc/tail_kernel.cu`` with K4 ``fused_tail``;
    ``csrc/subcycle_kernel.cu`` with K9 ``fused_subcycle``;
    ``csrc/bsg_spmv.cu`` with K6; ``csrc/scan_gs.cu``; ``csrc/gs_sweep.cu``
-   with K5; ``csrc/sweep3d.cu`` with K7 and ``csrc/halo_stencil.cu`` with
-   K8), one ``nvcc`` per source, all started together, then one link;
+   with K5; ``csrc/sweep3d.cu`` with K7's march and, for comparison, its
+   first design, the halo-tile kernel, and ``csrc/halo_stencil.cu`` with K8), one ``nvcc`` per source, all
+   started together, then one link;
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes of the 4096² problem — K1/K2/K3 at level 0 (4096²)
    and level 1 (1366²), K4 on the tail (456² … 6² plus the 2×2 coarse
@@ -46,7 +47,8 @@ Runs, in order, and exits non-zero on the first failure:
    (max relative error <= 1e-5), timing kernel, plain version and the
    cuSPARSE SpMV of the same permuted CSR (``torch.sparse_csr_tensor``),
    and the natural-order sweep ``scan_gs`` against its plain version on
-   L3 and L4;
+   L3 and L4, timed in turns on its planned route (the level staged in
+   shared memory) and its streamed route;
 9. drives the unstructured solve with the counters zeroed just before:
    ``cg_device(tol=1e-6)`` and ``solve_refined(tol=1e-8)`` (its float64
    outer residual an ELL SpMV on the card), each residual checked in the caller's ordering with a scipy
@@ -59,18 +61,19 @@ Runs, in order, and exits non-zero on the first failure:
     rows + an 8-row QR, operator complexity 1.14878, L0 a LatND with 7
     offsets, 2 colors and the K7 cache (steps 0, 1, 0), L1–L4 lowered as the
     JAX package lowers them (SDIA A; P BSG/BSG/Dense/SDIA; R
-    ELL/ELL/Dense/SDIA); holds K7 against its plain version at L0 and on a
-    13×9×100 grid in float32 and float64 (max relative error <= 1e-5 and
-    1e-12); runs ``cg_device(tol=1e-6)`` and ``solve_refined(tol=1e-8)`` with
+    ELL/ELL/Dense/SDIA); asserts that L0's K7 has a march plan, holds K7
+    against its plain version at L0 and on a 13×9×100 grid in float32 and
+    float64 (max relative error <= 1e-5 and 1e-12), the march and the
+    halo-tile kernel it replaced, and times the two in turns at L0; runs ``cg_device(tol=1e-6)`` and ``solve_refined(tol=1e-8)`` with
     the counters zeroed just before, each residual checked with a float64
     LatND SpMV on the card; then one V-cycle, with exactly 2 K7 launches
     and the K6 launches derived from the hierarchy, and its time;
 11. sets up the 4096² flagship with forward-GS presmoothing and
     backward-GS postsmoothing, which has no legs and no tail: asserts 8
     levels and K5 on every Lat2D level, holds K5 against its plain version
-    at L0 (4096²) and L1 (1366²), runs ``solve_refined(tol=1e-8)`` with the
+    and times it at every Lat2D level (L0 4096² … L6 6²), runs ``solve_refined(tol=1e-8)`` with the
     counters zeroed just before, and counts one V-cycle: exactly 14 K5
-    launches and none of K1–K4;
+    launches (2 on every Lat2D level) and none of K1–K4;
 12. lowers the 4096² flagship of phase 4 with ``subcycle=True`` and asserts
     ``sub_start`` 1 and ``tail_start`` 2, as the JAX package gives them;
     holds K9 ``fused_subcycle`` against its plain version at L1 (1366²) in
@@ -445,12 +448,13 @@ def zero_counts():
 
 
 def read_level_counts():
-    """The leg kernels' launches by level: {counter: {"Wx×Wy": count}}."""
+    """The leg and whole-sweep kernels' launches by level: {counter:
+    {"Wx×Wy": count}} (K5's grids as "1×Wx×Wy")."""
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     out = {}
     for (name, dims), count in sorted(vl.level_launches.items()):
-        out.setdefault(name, {})[f"{dims[0]}x{dims[1]}"] = count
+        out.setdefault(name, {})["x".join(str(d) for d in dims)] = count
     return out
 
 
@@ -690,17 +694,21 @@ def bsg_work(B):
 
 def scan_gs_work(A, cache):
     """(bytes, flops) of one natural-order smoother application: the level's
-    ELL data and columns, diag, b and x in once and x out once; 2 flops a
-    stored entry plus 6 a row, per sweep."""
+    split halves (data and int16 columns), dshift, diag, b and x in once and
+    x out once; 2 flops a stored entry plus 6 a row, per sweep."""
+    sp = cache.split
     itemsize = A.data.element_size()
     sweeps = cache.iter * (int(cache.forward) + int(cache.backward))
-    words = A.rows_padded * 4
-    return A.data.numel() * itemsize + A.cols.numel() * 8 + words * itemsize, sweeps * (2 * A.nnz + 6 * A.shape[0])
+    halves = (sp.lo_data.numel() + sp.up_data.numel()) * (itemsize + 2)
+    return halves + A.rows_padded * 5 * itemsize, sweeps * (2 * A.nnz + 6 * A.shape[0])
 
 
 def compare_unstructured_kernels(device, ml, h):
     """Phase 8: K6 at the L0/L1/L2 shapes against its plain version and
-    cuSPARSE, and scan_gs on L3/L4 against its plain version."""
+    cuSPARSE, and scan_gs on L3/L4 against its plain version, timed in turns
+    against its streamed route."""
+    import dataclasses
+
     import torch
 
     from algebraicmultigrid_tpu_torch.models.device import ScanGSCache
@@ -738,13 +746,20 @@ def compare_unstructured_kernels(device, ml, h):
         c, A = L.pre, L.A
         x = torch.randn(A.rows_padded, generator=gen).to(device)
         b = torch.randn(A.rows_padded, generator=gen).to(device)
-        run = (A, c.diag, x, b, c.omega, c.iter, c.forward, c.backward)
-        got, ref = smooth_scan_gs(*run), smooth_scan_gs_reference(*run)
+        # the planned route against the streamed one (the halves in device
+        # memory), in turns
+        streamed = dataclasses.replace(c, split=dataclasses.replace(c.split, route="streamed"))
+        ref = smooth_scan_gs_reference(A, c.diag, x, b, c.omega, c.iter, c.forward, c.backward)
+        got, got_s = smooth_scan_gs(A, c, x, b), smooth_scan_gs(A, streamed, x, b)
         torch.cuda.synchronize()
         abs_err, rel_err = errors(got, ref)
+        ms, streamed_ms, turns = in_turns(lambda: smooth_scan_gs(A, c, x, b), lambda: smooth_scan_gs(A, streamed, x, b))
         r = dict(
             level=lvl, rows=A.shape[0], K=A.width, nnz=A.nnz, max_abs_err=abs_err, max_rel_err=rel_err,
-            ms=time_ms(lambda: smooth_scan_gs(*run)), plain_ms=time_ms(lambda: smooth_scan_gs_reference(*run), reps=2),
+            route=c.split.route, halves=(c.split.lo_data.shape[0], c.split.up_data.shape[0]),
+            streamed_rel_err=errors(got_s, ref)[1], ms=ms, streamed_ms=streamed_ms, turns_ms=turns,
+            plain_ms=time_ms(lambda: smooth_scan_gs_reference(A, c.diag, x, b, c.omega, c.iter, c.forward,
+                                                              c.backward), reps=2),
             library_ms=None,
         )
         r["bound_ms"], r["bound_by"] = bound(*scan_gs_work(A, c), 1)
@@ -754,8 +769,11 @@ def compare_unstructured_kernels(device, ml, h):
             log(f"kernel {name} L{r['level']} rows {r['rows']} K {r['K']}: max_rel_err {r['max_rel_err']!r}"
                 f" max_abs_err {r['max_abs_err']!r} kernel {r['ms']!r} ms plain {r['plain_ms']!r} ms"
                 + (f" cusparse {r['library_ms']!r} ms (rel diff {r['cusparse_rel_diff']!r})" if r["library_ms"] else "")
+                + (f" route {r['route']} halves {r['halves']}; streamed route {r['streamed_ms']!r} ms"
+                   f" (in turns, kernel/streamed/streamed/kernel: {r['turns_ms']!r}; streamed max_rel_err"
+                   f" {r['streamed_rel_err']!r})" if "route" in r else "")
                 + f" bound {r['bound_ms']!r} ms ({r['bound_by']})")
-            if not r["max_rel_err"] <= KERNEL_RTOL:
+            if not max(r["max_rel_err"], r.get("streamed_rel_err", 0.0)) <= KERNEL_RTOL:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
     return rows
 
@@ -867,24 +885,37 @@ def sweep_work(cache):
     return (len(cache.offsets) + 4) * n, flops
 
 
-def compare_sweep(name, fn, ref, cache, x, b, level, timed=True):
-    """One whole-sweep kernel against its plain version (and timed)."""
+def compare_sweep(name, fn, ref, cache, x, b, level, timed=True, tile=None):
+    """One whole-sweep kernel against its plain version (and timed); with
+    ``tile`` (K7's first design, the halo-tile kernel) that one is also held
+    against the plain version and timed in turns against the kernel."""
     import torch
 
     got, want = fn(cache, x, b), ref(cache, x, b)
+    got_tile = tile(cache, x, b) if tile is not None else None
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, want)
     key = str(x.dtype).removeprefix("torch.")
-    r = dict(level=level, dims=cache.dims, dtype=key, steps=cache.steps, box=cache.box,
-             max_abs_err=abs_err, max_rel_err=rel_err)
+    route = "march" if cache.march else "tile"
+    r = dict(level=level, dims=cache.dims, dtype=key, steps=cache.steps, route=route, box=cache.box,
+             march=cache.march.args() if cache.march else None, max_abs_err=abs_err, max_rel_err=rel_err)
+    if tile is not None:
+        r["tile_rel_err"] = errors(got_tile, want)[1]
     if timed:
-        r["ms"], r["plain_ms"] = time_ms(lambda: fn(cache, x, b)), time_ms(lambda: ref(cache, x, b))
+        if tile is None:
+            r["ms"] = time_ms(lambda: fn(cache, x, b))
+        else:
+            r["ms"], r["tile_ms"], r["turns_ms"] = in_turns(lambda: fn(cache, x, b), lambda: tile(cache, x, b))
+        r["plain_ms"] = time_ms(lambda: ref(cache, x, b))
         r["bound_ms"], r["bound_by"] = bound(*sweep_work(cache), x.element_size())
-    log(f"kernel {name} {level} dims {cache.dims} {key} steps {cache.steps} box {cache.box}:"
-        f" max_rel_err {rel_err!r} max_abs_err {abs_err!r}"
+    log(f"kernel {name} {level} dims {cache.dims} {key} steps {cache.steps} route {route}"
+        f" {r['march'] if cache.march else cache.box}: max_rel_err {rel_err!r} max_abs_err {abs_err!r}"
+        + (f" halo-tile kernel max_rel_err {r['tile_rel_err']!r}" if tile is not None else "")
         + (f" kernel {r['ms']!r} ms plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']})"
-           if timed else ""))
-    if not rel_err <= SWEEP_RTOL[key]:
+           if timed else "")
+        + (f"; halo-tile kernel {r['tile_ms']!r} ms (in turns, march/tile/tile/march: {r['turns_ms']!r})"
+           if timed and tile is not None else ""))
+    if not max(rel_err, r.get("tile_rel_err", 0.0)) <= SWEEP_RTOL[key]:
         raise AssertionError(f"{name} disagrees with its plain version: {r}")
     return r
 
@@ -899,7 +930,7 @@ def lattice_3d(device):
     from algebraicmultigrid_tpu_torch.models.lattice_nd import lattice_coloring_nd
     from algebraicmultigrid_tpu_torch.ops.banded import mat_vec
     from algebraicmultigrid_tpu_torch.ops.kernels.sweep3d import (
-        Sweep3DCache, build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference,
+        Sweep3DCache, build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference, smooth_sweep3d_tile,
     )
     from algebraicmultigrid_tpu_torch.ops.lattice_nd_op import latnd_from_spec
 
@@ -926,6 +957,8 @@ def lattice_3d(device):
     for c in (L0.pre, L0.post):
         if not (isinstance(c, Sweep3DCache) and c.n_colors == 2 and c.steps == (0, 1, 0)):
             raise AssertionError(f"L0 smoother {c!r} is not K7 with 2 colors and steps (0, 1, 0)")
+        if c.march is None:
+            raise AssertionError(f"L0's K7 has no march plan (tile box {c.box})")
     if fmt[1:] != N3_FORMATS:
         raise AssertionError(f"L1-L4 lowered to {fmt[1:]}, not {N3_FORMATS}")
 
@@ -942,7 +975,7 @@ def lattice_3d(device):
     x, b = vec(n0, pad0, torch.float32), vec(n0, pad0, torch.float32)
     for c in (L0.pre, L0.post):
         rows_k7.append(compare_sweep("sweep3d", smooth_sweep3d, smooth_sweep3d_reference, c, x, b, "L0",
-                                     timed=c is L0.pre))
+                                     timed=c is L0.pre, tile=smooth_sweep3d_tile))
     del x, b
     prob = amt.poisson(ODD3, lattice=True)
     tab, nc = lattice_coloring_nd(prob.spec)
@@ -954,7 +987,7 @@ def lattice_3d(device):
         for it, fwd, bwd, omega in ((1, True, True, 1.0), (1, True, False, 1.0), (2, True, True, 1.3)):
             c = build_sweep3d_cache(A, dinv.to(device), tab, nc, omega, it, fwd, bwd)
             rows_k7.append(compare_sweep("sweep3d", smooth_sweep3d, smooth_sweep3d_reference, c, x, b,
-                                         "odd", timed=False))
+                                         "odd", timed=False, tile=smooth_sweep3d_tile))
 
     # the solves, with the counters zeroed just before
     bh = np.random.default_rng(4).standard_normal(n0)
@@ -1048,7 +1081,7 @@ def lattice_fwd_bwd(device):
 
     gen = torch.Generator(device="cpu").manual_seed(5)
     rows_k5 = []
-    for lvl in (0, 1):
+    for lvl in lat:
         L = h.levels[lvl]
         n, pad = L.A.shape[0], L.A.rows_padded
         x = torch.zeros(pad)
@@ -1078,12 +1111,15 @@ def lattice_fwd_bwd(device):
     _one_iteration(h, amt.V(), xv, bv)
     torch.cuda.synchronize()
     per_cycle = read_counts()
+    per_level = read_level_counts().get("gs", {})
     vcycle_ms = time_ms(lambda: _one_iteration(h, amt.V(), xv, bv), reps=10)
     h_plain = amt.build_device_hierarchy(ml, device=device, dtype=torch.float32, sweeps=False)
     plain_vcycle_ms = time_ms(lambda: _one_iteration(h_plain, amt.V(), xv, bv), reps=10)
     del h_plain
     log(f"fwd/bwd vcycle_ms kernels {vcycle_ms!r} masked sweeps {plain_vcycle_ms!r};"
-        f" launches per V-cycle {per_cycle}")
+        f" launches per V-cycle {per_cycle}; K5 by level {per_level}")
+    for r in rows_k5:
+        r["launches_per_vcycle"] = per_level.get("x".join(str(d) for d in r["dims"]), 0)
 
     if not (x.shape == (N * N,) and np.isfinite(x).all()):
         raise AssertionError("fwd/bwd: the solution is not a finite vector of the problem's size")
@@ -1095,6 +1131,8 @@ def lattice_fwd_bwd(device):
     want["gs"] = FB_K5_PER_VCYCLE
     if per_cycle != want:
         raise AssertionError(f"fwd/bwd V-cycle launches {per_cycle} != {want}")
+    if any(r["launches_per_vcycle"] != 2 for r in rows_k5):
+        raise AssertionError(f"K5 launches by level {per_level}: not 2 (pre, post) on every Lat2D level")
     return rows_k5, counts, per_cycle, vcycle_ms
 
 
@@ -1632,23 +1670,36 @@ def main():
         kernels.append(row)
     for name, rs in rows_u.items():
         first = rs[0]  # K6 at L0, scan_gs at L3
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=u_counts[COUNTER[name]], launches_per_vcycle=u_cycle[COUNTER[name]],
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],
-        ))
+        )
+        if name == "scan_gs":
+            # each level's route and time beside the streamed route's, in turns
+            row["by_level"] = [{k: r[k] for k in ("level", "rows", "route", "ms", "streamed_ms", "bound_ms")}
+                               for r in rs]
+        kernels.append(row)
     for name, rs, counts, cycle in (("gs_sweep", rows_k5, counts_fb, cycle_fb),
                                     ("sweep3d", rows_k7, counts_3d, cycle_3d)):
         first = rs[0]  # L0's presmoother, float32
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=counts[COUNTER[name]], launches_per_vcycle=cycle[COUNTER[name]],
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=None,
-        ))
+        )
+        if name == "sweep3d":
+            # the march at L0 and the halo-tile kernel (K7's first design), timed in turns
+            row.update(kernel_route=first["route"], tile_route_ms=first["tile_ms"])
+        else:
+            # every Lat2D level's pre and post smoother, with its launches a V-cycle
+            row["by_level"] = [{k: r[k] for k in ("level", "dims", "steps", "ms", "plain_ms", "bound_ms",
+                                                  "launches_per_vcycle")} for r in rs]
+        kernels.append(row)
     kernels.append(dict(
         name="fused_subcycle", route="cuda", source=SOURCES["fused_subcycle"], replaces=REPLACES["fused_subcycle"],
         launches=cycle_sub["sub"], launches_solve=counts_sub["sub"], max_abs_err=row_sub["max_abs_err"],

@@ -3,7 +3,9 @@ tiles and barrier schemes, on one NVIDIA card: by default the updown leg
 K3 (``fused_updown``) and the whole-tail kernel K4 (``fused_tail``); with
 the argument ``sweeps``, the whole-sweep kernels K7 (``sweep3d``, at L0 of
 256³, symmetric GS) and K5 (``gs_sweep``, at 4096², forward GS) under
-alternative thread blocks and loaded boxes; with ``subcycle``, the
+alternative thread blocks and loaded boxes, and K7's march under
+alternative plans and designs; with ``scan``, the natural-order sweep
+``scan_gs`` under its routes and chain widths; with ``subcycle``, the
 whole-subcycle kernel K9 (``fused_subcycle``, at L1 of 4096²) with its
 levels tiled or pass by pass (``sub_grid_passes``) and under alternative
 tile edges; with ``legs``, the down and up legs K1 (``fused_down``) and K2
@@ -25,11 +27,21 @@ diagnostics split K4's time, dropping its block-0 levels and coarse solve
 (``k4_diag_no_block0``) or its grid levels (``k4_diag_no_grid``).  Run from
 the repository root:
 
-    python3 kernel_variants.py [legs | sweeps | subcycle]
+    python3 kernel_variants.py [legs | sweeps [march] | subcycle | scan]
 
-In ``sweeps`` mode each source variant runs with each box of ``BOXES_3D``
-/ ``BOXES_2D`` (the tile plus halo that ``tiled_sweep.plan_box`` starts
-from), with the error against the plain version.  In ``subcycle`` mode each
+In ``sweeps`` mode each source variant runs K7's first design (the
+halo-tile kernel) and K5 with each box of ``BOXES_3D`` / ``BOXES_2D`` (the
+tile plus halo that ``tiled_sweep.plan_box`` starts from), and K7's march:
+the tree under each plan of ``MARCH_VARIANTS`` (y-z box, segment length),
+the ``march_*`` source variants (planes a batch, batches loaded ahead, one
+cell a thread, b/dinv and the coefficient planes staged in rings rather
+than read in place) under their ``MARCH_PLANS``, each with the error
+against the plain version (``sweeps march``: the march's variants alone,
+with the ``march_diag_*`` builds, diagnostics that drop its steps, loads or
+step barriers to split its time).  In ``scan`` mode ``scan_gs`` runs on the
+natural-order levels of the scrambled 1024² problem, staged and streamed,
+in the tree (a chain of 32 lanes) and the ``SCAN_VARIANTS`` (16, 8 or one
+lane).  In ``subcycle`` mode each
 source variant runs K9 with each tile edge of ``SUB_TILES`` (set as
 ``tail_kernel.TAIL_TILE``, cut to the register box by the plan), with the
 error against the plain version, and a fixed cycle (``run_fixed_cycles``)
@@ -73,8 +85,63 @@ UPDOWN_TILES_L1 = [(33, 33), (24, 30)]
 TAIL_TILES = [(18, 18), (27, 27), (48, 48)]
 
 
+# K7's march designs that lost (sweep_march.cuh), as source edits: b and
+# dinv, or also the coefficient planes, staged in rings beside x's by the
+# same cp.async groups
+MARCH_H = "sweep_march.cuh"
+MARCH_RING_C = "(n_steps * p.reach[0] + (1 + kMarchDepth) * kMarchBatch)"
+MARCH_LOAD_X = "      march_cp_async(xs + le[j], x_in + (in ? gm + lg[j] : 0), in);\n"
+MARCH_UPDATE = "          xs[e] = xs[e] + omega * __ldg(dinv + gpl + ug[v]) * (__ldg(b + gpl + ug[v]) - acc);"
+MARCH_SMEM = "  const size_t smem = march_smem_bytes(p.ext[0], p.ext[1], p.ring, (int)sizeof(T));"
+
+
+def march_staged(coef):
+    """The edits that stage b and dinv (and with ``coef`` the coefficient
+    planes) in a ring of their own."""
+    arrays = "(2 + n_off)" if coef else "2"
+    load = (MARCH_LOAD_X + "      if (in) {\n        T* cs = cr + ((m - L) % RC) * E + le[j];\n"
+            "        march_cp_async(cs, dinv + gm + lg[j], true);\n"
+            "        march_cp_async(cs + RC * E, b + gm + lg[j], true);\n"
+            + ("        for (int q = 0; q < n_off; ++q) {\n"
+               "          march_cp_async(cs + (2 + q) * RC * E, A + q * plane + gm + lg[j], true);\n"
+               "        }\n" if coef else "")
+            + "      }\n")
+    edits = [
+        (MARCH_H, "  T* xr = reinterpret_cast<T*>(march_smem);  // [RX][E]\n",
+         "  T* xr = reinterpret_cast<T*>(march_smem);  // [RX][E]\n"
+         f"  const int RC = {MARCH_RING_C.replace('n_steps', 'p.n_steps')};\n"
+         "  T* cr = xr + RX * E;  // [arrays][RC][E]: dinv, b, the planes\n"),
+        (MARCH_H, MARCH_LOAD_X, load),
+        (MARCH_H, "          T acc = T(0);\n", "          const T* cs = cr + ((pl - L) % RC) * E + e;\n          T acc = T(0);\n"),
+        (MARCH_H, MARCH_UPDATE, "          xs[e] = xs[e] + omega * cs[0] * (cs[RC * E] - acc);"),
+        (MARCH_H, MARCH_SMEM, MARCH_SMEM.replace("p.ring,", f"p.ring + {arrays} * {MARCH_RING_C},")),
+    ]
+    if coef:
+        edits.append((MARCH_H, "if (k < n_off) acc += __ldg(A + k * plane + gpl + ug[v]) * xr[xk[k] + e];",
+                      "if (k < n_off) acc += cs[(2 + k) * RC * E] * xr[xk[k] + e];"))
+    return edits
+
+
+def march_batch(n):
+    return [(MARCH_H, "constexpr int kMarchBatch = 4;", f"constexpr int kMarchBatch = {n};")]
+
+
 SWEEP_VARIANTS = {
     "tree": [],
+    "march_batch1": march_batch(1),
+    "march_batch2": march_batch(2),
+    "march_depth2": [(MARCH_H, "constexpr int kMarchDepth = 1;", "constexpr int kMarchDepth = 2;")],
+    "march_cells": [(MARCH_H, "constexpr int kMarchUnit = 2;", "constexpr int kMarchUnit = 1;")],
+    "march_stage_rhs": march_batch(2) + march_staged(False),
+    "march_stage_coef": march_batch(1) + march_staged(True),
+    # diagnostics of K7's march, not designs (their results are wrong, their
+    # errors say so): without its color steps, without its loads, or without
+    # the barriers between steps, to split its time
+    "march_diag_no_steps": [("sweep_march.cuh", "        if (!row_in || pl < L + (s + 1) * r0",
+                             "        if (true || !row_in || pl < L + (s + 1) * r0")],
+    "march_diag_no_loads": [("sweep_march.cuh", "      if (m0 + j < U) load(m0 + j);", "      if (false) load(m0 + j);")],
+    "march_diag_no_step_barriers": [("sweep_march.cuh", "      }\n      __syncthreads();\n    }\n\n    // the planes M",
+                                     "      }\n    }\n\n    // the planes M")],
     "threads512": [
         ("sweep_tile.cuh", "kSweepThreads = 256;", "kSweepThreads = 512;"),
         ("sweep_tile.cuh", "y = ND == 3 ? 4 : 8;", "y = ND == 3 ? 4 : 16;"),
@@ -110,6 +177,25 @@ SUB_TILES = (18, 27, 36, 45)
 # (12, 12, 64) is lifted to (14, 14, 64): a one-step-per-halo tile keeps 8 cells
 BOXES_3D = [(14, 14, 64), (20, 20, 64), (16, 16, 64), (24, 24, 64), (14, 16, 128), (32, 32, 32)]
 BOXES_2D = [(1, 32, 64), (1, 64, 128), (1, 32, 128), (1, 16, 128), (1, 64, 64), (1, 16, 256)]
+# K7's march at L0 of 256³ (sweeps mode): the tree under plans other than
+# its own, by the keywords of tiled_sweep.plan_march (a y-z box whose ring
+# or threads do not fit is cut by the plan) ...
+MARCH_VARIANTS = [
+    {}, {"box": (32, 32)}, {"box": (24, 64)}, {"box": (16, 128)}, {"box": (32, 96)}, {"seg": 26}, {"seg": 128},
+]
+# ... and the march_* source variants under theirs (default: the tree's);
+# the planner does not know their rings or threads, so these boxes fit them
+MARCH_PLANS = {
+    "march_cells": [{"box": (16, 64)}, {"box": (32, 32)}],
+    "march_stage_coef": [{"box": (32, 32)}, {"box": (16, 64)}],
+}
+# scan mode: the natural-order levels of the scrambled 1024² problem on the
+# staged and streamed routes, per source variant: the chain in 16, 8 or
+# one lane (the tree's in 32)
+SCAN_VARIANTS = {"tree": []} | {
+    f"lanes{k}": [("scan_gs.cu", "constexpr int kChainLanes = 32;", f"constexpr int kChainLanes = {k};")]
+    for k in (16, 8, 1)
+}
 
 
 def edit(text, old, new):
@@ -136,8 +222,20 @@ def build(root, variants):
             raise SystemExit(f"variant {name} failed to build: {e}")
 
 
-def sweeps(use):
-    """K7 at 256³ and K5 at 4096², per source variant and box."""
+def rel_err(got, want):
+    """Max relative error, inf where a diagnostic's output is not finite."""
+    got, want = got.double(), want.double()
+    if not bool(got.isfinite().all()):
+        return float("inf")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def sweeps(use, names, march_only=False):
+    """K7's halo-tile route at 256³ and K5 at 4096², per source variant and
+    box; K7's march at 256³ per plan variant (``march_only``: the march
+    alone)."""
+    import dataclasses
+
     import torch
 
     import algebraicmultigrid_tpu_torch as amt
@@ -169,17 +267,78 @@ def sweeps(use):
         dinv = torch.as_tensor(np.pad(1.0 / spec.diagonal(), (0, A.rows_padded - n)), dtype=torch.float32).cuda()
         x = torch.randn(A.rows_padded, generator=gen).cuda()
         b = torch.randn(A.rows_padded, generator=gen).cuda()
+        if len(dims) == 3:
+            c3, x3, b3 = build_c(A, dinv, tab, nc, 1.0, 1, *fwd_bwd), x, b
+            want3 = ref(c3, x, b)
         for box in boxes:
             ts.BOX[len(dims)] = box
             c = build_c(A, dinv, tab, nc, 1.0, 1, *fwd_bwd)
+            if len(dims) == 3:  # K7's first design, the halo-tile kernel
+                c = dataclasses.replace(c, box=ts.plan_box(3, c.dims, c.offsets, len(c.steps), 4)[0], march=None)
             cases.append((dims, box, c, fn, x, b, ref(c, x, b)))
+    if march_only:
+        cases = []
     for rnd in range(ROUNDS):
-        for name in SWEEP_VARIANTS:
+        for name in names:
             use(name)
             for dims, box, c, fn, x, b, want in cases:
-                err = cs.errors(fn(c, x, b), want)[1]
+                err = rel_err(fn(c, x, b), want)
                 ms = cs.time_ms(lambda: fn(c, x, b))
-                print(f"round {rnd} {name:12s} {dims} box {c.box}: {ms!r} ms  max_rel_err {err!r}", flush=True)
+                print(f"round {rnd} {name:16s} {dims} tile box {c.box}: {ms!r} ms  max_rel_err {err!r}", flush=True)
+            # K7's march at L0 of 256³, symmetric GS
+            for kw in MARCH_VARIANTS if name == "tree" else MARCH_PLANS.get(name, [{}]):
+                plan, why = ts.plan_march(c3.dims, c3.offsets, len(c3.steps), 4, device=x3.device, **kw)
+                if plan is None:
+                    print(f"march {kw}: no plan ({why})", flush=True)
+                    continue
+                c = dataclasses.replace(c3, march=plan)
+                err = rel_err(smooth_sweep3d(c, x3, b3), want3)
+                ms = cs.time_ms(lambda: smooth_sweep3d(c, x3, b3))
+                print(f"round {rnd} {name:16s} march {kw} plan {plan.args()}: {ms!r} ms  max_rel_err {err!r}",
+                      flush=True)
+
+
+def scan(use):
+    """scan_gs on the natural-order levels of the scrambled 1024² problem,
+    staged and streamed, per source variant."""
+    import dataclasses
+
+    import scipy.sparse as sp
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import ScanGSCache
+    from algebraicmultigrid_tpu_torch.ops.kernels.scan_gs import smooth_scan_gs, smooth_scan_gs_reference
+
+    import chip_smoke as cs
+
+    use("tree")
+    A = sp.csr_matrix(amt.poisson((cs.NU, cs.NU)))
+    p = np.random.default_rng(cs.NU_SEED).permutation(A.shape[0])
+    ml = amt.smoothed_aggregation(A[p][:, p].tocsr())
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    cases = []
+    for lvl, L in enumerate(h.levels):
+        if not isinstance(L.pre, ScanGSCache):
+            continue
+        c, sp_ = L.pre, L.pre.split
+        x = torch.randn(L.A.rows_padded, generator=gen).cuda()
+        b = torch.randn(L.A.rows_padded, generator=gen).cuda()
+        want = smooth_scan_gs_reference(L.A, c.diag, x, b, c.omega, c.iter, c.forward, c.backward)
+        splits = [("streamed", dataclasses.replace(sp_, route="streamed"))]
+        if sp_.route == "staged":
+            splits = [("staged", sp_)] + splits
+        for label, split in splits:
+            cases.append((lvl, L.A, dataclasses.replace(c, split=split), label, x, b, want))
+    for rnd in range(ROUNDS):
+        for name in SCAN_VARIANTS:
+            use(name)
+            for lvl, A_, c, label, x, b, want in cases:
+                err = cs.errors(smooth_scan_gs(A_, c, x, b), want)[1]
+                ms = cs.time_ms(lambda: smooth_scan_gs(A_, c, x, b))
+                print(f"round {rnd} {name:8s} L{lvl} rows {A_.shape[0]} {label:15s}: {ms!r} ms  max_rel_err {err!r}",
+                      flush=True)
 
 
 def subcycle(use):
@@ -372,7 +531,11 @@ def main():
         print("no CUDA card: kernel_variants needs one")
         return 1
     mode = sys.argv[1] if sys.argv[1:] else ""
-    variants = {"sweeps": SWEEP_VARIANTS, "subcycle": SUB_VARIANTS, "legs": LEG_VARIANTS}.get(mode, VARIANTS)
+    variants = {"sweeps": SWEEP_VARIANTS, "subcycle": SUB_VARIANTS, "legs": LEG_VARIANTS,
+                "scan": SCAN_VARIANTS}.get(mode, VARIANTS)
+    march_only = mode == "sweeps" and sys.argv[2:] == ["march"]
+    if march_only:
+        variants = {k: v for k, v in variants.items() if k == "tree" or k.startswith("march")}
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
@@ -393,8 +556,12 @@ def main():
             vl.library_path = lambda: root / name / "lib.so"
             vl.load_library()
 
-        if variants is SWEEP_VARIANTS:
-            sweeps(use)
+        if mode == "sweeps":
+            sweeps(use, list(variants), march_only)
+            print(card)
+            return 0
+        if mode == "scan":
+            scan(use)
             print(card)
             return 0
         if variants is SUB_VARIANTS:

@@ -436,6 +436,10 @@ def test_cuda_bsg_matches_plain_version(ml_unstructured):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_scan_gs_matches_plain_version(ml_unstructured, dtype):
+    """Every natural-order level on its planned route and on the streamed
+    route."""
+    import dataclasses
+
     from algebraicmultigrid_tpu_torch.models.device import ScanGSCache, build_device_hierarchy
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
     from algebraicmultigrid_tpu_torch.ops.kernels.scan_gs import smooth_scan_gs, smooth_scan_gs_reference
@@ -445,15 +449,34 @@ def test_cuda_scan_gs_matches_plain_version(ml_unstructured, dtype):
     assert levels
     tol = TOL if dtype == torch.float32 else 1e-12
     before = vl.launches["scan_gs"]
+    runs = 0
     for i, L in enumerate(levels):
-        c = L.pre
+        c, sp = L.pre, L.pre.split
+        splits = [sp, dataclasses.replace(sp, route="streamed")]
         x, b = _vec(L.A.shape[0], L.A.rows_padded, 8 + i, dtype), _vec(L.A.shape[0], L.A.rows_padded, 9 + i, dtype)
         for fwd, bwd in ((True, False), (False, True), (True, True)):
-            run = (L.A, c.diag, x, b, c.omega, 2, fwd, bwd)
-            got = smooth_scan_gs(*run)
-            torch.cuda.synchronize()
-            assert _rel(got, smooth_scan_gs_reference(*run)) < tol
-    assert vl.launches["scan_gs"] == before + 3 * len(levels)
+            want = smooth_scan_gs_reference(L.A, c.diag, x, b, c.omega, 2, fwd, bwd)
+            for split in splits:
+                got = smooth_scan_gs(L.A, dataclasses.replace(c, iter=2, forward=fwd, backward=bwd, split=split), x, b)
+                torch.cuda.synchronize()
+                assert _rel(got, want) < tol, split.route
+                runs += 1
+    assert vl.launches["scan_gs"] == before + runs
+
+
+def test_cuda_scan_gs_smem_matches_the_plan():
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.scan_gs import smem_bytes
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    lib = vl.load_library()
+    for rows, w_lo, w_up in ((376, 10, 10), (2048, 13, 14), (24, 0, 5)):
+        for itemsize in (4, 8):
+            for staged in (False, True):
+                assert lib.amg_scan_gs_smem_bytes(rows, w_lo, w_up, itemsize, int(staged)) == smem_bytes(
+                    rows, w_lo, w_up, itemsize, staged
+                )
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -505,27 +528,47 @@ def _sweep_case(prob, dtype):
 
 
 # (5, 3, 4) is smaller than one tile; (13, 9, 100) and (45, 45, 45) end in
-# partial tiles
+# partial tiles.  Each configuration runs the march as planned, the
+# halo-tile kernel (K7's first design, the march's comparison) and the
+# march on other boxes and short segments.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("dims", [(5, 3, 4), (13, 9, 100), (45, 45, 45)])
 def test_cuda_sweep3d_matches_plain_version(ml, dims, dtype):
+    import dataclasses
+
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
     from algebraicmultigrid_tpu_torch.ops.kernels.sweep3d import (
-        build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference,
+        build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference, smooth_sweep3d_tile,
     )
+    from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import plan_march
 
+    lib = vl.load_library()
     A, dinv, tab, nc = _sweep_case(amt.poisson(dims, lattice=True), dtype)
     n = A.shape[0]
     x, b = _vec(n, A.rows_padded, 12, dtype), _vec(n, A.rows_padded, 13, dtype)
     tol = TOL if dtype == torch.float32 else 1e-12
     before = vl.launches["sweep3d"]
+    runs = 0
     for it, fwd, bwd, omega in SWEEP_CONFIGS:
         c = build_sweep3d_cache(A, dinv, tab, nc, omega, it, fwd, bwd)
-        got = smooth_sweep3d(c, x, b)
+        assert c.march is not None and c.box is None
+        S, size = len(c.steps), A.data.element_size()
+        assert lib.amg_sweep3d_march_smem_bytes(*c.march.box, S, 1, size) == c.march.smem
+        want = smooth_sweep3d_reference(c, x, b)
+        got = smooth_sweep3d_tile(c, x, b)
         torch.cuda.synchronize()
-        assert got.shape == x.shape and _rel(got, smooth_sweep3d_reference(c, x, b)) < tol
-    assert vl.launches["sweep3d"] == before + len(SWEEP_CONFIGS)
+        assert got.shape == x.shape and _rel(got, want) < tol, "tile"
+        variants = [c]
+        for kw in (dict(seg=3), dict(seg=1), dict(box=(16, 16)), dict(box=(24, 48), seg=7)):
+            plan, _ = plan_march(c.dims, c.offsets, S, size, **kw)
+            variants.append(dataclasses.replace(c, march=plan))
+        for v in variants:
+            got = smooth_sweep3d(v, x, b)
+            torch.cuda.synchronize()
+            assert got.shape == x.shape and _rel(got, want) < tol, v.march
+        runs += len(variants) + 1
+    assert vl.launches["sweep3d"] == before + runs
 
 
 # (3, 5) is smaller than one tile; the 9-point (131, 77) grid has four
