@@ -14,6 +14,9 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace amg {
 
@@ -232,6 +235,24 @@ inline int make_colors(ColorGrid* cg, const int* tab, int a, int b) {
   cg->b = b;
   for (int t = 0; t < a * b; ++t) cg->tab[t] = tab[t];
   return 0;
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to at least `bytes` on the
+// current device, once per kernel, device and size rather than on every
+// launch (the default limit is 48 KB).  Returns a CUDA error code.
+inline int ensure_dynamic_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> raised;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = raised[{dev, kernel}];
+  if (bytes <= have) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) have = bytes;
+  return (int)err;
 }
 
 // One cooperative launch with as many blocks as can be co-resident

@@ -22,18 +22,27 @@
 #include "sweep_march.cuh"
 #include "sweep_tile.cuh"
 
+// the march's instances on a 3-D level: blocks of up to 1024 threads, 4
+// planes a time step, the 7-point stencil's offsets as a constant
+template <typename T>
+amg::MarchInstance<T> sweep3d_march(int n_off) {
+  if (n_off == 7) return {amg::march_sweep_kernel<T, 7, 1024, amg::kMarchBatch>, amg::kMarchBatch, 1024};
+  return {amg::march_sweep_kernel<T, 0, 1024, amg::kMarchBatch>, amg::kMarchBatch, 1024};
+}
+
 // x_out = the smoother applied to x_in with rhs b on an n0 x n1 x n2 LatND
 // level: A [n_off, n0, n1, n2], dinv [n0 * n1 * n2], offs n_off triples,
-// color table of periods per; the halo-tile kernel with ext the loaded box.
+// color table of periods per; the halo-tile kernel with ext the loaded box;
+// pad counts x's rows past the level.
 #define AMG_SWEEP3D_ENTRY(T, SUFFIX)                                           \
   extern "C" int amg_sweep3d_##SUFFIX(                                         \
       void* x_out, const void* x_in, const void* b, const void* A,             \
       const void* dinv, const int* dims, const int* offs, int n_off,           \
       const int* per, const int* tab, const int* steps, int n_steps,           \
-      const int* ext, double omega, void* stream) {                            \
+      const int* ext, int pad, double omega, void* stream) {                   \
     return amg::launch_tiled_sweep<T, 3>(x_out, x_in, b, A, dinv, dims, offs,  \
                                          n_off, per, tab, steps, n_steps, ext, \
-                                         omega, stream);                       \
+                                         pad, omega, stream);                  \
   }
 
 // the same on the march: plan = (E1, E2, seg), the y-z box and the planes
@@ -43,16 +52,25 @@
       void* x_out, const void* x_in, const void* b, const void* A,             \
       const void* dinv, const int* dims, const int* offs, int n_off,           \
       const int* per, const int* tab, const int* steps, int n_steps,           \
-      const int* plan, double omega, void* stream) {                           \
-    return amg::launch_march_sweep<T>(x_out, x_in, b, A, dinv, dims, offs,     \
-                                      n_off, per, tab, steps, n_steps, plan,   \
-                                      omega, stream);                          \
+      const int* plan, int pad, double omega, void* stream) {                  \
+    return amg::launch_march_sweep<T>(sweep3d_march<T>(n_off), x_out, x_in, b, \
+                                      A, dinv, dims, offs, n_off, per, tab,    \
+                                      steps, n_steps, plan, pad, omega,        \
+                                      stream);                                 \
   }
 
 // the shared memory of a march block over an E1 x E2 box (the wrapper's
 // plan checks it)
 extern "C" int amg_sweep3d_march_smem_bytes(int E1, int E2, int n_steps, int r0, int itemsize) {
-  return (int)amg::march_smem_bytes(E1, E2, amg::march_ring(n_steps, r0), itemsize);
+  return (int)amg::march_smem_bytes(E1, E2, amg::march_ring(n_steps, r0, amg::kMarchBatch), itemsize);
+}
+
+// the march blocks an SM holds on a level of n_off offsets over an E1 x E2
+// box with `smem` bytes a block (the planner fills waves with it)
+extern "C" int amg_sweep3d_march_blocks_per_sm(int n_off, int itemsize, int E1, int E2, int smem) {
+  const int threads = amg::march_threads(E1, E2);
+  return itemsize == 8 ? amg::march_blocks_per_sm(sweep3d_march<double>(n_off), threads, (size_t)smem)
+                       : amg::march_blocks_per_sm(sweep3d_march<float>(n_off), threads, (size_t)smem);
 }
 
 AMG_SWEEP3D_ENTRY(float, f32)

@@ -1,6 +1,11 @@
-// K7's march: one multicolor GS/SOR smoother application on a 3-D LatND
-// level as one launch in which each block marches along axis 0 (the TPU
-// kernel's slab axis) over a y-z column of the grid (sweep3d.cu).
+// The march: one multicolor GS/SOR smoother application on a lattice level
+// as one launch in which each block marches along axis 0 over a column of
+// the grid: K7 on a 3-D LatND level (sweep3d.cu, axis 0 the TPU kernel's
+// slab axis) and K5 on a Lat2D level (gs_sweep.cu).  A Wx x Wy Lat2D level
+// is the grid (Wx, 1, Wy): its offsets (0, dx, dy) become (dx, 0, dy), its
+// color periods (1, a, b) become (a, 1, b), the planes, x, b and dinv are
+// read in place, and a column is a 1 x E2 strip of rows with no axis-1
+// halo, so the march walks the level's rows.
 //
 // The smoother runs the color steps c = steps[0], steps[1], ... in order;
 // step s updates every cell of color steps[s]:
@@ -14,7 +19,8 @@
 // H_a = n_steps * reach_a cells on those axes (the box E1 x E2), and a
 // segment [a, b) of axis 0 plus H_0 = n_steps * reach_0 planes at each end
 // (the planes L = a - H_0 ... U - 1 = b + H_0 - 1).  The block walks them
-// in batches of P = kMarchBatch planes.  When the batch ending at plane M
+// in batches of P planes (a compile-time constant of the instance: K7's
+// kMarchBatch = 4, K5's by stencil in gs_sweep.cu).  When the batch ending at plane M
 // has landed in a ring of x planes in shared memory (loaded by cp.async
 // kMarchDepth batches ahead), step s runs on the P planes ending at
 // M - (s+1)*reach_0 over the box eroded by (s+1)*reach on axes 1 and 2,
@@ -25,10 +31,12 @@
 // every step reads x from shared memory.  The coefficient planes, b and
 // dinv are read in place, each cell's once a step that updates it.
 //
-// What lost (kernel_variants.py sweeps, PERF.md): b and dinv, or also the
-// coefficient planes, staged in rings beside x's (their rings cut the box
-// and the batch); one cell a thread; loads two batches ahead; batches of 1
-// or 2 planes.  The variants edit this file's source.
+// What lost (kernel_variants.py sweeps and sweeps march2d, PERF.md): b
+// and dinv, or also the coefficient planes, staged in rings beside x's
+// (their rings cut the box and the batch; on K5's strips too, by 16-byte
+// cp.async); one cell a thread, or four; loads two batches ahead; a step's
+// coefficients in registers a step ahead; K7 in batches of 1 or 2 planes.
+// The variants edit this file's source.
 //
 // Why it is exact (the wavefront form of sweep_tile.cuh's halo argument).
 // Call plane p "at state s" once steps 0..s have run on it.  Step s runs on
@@ -77,14 +85,14 @@ struct MarchParams {
   int n_steps;
   int seg;          // planes a segment owns (the last may own fewer)
   int ring;         // x's ring depth in planes
+  int pad;          // x's rows past the grid, copied to x_out by block 0
   int d0[kMaxOff];     // offset k's axis-0 component
   int shift[kMaxOff];  // offset k's axes-1/2 part as a flat shift in a box plane
   int tab[kMaxColorCells];
   int steps[kMaxSteps];
 };
 
-constexpr int kMarchMaxThreads = 1024;
-// the planes a time step loads, steps and stores
+// the planes a time step loads, steps and stores (K7's; K5's by stencil)
 constexpr int kMarchBatch = 4;
 // the batches loaded ahead of the one the steps wait for
 constexpr int kMarchDepth = 1;
@@ -98,8 +106,7 @@ constexpr int kMarchCells = 3;
 // - P + 1 ... M + kMarchDepth*P that time M reads or has in flight, and
 // P - r0 more (at least 0) so that the next time's loads do not reach the
 // planes this time stores
-__host__ __device__ inline int march_ring(int n_steps, int r0) {
-  constexpr int P = kMarchBatch;
+__host__ __device__ inline int march_ring(int n_steps, int r0, int P) {
   return (n_steps + 1) * r0 + P + kMarchDepth * P + (P > r0 ? P - r0 : 0);
 }
 
@@ -125,17 +132,21 @@ __device__ __forceinline__ void march_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kMarchDepth) : "memory");
 }
 
-// NOFF: the offsets' count as a compile-time constant (7, the 3-D 7-point
-// stencil: the offsets' ring pointers in registers), or 0 for any count
-template <typename T, int NOFF>
-__global__ void __launch_bounds__(kMarchMaxThreads)
+// NOFF: the offsets' count as a compile-time constant (5 and 9, the 2-D
+// 5- and 9-point stencils, and 7, the 3-D 7-point one: the offsets' ring
+// pointers in registers), or 0 for any count.  MAXT: the block's threads
+// at most, as each entry compiles the kernel: 1024 for K7's y-z boxes, 512
+// for K5's strips, which leaves a thread 128 registers rather than 64 (the
+// 9-point instance takes 80).  P: the planes a time step loads, steps and
+// stores.
+template <typename T, int NOFF, int MAXT, int P>
+__global__ void __launch_bounds__(MAXT)
     march_sweep_kernel(T* __restrict__ x_out, const T* __restrict__ x_in,
                        const T* __restrict__ b, const T* __restrict__ A,
                        const T* __restrict__ dinv, const MarchParams p,
                        const T omega) {
   extern __shared__ __align__(16) unsigned char march_smem[];
   constexpr int KOFF = NOFF > 0 ? NOFF : kMaxOff;
-  constexpr int P = kMarchBatch;
   const int n_off = NOFF > 0 ? NOFF : p.n_off;
   const int E1 = p.ext[0], E2 = p.ext[1], E = E1 * E2;
   const int RX = p.ring;
@@ -151,6 +162,11 @@ __global__ void __launch_bounds__(kMarchMaxThreads)
   const int64_t plane = (int64_t)n0 * n1 * n2;
   const int64_t pstride = (int64_t)n1 * n2;
   const int tid = threadIdx.x, nth = blockDim.x;
+
+  // x's padding rows past the grid pass through unchanged
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+    for (int i = tid; i < p.pad; i += nth) x_out[plane + i] = x_in[plane + i];
+  }
 
   // this thread's load/store cells (e = tid + j * nth): their offset in a
   // grid plane (-1 outside the grid) and whether they are the tile's
@@ -276,19 +292,54 @@ __global__ void __launch_bounds__(kMarchMaxThreads)
   }
 }
 
+// a march kernel's pointer type: every instance's signature, declared once
+// more (never defined) so that naming the type instantiates no kernel
+template <typename T>
+void march_kernel_signature(T* __restrict__, const T* __restrict__, const T* __restrict__,
+                            const T* __restrict__, const T* __restrict__, const MarchParams, const T);
+template <typename T>
+using MarchKernel = decltype(&march_kernel_signature<T>);
+
+// an instance of the march as an entry launches it: the kernel, its batch
+// P and its thread bound
+template <typename T>
+struct MarchInstance {
+  MarchKernel<T> kernel;
+  int batch;
+  int max_threads;
+};
+
+// the threads of a block over an E1 x E2 box: one step unit a thread,
+// whole warps
+inline int march_threads(int E1, int E2) {
+  return ((E1 * ((E2 + kMarchUnit - 1) / kMarchUnit) + 31) / 32) * 32;
+}
+
+// the blocks of `inst` an SM holds with `smem` bytes a block (registers,
+// shared memory and threads), for the planner's waves; -1 on an error
+template <typename T>
+int march_blocks_per_sm(const MarchInstance<T>& inst, int threads, size_t smem) {
+  if (ensure_dynamic_smem(reinterpret_cast<const void*>(inst.kernel), smem)) return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, inst.kernel, threads, smem) != cudaSuccess) return -1;
+  return n;
+}
+
 // Fill the parameters and launch; returns a CUDA error code
 // (cudaErrorInvalidValue for parameters the kernel does not take).  offs
 // holds n_off triples (d0, d1, d2), tab per0*per1*per2 colors; plan =
-// (E1, E2, seg): the y-z box and the planes a segment owns.
+// (E1, E2, seg): the y-z box and the planes a segment owns; pad counts x's
+// rows past the grid, which x_out takes unchanged; inst the entry's
+// instance for n_off.
 template <typename T>
-int launch_march_sweep(void* x_out, const void* x_in, const void* b,
+int launch_march_sweep(const MarchInstance<T>& inst, void* x_out, const void* x_in, const void* b,
                        const void* A, const void* dinv, const int* dims,
                        const int* offs, int n_off, const int* per,
                        const int* tab, const int* steps, int n_steps,
-                       const int* plan, double omega, void* stream) {
+                       const int* plan, int pad, double omega, void* stream) {
   const int bad = (int)cudaErrorInvalidValue;
   MarchParams p;
-  if (n_off < 1 || n_off > kMaxOff || n_steps < 1 || n_steps > kMaxSteps) return bad;
+  if (n_off < 1 || n_off > kMaxOff || n_steps < 1 || n_steps > kMaxSteps || pad < 0) return bad;
   for (int a = 0; a < 3; ++a) {
     p.dims[a] = dims[a];
     p.per[a] = per[a];
@@ -315,9 +366,10 @@ int launch_march_sweep(void* x_out, const void* x_in, const void* b,
   }
   const unsigned segs = (unsigned)((dims[0] + p.seg - 1) / p.seg);
   if (tiles[0] > 65535u || segs > 65535u) return bad;
-  p.ring = march_ring(n_steps, p.reach[0]);
+  p.ring = march_ring(n_steps, p.reach[0], inst.batch);
   p.n_off = n_off;
   p.n_steps = n_steps;
+  p.pad = pad;
   for (int k = 0; k < n_off; ++k) {
     p.d0[k] = offs[3 * k];
     p.shift[k] = offs[3 * k + 1] * p.ext[1] + offs[3 * k + 2];
@@ -328,15 +380,11 @@ int launch_march_sweep(void* x_out, const void* x_in, const void* b,
   const size_t smem = march_smem_bytes(p.ext[0], p.ext[1], p.ring, (int)sizeof(T));
   // one step unit a thread, and at most kMarchCells box cells a thread to
   // load and store
-  const int units = p.ext[0] * ((p.ext[1] + kMarchUnit - 1) / kMarchUnit);
-  const int threads = ((units + 31) / 32) * 32;
-  if (threads > kMarchMaxThreads || p.ext[0] * p.ext[1] > kMarchCells * threads) return bad;
-  auto kernel = n_off == 7 ? march_sweep_kernel<T, 7> : march_sweep_kernel<T, 0>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(tiles[1], tiles[0], segs), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int threads = march_threads(p.ext[0], p.ext[1]);
+  if (threads > inst.max_threads || p.ext[0] * p.ext[1] > kMarchCells * threads) return bad;
+  const int err = ensure_dynamic_smem(reinterpret_cast<const void*>(inst.kernel), smem);
+  if (err) return err;
+  inst.kernel<<<dim3(tiles[1], tiles[0], segs), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(x_out), static_cast<const T*>(x_in), static_cast<const T*>(b),
       static_cast<const T*>(A), static_cast<const T*>(dinv), p, static_cast<T>(omega));
   return (int)cudaGetLastError();

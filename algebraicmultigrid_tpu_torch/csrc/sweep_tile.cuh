@@ -1,6 +1,6 @@
 // One whole multicolor GS/SOR smoother application on a lattice level, as
-// ONE launch: K5 (gs_sweep.cu, Lat2D levels) and K7's first design
-// (sweep3d.cu, 3-D LatND levels), which its march (sweep_march.cuh)
+// ONE launch: the first design of K5 (gs_sweep.cu, Lat2D levels) and of K7
+// (sweep3d.cu, 3-D LatND levels), which their march (sweep_march.cuh)
 // replaced and which stays as the march's comparison.
 //
 // The smoother runs the color steps c = steps[0], steps[1], ... in order;
@@ -54,6 +54,7 @@ struct SweepParams {
   int per[3];     // color periods
   int n_off;
   int n_steps;
+  int pad;        // x's rows past the grid, copied to x_out by block 0
   int shift[kMaxOff];        // offset k as a flat index shift in the box
   int tab[kMaxColorCells];   // color of (i0 % per0, i1 % per1, i2 % per2)
   int steps[kMaxSteps];
@@ -86,6 +87,12 @@ __global__ void __launch_bounds__(kSweepThreads)
   const int o2 = (int)blockIdx.x * (E2 - 2 * p.halo[2]) - p.halo[2];
   const int64_t plane = (int64_t)n0 * n1 * n2;
   const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
+
+  // x's padding rows past the grid pass through unchanged
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+    const int nth = Blk::x * Blk::y * Blk::z;
+    for (int i = (tz * Blk::y + ty) * Blk::x + tx; i < p.pad; i += nth) x_out[plane + i] = x_in[plane + i];
+  }
 
   // x over the loaded box, 0 outside the grid
   for (int e0 = tz; e0 < E0; e0 += Blk::z) {
@@ -154,16 +161,17 @@ __global__ void __launch_bounds__(kSweepThreads)
 
 // Fill the parameters from the host's arrays and launch; returns a CUDA
 // error code (cudaErrorInvalidValue for parameters the kernel does not
-// take).  offs holds n_off triples (d0, d1, d2), tab per0*per1*per2 colors.
+// take).  offs holds n_off triples (d0, d1, d2), tab per0*per1*per2 colors;
+// pad counts x's rows past the grid, which x_out takes unchanged.
 template <typename T, int ND>
 int launch_tiled_sweep(void* x_out, const void* x_in, const void* b,
                        const void* A, const void* dinv, const int* dims,
                        const int* offs, int n_off, const int* per,
                        const int* tab, const int* steps, int n_steps,
-                       const int* ext, double omega, void* stream) {
+                       const int* ext, int pad, double omega, void* stream) {
   const int bad = (int)cudaErrorInvalidValue;
   SweepParams p;
-  if (n_off < 1 || n_off > kMaxOff || n_steps < 1 || n_steps > kMaxSteps) {
+  if (n_off < 1 || n_off > kMaxOff || n_steps < 1 || n_steps > kMaxSteps || pad < 0) {
     return bad;
   }
   for (int a = 0; a < 3; ++a) {
@@ -194,6 +202,7 @@ int launch_tiled_sweep(void* x_out, const void* x_in, const void* b,
   if (tiles[0] > 65535u || tiles[1] > 65535u) return bad;
   p.n_off = n_off;
   p.n_steps = n_steps;
+  p.pad = pad;
   for (int k = 0; k < n_off; ++k) {
     p.shift[k] = (offs[3 * k] * ext[1] + offs[3 * k + 1]) * ext[2] + offs[3 * k + 2];
   }
@@ -201,12 +210,8 @@ int launch_tiled_sweep(void* x_out, const void* x_in, const void* b,
   for (int s = 0; s < n_steps; ++s) p.steps[s] = steps[s];
 
   const size_t smem = cells * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        tiled_sweep_kernel<T, ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = ensure_dynamic_smem(reinterpret_cast<const void*>(tiled_sweep_kernel<T, ND>), smem);
+  if (err) return err;
   using Blk = SweepBlock<ND>;
   tiled_sweep_kernel<T, ND>
       <<<dim3(tiles[2], tiles[1], tiles[0]), dim3(Blk::x, Blk::y, Blk::z), smem,

@@ -6,19 +6,26 @@ that has neither fused legs nor a place in the whole-tail kernel, when no
 cell has a zero diagonal; so does the port (``models/device.py``).  The TPU
 kernel's pre-tiled planes with duplicated halos and its per-call re-tiling
 of x and b are its VMEM layout and are not ported: the CUDA kernel
-(``csrc/gs_sweep.cu`` on ``csrc/sweep_tile.cuh``) reads the level's planes,
-x, b and D⁻¹ in place, one launch per application.  ``smooth_gs`` launches
-it on a CUDA tensor and runs the plain version (the step-by-step masked
-sweep, ``tiled_sweep.tiled_sweep_reference``) on a CPU tensor.
+(``csrc/gs_sweep.cu``) reads the level's planes, x, b and D⁻¹ in place, one
+launch per application.  It is the march of K7 (``csrc/sweep_march.cuh``)
+on the level as the grid (Wx, 1, Wy): a block walks a strip of rows
+(``tiled_sweep.plan_march``, ``MARCH_STRIP``) over a segment, each row's x
+landing once in a ring in shared memory; a level past its limits keeps the
+masked sweep.  ``smooth_gs`` launches it on a CUDA tensor and runs the
+plain version (the step-by-step masked sweep,
+``tiled_sweep.tiled_sweep_reference``) on a CPU tensor.  ``smooth_gs_tile``
+runs K5's first design, the halo-tile kernel (``csrc/sweep_tile.cuh``),
+which the march replaced: it is the comparison that ``chip_smoke.py`` and
+the card tests hold the march against.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from .tiled_sweep import TiledSweepCache, launch_tiled_sweep, tiled_sweep_cache, tiled_sweep_reference
+from .tiled_sweep import TiledSweepCache, launch_tiled_sweep, tile_view, tiled_sweep_cache, tiled_sweep_reference
 
-__all__ = ["GSSweepCache", "build_gs_sweep_cache", "smooth_gs", "smooth_gs_reference"]
+__all__ = ["GSSweepCache", "build_gs_sweep_cache", "smooth_gs", "smooth_gs_reference", "smooth_gs_tile"]
 
 
 class GSSweepCache(TiledSweepCache):
@@ -41,3 +48,9 @@ def smooth_gs_reference(cache: GSSweepCache, x, b):
 def smooth_gs(cache: GSSweepCache, x, b):
     """One smoother application to flat padded x, b; returns a new x."""
     return launch_tiled_sweep(cache, x, b, "gs_sweep", "gs")
+
+
+def smooth_gs_tile(cache: GSSweepCache, x, b):
+    """The same application by K5's first design, the halo-tile kernel, on
+    the box ``plan_box`` gives the level (counted as a K5 launch)."""
+    return launch_tiled_sweep(tile_view(cache), x, b, "gs_sweep", "gs")

@@ -22,10 +22,9 @@ that ``chip_smoke.py`` and the card tests hold the march against.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
-from .tiled_sweep import TiledSweepCache, launch_tiled_sweep, plan_box, tiled_sweep_cache, tiled_sweep_reference
+from .tiled_sweep import TiledSweepCache, launch_tiled_sweep, tile_view, tiled_sweep_cache, tiled_sweep_reference
 
 __all__ = ["Sweep3DCache", "build_sweep3d_cache", "smooth_sweep3d", "smooth_sweep3d_reference", "smooth_sweep3d_tile"]
 
@@ -57,7 +56,4 @@ def smooth_sweep3d(cache: Sweep3DCache, x, b):
 def smooth_sweep3d_tile(cache: Sweep3DCache, x, b):
     """The same application by K7's first design, the halo-tile kernel, on
     the box ``plan_box`` gives the level (counted as a K7 launch)."""
-    box, why = plan_box(3, cache.dims, cache.offsets, len(cache.steps), cache.A.data.element_size())
-    if box is None:
-        raise ValueError(f"sweep3d: the halo-tile kernel does not take this level: {why}")
-    return launch_tiled_sweep(dataclasses.replace(cache, box=box, march=None), x, b, "sweep3d", "sweep3d")
+    return launch_tiled_sweep(tile_view(cache), x, b, "sweep3d", "sweep3d")

@@ -534,6 +534,9 @@ _L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _D = ctypes.c_double
 _STENCIL = [_IP, _I, _IP, _I, _I, _IP, _I, _D]  # offs, n_off, colors a x b, steps, omega
+# the whole-sweep entries after their five pointers: dims, offs, n_off, periods, color table, steps,
+# n_steps, plan (box or march), pad, omega, stream
+_SWEEP = [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _I, _D, _P]
 _SIGNATURES = {
     "amg_fused_down_{}": [_P] * 10 + _STENCIL + [_I] * 7 + [_P],
     "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 8 + [_P],
@@ -541,9 +544,10 @@ _SIGNATURES = {
     "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_fused_subcycle_{}": [_P, _I, _I, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_scan_gs_{}": [_P] * 9 + [_I, _I, _I, _D, _I, _I, _I, _I, _P],
-    "amg_gs_sweep_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
-    "amg_sweep3d_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
-    "amg_sweep3d_march_{}": [_P] * 5 + [_IP, _IP, _I, _IP, _IP, _IP, _I, _IP, _D, _P],
+    "amg_gs_sweep_{}": [_P] * 5 + _SWEEP,
+    "amg_gs_sweep_march_{}": [_P] * 5 + _SWEEP,
+    "amg_sweep3d_{}": [_P] * 5 + _SWEEP,
+    "amg_sweep3d_march_{}": [_P] * 5 + _SWEEP,
     "amg_halo_stencil_{}": [_P, _P, _L, _P, _P, _IP] + [_I] * 5 + [_P],
 }
 
@@ -570,7 +574,10 @@ def load_library():
     lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L] + [_I] * 7 + _STENCIL
     lib.amg_tail_fill_level.restype = _I
     lib.amg_scan_gs_smem_bytes.argtypes, lib.amg_scan_gs_smem_bytes.restype = [_I] * 5, _I
-    lib.amg_sweep3d_march_smem_bytes.argtypes, lib.amg_sweep3d_march_smem_bytes.restype = [_I] * 5, _I
+    for name, n_args in (("amg_sweep3d_march_smem_bytes", 5), ("amg_gs_sweep_march_smem_bytes", 6),
+                         ("amg_gs_sweep_march_batch", 1), ("amg_gs_sweep_march_blocks_per_sm", 4),
+                         ("amg_sweep3d_march_blocks_per_sm", 5)):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = [_I] * n_args, _I
     lib.amg_bsg_spmv_f32.argtypes = [_P] * 5 + [_L, _I, _I, _L, _P]
     lib.amg_bsg_spmv_f32.restype = _I
     _lib = lib

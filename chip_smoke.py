@@ -8,8 +8,9 @@ Runs, in order, and exits non-zero on the first failure:
    ``fused_updown``; ``csrc/tail_kernel.cu`` with K4 ``fused_tail``;
    ``csrc/subcycle_kernel.cu`` with K9 ``fused_subcycle``;
    ``csrc/bsg_spmv.cu`` with K6; ``csrc/scan_gs.cu``; ``csrc/gs_sweep.cu``
-   with K5; ``csrc/sweep3d.cu`` with K7's march and, for comparison, its
-   first design, the halo-tile kernel, and ``csrc/halo_stencil.cu`` with K8), one ``nvcc`` per source, all
+   with K5's march and ``csrc/sweep3d.cu`` with K7's, each with its first
+   design, the halo-tile kernel, for comparison; and
+   ``csrc/halo_stencil.cu`` with K8), one ``nvcc`` per source, all
    started together, then one link;
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes of the 4096² problem — K1/K2/K3 at level 0 (4096²)
@@ -70,10 +71,14 @@ Runs, in order, and exits non-zero on the first failure:
     and the K6 launches derived from the hierarchy, and its time;
 11. sets up the 4096² flagship with forward-GS presmoothing and
     backward-GS postsmoothing, which has no legs and no tail: asserts 8
-    levels and K5 on every Lat2D level, holds K5 against its plain version
-    and times it at every Lat2D level (L0 4096² … L6 6²), runs ``solve_refined(tol=1e-8)`` with the
-    counters zeroed just before, and counts one V-cycle: exactly 14 K5
-    launches (2 on every Lat2D level) and none of K1–K4;
+    levels and K5 on every Lat2D level, each on its planned route (the
+    march on the level as the grid (Wx, 1, Wy), ``plan_march``); holds K5's
+    march and the halo-tile kernel it replaced (K5's first design) against
+    the plain version and times the two in turns at every Lat2D level (L0
+    4096² … L6 6²; back-to-back calls, so L2…L6 time the launch path as
+    well), runs ``solve_refined(tol=1e-8)`` with the counters zeroed just
+    before, and counts one V-cycle: exactly 14 K5 launches (2 on every
+    Lat2D level) and none of K1–K4, and times it by CUDA events;
 12. lowers the 4096² flagship of phase 4 with ``subcycle=True`` and asserts
     ``sub_start`` 1 and ``tail_start`` 2, as the JAX package gives them;
     holds K9 ``fused_subcycle`` against its plain version at L1 (1366²) in
@@ -449,7 +454,7 @@ def zero_counts():
 
 def read_level_counts():
     """The leg and whole-sweep kernels' launches by level: {counter:
-    {"Wx×Wy": count}} (K5's grids as "1×Wx×Wy")."""
+    {"Wx×Wy": count}} (K5's grids as "Wx×1×Wy")."""
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     out = {}
@@ -885,36 +890,40 @@ def sweep_work(cache):
     return (len(cache.offsets) + 4) * n, flops
 
 
-def compare_sweep(name, fn, ref, cache, x, b, level, timed=True, tile=None):
+def compare_sweep(name, fn, ref, cache, x, b, level, timed=True, tile=False):
     """One whole-sweep kernel against its plain version (and timed); with
-    ``tile`` (K7's first design, the halo-tile kernel) that one is also held
-    against the plain version and timed in turns against the kernel."""
+    ``tile`` the halo-tile kernel (the kernel's first design, on the view
+    ``tile_view`` gives once) is also held against the plain version and
+    timed in turns against the kernel."""
     import torch
 
+    from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import tile_view
+
     got, want = fn(cache, x, b), ref(cache, x, b)
-    got_tile = tile(cache, x, b) if tile is not None else None
+    cache_tile = tile_view(cache) if tile else None
+    got_tile = fn(cache_tile, x, b) if tile else None
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, want)
     key = str(x.dtype).removeprefix("torch.")
     route = "march" if cache.march else "tile"
     r = dict(level=level, dims=cache.dims, dtype=key, steps=cache.steps, route=route, box=cache.box,
              march=cache.march.args() if cache.march else None, max_abs_err=abs_err, max_rel_err=rel_err)
-    if tile is not None:
+    if tile:
         r["tile_rel_err"] = errors(got_tile, want)[1]
     if timed:
-        if tile is None:
+        if not tile:
             r["ms"] = time_ms(lambda: fn(cache, x, b))
         else:
-            r["ms"], r["tile_ms"], r["turns_ms"] = in_turns(lambda: fn(cache, x, b), lambda: tile(cache, x, b))
+            r["ms"], r["tile_ms"], r["turns_ms"] = in_turns(lambda: fn(cache, x, b), lambda: fn(cache_tile, x, b))
         r["plain_ms"] = time_ms(lambda: ref(cache, x, b))
         r["bound_ms"], r["bound_by"] = bound(*sweep_work(cache), x.element_size())
     log(f"kernel {name} {level} dims {cache.dims} {key} steps {cache.steps} route {route}"
         f" {r['march'] if cache.march else cache.box}: max_rel_err {rel_err!r} max_abs_err {abs_err!r}"
-        + (f" halo-tile kernel max_rel_err {r['tile_rel_err']!r}" if tile is not None else "")
+        + (f" halo-tile kernel max_rel_err {r['tile_rel_err']!r}" if tile else "")
         + (f" kernel {r['ms']!r} ms plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']})"
            if timed else "")
         + (f"; halo-tile kernel {r['tile_ms']!r} ms (in turns, march/tile/tile/march: {r['turns_ms']!r})"
-           if timed and tile is not None else ""))
+           if timed and tile else ""))
     if not max(rel_err, r.get("tile_rel_err", 0.0)) <= SWEEP_RTOL[key]:
         raise AssertionError(f"{name} disagrees with its plain version: {r}")
     return r
@@ -930,7 +939,7 @@ def lattice_3d(device):
     from algebraicmultigrid_tpu_torch.models.lattice_nd import lattice_coloring_nd
     from algebraicmultigrid_tpu_torch.ops.banded import mat_vec
     from algebraicmultigrid_tpu_torch.ops.kernels.sweep3d import (
-        Sweep3DCache, build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference, smooth_sweep3d_tile,
+        Sweep3DCache, build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference,
     )
     from algebraicmultigrid_tpu_torch.ops.lattice_nd_op import latnd_from_spec
 
@@ -975,7 +984,7 @@ def lattice_3d(device):
     x, b = vec(n0, pad0, torch.float32), vec(n0, pad0, torch.float32)
     for c in (L0.pre, L0.post):
         rows_k7.append(compare_sweep("sweep3d", smooth_sweep3d, smooth_sweep3d_reference, c, x, b, "L0",
-                                     timed=c is L0.pre, tile=smooth_sweep3d_tile))
+                                     timed=c is L0.pre, tile=True))
     del x, b
     prob = amt.poisson(ODD3, lattice=True)
     tab, nc = lattice_coloring_nd(prob.spec)
@@ -987,7 +996,7 @@ def lattice_3d(device):
         for it, fwd, bwd, omega in ((1, True, True, 1.0), (1, True, False, 1.0), (2, True, True, 1.3)):
             c = build_sweep3d_cache(A, dinv.to(device), tab, nc, omega, it, fwd, bwd)
             rows_k7.append(compare_sweep("sweep3d", smooth_sweep3d, smooth_sweep3d_reference, c, x, b,
-                                         "odd", timed=False, tile=smooth_sweep3d_tile))
+                                         "odd", timed=False, tile=True))
 
     # the solves, with the counters zeroed just before
     bh = np.random.default_rng(4).standard_normal(n0)
@@ -1056,6 +1065,7 @@ def lattice_fwd_bwd(device):
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import _one_iteration
     from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import GSSweepCache, smooth_gs, smooth_gs_reference
+    from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import plan_march
     from algebraicmultigrid_tpu_torch.ops.lattice_op import Lat2D
 
     t0 = time.perf_counter()
@@ -1078,6 +1088,12 @@ def lattice_fwd_bwd(device):
         raise AssertionError(f"K5 on levels {k5}, the Lat2D levels are {lat}")
     if h.levels[0].pre.steps != (0, 1) or h.levels[0].post.steps != (1, 0):
         raise AssertionError(f"L0 steps {h.levels[0].pre.steps} / {h.levels[0].post.steps}")
+    for lvl in lat:
+        L = h.levels[lvl]
+        for c in (L.pre, L.post):
+            planned, why = plan_march(c.dims, c.offsets, len(c.steps), 4, device=device)
+            if c.dims != (L.A.row_dims[0], 1, L.A.row_dims[1]) or c.box is not None or c.march != planned:
+                raise AssertionError(f"L{lvl}'s K5 is not on its planned march {planned} ({why}): {c.dims} {c.march}")
 
     gen = torch.Generator(device="cpu").manual_seed(5)
     rows_k5 = []
@@ -1089,7 +1105,7 @@ def lattice_fwd_bwd(device):
         x[:n], b[:n] = torch.randn(n, generator=gen), torch.randn(n, generator=gen)
         x, b = x.to(device), b.to(device)
         for c in (L.pre, L.post):
-            rows_k5.append(compare_sweep("gs_sweep", smooth_gs, smooth_gs_reference, c, x, b, f"L{lvl}"))
+            rows_k5.append(compare_sweep("gs_sweep", smooth_gs, smooth_gs_reference, c, x, b, f"L{lvl}", tile=True))
 
     bh = np.random.default_rng(6).standard_normal(N * N)
     torch.cuda.synchronize()
@@ -1640,7 +1656,7 @@ def main():
 
     rows_k7, counts_3d, cycle_3d, _ = lattice_3d(device)
     torch.cuda.empty_cache()
-    rows_k5, counts_fb, cycle_fb, _ = lattice_fwd_bwd(device)
+    rows_k5, counts_fb, cycle_fb, vcycle_fb = lattice_fwd_bwd(device)
     torch.cuda.empty_cache()
     row_sub, counts_sub, cycle_sub = subcycle_path(device, ml)
     ml._device_cache.clear()
@@ -1692,13 +1708,14 @@ def main():
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=None,
         )
-        if name == "sweep3d":
-            # the march at L0 and the halo-tile kernel (K7's first design), timed in turns
-            row.update(kernel_route=first["route"], tile_route_ms=first["tile_ms"])
-        else:
-            # every Lat2D level's pre and post smoother, with its launches a V-cycle
-            row["by_level"] = [{k: r[k] for k in ("level", "dims", "steps", "ms", "plain_ms", "bound_ms",
-                                                  "launches_per_vcycle")} for r in rs]
+        # the march at L0 and the halo-tile kernel (the first design), timed in turns
+        row.update(kernel_route=first["route"], tile_route_ms=first["tile_ms"])
+        if name == "gs_sweep":
+            # every Lat2D level's pre and post smoother on both routes, with its launches a V-cycle
+            row["fwd_bwd_vcycle_ms"] = vcycle_fb
+            row["by_level"] = [dict({k: r[k] for k in ("level", "dims", "steps", "march", "ms", "plain_ms", "bound_ms",
+                                                       "launches_per_vcycle")},
+                                    kernel_route=r["route"], tile_route_ms=r["tile_ms"]) for r in rs]
         kernels.append(row)
     kernels.append(dict(
         name="fused_subcycle", route="cuda", source=SOURCES["fused_subcycle"], replaces=REPLACES["fused_subcycle"],

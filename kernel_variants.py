@@ -27,7 +27,7 @@ diagnostics split K4's time, dropping its block-0 levels and coarse solve
 (``k4_diag_no_block0``) or its grid levels (``k4_diag_no_grid``).  Run from
 the repository root:
 
-    python3 kernel_variants.py [legs | sweeps [march] | subcycle | scan]
+    python3 kernel_variants.py [legs | sweeps [march | march2d] | subcycle | scan]
 
 In ``sweeps`` mode each source variant runs K7's first design (the
 halo-tile kernel) and K5 with each box of ``BOXES_3D`` / ``BOXES_2D`` (the
@@ -38,7 +38,16 @@ cell a thread, b/dinv and the coefficient planes staged in rings rather
 than read in place) under their ``MARCH_PLANS``, each with the error
 against the plain version (``sweeps march``: the march's variants alone,
 with the ``march_diag_*`` builds, diagnostics that drop its steps, loads or
-step barriers to split its time).  In ``scan`` mode ``scan_gs`` runs on the
+step barriers to split its time).  ``sweeps march2d`` times K5's march at
+L0 (4096², 5-point) and L1 (1366², 9-point) of the fwd/bwd hierarchy,
+forward GS, f32: per source variant of ``MARCH2D_VARIANTS`` (the tree's
+design, x alone in the ring; the coefficient planes, b and D⁻¹ staged in
+rings by 16-byte ``cp.async``; a step's coefficients in registers a step
+ahead; four cells a thread; batches of 2 or 8 rows; 512-thread blocks)
+each strip and segment of ``MARCH2D_PLANS``, and the halo-tile kernel,
+the variants in order and then in reverse.  Each distinct source compiles
+once; a variant that fails to build is dropped with nvcc's output.  In
+``scan`` mode ``scan_gs`` runs on the
 natural-order levels of the scrambled 1024² problem, staged and streamed,
 in the tree (a chain of 32 lanes) and the ``SCAN_VARIANTS`` (16, 8 or one
 lane).  In ``subcycle`` mode each
@@ -126,6 +135,150 @@ def march_batch(n):
     return [(MARCH_H, "constexpr int kMarchBatch = 4;", f"constexpr int kMarchBatch = {n};")]
 
 
+# K5's 2-D march designs (sweeps march2d), as source edits of the tree's
+# march (design a: x alone in the ring, the coefficient planes, b and dinv
+# read in place by __ldg).  Design b stages dinv, b and the coefficient
+# planes of each row over the strip in rings of their own, loaded with x's
+# batch by 16-byte cp.async of the aligned superset of the strip's in-grid
+# cells (zero-filled past each array's end); a staged row keeps the strip's
+# alignment shift, so cell e of array q sits at e + shift_q(row).  Written
+# for the 2-D view (o1 = 0, a 1 x E2 strip); the arrays' bases 16-byte
+# aligned, as the caching allocator gives them.
+MARCH_STAGE16 = [
+    (MARCH_H, "__device__ __forceinline__ void march_commit() {",
+     "__device__ __forceinline__ void march_cp_async16(void* dst, const void* src, int bytes) {\n"
+     "  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);\n"
+     "  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16, %2;\\n\" ::\"r\"(d), \"l\"(src), \"r\"(bytes));\n"
+     "}\n\n"
+     "__device__ __forceinline__ void march_commit() {"),
+    (MARCH_H, "  // plane m's x over the box into its ring slot, 0 outside the grid\n",
+     "  constexpr int V = 16 / (int)sizeof(T);\n"
+     "  const int RC = p.n_steps * r0 + (1 + kMarchDepth) * P;\n"
+     "  const int ES = (E2 + V - 1) / V * V + 2 * V, NCH = ES / V, NA = 2 + n_off;\n"
+     "  T* cr = xr + (RX * E + V - 1) / V * V;  // [NA][RC][ES]\n"
+     "  auto arr = [&](int q) -> const T* { return q == 0 ? dinv : q == 1 ? b : A + (int64_t)(q - 2) * plane; };\n"
+     "  auto stage_row = [&](int m) {\n"
+     "    if (m < 0 || m >= n0) return;\n"
+     "    const int slot = (m - L) % RC;\n"
+     "    const int64_t row0 = (int64_t)m * pstride + o2;\n"
+     "    const int64_t lo = row0 + max(-o2, 0), hi = (int64_t)m * pstride + min(o2 + E2, n2);\n"
+     "    for (int i = tid; i < NA * NCH; i += nth) {\n"
+     "      const int q = i / NCH, j = i - q * NCH;\n"
+     "      const T* base = arr(q);\n"
+     "      const uintptr_t end = (uintptr_t)(q < 2 ? base + plane : A + (int64_t)n_off * plane);\n"
+     "      const uintptr_t ra = ((uintptr_t)base + (uintptr_t)(row0 * (int64_t)sizeof(T))) & ~(uintptr_t)15;\n"
+     "      const uintptr_t src = ((uintptr_t)(base + lo) & ~(uintptr_t)15) + 16 * (uintptr_t)j;\n"
+     "      if (src >= (uintptr_t)(base + hi)) continue;\n"
+     "      const int bytes = end - src >= 16 ? 16 : (int)(end - src);\n"
+     "      march_cp_async16(cr + ((int64_t)q * RC + slot) * ES + (src - ra) / sizeof(T), (const void*)src, bytes);\n"
+     "    }\n"
+     "  };\n\n"
+     "  // plane m's x over the box into its ring slot, 0 outside the grid\n"),
+    (MARCH_H, "      if (m0 + j < U) load(m0 + j);", "      if (m0 + j < U) {\n        load(m0 + j);\n        stage_row(m0 + j);\n      }"),
+    (MARCH_H, "        const int64_t gpl = (int64_t)pl * pstride;\n",
+     "        const int64_t gpl = (int64_t)pl * pstride;\n"
+     "        const int sc = (pl - L) % RC;\n"
+     "        int csh[KOFF + 2];\n"
+     "#pragma unroll\n"
+     "        for (int q = 0; q < KOFF + 2; ++q) {\n"
+     "          const uintptr_t ra = (uintptr_t)arr(q) + (uintptr_t)((gpl + o2) * (int64_t)sizeof(T));\n"
+     "          csh[q] = (int)(((int64_t)q * RC + sc) * ES) + (int)((ra & 15) / sizeof(T));\n"
+     "        }\n"),
+    (MARCH_H, "if (k < n_off) acc += __ldg(A + k * plane + gpl + ug[v]) * xr[xk[k] + e];",
+     "if (k < n_off) acc += cr[csh[2 + k] + e] * xr[xk[k] + e];"),
+    (MARCH_H, MARCH_UPDATE, "          xs[e] = xs[e] + omega * cr[csh[0] + e] * (cr[csh[1] + e] - acc);"),
+    (MARCH_H, MARCH_SMEM,
+     "  constexpr int V = 16 / (int)sizeof(T);\n"
+     "  const size_t smem = march_smem_bytes(p.ext[0], p.ext[1], p.ring, (int)sizeof(T)) + 16 +\n"
+     "      (size_t)(2 + n_off) * (n_steps * p.reach[0] + (1 + kMarchDepth) * kMarchBatch) *\n"
+     "      ((p.ext[1] + V - 1) / V * V + 2 * V) * sizeof(T);"),
+]
+# design c: each step's coefficients, b and dinv for its P rows fetched into
+# registers one step ahead (step 0's before the batch's wait and barrier,
+# step s+1's before step s's barrier)
+MARCH_REGS = [
+    (MARCH_H, "    march_commit();\n    march_wait();\n    __syncthreads();\n",
+     "    march_commit();\n"
+     "    T cv[P][kMarchUnit][KOFF + 2];\n"
+     "    auto fetch = [&](int s) {\n"
+     "      const int l1 = (s + 1) * r1, l2 = (s + 1) * r2;\n"
+     "      const int c = p.steps[s];\n"
+     "      const bool row_in = ue1 >= l1 && ue1 < E1 - l1;\n"
+     "#pragma unroll\n"
+     "      for (int i = 0; i < P; ++i) {\n"
+     "        const int pl = M - (s + 1) * r0 - P + 1 + i;\n"
+     "        if (!row_in || pl < L + (s + 1) * r0 || pl >= U - (s + 1) * r0 || pl < 0 || pl >= n0) continue;\n"
+     "        const int ptab = (pl % p.per[0]) * percells;\n"
+     "        const int64_t gpl = (int64_t)pl * pstride;\n"
+     "#pragma unroll\n"
+     "        for (int v = 0; v < kMarchUnit; ++v) {\n"
+     "          const int e2 = ue2 + v;\n"
+     "          if (!uin[v] || e2 < l2 || e2 >= E2 - l2 || p.tab[ptab + ucol[v]] != c) continue;\n"
+     "#pragma unroll\n"
+     "          for (int k = 0; k < KOFF; ++k) {\n"
+     "            if (k < n_off) cv[i][v][k] = __ldg(A + k * plane + gpl + ug[v]);\n"
+     "          }\n"
+     "          cv[i][v][KOFF] = __ldg(dinv + gpl + ug[v]);\n"
+     "          cv[i][v][KOFF + 1] = __ldg(b + gpl + ug[v]);\n"
+     "        }\n"
+     "      }\n"
+     "    };\n"
+     "    fetch(0);\n"
+     "    march_wait();\n"
+     "    __syncthreads();\n"),
+    (MARCH_H, "      for (int pl = M - (s + 1) * r0 - P + 1; pl <= M - (s + 1) * r0; ++pl) {\n",
+     "      for (int i = 0; i < P; ++i) {\n        const int pl = M - (s + 1) * r0 - P + 1 + i;\n"),
+    (MARCH_H, "if (k < n_off) acc += __ldg(A + k * plane + gpl + ug[v]) * xr[xk[k] + e];",
+     "if (k < n_off) acc += cv[i][v][k] * xr[xk[k] + e];"),
+    (MARCH_H, MARCH_UPDATE, "          xs[e] = xs[e] + omega * cv[i][v][KOFF] * (cv[i][v][KOFF + 1] - acc);"),
+    (MARCH_H, "      }\n      __syncthreads();\n    }\n\n    // the planes M",
+     "      }\n      if (s + 1 < S) fetch(s + 1);\n      __syncthreads();\n    }\n\n    // the planes M"),
+]
+GS_CU = "gs_sweep.cu"
+
+
+def gs_batch(stencil, n):
+    """K5's batch on the 5- or 9-point level set to n rows."""
+    old = {5: "constexpr int kGsBatch5 = 2;", 9: "constexpr int kGsBatch9 = 4;"}[stencil]
+    return [(GS_CU, old, old[:-2] + f"{n};")]
+
+
+MARCH2D_VARIANTS = {
+    "tree": [],
+    "march2d_stage16": MARCH_STAGE16,
+    "march2d_regs": MARCH_REGS,
+    "march2d_unit4": [(MARCH_H, "constexpr int kMarchUnit = 2;", "constexpr int kMarchUnit = 4;"),
+                      (MARCH_H, "constexpr int kMarchCells = 3;", "constexpr int kMarchCells = 5;")],
+    "march2d_p5_4": gs_batch(5, 4),
+    "march2d_p9_2": gs_batch(9, 2),
+    "march2d_p9_8": gs_batch(9, 8),
+    # K7's bound on K5's blocks: 1024 threads, 64 registers a thread
+    "march2d_threads1024": [(GS_CU, "constexpr int kGsMarchThreads = 512;", "constexpr int kGsMarchThreads = 1024;")],
+}
+# the planner's view of each source variant (tiled_sweep's constants)
+MARCH2D_PLANNER = {
+    "march2d_unit4": {"MARCH_UNIT": 4}, "march2d_p5_4": {"MARCH_BATCH_2D": {5: 4, 9: 4}},
+    "march2d_p9_2": {"MARCH_BATCH_2D": {5: 2, 9: 2}}, "march2d_p9_8": {"MARCH_BATCH_2D": {5: 2, 9: 8}},
+    "march2d_threads1024": {"MARCH_MAX_THREADS_2D": 1024},
+}
+# K5 at L0 (4096², 5-point, forward GS) and L1 (1366², 9-point, forward
+# GS), f32: plans per source variant, by the keywords of
+# tiled_sweep.plan_march (box: the 1 x E2 strip, tile plus 2 halo; seg: the
+# rows a segment owns); {} is the planner's own.  Staged rings take 7 (11)
+# arrays a row, so design b runs on narrower strips.
+MARCH2D_PLANS = {
+    "tree": {0: [{}, {"box": (1, 260)}, {"box": (1, 1028)}, {"seg": 18}, {"seg": 72}],
+             1: [{}, {"box": (1, 350)}, {"box": (1, 691)}, {"seg": 4}, {"seg": 8}, {"seg": 16}, {"seg": 32}]},
+    "march2d_stage16": {0: [{}, {"box": (1, 260)}], 1: [{"box": (1, 350)}, {"box": (1, 238)}]},
+    "march2d_regs": {0: [{}], 1: [{}]},
+    "march2d_unit4": {0: [{}, {"box": (1, 1028)}], 1: [{}]},
+    "march2d_p5_4": {0: [{}, {"box": (1, 1028)}, {"seg": 18}]},
+    "march2d_p9_2": {1: [{}, {"seg": 16}]},
+    "march2d_p9_8": {1: [{}, {"seg": 16}]},
+    "march2d_threads1024": {0: [{}, {"box": (1, 1028)}], 1: [{}, {"box": (1, 691)}]},
+}
+
+
 SWEEP_VARIANTS = {
     "tree": [],
     "march_batch1": march_batch(1),
@@ -204,9 +357,28 @@ def edit(text, old, new):
     return text.replace(old, new)
 
 
+def _included(d, name, seen=None):
+    """The texts a source in directory d compiles: itself and the headers
+    it includes, transitively."""
+    seen = set() if seen is None else seen
+    if name in seen or not (d / name).exists():
+        return ""
+    seen.add(name)
+    text = (d / name).read_text()
+    heads = [line.split('"')[1] for line in text.splitlines() if line.startswith('#include "')]
+    return text + "".join(_included(d, h, seen) for h in heads)
+
+
 def build(root, variants):
+    """Each variant's library under root/<name>/lib.so: every distinct
+    source (its text and the headers it includes) compiled once, all
+    compiles started together, then one link a variant.  A variant that
+    fails to build is dropped, with its compiler's output."""
+    import hashlib
+
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
+    objs, jobs = {}, {}
     for name, edits in variants.items():
         d = root / name
         d.mkdir()
@@ -216,10 +388,26 @@ def build(root, variants):
                 if fname == f.name:
                     text = edit(text, old, new)
             (d / f.name).write_text(text)
-        try:
-            vl.build_library(d / "lib.so", [d / f.name for f in vl.SOURCES])
-        except (RuntimeError, subprocess.CalledProcessError) as e:
-            raise SystemExit(f"variant {name} failed to build: {e}")
+        for f in vl.SOURCES:
+            key = hashlib.sha256(_included(d, f.name).encode()).hexdigest()[:16]
+            obj = root / f"{f.stem}-{key}.o"
+            objs.setdefault(name, []).append(obj)
+            jobs.setdefault(obj, d / f.name)
+    procs = {obj: subprocess.Popen(vl.compile_command(src, obj), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True) for obj, src in jobs.items()}
+    failed = {obj for obj, pr in procs.items() if pr.wait()}
+    for obj in failed:
+        print(f"nvcc failed on {jobs[obj]}:\n{procs[obj].stdout.read()}", flush=True)
+    built = {}
+    for name, want in objs.items():
+        if failed & set(want):
+            print(f"variant {name} failed to build: dropped", flush=True)
+            continue
+        subprocess.run(vl.link_command(want, root / name / "lib.so"), check=True)
+        built[name] = variants[name]
+    if "tree" not in built:
+        raise SystemExit("the tree's own sources failed to build")
+    return built
 
 
 def rel_err(got, want):
@@ -228,6 +416,70 @@ def rel_err(got, want):
     if not bool(got.isfinite().all()):
         return float("inf")
     return float((got - want).abs().max() / want.abs().max())
+
+
+def march2d(use, names):
+    """K5's 2-D march at L0 (4096², 5-point) and L1 (1366², 9-point),
+    forward GS, f32: per source variant (``MARCH2D_VARIANTS``) each plan of
+    ``MARCH2D_PLANS``, with the planner's constants as the variant needs
+    them (``MARCH2D_PLANNER``), and the halo-tile kernel (K5's first design)
+    in the tree; the variants in order, then in reverse order."""
+    import dataclasses
+
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.lattice import lattice_coloring
+    from algebraicmultigrid_tpu_torch.ops.kernels import tiled_sweep as ts
+    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import build_gs_sweep_cache, smooth_gs, smooth_gs_reference
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec
+
+    import chip_smoke as cs
+
+    gen = torch.Generator().manual_seed(0)
+    nine = -np.ones((3, 3))
+    nine[1, 1] = 8.0
+    levels = {}
+    for lvl, prob in ((0, amt.poisson((N, N), lattice=True)), (1, amt.LatticeProblem(nine, (1366, 1366)))):
+        spec = prob.spec
+        A = lat2d_from_spec(spec, torch.float32, "cuda", row_pad=8)
+        tab, nc = lattice_coloring(spec)
+        n = A.shape[0]
+        dinv = torch.as_tensor(np.pad(1.0 / spec.diagonal(), (0, A.rows_padded - n)), dtype=torch.float32).cuda()
+        x = torch.randn(A.rows_padded, generator=gen).cuda()
+        b = torch.randn(A.rows_padded, generator=gen).cuda()
+        c = build_gs_sweep_cache(A, dinv, tab, nc, 1.0, 1, True, False)
+        levels[lvl] = (c, x, b, smooth_gs_reference(c, x, b))
+        print(f"L{lvl} dims {c.dims} steps {c.steps} planned {c.march.args()} bound"
+              f" {cs.bound(*cs.sweep_work(c), 4)}", flush=True)
+    planner = {k: getattr(ts, k) for k in ("MARCH_BATCH_2D", "MARCH_UNIT", "MARCH_MAX_THREADS_2D")}
+    for rnd in range(ROUNDS):
+        for name in names if rnd % 2 == 0 else names[::-1]:
+            use(name)
+            for k, v in dict(planner, **MARCH2D_PLANNER.get(name, {})).items():
+                setattr(ts, k, v)
+            for lvl, (c0, x, b, want) in levels.items():
+                for kw in MARCH2D_PLANS[name].get(lvl, []):
+                    plan, why = ts.plan_march(c0.dims, c0.offsets, len(c0.steps), 4, device=x.device, **kw)
+                    if plan is None:
+                        print(f"round {rnd} {name:22s} L{lvl} {kw}: no plan ({why})", flush=True)
+                        continue
+                    c = dataclasses.replace(c0, march=plan)
+                    try:
+                        err = rel_err(smooth_gs(c, x, b), want)
+                    except RuntimeError as e:  # a staged ring past the shared memory
+                        print(f"round {rnd} {name:22s} L{lvl} {kw} plan {plan.args()}: {e}", flush=True)
+                        continue
+                    ms = cs.time_ms(lambda: smooth_gs(c, x, b))
+                    print(f"round {rnd} {name:22s} L{lvl} {kw} plan {plan.args()}: {ms!r} ms  max_rel_err {err!r}",
+                          flush=True)
+                if name == "tree":  # K5's first design, the halo-tile kernel
+                    ct = ts.tile_view(c0)
+                    err = rel_err(smooth_gs(ct, x, b), want)
+                    ms = cs.time_ms(lambda: smooth_gs(ct, x, b))
+                    print(f"round {rnd} {'tile':22s} L{lvl} box {ct.box}: {ms!r} ms  max_rel_err {err!r}", flush=True)
+    for k, v in planner.items():
+        setattr(ts, k, v)
 
 
 def sweeps(use, names, march_only=False):
@@ -272,9 +524,7 @@ def sweeps(use, names, march_only=False):
             want3 = ref(c3, x, b)
         for box in boxes:
             ts.BOX[len(dims)] = box
-            c = build_c(A, dinv, tab, nc, 1.0, 1, *fwd_bwd)
-            if len(dims) == 3:  # K7's first design, the halo-tile kernel
-                c = dataclasses.replace(c, box=ts.plan_box(3, c.dims, c.offsets, len(c.steps), 4)[0], march=None)
+            c = ts.tile_view(build_c(A, dinv, tab, nc, 1.0, 1, *fwd_bwd))  # the halo-tile kernel
             cases.append((dims, box, c, fn, x, b, ref(c, x, b)))
     if march_only:
         cases = []
@@ -536,6 +786,8 @@ def main():
     march_only = mode == "sweeps" and sys.argv[2:] == ["march"]
     if march_only:
         variants = {k: v for k, v in variants.items() if k == "tree" or k.startswith("march")}
+    if mode == "sweeps" and sys.argv[2:] == ["march2d"]:
+        mode, variants = "march2d", MARCH2D_VARIANTS
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
@@ -548,7 +800,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t = time.perf_counter()
-        build(root, variants)
+        variants = build(root, variants)
         print(f"{len(variants)} variants built in {time.perf_counter() - t!r} s", flush=True)
 
         def use(name):
@@ -556,6 +808,10 @@ def main():
             vl.library_path = lambda: root / name / "lib.so"
             vl.load_library()
 
+        if mode == "march2d":
+            march2d(use, list(variants))
+            print(card)
+            return 0
         if mode == "sweeps":
             sweeps(use, list(variants), march_only)
             print(card)

@@ -571,14 +571,10 @@ def test_cuda_sweep3d_matches_plain_version(ml, dims, dtype):
     assert vl.launches["sweep3d"] == before + runs
 
 
-# (3, 5) is smaller than one tile; the 9-point (131, 77) grid has four
-# colors and ends in partial tiles; 1366² is L1 of the 4096² flagship
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("grid", ["5pt-3x5", "9pt-131x77", "5pt-1366x1366"])
-def test_cuda_gs_sweep_matches_plain_version(ml, grid, dtype):
+def _gs_case(grid, dtype):
+    """A K5 level "<5pt|9pt>-<Wx>x<Wy>" on the card: (level operator, 1/diag,
+    color table, n_colors)."""
     import algebraicmultigrid_tpu_torch as amt
-    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
-    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import build_gs_sweep_cache, smooth_gs, smooth_gs_reference
 
     kind, shape = grid.split("-")
     dims = tuple(int(v) for v in shape.split("x"))
@@ -588,19 +584,82 @@ def test_cuda_gs_sweep_matches_plain_version(ml, grid, dtype):
         st = -np.ones((3, 3))
         st[1, 1] = 8.0
         prob = amt.LatticeProblem(st, dims)
-    A, dinv, tab, nc = _sweep_case(prob, dtype)
+    return _sweep_case(prob, dtype)
+
+
+# (3, 5) is smaller than one strip; the 9-point (131, 77) grid has four
+# colors and ends in partial strips and segments; 1366² is L1 and 4096² L0
+# of the 4096² flagship.  Each configuration runs the march as planned, the
+# halo-tile kernel (K5's first design, the march's comparison) and the
+# march on other strips and short segments.
+@pytest.mark.parametrize("grid,dtype", [
+    (g, d) for g in ("5pt-3x5", "9pt-131x77", "5pt-1366x1366") for d in (torch.float32, torch.float64)
+] + [("5pt-4096x4096", torch.float32)])
+def test_cuda_gs_sweep_matches_plain_version(ml, grid, dtype):
+    import dataclasses
+
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import (
+        build_gs_sweep_cache, smooth_gs, smooth_gs_reference, smooth_gs_tile,
+    )
+    from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import plan_march
+
+    lib = vl.load_library()
+    A, dinv, tab, nc = _gs_case(grid, dtype)
     n = A.shape[0]
     x, b = _vec(n, A.rows_padded, 14, dtype), _vec(n, A.rows_padded, 15, dtype)
     tol = TOL if dtype == torch.float32 else 1e-12
     before = vl.launches["gs"]
+    runs = 0
     for it, fwd, bwd, omega in SWEEP_CONFIGS:
         c = build_gs_sweep_cache(A, dinv, tab, nc, omega, it, fwd, bwd)
-        got = smooth_gs(c, x, b)
+        S, size = len(c.steps), A.data.element_size()
+        assert c.box is None and c.march is not None and c.march.box[0] == 1 and c.dims[1] == 1
+        assert lib.amg_gs_sweep_march_smem_bytes(*c.march.box, S, 1, size, len(c.offsets)) == c.march.smem
+        assert lib.amg_gs_sweep_march_batch(len(c.offsets)) == c.march.batch
+        want = smooth_gs_reference(c, x, b)
+        got = smooth_gs_tile(c, x, b)
         torch.cuda.synchronize()
-        assert got.shape == x.shape and _rel(got, smooth_gs_reference(c, x, b)) < tol
-    assert vl.launches["gs"] == before + len(SWEEP_CONFIGS)
+        assert got.shape == x.shape and _rel(got, want) < tol, "tile"
+        assert torch.equal(got[n:], x[n:])
+        variants = [c]
+        for kw in (dict(seg=3), dict(seg=1), dict(box=(1, 2 * S + 9)), dict(box=(1, 64 + 2 * S), seg=7)):
+            plan, _ = plan_march(c.dims, c.offsets, S, size, **kw)
+            variants.append(dataclasses.replace(c, march=plan))
+        for v in variants:
+            got = smooth_gs(v, x, b)
+            torch.cuda.synchronize()
+            assert got.shape == x.shape and _rel(got, want) < tol, v.march
+            assert torch.equal(got[n:], x[n:]), "the padding rows pass through"
+        runs += len(variants) + 1
+    assert vl.launches["gs"] == before + runs
     with pytest.raises(TypeError):
         smooth_gs(c, x.to(torch.float32 if dtype == torch.float64 else torch.float64), b)
+
+
+def test_cuda_gs_sweep_packed_arguments_survive_reuse(ml):
+    """The launch path packs a cache's arguments once: 50 calls on one
+    cache, with other caches launched in between (other levels, steps and
+    dtypes), equal the first call bitwise and the plain version; x's
+    padding passes through on every call."""
+    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import build_gs_sweep_cache, smooth_gs, smooth_gs_reference
+
+    caches = []
+    for grid, dtype in (("9pt-131x77", torch.float64), ("5pt-96x96", torch.float32), ("5pt-3x5", torch.float64)):
+        A, dinv, tab, nc = _gs_case(grid, dtype)
+        x, b = _vec(A.shape[0], A.rows_padded, 21, dtype), _vec(A.shape[0], A.rows_padded, 22, dtype)
+        x[A.shape[0]:] = 7.0
+        for it, fwd, bwd, omega in SWEEP_CONFIGS[1:3]:
+            caches.append((build_gs_sweep_cache(A, dinv, tab, nc, omega, it, fwd, bwd), x, b, A.shape[0]))
+    first = [smooth_gs(c, x, b) for c, x, b, _ in caches]
+    for _ in range(50):
+        for (c, x, b, n), want in zip(caches, first):
+            got = smooth_gs(c, x, b)
+            assert torch.equal(got, want) and bool((got[n:] == 7.0).all())
+    torch.cuda.synchronize()
+    for (c, x, b, _), got in zip(caches, first):
+        tol = TOL if x.dtype == torch.float32 else 1e-12
+        assert _rel(got, smooth_gs_reference(c, x, b)) < tol
 
 
 @pytest.fixture(scope="module")

@@ -1,14 +1,17 @@
-"""The schedules of K7's march and of the split ``scan_gs`` recurrence,
-emulated in plain PyTorch / numpy on the CPU, against the kernels' plain
-versions, and the plans that choose their routes.
+"""The schedules of the march (K7, and K5 on a Lat2D level) and of the
+split ``scan_gs`` recurrence, emulated in plain PyTorch / numpy on the
+CPU, against the kernels' plain versions, and the plans that choose their
+routes.
 
-* K7: a plane-by-plane emulation of the march (``csrc/sweep_march.cuh``):
+* The march: a plane-by-plane emulation (``csrc/sweep_march.cuh``):
   columns of the planned y-z box, segments of axis 0 with their end halos,
   x's ring with its planned depth (a plane's load lands before the steps of
   its time, as early as the kernel could land it; the coefficient planes,
   b and D⁻¹ read in place), the color steps a wavefront a reach behind each
   other in batches of planes, and each plane stored when it is final.  In
-  float64 it is bitwise equal to ``tiled_sweep_reference``.
+  float64 it is bitwise equal to ``tiled_sweep_reference``.  K5 runs it on
+  a Wx × Wy level as the grid (Wx, 1, Wy): the box is a 1 × E2 strip of
+  rows, the planes are rows.
 * ``scan_gs``: the kernel's split recurrence (every row's not-yet-updated
   part summed at the start of a sweep, the other half on the chain) on
   ``split_scan_gs``'s layout, against ``smooth_scan_gs_reference``.
@@ -40,8 +43,36 @@ def _k7(dims, dtype, it, fwd, bwd, omega):
     return build_sweep3d_cache(A, dinv, tab, nc, omega, it, fwd, bwd)
 
 
+def _k5(kind, dims, dtype, it, fwd, bwd, omega):
+    """K5's cache of a 5-point Poisson or 9-point (8, −1) level."""
+    from algebraicmultigrid_tpu_torch.models.lattice import lattice_coloring
+    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import build_gs_sweep_cache
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec
+
+    if kind == "5pt":
+        prob = amt.poisson(dims, lattice=True)
+    else:
+        st = -np.ones((3, 3))
+        st[1, 1] = 8.0
+        prob = amt.LatticeProblem(st, dims)
+    A = lat2d_from_spec(prob.spec, dtype, "cpu", row_pad=8)
+    grid, nc = lattice_coloring(prob.spec)
+    dinv = torch.zeros(A.rows_padded, dtype=dtype)
+    dinv[: A.shape[0]] = torch.as_tensor(1.0 / prob.spec.diagonal(), dtype=dtype)
+    return build_gs_sweep_cache(A, dinv, grid, nc, omega, it, fwd, bwd)
+
+
+def _xb(c, seed):
+    n = math.prod(c.dims)
+    rng = np.random.default_rng(seed)
+    x = torch.zeros(c.A.rows_padded, dtype=torch.float64)
+    b = torch.zeros_like(x)
+    x[:n], b[:n] = torch.as_tensor(rng.standard_normal(n)), torch.as_tensor(rng.standard_normal(n))
+    return x, b
+
+
 def march_emulation(cache, x, b, plan, batch, ring=None):
-    """K7's march on ``plan`` (a MarchPlan) in batches of ``batch`` planes
+    """The march on ``plan`` (a MarchPlan) in batches of ``batch`` planes
     with x's ring ``ring`` planes deep (default: the kernel's ring for that
     batch), in plain PyTorch."""
     from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import MARCH_DEPTH, _color_field, march_ring
@@ -212,6 +243,118 @@ def test_march_takes_every_level_the_halo_tile_takes(itemsize):
                     taken += 1
                     plan, why = ts.plan_march(dims, offs, n_steps, itemsize)
                     assert why is None, (r1, r2, dims, n_steps, why)
+    assert taken > 100
+
+
+# --------------------------------------------------------------------------
+# K5: the march on a Lat2D level, the grid (Wx, 1, Wy)
+# --------------------------------------------------------------------------
+
+# (stencil, dims, rows a segment owns, the strip's tile): (3, 5) is one
+# strip; the 9-point (31, 77) level (four colors) and 96² end in partial
+# strips and segments
+MARCH2D_CASES = [("5pt", (3, 5), 2, None), ("9pt", (31, 77), 20, 24), ("5pt", (96, 96), 32, 64)]
+
+
+# batches of 1 and 3 rows, and the kernel's (2 on a 5-point level, 4 on a
+# 9-point one)
+@pytest.mark.parametrize("batch", [1, 3, "kernel"])
+@pytest.mark.parametrize("config", SWEEP_CONFIGS, ids=str)
+@pytest.mark.parametrize("kind,dims,seg,tile", MARCH2D_CASES, ids=str)
+def test_march2d_schedule_is_the_step_by_step_sweep(kind, dims, seg, tile, config, batch):
+    """K5's march, bitwise in float64, on strips planned as for float32."""
+    from algebraicmultigrid_tpu_torch.ops.kernels import tiled_sweep as ts
+
+    c = _k5(kind, dims, torch.float64, *config)
+    assert c.dims[1] == 1 and c.march is not None and c.march.box[0] == 1 and c.box is None
+    box = None if tile is None else (1, tile + 2 * c.halo[2])
+    plan, why = ts.plan_march(c.dims, c.offsets, len(c.steps), 4, box=box, seg=seg)
+    assert why is None and plan.seg <= seg and (tile is None or plan.box == box)
+    assert tile is None or -(-c.dims[2] // tile) > 1 and -(-c.dims[0] // plan.seg) > 1
+    assert plan.batch == {"5pt": 2, "9pt": 4}[kind]
+    x, b = _xb(c, sum(dims))
+    want = ts.tiled_sweep_reference(c, x, b)
+    assert torch.equal(march_emulation(c, x, b, plan, plan.batch if batch == "kernel" else batch), want)
+    assert not torch.equal(want, x)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_march2d_emulation_sees_a_ring_one_row_short(batch):
+    """On a Lat2D level too, an x ring one row shorter than the rows a time
+    reads overwrites one a step still reads."""
+    from algebraicmultigrid_tpu_torch.ops.kernels import tiled_sweep as ts
+
+    c = _k5("5pt", (20, 40), torch.float64, 1, True, True, 1.0)
+    plan, _ = ts.plan_march(c.dims, c.offsets, len(c.steps), 4, seg=20)
+    x, b = _xb(c, 0)
+    want = ts.tiled_sweep_reference(c, x, b)
+    least = ts.march_ring(len(c.steps), 1, batch) - max(batch - 1, 0)
+    assert torch.equal(march_emulation(c, x, b, plan, batch, ring=least), want)
+    assert not torch.equal(march_emulation(c, x, b, plan, batch, ring=least - 1), want)
+
+
+O5 = ((-1, 0, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1), (1, 0, 0))
+O9 = tuple((dx, 0, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1))
+# the Lat2D levels of the 4096² fwd/bwd hierarchy: (side, offsets, color
+# steps of a smoother application); L0 is 5-point with 2 colors, L1…L6
+# 9-point with 4
+FWD_BWD_LEVELS = [(4096, O5, 2)] + [(w, O9, 4) for w in (1366, 456, 152, 51, 17, 6)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_march2d_plans_of_the_fwd_bwd_hierarchy(itemsize):
+    """Every Lat2D level of the 4096² fwd/bwd hierarchy gets a strip that
+    cuts its width into whole columns of about ``MARCH_STRIP`` cells, a
+    ring of its reach and steps in shared memory, and the segments of the
+    planner's rule."""
+    from algebraicmultigrid_tpu_torch.ops.kernels import tiled_sweep as ts
+
+    for side, offs, S in FWD_BWD_LEVELS:
+        plan, why = ts.plan_march((side, 1, side), offs, S, itemsize)
+        assert why is None, (side, why)
+        cols = -(-side // ts.MARCH_STRIP)
+        tile = -(-side // cols)
+        threads = -(-plan.box[1] // ts.MARCH_UNIT)
+        assert plan.batch == ts.MARCH_BATCH_2D[len(offs)] == (2 if offs is O5 else 4)
+        assert plan.box == (1, tile + 2 * S) and plan.ring == ts.march_ring(S, 1, plan.batch)
+        assert plan.smem == plan.box[1] * plan.ring * itemsize <= ts.SMEM_LIMIT
+        assert threads <= ts.MARCH_MAX_THREADS_2D < ts.MARCH_MAX_THREADS
+        seg = ts.march_segment(side, S, cols, plan.smem, threads, batch=plan.batch)
+        assert plan.seg == -(-side // -(-side // seg)) and plan.seg <= side
+    # L0 in float32: eight whole columns of 512 cells, each strip 516 wide
+    plan, _ = ts.plan_march((4096, 1, 4096), O5, 2, 4)
+    assert ts.MARCH_STRIP == 512 and plan.box == (1, 516)
+    # refusals: past 64 color steps; a least strip whose threads pass the
+    # block's (reach 64 across the rows); a ring of a cross stencil of reach
+    # 4 at 3 symmetric sweeps that no SM's shared memory holds
+    plan, why = ts.plan_march((4096, 1, 4096), O5, 65, itemsize)
+    assert plan is None and "65 color steps" in why
+    plan, why = ts.plan_march((456, 1, 456), O5 + ((0, 0, 64), (0, 0, -64)), 16, itemsize)
+    assert plan is None and "threads" in why
+    cross = tuple((d, 0, 0) for d in range(-4, 5) if d) + tuple((0, 0, d) for d in range(-4, 5))
+    plan, why = ts.plan_march((400, 1, 400), cross, 54, itemsize)
+    assert plan is None and "shared memory" in why
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_march2d_takes_every_level_the_halo_tile_takes(itemsize):
+    """For 2-D stencils of reach 1 or 2 on each axis, at 1 to 64 color
+    steps, wherever K5's first design (the halo tile on the grid (1, Wx,
+    Wy)) has a box the march has a plan on the grid (Wx, 1, Wy)."""
+    from algebraicmultigrid_tpu_torch.ops.kernels import tiled_sweep as ts
+
+    taken = 0
+    for r0 in (1, 2):
+        for r2 in (1, 2):
+            offs = O5 + ((r0, 0, 0), (-r0, 0, 0), (0, 0, r2), (0, 0, -r2))
+            tile_offs = tuple((0, d0, d2) for d0, _, d2 in offs)
+            for wx, wy in ((3, 5), (31, 77), (4096, 4096)):
+                for n_steps in range(1, 65):
+                    if ts.plan_box(2, (1, wx, wy), tile_offs, n_steps, itemsize)[0] is None:
+                        continue
+                    taken += 1
+                    plan, why = ts.plan_march((wx, 1, wy), offs, n_steps, itemsize)
+                    assert why is None, (r0, r2, wx, wy, n_steps, why)
     assert taken > 100
 
 

@@ -30,6 +30,16 @@ def _vectors(n, pad, seed=0):
     return x, b
 
 
+def _assert_k5_march(cache, row_dims):
+    """K5's cache plans the march on the level as the grid (Wx, 1, Wy)."""
+    from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import plan_march
+
+    Wx, Wy = row_dims
+    assert cache.dims == (Wx, 1, Wy) and cache.box is None and cache.march is not None
+    want, _ = plan_march(cache.dims, cache.offsets, len(cache.steps), cache.A.data.element_size())
+    assert cache.march == want and cache.march.box[0] == 1
+
+
 def _port_dinv(spec, pad, dtype=torch.float32):
     d = torch.zeros(pad, dtype=dtype)
     d[: spec.diagonal().shape[0]] = torch.as_tensor(1.0 / spec.diagonal())
@@ -122,6 +132,7 @@ def test_k5_plain_matches_jax_kernel(stencil, fwd, bwd):
     )
     A_t = lat2d_from_spec(spec_t, torch.float32, "cpu", row_pad=8)
     cache_t = build_gs_sweep_cache(A_t, _port_dinv(spec_t, A_t.rows_padded), grid, nc, 1.0, 1, fwd, bwd)
+    _assert_k5_march(cache_t, A_t.row_dims)
     n = 96 * 96
     x, b = _vectors(n, A_t.rows_padded, seed=2)
     want = np.asarray(smooth_pallas_gs(cache_j, jnp.asarray(x), jnp.asarray(b)))
@@ -190,6 +201,9 @@ def test_fwd_bwd_hierarchy_runs_k5_and_matches_jax(fwd_bwd_pair):
     lat = [L for L in h_t.levels if isinstance(L.A, Lat2D)]
     assert lat and all(isinstance(c, GSSweepCache) for L in lat for c in (L.pre, L.post))
     assert lat[0].pre.steps == (0, 1) and lat[0].post.steps == (1, 0)
+    for L in lat:
+        for c in (L.pre, L.post):
+            _assert_k5_march(c, L.A.row_dims)
     h_j = build_j(ml_j, dtype=jnp.float64)
     b = np.zeros(h_j.fine_padded)
     b[: 192 * 192] = np.random.default_rng(3).standard_normal(192 * 192)
