@@ -51,6 +51,14 @@ operators.  The input is plain data:
   deeper levels are the tail, which must start at ``sub_start + 1``;
 * optionally ``final_A`` (an operator dict) and ``perm0``/``iperm0``, the
   fine level's RCM basis (index vectors of the fine level's padded length).
+
+bf16 coefficient planes: numpy has no bf16 dtype that ``torch.as_tensor``
+reads, so they travel as float32 arrays holding bf16 values, and
+``coef_dtype=torch.bfloat16`` rounds them on arrival (exactly, for such
+values): the ``"fused"`` planes A, dinv, T and S, and the tail levels' A, T
+and S (their dinv and ``Mc`` stay at ``dtype``), as
+``build_device_hierarchy(..., coef_dtype=torch.bfloat16)`` stores them.  A
+``sub`` cache takes no bf16 planes (ROADMAP B3).
 """
 
 from __future__ import annotations
@@ -73,7 +81,7 @@ from .ops.kernels.scan_gs import scan_gs_cache
 from .ops.kernels.subcycle_kernel import make_fused_subcycle_cache
 from .ops.kernels.sweep3d import build_sweep3d_cache
 from .ops.kernels.tail_kernel import make_fused_tail_cache
-from .ops.kernels.vcycle_legs import FusedLegCache, with_tile_plans
+from .ops.kernels.vcycle_legs import FusedLegCache, coef_dtype_of, round_planes, with_tile_plans
 from .ops.lattice_nd_op import LatND
 from .ops.lattice_op import Lat2D
 from .ops.sparse import ELL
@@ -172,11 +180,12 @@ def _smoother(d, dtype, device, A):
     raise ValueError(f"unknown smoother cache {kind!r}")
 
 
-def _fused(d, dtype, device):
+def _fused(d, dtype, device, coef_dtype=None, dinv=True):
+    """A factored-leg cache from its dict; with ``coef_dtype`` its planes
+    rounded (``round_planes``)."""
     if d is None:
         return None
-
-    return with_tile_plans(FusedLegCache(
+    cache = with_tile_plans(FusedLegCache(
         A=_tensor(d["A"], dtype, device),
         dinv=_tensor(d["dinv"], dtype, device),
         T=_tensor(d["T"], dtype, device),
@@ -192,14 +201,18 @@ def _fused(d, dtype, device):
         forward=bool(d["forward"]),
         backward=bool(d["backward"]),
     ))
+    return cache if coef_dtype is None else round_planes(cache, coef_dtype, dinv=dinv)
 
 
 def hierarchy_from_numpy(
     levels, coarse, *, device, dtype, tail=None, tail_start: int = -1, final_A=None,
-    perm0=None, iperm0=None, sub=None, sub_start: int = -1,
+    perm0=None, iperm0=None, sub=None, sub_start: int = -1, coef_dtype=None,
 ) -> DeviceHierarchy:
     """Build the port's hierarchy from numpy arrays (see module docstring)."""
     device = torch.device(device)
+    coef_dtype = coef_dtype_of(coef_dtype, dtype)
+    if coef_dtype is not None and sub is not None:
+        raise NotImplementedError("the whole-subcycle cache takes no bf16 coefficient planes (ROADMAP B3)")
     out = []
     for L in levels:
         A = _op(L["A"], dtype, device)
@@ -209,7 +222,7 @@ def hierarchy_from_numpy(
             R=_op(L["R"], dtype, device),
             pre=_smoother(L["pre"], dtype, device, A),
             post=_smoother(L["post"], dtype, device, A),
-            fused=_fused(L.get("fused"), dtype, device),
+            fused=_fused(L.get("fused"), dtype, device, coef_dtype),
         ))
     out = tuple(out)
     empty = torch.zeros((0, 0), dtype=dtype, device=device)
@@ -233,7 +246,8 @@ def hierarchy_from_numpy(
         if not 0 <= tail_start < len(out):
             raise ValueError(f"tail_start {tail_start} is not a level of the hierarchy")
         tail_cache = make_fused_tail_cache(
-            [_fused(d, dtype, device) for d in tail["levels"]], _tensor(tail["Mc"], dtype, device)
+            [_fused(d, dtype, device, coef_dtype, dinv=False) for d in tail["levels"]],
+            _tensor(tail["Mc"], dtype, device),
         )
     else:
         tail_start = -1

@@ -31,6 +31,9 @@
 // each coarse cell its box column by column, as box_cell does.  Only the
 // coefficient planes are read through the non-coherent path: in K4 and K9
 // the vectors (x, b, x_c) are written by earlier phases of the same launch.
+// The planes A, T and S are of type C and dinv of type D (stencil.cuh): a
+// bf16 coefficient is converted to T where it is loaded, so the registers,
+// the shared-memory buffers and the arithmetic are all of type T.
 //
 // Each thread keeps its cells' coefficients in registers (tile_leg_reg), so
 // a tile is taken only by a 5- or 9-point level whose box (tile + 2 halo)
@@ -215,15 +218,16 @@ __device__ __forceinline__ TileSmem<T> tile_buffers(unsigned char* base,
 }
 
 // Tup = T * upsample_k(x_c) over the box plus one reach, 0 outside the grid
-template <int K, typename T>
+// (T's plane of type C)
+template <int K, typename T, typename C>
 __device__ void box_tup(const LevelDesc& L, const TileSmem<T>& sm,
                         const Box& bx, const T* xc) {
-  const T* __restrict__ Tp = (const T*)L.Tp;
+  const C* __restrict__ Tp = (const C*)L.Tp;
   const int r = L.reach, U1 = bx.E1 + 2 * r;
   for_rect(0, bx.E0 + 2 * r, 0, U1, [&](int u0, int u1) {
     const int i = bx.ox - r + u0, j = bx.oy - r + u1;
     sm.sc[u0 * U1 + u1] = inside(i, j, L.Wx, L.Wy)
-                              ? Tp[(int64_t)i * L.Wy + j] *
+                              ? coef<T>(Tp, (int64_t)i * L.Wy + j) *
                                     xc[coarse_of<K>(i, j, L.Wyc)]
                               : T(0);
   });
@@ -255,57 +259,61 @@ __device__ void box_sums(const LevelDesc& L, const Box& bx, const T* ts,
 
 // ---- where a tile's inputs come from ------------------------------------
 //
-// A source gives what a tile reads at its box cell (e0, e1) (flat index e =
-// e0 * E1 + e1, grid index g, `in`: inside the grid; zero outside): a
-// coefficient plane q, dinv, b, x (zero where the leg starts from zero), S
-// and T; and Tup = T * upsample_k(x_c) at (u0, u1) of the box plus one
-// reach.  DeviceIn reads device memory, the coefficient planes through the
-// non-coherent path; vcycle_legs.cu's pipelined up leg reads a copy of the
-// box staged in shared memory.
+// A source gives what a tile reads at its box cell (e0, e1) (its own index
+// e of the cell, from index(e0, e1, flat box index), grid index g, `in`:
+// inside the grid; zero outside): a coefficient plane q, dinv, b, x (zero
+// where the leg starts from zero), S and T; and Tup = T * upsample_k(x_c) at
+// (u0, u1) of the box plus one reach.  DeviceIn reads device memory, the
+// coefficient planes through the non-coherent path; vcycle_legs.cu's
+// pipelined up leg reads a copy of the box staged in shared memory.
 
-template <typename T, int K>
+template <typename T, int K, typename C = T, typename D = C>
 struct DeviceIn {
-  const T* A;
-  const T* dinv;
-  const T* Tp;
-  const T* S;
+  using Coef = C;
+  const C* A;
+  const D* dinv;
+  const C* Tp;
+  const C* S;
   const T* x;   // nullptr: zero
   const T* xc;  // nullptr: no correction
   const T* b;
   int64_t plane;
   int Wx, Wy, Wyc, r, ox, oy;
 
+  __device__ int index(int, int, int e) const { return e; }
   __device__ T a(int q, int, bool in, int64_t g) const {
-    return in ? __ldg(A + q * plane + g) : T(0);
+    return in ? coef_ldg<T>(A, q * plane + g) : T(0);
   }
   __device__ T d(int, bool in, int64_t g) const {
-    return in ? __ldg(dinv + g) : T(0);
+    return in ? coef_ldg<T>(dinv, g) : T(0);
   }
   __device__ T rhs(int, bool in, int64_t g) const { return in ? b[g] : T(0); }
   __device__ T xv(int, bool in, int64_t g) const {
     return in && x != nullptr ? x[g] : T(0);
   }
   __device__ T s(int, bool in, int64_t g) const {
-    return in ? __ldg(S + g) : T(0);
+    return in ? coef_ldg<T>(S, g) : T(0);
   }
   __device__ T t(int, bool in, int64_t g) const {
-    return in ? __ldg(Tp + g) : T(0);
+    return in ? coef_ldg<T>(Tp, g) : T(0);
   }
   __device__ T tup(int u0, int u1) const {
     const int i = ox - r + u0, j = oy - r + u1;
-    return inside(i, j, Wx, Wy) ? __ldg(Tp + (int64_t)i * Wy + j) *
+    return inside(i, j, Wx, Wy) ? coef_ldg<T>(Tp, (int64_t)i * Wy + j) *
                                       xc[coarse_of<K>(i, j, Wyc)]
                                 : T(0);
   }
 };
 
-template <typename T, int K>
-__device__ __forceinline__ DeviceIn<T, K> device_in(const LevelDesc& L,
-                                                    const Box& bx, const T* x,
-                                                    const T* xc, const T* b) {
-  return DeviceIn<T, K>{(const T*)L.A, (const T*)L.dinv, (const T*)L.Tp,
-                        (const T*)L.S, x, xc, b, (int64_t)L.Wx * L.Wy, L.Wx,
-                        L.Wy, L.Wyc, L.reach, bx.ox, bx.oy};
+template <typename T, int K, typename C = T, typename D = C>
+__device__ __forceinline__ DeviceIn<T, K, C, D> device_in(const LevelDesc& L,
+                                                          const Box& bx,
+                                                          const T* x,
+                                                          const T* xc,
+                                                          const T* b) {
+  return DeviceIn<T, K, C, D>{(const C*)L.A, (const D*)L.dinv, (const C*)L.Tp,
+                              (const C*)L.S, x, xc, b, (int64_t)L.Wx * L.Wy,
+                              L.Wx, L.Wy, L.Wyc, L.reach, bx.ox, bx.oy};
 }
 
 // box cell (e0, e1) in r and g's area (the tile plus one reach) / the tile
@@ -367,22 +375,23 @@ __device__ __forceinline__ void tile_load(const LevelDesc& L,
       const bool in = box && inside(i, j, Wx, Wy);
       const int64_t g = in ? (int64_t)i * Wy + j : 0;
       const int e = box ? e0 * E1 + e1 : 0;
+      const int es = box ? src.index(e0, e1, e) : 0;
 #pragma unroll
-      for (int q = 0; q < NOFF; ++q) R.a[a][c][q] = src.a(q, e, in, g);
-      R.d[a][c] = src.d(e, in, g);
-      R.b[a][c] = src.rhs(e, in, g);
+      for (int q = 0; q < NOFF; ++q) R.a[a][c][q] = src.a(q, es, in, g);
+      R.d[a][c] = src.d(es, in, g);
+      R.b[a][c] = src.rhs(es, in, g);
       if constexpr (EARLY) {
         R.s[a][c] = correct || (restriction && in_rg(bx, r, e0, e1))
-                        ? src.s(e, in, g)
+                        ? src.s(es, in, g)
                         : T(0);
-        R.t[a][c] = restriction && in_tile(bx, e0, e1) ? src.t(e, in, g)
+        R.t[a][c] = restriction && in_tile(bx, e0, e1) ? src.t(es, in, g)
                                                        : T(0);
       }
       if (box) {
         sm.cs[e] =
             in ? (unsigned char)L.cg.tab[(i % L.cg.a) * L.cg.b + (j % L.cg.b)]
                : kOutside;
-        if (EARLY || !correct) sm.xs[e] = src.xv(e, in, g);
+        if (EARLY || !correct) sm.xs[e] = src.xv(es, in, g);
       }
     }
   }
@@ -411,7 +420,7 @@ __device__ __forceinline__ void tile_load(const LevelDesc& L,
     } else if constexpr (EARLY) {
       __trap();  // the plans give an EARLY correction a Tup area that fits
     } else {
-      box_tup<K, T>(L, sm, bx, src.xc);
+      box_tup<K, T, typename Src::Coef>(L, sm, bx, src.xc);
     }
   }
   __syncthreads();
@@ -577,7 +586,7 @@ __device__ __forceinline__ void tile_run(const LevelDesc& L,
 // (the halo of a down leg), else only x over the tile is written.  Ends on
 // a block barrier.
 template <typename T, int K, int NOFF, int WARPS, int CI, int CJ,
-          bool EARLY = false>
+          bool EARLY = false, typename C = T, typename D = C>
 __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
                              unsigned offset, int ti, int tj, const T* x_in,
                              const T* xc, const T* b, T* x_out, T* bc) {
@@ -587,7 +596,7 @@ __device__ void tile_leg_reg(const LevelDesc& L, unsigned char* base,
     __trap();
   }
   const TileSmem<T> sm = tile_buffers<T>(base, offset, bx, L.reach);
-  const DeviceIn<T, K> src = device_in<T, K>(L, bx, x_in, xc, b);
+  const DeviceIn<T, K, C, D> src = device_in<T, K, C, D>(L, bx, x_in, xc, b);
   CellRegs<T, NOFF, CI, CJ> R;
   tile_load<T, K, NOFF, WARPS, CI, CJ, EARLY>(L, sm, bx, src, xc != nullptr,
                                               bc != nullptr, R);
@@ -603,29 +612,29 @@ constexpr int kLegWarps = 16, kLegRows = 4, kLegCols = 2;
 // A leg of a tiled level in the whole-tail and whole-subcycle kernels (see
 // tile_leg_reg for the arguments); the plan gives tiles to 5- and 9-point
 // levels only.
-template <typename T, int K>
+template <typename T, int K, typename C, typename D>
 __device__ void tile_leg_k(const LevelDesc& L, unsigned char* base,
                            unsigned offset, int ti, int tj, const T* x_in,
                            const T* xc, const T* b, T* x_out, T* bc) {
   if (L.st.n == 9) {
-    tile_leg_reg<T, K, 9, kLegWarps, kLegRows, kLegCols>(
+    tile_leg_reg<T, K, 9, kLegWarps, kLegRows, kLegCols, false, C, D>(
         L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
   } else if (L.st.n == 5) {
-    tile_leg_reg<T, K, 5, kLegWarps, kLegRows, kLegCols>(
+    tile_leg_reg<T, K, 5, kLegWarps, kLegRows, kLegCols, false, C, D>(
         L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
   } else {
     __trap();
   }
 }
 
-template <typename T>
+template <typename T, typename C = T, typename D = C>
 __device__ void tile_leg(const LevelDesc& L, unsigned char* base,
                          unsigned offset, int ti, int tj, const T* x_in,
                          const T* xc, const T* b, T* x_out, T* bc) {
   if (L.k == 2) {
-    tile_leg_k<T, 2>(L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
+    tile_leg_k<T, 2, C, D>(L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
   } else {
-    tile_leg_k<T, 3>(L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
+    tile_leg_k<T, 3, C, D>(L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
   }
 }
 

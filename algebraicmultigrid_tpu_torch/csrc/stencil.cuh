@@ -9,9 +9,15 @@
 // T, S) are read through __restrict__ pointers: the work vectors (x, b, r,
 // g, coarse vectors) are written inside the persistent kernels and read back
 // after a barrier, so they must never take the non-coherent load path.
+//
+// The vectors and the arithmetic are of type T; the planes A, T and S of
+// type C and dinv of type D, each T itself or, with bf16 coefficient
+// planes under float32 vectors, __nv_bfloat16, converted to T where it is
+// read (coef, coef_ldg), so every sum and product stays in T.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <map>
@@ -36,9 +42,32 @@ struct ColorGrid {
   int tab[kMaxColorCells];
 };
 
-// sum_k A[k, i, j] * x[i + dx_k, j + dy_k], zero outside the grid
+// a coefficient of type C as the working type T
+template <typename T, typename C>
+struct Widen {
+  __device__ __forceinline__ static T of(C v) { return v; }
+};
 template <typename T>
-__device__ __forceinline__ T stencil_at(const T* __restrict__ A, const T* x,
+struct Widen<T, __nv_bfloat16> {
+  __device__ __forceinline__ static T of(__nv_bfloat16 v) {
+    return T(__bfloat162float(v));
+  }
+};
+
+// p[i] of a coefficient plane as T, by an ordinary load / through the
+// non-coherent path
+template <typename T, typename C>
+__device__ __forceinline__ T coef(const C* __restrict__ p, int64_t i) {
+  return Widen<T, C>::of(p[i]);
+}
+template <typename T, typename C>
+__device__ __forceinline__ T coef_ldg(const C* __restrict__ p, int64_t i) {
+  return Widen<T, C>::of(__ldg(p + i));
+}
+
+// sum_k A[k, i, j] * x[i + dx_k, j + dy_k], zero outside the grid
+template <typename T, typename C>
+__device__ __forceinline__ T stencil_at(const C* __restrict__ A, const T* x,
                                         const Stencil& st, int i, int j,
                                         int Wx, int Wy) {
   const int64_t plane = (int64_t)Wx * Wy;
@@ -48,7 +77,7 @@ __device__ __forceinline__ T stencil_at(const T* __restrict__ A, const T* x,
     const int ii = i + st.dx[k];
     const int jj = j + st.dy[k];
     if (ii >= 0 && ii < Wx && jj >= 0 && jj < Wy) {
-      acc += A[k * plane + c] * x[(int64_t)ii * Wy + jj];
+      acc += coef<T>(A, k * plane + c) * x[(int64_t)ii * Wy + jj];
     }
   }
   return acc;
@@ -63,9 +92,9 @@ __device__ __forceinline__ int64_t coarse_of(int i, int j, int Wyc) {
 
 // sum_k A[k, i, j] * Tup[i + dx_k, j + dy_k] with Tup = T * upsample_K(x_c)
 // formed on the fly, so no Tup plane is written or read back
-template <int K, typename T>
-__device__ __forceinline__ T stencil_tup_at(const T* __restrict__ A,
-                                            const T* __restrict__ Tp,
+template <int K, typename T, typename C>
+__device__ __forceinline__ T stencil_tup_at(const C* __restrict__ A,
+                                            const C* __restrict__ Tp,
                                             const T* xc, const Stencil& st,
                                             int i, int j, int Wx, int Wy,
                                             int Wyc) {
@@ -76,8 +105,9 @@ __device__ __forceinline__ T stencil_tup_at(const T* __restrict__ A,
     const int ii = i + st.dx[q];
     const int jj = j + st.dy[q];
     if (ii >= 0 && ii < Wx && jj >= 0 && jj < Wy) {
-      acc += A[q * plane + c] *
-             (Tp[(int64_t)ii * Wy + jj] * xc[coarse_of<K>(ii, jj, Wyc)]);
+      acc += coef<T>(A, q * plane + c) *
+             (coef<T>(Tp, (int64_t)ii * Wy + jj) *
+              xc[coarse_of<K>(ii, jj, Wyc)]);
     }
   }
   return acc;
@@ -88,10 +118,10 @@ __device__ __forceinline__ T stencil_tup_at(const T* __restrict__ A,
 // b); full_write writes every cell of x_out (x_in != x_out), otherwise only
 // color cells are written in place.  In-place steps are race-free because
 // the periodic lattice coloring leaves no two coupled cells the same color.
-template <typename T>
+template <typename T, typename C, typename D>
 __device__ __forceinline__ void step_cell(T* x_out, const T* x_in, const T* b,
-                                          const T* __restrict__ A,
-                                          const T* __restrict__ dinv,
+                                          const C* __restrict__ A,
+                                          const D* __restrict__ dinv,
                                           const Stencil& st,
                                           const ColorGrid& cg, int color,
                                           T omega, int i, int j, int Wx,
@@ -99,38 +129,38 @@ __device__ __forceinline__ void step_cell(T* x_out, const T* x_in, const T* b,
   const int64_t c = (int64_t)i * Wy + j;
   const bool mine = cg.tab[(i % cg.a) * cg.b + (j % cg.b)] == color;
   if (x_in == nullptr) {
-    x_out[c] = mine ? omega * dinv[c] * b[c] : T(0);
+    x_out[c] = mine ? omega * coef<T>(dinv, c) * b[c] : T(0);
   } else if (mine) {
     const T r = b[c] - stencil_at(A, x_in, st, i, j, Wx, Wy);
-    x_out[c] = x_in[c] + omega * dinv[c] * r;
+    x_out[c] = x_in[c] + omega * coef<T>(dinv, c) * r;
   } else if (full_write) {
     x_out[c] = x_in[c];
   }
 }
 
 // r = b - A x;  g = S * r
-template <typename T>
+template <typename T, typename C>
 __device__ __forceinline__ void residual_cell(T* r, T* g, const T* x,
                                               const T* b,
-                                              const T* __restrict__ A,
-                                              const T* __restrict__ S,
+                                              const C* __restrict__ A,
+                                              const C* __restrict__ S,
                                               const Stencil& st, int i, int j,
                                               int Wx, int Wy) {
   const int64_t c = (int64_t)i * Wy + j;
   const T rc = b[c] - stencil_at(A, x, st, i, j, Wx, Wy);
   r[c] = rc;
-  g[c] = S[c] * rc;
+  g[c] = coef<T>(S, c) * rc;
 }
 
 // T * (r - A g) at one fine cell
-template <typename T>
+template <typename T, typename C>
 __device__ __forceinline__ T term_at(const T* r, const T* g,
-                                     const T* __restrict__ A,
-                                     const T* __restrict__ Tp,
+                                     const C* __restrict__ A,
+                                     const C* __restrict__ Tp,
                                      const Stencil& st, int i, int j, int Wx,
                                      int Wy) {
   const int64_t c = (int64_t)i * Wy + j;
-  return Tp[c] * (r[c] - stencil_at(A, g, st, i, j, Wx, Wy));
+  return coef<T>(Tp, c) * (r[c] - stencil_at(A, g, st, i, j, Wx, Wy));
 }
 
 // b_c[I, J] = sum of ts over the fine k x k box, clipped at the edge
@@ -150,10 +180,10 @@ __device__ __forceinline__ void box_cell(T* bc, const T* ts, int I, int J,
 
 // b_c[I, J] = sum over the clipped k x k box of T * (r - A g), in one pass
 // (same summation order as term pass + box_cell)
-template <typename T>
+template <typename T, typename C>
 __device__ __forceinline__ void restrict_cell(T* bc, const T* r, const T* g,
-                                              const T* __restrict__ A,
-                                              const T* __restrict__ Tp,
+                                              const C* __restrict__ A,
+                                              const C* __restrict__ Tp,
                                               const Stencil& st, int I, int J,
                                               int Wx, int Wy, int Wyc, int k) {
   T acc = T(0);
@@ -169,27 +199,28 @@ __device__ __forceinline__ void restrict_cell(T* bc, const T* r, const T* g,
 
 // x_out = x_in + (Tup - S * (A Tup)); x_out may alias x_in (a cell reads
 // only its own x)
-template <int K, typename T>
+template <int K, typename T, typename C>
 __device__ __forceinline__ void correct_cell_k(T* x_out, const T* x_in,
                                                const T* xc,
-                                               const T* __restrict__ A,
-                                               const T* __restrict__ Tp,
-                                               const T* __restrict__ S,
+                                               const C* __restrict__ A,
+                                               const C* __restrict__ Tp,
+                                               const C* __restrict__ S,
                                                const Stencil& st, int i, int j,
                                                int Wx, int Wy, int Wyc) {
   const int64_t c = (int64_t)i * Wy + j;
-  const T tup = Tp[c] * xc[coarse_of<K>(i, j, Wyc)];
-  x_out[c] = x_in[c] + (tup - S[c] * stencil_tup_at<K>(A, Tp, xc, st, i, j, Wx,
-                                                       Wy, Wyc));
+  const T tup = coef<T>(Tp, c) * xc[coarse_of<K>(i, j, Wyc)];
+  x_out[c] = x_in[c] + (tup - coef<T>(S, c) * stencil_tup_at<K>(A, Tp, xc, st,
+                                                                i, j, Wx, Wy,
+                                                                Wyc));
 }
 
 // the same for the level's k (2 or 3; the entry points reject others)
-template <typename T>
+template <typename T, typename C>
 __device__ __forceinline__ void correct_cell(T* x_out, const T* x_in,
                                              const T* xc,
-                                             const T* __restrict__ A,
-                                             const T* __restrict__ Tp,
-                                             const T* __restrict__ S,
+                                             const C* __restrict__ A,
+                                             const C* __restrict__ Tp,
+                                             const C* __restrict__ S,
                                              const Stencil& st, int i, int j,
                                              int Wx, int Wy, int Wyc, int k) {
   if (k == 2) {

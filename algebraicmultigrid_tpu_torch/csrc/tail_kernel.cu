@@ -36,6 +36,12 @@
 // TPU's halo and one-hot selector matmuls do not carry over).  The wrapper passes one work buffer for every level's x, b, r, g,
 // x_mid and the coarse vectors, and the tiles' dynamic shared memory size;
 // the kernel allocates nothing.
+//
+// bf16 coefficient planes (the entry amg_fused_tail_f32_bf16): the A, T and
+// S planes of every level in bf16, D^-1 and the vectors in float32, as the
+// reference's whole-tail cache stores them under AMG_COEF_DTYPE=bfloat16;
+// each coefficient is converted to float where it is loaded and all the
+// arithmetic stays in float32.  The same code, a type apart.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +58,7 @@ using amg::LevelDesc;
 // the block-0 levels run with 512 threads too
 constexpr int kTailThreads = amg::kLegWarps * 32;
 
-template <typename T>
+template <typename T, typename C, typename D>
 __global__ void __launch_bounds__(kTailThreads)
     tail_kernel(const LevelDesc* lv, int n_lvl, int n_grid, T* work,
                 T* x_out, const T* x_in, const T* b_in,
@@ -61,11 +67,11 @@ __global__ void __launch_bounds__(kTailThreads)
   extern __shared__ __align__(16) unsigned char tail_smem[];
   __shared__ LevelDesc sh[kMaxTailLevels];
   amg::load_levels(sh, lv, n_lvl);
-  amg::tail_cycle<T>(sh, n_lvl, n_grid, work, x_out, x_in, b_in, Mc, n7,
-                     b7_off, x7_off, tail_smem, 0, false);
+  amg::tail_cycle<T, C, D>(sh, n_lvl, n_grid, work, x_out, x_in, b_in, Mc,
+                           n7, b7_off, x7_off, tail_smem, 0, false);
 }
 
-template <typename T>
+template <typename T, typename C, typename D>
 int fused_tail(const void* desc, int n_lvl, int n_grid, T* work, T* x_out,
                const T* x_in, const T* b_in, const T* Mc, int n7,
                int64_t b7_off, int64_t x7_off, int smem, void* stream_ptr) {
@@ -76,8 +82,9 @@ int fused_tail(const void* desc, int n_lvl, int n_grid, T* work, T* x_out,
   const LevelDesc* lv = (const LevelDesc*)desc;
   void* args[] = {&lv, &n_lvl, &n_grid, &work, &x_out, &x_in,
                   &b_in, &Mc, &n7, &b7_off, &x7_off};
-  return amg::launch_cooperative((const void*)tail_kernel<T>, kTailThreads,
-                                 args, (cudaStream_t)stream_ptr, (size_t)smem);
+  return amg::launch_cooperative((const void*)tail_kernel<T, C, D>,
+                                 kTailThreads, args, (cudaStream_t)stream_ptr,
+                                 (size_t)smem);
 }
 
 }  // namespace
@@ -113,15 +120,18 @@ extern "C" int amg_tile_smem_bytes(int tx, int ty, int halo, int reach,
   return (int)amg::tile_smem_bytes(tx, ty, halo, reach, itemsize);
 }
 
-#define AMG_DEFINE_TAIL(SUFFIX, T)                                           \
+// one entry per (vector, plane) type: T vectors, C planes A/T/S, D dinv
+#define AMG_DEFINE_TAIL(SUFFIX, T, C, D)                                     \
   extern "C" int amg_fused_tail_##SUFFIX(                                    \
       const void* desc, int n_lvl, int n_grid, void* work, void* x_out,      \
       const void* x_in, const void* b_in, const void* Mc, int n7,            \
       long long b7_off, long long x7_off, int smem, void* stream) {          \
-    return fused_tail<T>(desc, n_lvl, n_grid, (T*)work, (T*)x_out,           \
-                         (const T*)x_in, (const T*)b_in, (const T*)Mc, n7,   \
-                         (int64_t)b7_off, (int64_t)x7_off, smem, stream);    \
+    return fused_tail<T, C, D>(desc, n_lvl, n_grid, (T*)work, (T*)x_out,     \
+                               (const T*)x_in, (const T*)b_in, (const T*)Mc, \
+                               n7, (int64_t)b7_off, (int64_t)x7_off, smem,   \
+                               stream);                                      \
   }
 
-AMG_DEFINE_TAIL(f32, float)
-AMG_DEFINE_TAIL(f64, double)
+AMG_DEFINE_TAIL(f32, float, float, float)
+AMG_DEFINE_TAIL(f64, double, double, double)
+AMG_DEFINE_TAIL(f32_bf16, float, __nv_bfloat16, float)

@@ -29,6 +29,11 @@
 // cell's k x k box of T (r - A g) in the same pass, one thread per coarse
 // cell.
 //
+// The vectors and the arithmetic are of type T, the planes A, T and S of
+// type C and dinv of type D (stencil.cuh): T itself, or with bf16 planes
+// (K4 only) C = __nv_bfloat16 and D = T, the reference's whole-tail cache
+// keeping D^-1 at the working dtype.
+//
 // The per-level descriptors (plane pointers, shapes, stencil, coloring,
 // steps, tiles) exceed the kernel-parameter space, so they live in a
 // device array of LevelDesc, filled once per cache by amg_tail_fill_level
@@ -79,14 +84,14 @@ __device__ __forceinline__ void load_levels(LevelDesc* sh, const LevelDesc* lv,
 
 // presmooth, residual and restriction of one level; x_in == nullptr is the
 // zero start
-template <typename T, typename Barrier>
+template <typename T, typename C, typename D, typename Barrier>
 __device__ void level_down(const LevelDesc& L, T* x, const T* x_in,
                            const T* b, T* r, T* g, T* bc, Span sp,
                            Barrier bar) {
-  const T* A = (const T*)L.A;
-  const T* dinv = (const T*)L.dinv;
-  const T* Tp = (const T*)L.Tp;
-  const T* S = (const T*)L.S;
+  const C* A = (const C*)L.A;
+  const D* dinv = (const D*)L.dinv;
+  const C* Tp = (const C*)L.Tp;
+  const C* S = (const C*)L.S;
   const int Wx = L.Wx, Wy = L.Wy;
   const T omega = (T)L.omega;
   for (int s = 0; s < L.n_steps; ++s) {
@@ -110,13 +115,13 @@ __device__ void level_down(const LevelDesc& L, T* x, const T* x_in,
 }
 
 // correction from the coarse x, then postsmooth
-template <typename T, typename Barrier>
+template <typename T, typename C, typename D, typename Barrier>
 __device__ void level_up(const LevelDesc& L, T* x, const T* b, const T* xc,
                          Span sp, Barrier bar) {
-  const T* A = (const T*)L.A;
-  const T* dinv = (const T*)L.dinv;
-  const T* Tp = (const T*)L.Tp;
-  const T* S = (const T*)L.S;
+  const C* A = (const C*)L.A;
+  const D* dinv = (const D*)L.dinv;
+  const C* Tp = (const C*)L.Tp;
+  const C* S = (const C*)L.S;
   const int Wx = L.Wx, Wy = L.Wy;
   const T omega = (T)L.omega;
   for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
@@ -140,7 +145,7 @@ __device__ void level_up(const LevelDesc& L, T* x, const T* b, const T* xc,
 // writes x_out.  A tiled level's tile buffers are at smem + smem_off.  Every
 // thread of the grid reaches every grid.sync() (no early return); with
 // final_barrier the call ends on a grid barrier after its last write.
-template <typename T>
+template <typename T, typename C = T, typename D = C>
 __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
                            T* work, T* x_out, const T* x_in, const T* b_in,
                            const T* __restrict__ Mc, int n7, int64_t b7_off,
@@ -162,7 +167,7 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
     return l + 1 < n_lvl ? (const T*)X(l + 1) : (const T*)(work + x7_off);
   };
   auto down = [&](int l, Span sp, auto bar) {
-    level_down<T>(sh[l], X(l), l == 0 ? x_in : (const T*)nullptr, B(l),
+    level_down<T, C, D>(sh[l], X(l), l == 0 ? x_in : (const T*)nullptr, B(l),
                   work + sh[l].r_off, work + sh[l].g_off, BC(l), sp, bar);
   };
   // the tiles of a grid level, spread over the blocks
@@ -177,8 +182,8 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
     if (L.tile_x > 0) {
       const T* xin = l == 0 ? x_in : (const T*)nullptr;
       for_tiles(L, [&](int ti, int tj) {
-        tile_leg<T>(L, smem, smem_off, ti, tj, xin, (const T*)nullptr, B(l),
-                    work + L.m_off, BC(l));
+        tile_leg<T, C, D>(L, smem, smem_off, ti, tj, xin, (const T*)nullptr,
+                          B(l), work + L.m_off, BC(l));
       });
       gbar();
     } else {
@@ -196,7 +201,7 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
     }
     __syncthreads();
     for (int l = n_lvl - 1; l >= n_grid; --l) {
-      level_up<T>(sh[l], X(l), B(l), XC(l), bspan, bbar);
+      level_up<T, C, D>(sh[l], X(l), B(l), XC(l), bspan, bbar);
     }
   }
   gbar();
@@ -204,12 +209,12 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
     const LevelDesc& L = sh[l];
     if (L.tile_x > 0) {
       for_tiles(L, [&](int ti, int tj) {
-        tile_leg<T>(L, smem, smem_off, ti, tj, (const T*)(work + L.m_off),
+        tile_leg<T, C, D>(L, smem, smem_off, ti, tj, (const T*)(work + L.m_off),
                     XC(l), B(l), X(l), (T*)nullptr);
       });
       if (l > 0 || final_barrier) gbar();
     } else {
-      level_up<T>(L, X(l), B(l), XC(l), gspan, gbar);
+      level_up<T, C, D>(L, X(l), B(l), XC(l), gspan, gbar);
     }
   }
 }

@@ -43,10 +43,21 @@
 // 1.385 ms at 4096^2 that way, K3's first version (a cooperative launch
 // of 9 grid-wide passes) 2.26 ms, against a ~0.22 ms byte bound.
 
+// bf16 coefficient planes (the entries *_f32_bf16: the reference's
+// AMG_COEF_DTYPE=bfloat16, which stores A, D^-1, T and S of the legs in
+// bf16).  The same kernels with the plane type C = __nv_bfloat16 beside the
+// float32 vectors: each coefficient is converted to float where it is
+// loaded (stencil.cuh coef), so the registers, shared memory and the
+// arithmetic are float32, as the reference's kernel bodies are once a bf16
+// plane meets an f32 vector.  A leg reads 2 bytes a coefficient in place of
+// 4 (8 words of 11 at a 5-point level).  The pipelined up leg stages the
+// planes a pair of coefficients a 4-byte cp.async (PairStage).
+//
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns a CUDA error code (cudaGetLastError() after the launches) for
 // the wrapper to check.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -68,11 +79,12 @@ constexpr int kThreads = 256;
 constexpr int kReg5Warps = 32, kReg5Rows = 2, kReg5Cols = 2;
 constexpr int kReg9Warps = 16, kReg9Rows = 4, kReg9Cols = 2;
 
-template <typename T>
+// T: the vectors and the arithmetic; C: the coefficient planes
+template <typename T, typename C>
 __global__ void color_step_kernel(T* x_out, const T* x_in,
                                   const T* __restrict__ b,
-                                  const T* __restrict__ A,
-                                  const T* __restrict__ dinv, Stencil st,
+                                  const C* __restrict__ A,
+                                  const C* __restrict__ dinv, Stencil st,
                                   ColorGrid cg, int color, T omega, int Wx,
                                   int Wy, int full_write) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -83,12 +95,12 @@ __global__ void color_step_kernel(T* x_out, const T* x_in,
   }
 }
 
-template <typename T>
+template <typename T, typename C>
 __global__ void residual_scale_kernel(T* __restrict__ r, T* __restrict__ g,
                                       const T* __restrict__ x,
                                       const T* __restrict__ b,
-                                      const T* __restrict__ A,
-                                      const T* __restrict__ S, Stencil st,
+                                      const C* __restrict__ A,
+                                      const C* __restrict__ S, Stencil st,
                                       int Wx, int Wy) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= Wy) return;
@@ -99,10 +111,10 @@ __global__ void residual_scale_kernel(T* __restrict__ r, T* __restrict__ g,
 
 // ts = T * (r - A g), written over r: a cell reads only its own r, and the
 // stencil reads g, so the update is race-free
-template <typename T>
+template <typename T, typename C>
 __global__ void restrict_terms_kernel(T* r, const T* __restrict__ g,
-                                      const T* __restrict__ A,
-                                      const T* __restrict__ Tp, Stencil st,
+                                      const C* __restrict__ A,
+                                      const C* __restrict__ Tp, Stencil st,
                                       int Wx, int Wy) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= Wy) return;
@@ -121,13 +133,13 @@ __global__ void box_sum_kernel(T* __restrict__ bc, const T* __restrict__ ts,
   }
 }
 
-template <typename T>
+template <typename T, typename C>
 __global__ void correct_kernel(T* __restrict__ x_out,
                                const T* __restrict__ x_in,
                                const T* __restrict__ xc,
-                               const T* __restrict__ A,
-                               const T* __restrict__ Tp,
-                               const T* __restrict__ S, Stencil st, int Wx,
+                               const C* __restrict__ A,
+                               const C* __restrict__ Tp,
+                               const C* __restrict__ S, Stencil st, int Wx,
                                int Wy, int Wyc, int k) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= Wy) return;
@@ -151,14 +163,15 @@ __device__ __forceinline__ void copy_desc(amg::LevelDesc* sh,
 
 // K1, K2 and K3 on a tiled level, one block a tile: a down leg (xc
 // nullptr), an up leg (bc nullptr) or the updown leg (both)
-template <typename T, int K, int NOFF, int WARPS, int CI, int CJ, bool EARLY>
+template <typename T, int K, int NOFF, int WARPS, int CI, int CJ, bool EARLY,
+          typename C>
 __global__ void __launch_bounds__(WARPS * 32)
     leg_reg_kernel(T* x_out, const T* x_in, const T* b, const T* xc, T* bc,
                    const __grid_constant__ amg::LevelDesc L) {
   extern __shared__ __align__(16) unsigned char leg_smem[];
   __shared__ amg::LevelDesc sh;
   copy_desc(&sh, L);
-  amg::tile_leg_reg<T, K, NOFF, WARPS, CI, CJ, EARLY>(
+  amg::tile_leg_reg<T, K, NOFF, WARPS, CI, CJ, EARLY, C, C>(
       sh, leg_smem, 0, blockIdx.y, blockIdx.x, x_in, xc, b, x_out, bc);
 }
 
@@ -169,7 +182,8 @@ __global__ void __launch_bounds__(WARPS * 32)
 // a stage in shared memory through cp.async, so the SM's loads overlap its
 // work.  The stage holds the box planes (A, dinv, b, x, S), T over the box
 // plus one reach and x_c over that area's coarse cells; zero outside the
-// grid (cp.async zero-fills).
+// grid (cp.async zero-fills).  With 2-byte planes the stage is laid out
+// for copies of a pair of coefficients (PairStage).
 
 // one element from device to shared memory, zero where !valid
 template <typename T>
@@ -180,6 +194,17 @@ __device__ __forceinline__ void cp_async_el(T* dst, const T* src, bool valid) {
                "r"(valid ? (int)sizeof(T) : 0));
 }
 
+// two 2-byte elements (4 bytes, 4-byte aligned at both ends), zero where
+// !valid: cp.async copies 4, 8 or 16 bytes, not 2
+template <typename C>
+__device__ __forceinline__ void cp_async_pair(C* dst, const C* src,
+                                              bool valid) {
+  static_assert(sizeof(C) == 2, "a pair of 2-byte coefficients");
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -188,7 +213,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// bytes of a tile's stage, to 16
+// bytes of a tile's stage with planes of the vectors' type, to 16
 __host__ __device__ inline unsigned stage_bytes(int E0, int E1, int noff,
                                                 int reach, int k,
                                                 int itemsize) {
@@ -196,6 +221,51 @@ __host__ __device__ inline unsigned stage_bytes(int E0, int E1, int noff,
   const int words =
       (noff + 4) * E0 * E1 + U0 * U1 + (U0 / k + 2) * (U1 / k + 2);
   return ((unsigned)words * itemsize + 15u) / 16u * 16u;
+}
+
+// The stage of a tile's box with 2-byte planes: b and x over the box and
+// x_c over the coarse cells of T's area (the vectors' type), then the
+// planes A (noff), dinv and S over the box and T over the box plus one
+// reach (T's area).  cp.async copies 4, 8 or 16 bytes, so the planes go a
+// pair of coefficients a copy: a row of a box array holds E1s cells from
+// the even grid column oy - s, a row of T's area U1s cells from
+// oy - reach - su, E1s and U1s even.  On a level of even Wy whose planes
+// are 4-byte aligned (the wrapper's plan) a pair then lies inside the grid
+// or outside it whole.  b and x share the box arrays' rows.
+struct PairStage {
+  int E1s, U1s, s, su;  // row lengths and first-cell columns (box, T's area)
+  int n;                // cells of a box array
+  unsigned coef_off;    // bytes before the planes
+  unsigned bytes;       // all of it, to 16
+};
+
+__host__ __device__ inline PairStage pair_stage(int E0, int E1, int oy,
+                                                int noff, int reach, int k,
+                                                int itemsize) {
+  const int U0 = E0 + 2 * reach, U1 = E1 + 2 * reach;
+  PairStage sg;
+  sg.E1s = (E1 + 2) & ~1;
+  sg.U1s = (U1 + 2) & ~1;
+  sg.s = oy & 1;
+  sg.su = (oy - reach) & 1;
+  sg.n = E0 * sg.E1s;
+  const int ncx = (U0 / k + 2) * (U1 / k + 2);
+  sg.coef_off = (unsigned)(2 * sg.n + ncx) * itemsize;
+  sg.bytes =
+      (sg.coef_off + (unsigned)((noff + 2) * sg.n + U0 * sg.U1s) * 2u + 15u) /
+      16u * 16u;
+  return sg;
+}
+
+// the stage's bytes for planes of type C under vectors of type T
+template <typename T, typename C>
+__host__ __device__ inline unsigned pipe_stage_bytes(int E0, int E1,
+                                                     int reach, int k) {
+  if constexpr (sizeof(C) == 2) {
+    return pair_stage(E0, E1, 0, 5, reach, k, (int)sizeof(T)).bytes;
+  } else {
+    return stage_bytes(E0, E1, 5, reach, k, (int)sizeof(T));
+  }
 }
 
 // the coarse cells of T over the box plus one reach: rows ci0.., columns
@@ -225,6 +295,7 @@ struct StagedIn {
   const T* xcs;  // x_c over its coarse cells
   int n, noff, U1, Wx, Wy, r, ox, oy, ci0, cj0, xw;
 
+  __device__ int index(int, int, int e) const { return e; }
   __device__ T a(int q, int e, bool in, int64_t) const {
     return in ? st[q * n + e] : T(0);
   }
@@ -261,6 +332,71 @@ __device__ __forceinline__ StagedIn<T, K> staged_in(const amg::LevelDesc& L,
                         bx.ox, bx.oy, ca.ci0, ca.cj0, ca.xw};
 }
 
+// the same from a PairStage: coefficients converted to T where read, and
+// every box array indexed by its padded rows
+template <typename T, typename C, int K>
+struct StagedPairs {
+  const T* v;    // b, then x, over the box
+  const T* xcs;  // x_c over its coarse cells
+  const C* cf;   // A (noff planes), dinv, S over the box
+  const C* tp;   // T over the box plus one reach
+  int n, noff, E1s, s0, U1s, su, Wx, Wy, r, ox, oy, ci0, cj0, xw;
+
+  __device__ int index(int e0, int e1, int) const {
+    return e0 * E1s + s0 + e1;
+  }
+  __device__ T a(int q, int e, bool in, int64_t) const {
+    return in ? amg::coef<T>(cf, q * n + e) : T(0);
+  }
+  __device__ T d(int e, bool in, int64_t) const {
+    return in ? amg::coef<T>(cf, noff * n + e) : T(0);
+  }
+  __device__ T rhs(int e, bool in, int64_t) const { return in ? v[e] : T(0); }
+  __device__ T xv(int e, bool in, int64_t) const {
+    return in ? v[n + e] : T(0);
+  }
+  __device__ T s(int e, bool in, int64_t) const {
+    return in ? amg::coef<T>(cf, (noff + 1) * n + e) : T(0);
+  }
+  __device__ T t(int, bool, int64_t) const { return T(0); }
+  __device__ T tup(int u0, int u1) const {
+    const int i = ox - r + u0, j = oy - r + u1;
+    return amg::inside(i, j, Wx, Wy)
+               ? amg::coef<T>(tp, u0 * U1s + su + u1) *
+                     xcs[(i / K - ci0) * xw + (j / K - cj0)]
+               : T(0);
+  }
+};
+
+template <typename T, typename C, int K>
+__device__ __forceinline__ StagedPairs<T, C, K> staged_pairs(
+    const amg::LevelDesc& L, const amg::Box& bx, unsigned char* base,
+    int noff) {
+  const PairStage sg =
+      pair_stage(bx.E0, bx.E1, bx.oy, noff, L.reach, K, (int)sizeof(T));
+  const CoarseArea ca = coarse_area(L, bx, K);
+  const T* v = reinterpret_cast<const T*>(base);
+  const C* cf = reinterpret_cast<const C*>(base + sg.coef_off);
+  return StagedPairs<T, C, K>{v, v + 2 * sg.n, cf, cf + (noff + 2) * sg.n,
+                              sg.n, noff, sg.E1s, sg.s, sg.U1s, sg.su, L.Wx,
+                              L.Wy, L.reach, bx.ox, bx.oy, ca.ci0, ca.cj0,
+                              ca.xw};
+}
+
+// the cp.async of x_c over the coarse cells of T's area
+template <typename T, int K>
+__device__ __forceinline__ void stage_xc(const amg::LevelDesc& L,
+                                         const amg::Box& bx, T* xcs,
+                                         const T* xc) {
+  const CoarseArea ca = coarse_area(L, bx, K);
+  const int cols = ca.cj1 - ca.cj0 + 1, cells = (ca.ci1 - ca.ci0 + 1) * cols;
+  for (int v = threadIdx.x; v < cells; v += blockDim.x) {
+    const int v0 = v / cols, v1 = v - v0 * cols;
+    cp_async_el(xcs + v0 * ca.xw + v1,
+                xc + (int64_t)(ca.ci0 + v0) * L.Wyc + (ca.cj0 + v1), true);
+  }
+}
+
 // issue the cp.async of a tile's stage (the caller commits the group)
 template <typename T, int K, int NOFF>
 __device__ void stage_tile(const amg::LevelDesc& L, const amg::Box& bx, T* st,
@@ -293,18 +429,62 @@ __device__ void stage_tile(const amg::LevelDesc& L, const amg::Box& bx, T* st,
     const bool in = amg::inside(i, j, L.Wx, L.Wy);
     cp_async_el(tp + u, Tp + (in ? (int64_t)i * L.Wy + j : 0), in);
   }
-  const CoarseArea ca = coarse_area(L, bx, K);
-  T* xcs = tp + U0 * U1;
-  const int cols = ca.cj1 - ca.cj0 + 1, cells = (ca.ci1 - ca.ci0 + 1) * cols;
-  for (int v = threadIdx.x; v < cells; v += blockDim.x) {
-    const int v0 = v / cols, v1 = v - v0 * cols;
-    cp_async_el(xcs + v0 * ca.xw + v1,
-                xc + (int64_t)(ca.ci0 + v0) * L.Wyc + (ca.cj0 + v1), true);
+  stage_xc<T, K>(L, bx, tp + U0 * U1, xc);
+}
+
+// the same into a PairStage: b and x an element a copy, the planes a pair
+// of coefficients a copy (j even)
+template <typename T, typename C, int K, int NOFF>
+__device__ void stage_pairs(const amg::LevelDesc& L, const amg::Box& bx,
+                            unsigned char* base, const T* x, const T* b,
+                            const T* xc) {
+  const int E1 = bx.E1, r = L.reach;
+  const PairStage sg =
+      pair_stage(bx.E0, E1, bx.oy, NOFF, r, K, (int)sizeof(T));
+  const int64_t plane = (int64_t)L.Wx * L.Wy;
+  const C* A = (const C*)L.A;
+  const C* dinv = (const C*)L.dinv;
+  const C* Tp = (const C*)L.Tp;
+  const C* S = (const C*)L.S;
+  T* v = reinterpret_cast<T*>(base);
+  C* cf = reinterpret_cast<C*>(base + sg.coef_off);
+  for (int e = threadIdx.x; e < bx.E0 * E1; e += blockDim.x) {
+    const int e0 = e / E1, e1 = e - e0 * E1;
+    const int i = bx.ox + e0, j = bx.oy + e1;
+    const bool in = amg::inside(i, j, L.Wx, L.Wy);
+    const int64_t g = in ? (int64_t)i * L.Wy + j : 0;
+    const int es = e0 * sg.E1s + sg.s + e1;
+    cp_async_el(v + es, b + g, in);
+    cp_async_el(v + sg.n + es, x + g, in);
   }
+  const int pairs = sg.E1s / 2;
+  for (int w = threadIdx.x; w < bx.E0 * pairs; w += blockDim.x) {
+    const int e0 = w / pairs, p = w - e0 * pairs;
+    const int i = bx.ox + e0, j = bx.oy - sg.s + 2 * p;
+    const bool in = amg::inside(i, j, L.Wx, L.Wy);
+    const int64_t g = in ? (int64_t)i * L.Wy + j : 0;
+    const int es = e0 * sg.E1s + 2 * p;
+#pragma unroll
+    for (int q = 0; q < NOFF; ++q) {
+      cp_async_pair(cf + q * sg.n + es, A + q * plane + g, in);
+    }
+    cp_async_pair(cf + NOFF * sg.n + es, dinv + g, in);
+    cp_async_pair(cf + (NOFF + 1) * sg.n + es, S + g, in);
+  }
+  const int U0 = bx.E0 + 2 * r, upairs = sg.U1s / 2;
+  C* tp = cf + (NOFF + 2) * sg.n;
+  for (int w = threadIdx.x; w < U0 * upairs; w += blockDim.x) {
+    const int u0 = w / upairs, p = w - u0 * upairs;
+    const int i = bx.ox - r + u0, j = bx.oy - r - sg.su + 2 * p;
+    const bool in = amg::inside(i, j, L.Wx, L.Wy);
+    cp_async_pair(tp + u0 * sg.U1s + 2 * p,
+                  Tp + (in ? (int64_t)i * L.Wy + j : 0), in);
+  }
+  stage_xc<T, K>(L, bx, v + 2 * sg.n, xc);
 }
 
 // K2 on a 5-point level, pipelined
-template <typename T, int K>
+template <typename T, typename C, int K>
 __global__ void __launch_bounds__(kReg5Warps * 32)
     up_pipe_kernel(T* x_out, const T* x_in, const T* b, const T* xc, T*,
                    const __grid_constant__ amg::LevelDesc L) {
@@ -315,17 +495,30 @@ __global__ void __launch_bounds__(kReg5Warps * 32)
   const int ntj = amg::tiles_of(sh.Wy, sh.tile_y);
   const int nt = amg::tiles_of(sh.Wx, sh.tile_x) * ntj;
   const int E0 = sh.tile_x + 2 * h, E1 = sh.tile_y + 2 * h;
-  if (E0 > kReg5Warps * kReg5Rows || E1 > 32 * kReg5Cols || sh.st.n != 5) {
+  if (E0 > kReg5Warps * kReg5Rows || E1 > 32 * kReg5Cols || sh.st.n != 5 ||
+      (sizeof(C) == 2 && sh.Wy % 2 != 0)) {
     __trap();
   }
   T* st = reinterpret_cast<T*>(pipe_smem);
-  const unsigned off = stage_bytes(E0, E1, 5, sh.reach, K, (int)sizeof(T));
+  const unsigned off = pipe_stage_bytes<T, C>(E0, E1, sh.reach, K);
   auto box_of = [&](int t) {
     return amg::make_box(t / ntj, t % ntj, sh.tile_x, sh.tile_y, h);
   };
-  if ((int)blockIdx.x < nt) {
-    stage_tile<T, K, 5>(sh, box_of(blockIdx.x), st, x_in, b, xc);
-  }
+  auto stage = [&](const amg::Box& bx) {
+    if constexpr (sizeof(C) == 2) {
+      stage_pairs<T, C, K, 5>(sh, bx, pipe_smem, x_in, b, xc);
+    } else {
+      stage_tile<T, K, 5>(sh, bx, st, x_in, b, xc);
+    }
+  };
+  auto source = [&](const amg::Box& bx) {
+    if constexpr (sizeof(C) == 2) {
+      return staged_pairs<T, C, K>(sh, bx, pipe_smem, 5);
+    } else {
+      return staged_in<T, K>(sh, bx, st, 5);
+    }
+  };
+  if ((int)blockIdx.x < nt) stage(box_of(blockIdx.x));
   cp_async_commit();
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
     cp_async_wait_all();
@@ -333,14 +526,12 @@ __global__ void __launch_bounds__(kReg5Warps * 32)
     const amg::Box bx = box_of(t);
     const amg::TileSmem<T> sm =
         amg::tile_buffers<T>(pipe_smem, off, bx, sh.reach);
-    const StagedIn<T, K> src = staged_in<T, K>(sh, bx, st, 5);
+    const auto src = source(bx);
     amg::CellRegs<T, 5, kReg5Rows, kReg5Cols> R;
     amg::tile_load<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols, true>(
         sh, sm, bx, src, true, false, R);
     // the stage is free: the next tile's loads fly while this one works
-    if (t + (int)gridDim.x < nt) {
-      stage_tile<T, K, 5>(sh, box_of(t + gridDim.x), st, x_in, b, xc);
-    }
+    if (t + (int)gridDim.x < nt) stage(box_of(t + gridDim.x));
     cp_async_commit();
     amg::tile_run<T, 5, kReg5Warps, kReg5Rows, kReg5Cols, true>(
         sh, sm, bx, src, R, true, x_out, (T*)nullptr);
@@ -359,17 +550,17 @@ int launch_leg(Kernel fn, int threads, dim3 grid, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K, bool EARLY>
+template <typename T, typename C, int K, bool EARLY>
 int launch_tiles_k(int n_off, dim3 grid, size_t smem, cudaStream_t stream,
                    T* x_out, const T* x_in, const T* b, const T* xc, T* bc,
                    const amg::LevelDesc& L) {
   if (n_off == 5) {
     return launch_leg(
-        leg_reg_kernel<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols, EARLY>,
+        leg_reg_kernel<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols, EARLY, C>,
         kReg5Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
   }
   return launch_leg(
-      leg_reg_kernel<T, K, 9, kReg9Warps, kReg9Rows, kReg9Cols, EARLY>,
+      leg_reg_kernel<T, K, 9, kReg9Warps, kReg9Rows, kReg9Cols, EARLY, C>,
       kReg9Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, L);
 }
 
@@ -379,8 +570,9 @@ int launch_tiles_k(int n_off, dim3 grid, size_t smem, cudaStream_t stream,
 // memory phase (leg_tile.cuh EARLY), K2's and K3's x, S and T in later
 // phases, a pipelined K2 its staged box in its first (kernel_variants.py
 // legs: the fastest for each leg on an H100).  A pipelined leg needs its
-// Tup area, not only its box, within the thread map.
-template <typename T>
+// Tup area, not only its box, within the thread map, and with 2-byte
+// coefficients an even Wy and 4-byte aligned planes (PairStage).
+template <typename T, typename C>
 int run_tiles(const amg::LevelDesc& L, int n_off, bool pipelined,
               cudaStream_t stream, T* x_out, const T* x_in, const T* b,
               const T* xc, T* bc) {
@@ -399,32 +591,38 @@ int run_tiles(const amg::LevelDesc& L, int n_off, bool pipelined,
   const size_t tile =
       amg::tile_smem_bytes(L.tile_x, L.tile_y, halo, L.reach, (int)sizeof(T));
   if (pipelined) {
-    if (n_off != 5 || down || !up) return (int)cudaErrorInvalidValue;
+    const uintptr_t planes =
+        reinterpret_cast<uintptr_t>(L.A) | reinterpret_cast<uintptr_t>(L.dinv) |
+        reinterpret_cast<uintptr_t>(L.Tp) | reinterpret_cast<uintptr_t>(L.S);
+    if (n_off != 5 || down || !up ||
+        (sizeof(C) == 2 && (L.Wy % 2 != 0 || (planes & 3) != 0))) {
+      return (int)cudaErrorInvalidValue;
+    }
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }
     if (err != cudaSuccess) return (int)err;
-    const size_t smem =
-        stage_bytes(E0, E1, 5, L.reach, L.k, (int)sizeof(T)) + tile;
+    const size_t smem = pipe_stage_bytes<T, C>(E0, E1, L.reach, L.k) + tile;
     const dim3 grid(ntx * nty < sms ? ntx * nty : sms);
-    return launch_leg(L.k == 2 ? up_pipe_kernel<T, 2> : up_pipe_kernel<T, 3>,
+    return launch_leg(L.k == 2 ? up_pipe_kernel<T, C, 2>
+                               : up_pipe_kernel<T, C, 3>,
                       kReg5Warps * 32, grid, smem, stream, x_out, x_in, b, xc,
                       bc, L);
   }
   if (ntx > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(nty, ntx);
   if (L.k == 2) {
-    return early ? launch_tiles_k<T, 2, true>(n_off, grid, tile, stream, x_out,
-                                              x_in, b, xc, bc, L)
-                 : launch_tiles_k<T, 2, false>(n_off, grid, tile, stream,
-                                               x_out, x_in, b, xc, bc, L);
+    return early ? launch_tiles_k<T, C, 2, true>(n_off, grid, tile, stream,
+                                                 x_out, x_in, b, xc, bc, L)
+                 : launch_tiles_k<T, C, 2, false>(n_off, grid, tile, stream,
+                                                  x_out, x_in, b, xc, bc, L);
   }
-  return early ? launch_tiles_k<T, 3, true>(n_off, grid, tile, stream, x_out,
-                                            x_in, b, xc, bc, L)
-               : launch_tiles_k<T, 3, false>(n_off, grid, tile, stream, x_out,
-                                             x_in, b, xc, bc, L);
+  return early ? launch_tiles_k<T, C, 3, true>(n_off, grid, tile, stream,
+                                               x_out, x_in, b, xc, bc, L)
+               : launch_tiles_k<T, C, 3, false>(n_off, grid, tile, stream,
+                                                x_out, x_in, b, xc, bc, L);
 }
 
 dim3 grid_for(int rows, int cols) {
@@ -434,15 +632,15 @@ dim3 grid_for(int rows, int cols) {
 }
 
 // the steps of one leg; the first reads x_in and writes all of x_out
-template <typename T>
-void run_steps(T* x_out, const T* x_in, const T* b, const T* A,
-               const T* dinv, const Stencil& st, const ColorGrid& cg,
+template <typename T, typename C>
+void run_steps(T* x_out, const T* x_in, const T* b, const C* A,
+               const C* dinv, const Stencil& st, const ColorGrid& cg,
                const int* steps, int n_steps, T omega, int Wx, int Wy,
                bool first_full, cudaStream_t stream) {
   const dim3 grid = grid_for(Wx, Wy);
   for (int s = 0; s < n_steps; ++s) {
     const bool full = first_full && s == 0;
-    color_step_kernel<T><<<grid, kThreads, 0, stream>>>(
+    color_step_kernel<T, C><<<grid, kThreads, 0, stream>>>(
         x_out, full ? x_in : x_out, b, A, dinv, st, cg, steps[s], omega, Wx,
         Wy, full ? 1 : 0);
   }
@@ -450,9 +648,9 @@ void run_steps(T* x_out, const T* x_in, const T* b, const T* A,
 
 // K1: on a tiled level (tile_x > 0) one launch of tiles (r and g unused),
 // else pass by pass
-template <typename T>
-int fused_down(T* x_out, const T* x_in, const T* b, const T* A,
-               const T* dinv, const T* Tp, const T* S, T* r, T* g, T* bc,
+template <typename T, typename C>
+int fused_down(T* x_out, const T* x_in, const T* b, const C* A,
+               const C* dinv, const C* Tp, const C* S, T* r, T* g, T* bc,
                const int* offs, int n_off, const int* ctab, int ca, int cb,
                const int* steps, int n_steps, double omega, int Wx, int Wy,
                int Wxc, int Wyc, int k, int tile_x, int tile_y,
@@ -465,8 +663,8 @@ int fused_down(T* x_out, const T* x_in, const T* b, const T* A,
                         n_steps, omega)) {
       return (int)cudaErrorInvalidValue;
     }
-    return run_tiles<T>(L, n_off, false, stream, x_out, x_in, b,
-                        (const T*)nullptr, bc);
+    return run_tiles<T, C>(L, n_off, false, stream, x_out, x_in, b,
+                           (const T*)nullptr, bc);
   }
   Stencil st;
   ColorGrid cg;
@@ -474,11 +672,11 @@ int fused_down(T* x_out, const T* x_in, const T* b, const T* A,
       amg::make_colors(&cg, ctab, ca, cb) || n_steps < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  run_steps<T>(x_out, x_in, b, A, dinv, st, cg, steps, n_steps, (T)omega, Wx,
-               Wy, true, stream);
-  residual_scale_kernel<T><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
+  run_steps<T, C>(x_out, x_in, b, A, dinv, st, cg, steps, n_steps, (T)omega,
+                  Wx, Wy, true, stream);
+  residual_scale_kernel<T, C><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
       r, g, x_out, b, A, S, st, Wx, Wy);
-  restrict_terms_kernel<T><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
+  restrict_terms_kernel<T, C><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
       r, g, A, Tp, st, Wx, Wy);
   box_sum_kernel<T><<<grid_for(Wxc, Wyc), kThreads, 0, stream>>>(
       bc, r, Wx, Wy, Wxc, Wyc, k);
@@ -486,9 +684,9 @@ int fused_down(T* x_out, const T* x_in, const T* b, const T* A,
 }
 
 // K2: on a tiled level one launch of tiles, else pass by pass
-template <typename T>
-int fused_up(T* x_out, const T* x_in, const T* b, const T* A, const T* dinv,
-             const T* Tp, const T* S, const T* xc, const int* offs,
+template <typename T, typename C>
+int fused_up(T* x_out, const T* x_in, const T* b, const C* A, const C* dinv,
+             const C* Tp, const C* S, const T* xc, const int* offs,
              int n_off, const int* ctab, int ca, int cb, const int* steps,
              int n_steps, double omega, int Wx, int Wy, int Wxc, int Wyc,
              int k, int tile_x, int tile_y, int pipelined, void* stream_ptr) {
@@ -500,8 +698,8 @@ int fused_up(T* x_out, const T* x_in, const T* b, const T* A, const T* dinv,
                         n_steps, omega)) {
       return (int)cudaErrorInvalidValue;
     }
-    return run_tiles<T>(L, n_off, pipelined != 0, stream, x_out, x_in, b, xc,
-                        (T*)nullptr);
+    return run_tiles<T, C>(L, n_off, pipelined != 0, stream, x_out, x_in, b,
+                           xc, (T*)nullptr);
   }
   Stencil st;
   ColorGrid cg;
@@ -509,16 +707,16 @@ int fused_up(T* x_out, const T* x_in, const T* b, const T* A, const T* dinv,
       amg::make_colors(&cg, ctab, ca, cb) || (k != 2 && k != 3)) {
     return (int)cudaErrorInvalidValue;
   }
-  correct_kernel<T><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
+  correct_kernel<T, C><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
       x_out, x_in, xc, A, Tp, S, st, Wx, Wy, Wyc, k);
-  run_steps<T>(x_out, x_out, b, A, dinv, st, cg, steps, n_steps, (T)omega,
-               Wx, Wy, false, stream);
+  run_steps<T, C>(x_out, x_out, b, A, dinv, st, cg, steps, n_steps, (T)omega,
+                  Wx, Wy, false, stream);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int fused_updown(T* x_out, const T* x_in, const T* b, const T* A,
-                 const T* dinv, const T* Tp, const T* S, const T* xc, T* bc,
+template <typename T, typename C>
+int fused_updown(T* x_out, const T* x_in, const T* b, const C* A,
+                 const C* dinv, const C* Tp, const C* S, const T* xc, T* bc,
                  const int* offs, int n_off, const int* ctab, int ca, int cb,
                  const int* steps, int n_steps, double omega, int Wx, int Wy,
                  int Wxc, int Wyc, int k, int tile_x, int tile_y,
@@ -530,49 +728,51 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const T* A,
       tile_x < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  return run_tiles<T>(L, n_off, false, (cudaStream_t)stream_ptr, x_out, x_in,
-                      b, xc, bc);
+  return run_tiles<T, C>(L, n_off, false, (cudaStream_t)stream_ptr, x_out,
+                         x_in, b, xc, bc);
 }
 
 }  // namespace
 
-#define AMG_DEFINE_LEGS(SUFFIX, T)                                            \
-  extern "C" int amg_fused_down_##SUFFIX(                                     \
-      void* x_out, const void* x_in, const void* b, const void* A,            \
-      const void* dinv, const void* Tp, const void* S, void* r, void* g,      \
-      void* bc, const int* offs, int n_off, const int* ctab, int ca, int cb,  \
-      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,   \
-      int Wyc, int k, int tile_x, int tile_y, void* stream) {                 \
-    return fused_down<T>((T*)x_out, (const T*)x_in, (const T*)b,              \
-                         (const T*)A, (const T*)dinv, (const T*)Tp,           \
-                         (const T*)S, (T*)r, (T*)g, (T*)bc, offs, n_off,      \
-                         ctab, ca, cb, steps, n_steps, omega, Wx, Wy, Wxc,    \
-                         Wyc, k, tile_x, tile_y, stream);                     \
-  }                                                                           \
-  extern "C" int amg_fused_up_##SUFFIX(                                       \
-      void* x_out, const void* x_in, const void* b, const void* A,            \
-      const void* dinv, const void* Tp, const void* S, const void* xc,        \
-      const int* offs, int n_off, const int* ctab, int ca, int cb,            \
-      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,   \
-      int Wyc, int k, int tile_x, int tile_y, int pipelined, void* stream) {  \
-    return fused_up<T>((T*)x_out, (const T*)x_in, (const T*)b, (const T*)A,   \
-                       (const T*)dinv, (const T*)Tp, (const T*)S,             \
-                       (const T*)xc, offs, n_off, ctab, ca, cb, steps,        \
-                       n_steps, omega, Wx, Wy, Wxc, Wyc, k, tile_x, tile_y,   \
-                       pipelined, stream);                                    \
-  }                                                                           \
-  extern "C" int amg_fused_updown_##SUFFIX(                                   \
-      void* x_out, const void* x_in, const void* b, const void* A,            \
-      const void* dinv, const void* Tp, const void* S, const void* xc,        \
-      void* bc, const int* offs, int n_off, const int* ctab, int ca, int cb,  \
-      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,   \
-      int Wyc, int k, int tile_x, int tile_y, void* stream) {                 \
-    return fused_updown<T>((T*)x_out, (const T*)x_in, (const T*)b,            \
-                           (const T*)A, (const T*)dinv, (const T*)Tp,         \
-                           (const T*)S, (const T*)xc, (T*)bc, offs, n_off,    \
-                           ctab, ca, cb, steps, n_steps, omega, Wx, Wy, Wxc,  \
-                           Wyc, k, tile_x, tile_y, stream);                   \
+// one entry per (vector, plane) type: T vectors, C planes A, dinv, T, S
+#define AMG_DEFINE_LEGS(SUFFIX, T, C)                                          \
+  extern "C" int amg_fused_down_##SUFFIX(                                      \
+      void* x_out, const void* x_in, const void* b, const void* A,             \
+      const void* dinv, const void* Tp, const void* S, void* r, void* g,       \
+      void* bc, const int* offs, int n_off, const int* ctab, int ca, int cb,   \
+      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,    \
+      int Wyc, int k, int tile_x, int tile_y, void* stream) {                  \
+    return fused_down<T, C>((T*)x_out, (const T*)x_in, (const T*)b,            \
+                         (const C*)A, (const C*)dinv, (const C*)Tp,            \
+                         (const C*)S, (T*)r, (T*)g, (T*)bc, offs, n_off,       \
+                         ctab, ca, cb, steps, n_steps, omega, Wx, Wy, Wxc,     \
+                         Wyc, k, tile_x, tile_y, stream);                      \
+  }                                                                            \
+  extern "C" int amg_fused_up_##SUFFIX(                                        \
+      void* x_out, const void* x_in, const void* b, const void* A,             \
+      const void* dinv, const void* Tp, const void* S, const void* xc,         \
+      const int* offs, int n_off, const int* ctab, int ca, int cb,             \
+      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,    \
+      int Wyc, int k, int tile_x, int tile_y, int pipelined, void* stream) {   \
+    return fused_up<T, C>((T*)x_out, (const T*)x_in, (const T*)b, (const C*)A, \
+                       (const C*)dinv, (const C*)Tp, (const C*)S,              \
+                       (const T*)xc, offs, n_off, ctab, ca, cb, steps,         \
+                       n_steps, omega, Wx, Wy, Wxc, Wyc, k, tile_x, tile_y,    \
+                       pipelined, stream);                                     \
+  }                                                                            \
+  extern "C" int amg_fused_updown_##SUFFIX(                                    \
+      void* x_out, const void* x_in, const void* b, const void* A,             \
+      const void* dinv, const void* Tp, const void* S, const void* xc,         \
+      void* bc, const int* offs, int n_off, const int* ctab, int ca, int cb,   \
+      const int* steps, int n_steps, double omega, int Wx, int Wy, int Wxc,    \
+      int Wyc, int k, int tile_x, int tile_y, void* stream) {                  \
+    return fused_updown<T, C>((T*)x_out, (const T*)x_in, (const T*)b,          \
+                           (const C*)A, (const C*)dinv, (const C*)Tp,          \
+                           (const C*)S, (const T*)xc, (T*)bc, offs, n_off,     \
+                           ctab, ca, cb, steps, n_steps, omega, Wx, Wy, Wxc,   \
+                           Wyc, k, tile_x, tile_y, stream);                    \
   }
 
-AMG_DEFINE_LEGS(f32, float)
-AMG_DEFINE_LEGS(f64, double)
+AMG_DEFINE_LEGS(f32, float, float)
+AMG_DEFINE_LEGS(f64, double, double)
+AMG_DEFINE_LEGS(f32_bf16, float, __nv_bfloat16)

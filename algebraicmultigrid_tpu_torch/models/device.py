@@ -61,7 +61,7 @@ from ..ops.kernels.scan_gs import ScanGSCache, scan_gs_cache, smooth_scan_gs
 from ..ops.kernels.subcycle_kernel import build_fused_subcycle_cache, fused_subcycle
 from ..ops.kernels.sweep3d import Sweep3DCache, build_sweep3d_cache, smooth_sweep3d
 from ..ops.kernels.tail_kernel import build_fused_tail_cache, fused_tail
-from ..ops.kernels.vcycle_legs import build_level_legs, fused_down, fused_up, fused_updown
+from ..ops.kernels.vcycle_legs import build_level_legs, coef_dtype_of, fused_down, fused_up, fused_updown
 from ..ops.lattice_nd_op import LatND, latnd_from_spec
 from ..ops.lattice_op import Lat2D, lat2d_from_spec, pad_rows
 from ..ops.sparse import ELL, as_csr, ell_from_csr, np_dtype, round_up
@@ -546,7 +546,7 @@ def _permute_rect(M, prow, pcol):
 
 def build_device_hierarchy(
     ml: MultiLevel, *, device, dtype, fused: bool = True, tail: bool = True,
-    tail_max_rows: int = 250_000, sweeps: bool = True, subcycle: bool = False,
+    tail_max_rows: int = 250_000, sweeps: bool = True, subcycle: bool = False, coef_dtype=None,
 ) -> DeviceHierarchy:
     """Lower a host hierarchy to device tensors.
 
@@ -568,11 +568,26 @@ def build_device_hierarchy(
     masked sweep there.  ``subcycle`` builds, when the tail starts at level
     2 or deeper, the phased whole-subcycle cache of the level above it
     (``sub_start = tail_start − 1``, where its gate holds); V-cycles then
-    run that level, the tail and the coarse solve as one call.  The
+    run that level, the tail and the coarse solve as one call.
+    ``coef_dtype=torch.bfloat16`` stores the coefficient planes of the
+    legs (A, D⁻¹, T, S) and of the whole-tail levels (A, T, S; D⁻¹ and the
+    coarse operator stay float32) in bf16, under float32 vectors; every
+    level's own operator, the smoother caches and the unstructured path
+    keep ``dtype``.  It raises ``NotImplementedError`` with ``subcycle``, on
+    a hierarchy with N-D lattice levels and under float64 (ROADMAP B3).  The
     keywords are the counterparts of the JAX package's
     ``AMG_PALLAS_FUSED``/``AMG_PALLAS_TAIL``, ``AMG_TAIL_MAX_ROWS``,
-    ``AMG_PALLAS_GS``/``AMG_SWEEP3D`` and ``AMG_PALLAS_SUB``."""
+    ``AMG_PALLAS_GS``/``AMG_SWEEP3D``, ``AMG_PALLAS_SUB`` and
+    ``AMG_COEF_DTYPE``."""
     device = torch.device(device)
+    coef_dtype = coef_dtype_of(coef_dtype, dtype)
+    if coef_dtype is not None:
+        if subcycle:
+            raise NotImplementedError("bf16 coefficient planes with subcycle=True (K9) are not ported (ROADMAP B3)")
+        if any(isinstance(M, LatticeMatrixND) for M in [L.A for L in ml.levels] + [ml.final_A]):
+            raise NotImplementedError(
+                "bf16 coefficient planes on N-D lattice levels (LatND, K7) are not ported (ROADMAP B3)"
+            )
 
     def lower(M, target_pad, force_ell=False):
         if isinstance(M, LatticeMatrixND):
@@ -628,7 +643,7 @@ def build_device_hierarchy(
     if tail:
         for start in range(len(ml.levels)):
             tail_cache = build_fused_tail_cache(
-                ml.levels, ml, start, dtype, device, max_rows=tail_max_rows
+                ml.levels, ml, start, dtype, device, max_rows=tail_max_rows, coef_dtype=coef_dtype
             )
             if tail_cache is not None:
                 tail_start = start
@@ -642,7 +657,7 @@ def build_device_hierarchy(
         P_dev = lower(_permute_rect(level.P, pf, pc), pads[i])
         R_dev = lower(_permute_rect(level.R, pc, pf), pads[i + 1])
         covered = tail_cache is not None and i >= tail_start
-        legs = build_level_legs(level, dtype, device) if fused and not covered else None
+        legs = build_level_legs(level, dtype, device, coef_dtype) if fused and not covered else None
         # levels whose legs or tail run the cycle keep the masked caches for
         # the W/F cycles
         kernel = sweeps and legs is None and not covered
@@ -822,13 +837,18 @@ def _resolve(ml: MultiLevel, device, dtype):
     return device, dtype
 
 
-def get_device_hierarchy(ml: MultiLevel, device=None, dtype=None, *, subcycle: bool = False) -> DeviceHierarchy:
+def get_device_hierarchy(
+    ml: MultiLevel, device=None, dtype=None, *, subcycle: bool = False, coef_dtype=None,
+) -> DeviceHierarchy:
     """The device hierarchy the solve drivers use for (device, dtype,
-    subcycle), built on first use and cached on ``ml``."""
+    subcycle, coef_dtype), built on first use and cached on ``ml``."""
     device, dtype = _resolve(ml, device, dtype)
-    key = ("torch-hierarchy", str(device), str(dtype), bool(subcycle))
+    coef_dtype = coef_dtype_of(coef_dtype, dtype)
+    key = ("torch-hierarchy", str(device), str(dtype), bool(subcycle), str(coef_dtype))
     if key not in ml._device_cache:
-        ml._device_cache[key] = build_device_hierarchy(ml, device=device, dtype=dtype, subcycle=subcycle)
+        ml._device_cache[key] = build_device_hierarchy(
+            ml, device=device, dtype=dtype, subcycle=subcycle, coef_dtype=coef_dtype
+        )
     return ml._device_cache[key]
 
 
@@ -924,12 +944,13 @@ def cg_device(
     dtype=None,
     log: bool = False,
     subcycle: bool = False,
+    coef_dtype=None,
 ):
     """AMG-preconditioned conjugate gradients on the device.  ``subcycle``
-    here and in the other drivers runs the hierarchy built with
-    ``build_device_hierarchy(..., subcycle=True)``."""
+    and ``coef_dtype`` here and in the other drivers run the hierarchy
+    built with those keywords of ``build_device_hierarchy``."""
     device, dtype = _resolve(ml, device, dtype)
-    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle)
+    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle, coef_dtype=coef_dtype)
     bp, n = _upload(h, b, device, dtype)
     thresh = max(tol * float(torch.linalg.norm(bp)), abstol)
     x, itr, normr = _pcg_fused(h, bp, maxiter, thresh, cycle)
@@ -952,12 +973,13 @@ def solve_device(
     device=None,
     dtype=None,
     subcycle: bool = False,
+    coef_dtype=None,
 ):
     """Device-engine solve (mirrors solve_mg / multilevel.jl:158-198).  As
     in the JAX package, the initial guess ``x`` is used only on the logged
     (``log`` or ``verbose``) path; the other path starts from zero."""
     device, dtype = _resolve(ml, device, dtype)
-    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle)
+    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle, coef_dtype=coef_dtype)
     bp, n = _upload(h, b, device, dtype)
     if reltol is None:
         reltol = math.sqrt(torch.finfo(dtype).eps)
@@ -988,14 +1010,16 @@ def solve_device(
     return (xout, residuals) if log else xout
 
 
-def device_cycle_fn(ml: MultiLevel, cycle: Cycle = V(), *, device=None, dtype=None, subcycle: bool = False):
+def device_cycle_fn(
+    ml: MultiLevel, cycle: Cycle = V(), *, device=None, dtype=None, subcycle: bool = False, coef_dtype=None,
+):
     """A function ``b -> x`` applying exactly one cycle from zero — the
     preconditioner contract (preconditioner.jl:12-19).  ``b`` may be a host
     array or a device tensor; x comes back on the device in the caller's
     ordering (the RCM basis, where the hierarchy has one, is entered and
     left around the cycle)."""
     device, dtype = _resolve(ml, device, dtype)
-    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle)
+    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle, coef_dtype=coef_dtype)
 
     def apply(b):
         bp, n = _upload(h, b, device, dtype)
@@ -1043,6 +1067,7 @@ def solve_refined(
     return_device: bool = False,
     stats: Optional[dict] = None,
     subcycle: bool = False,
+    coef_dtype=None,
 ):
     """Mixed-precision iterative refinement: float32 AMG inner solves under
     a float64 outer residual loop:
@@ -1058,9 +1083,11 @@ def solve_refined(
     it gathers f32, bound by memory, so no round leaves the device.  ``b``
     may be a device tensor (skips the upload); ``return_device=True``
     returns the f64 solution on the device.  ``stats``, when given, receives
-    the inner iteration count of each round under ``"inner_iters"``."""
+    the inner iteration count of each round under ``"inner_iters"``.
+    ``coef_dtype=torch.bfloat16`` runs the inner solves with bf16 planes
+    (``build_device_hierarchy``); the f64 outer residual is unchanged."""
     device, dtype = _resolve(ml, device, dtype)
-    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle)
+    h = get_device_hierarchy(ml, device, dtype, subcycle=subcycle, coef_dtype=coef_dtype)
     A64 = _get_fine_f64(ml, device)
     n = h.n_fine
     if isinstance(b, torch.Tensor):

@@ -174,6 +174,8 @@ def fused_subcycle(cache: FusedSubcycleCache, b):
     if b.device.type != "cuda":
         raise ValueError(f"fused_subcycle runs on cuda or cpu tensors, not {b.device}")
     top, tail = cache.top, cache.tail
+    if any(L.A.dtype != L.dtype for L in cache.levels):
+        raise NotImplementedError("the whole-subcycle kernel has no entry for bf16 coefficient planes (ROADMAP B3)")
     n = top.row_dims[0] * top.row_dims[1]
     check_vector("b", b, top.A, n)
     if b.dtype not in SUFFIX:

@@ -13,7 +13,10 @@ phase of independent tiles (the tile plus a halo in shared memory, K3's
 device code, planned here from the shapes), one grid barrier a leg, and the
 smaller levels and the coarse solve run inside one block, pass by pass.
 ``fused_tail_reference`` is its plain PyTorch version, the recursion of the
-plain legs.  ``fused_tail`` takes the plain version only for tensors
+plain legs.  Under ``coef_dtype=torch.bfloat16`` every level's A, T and S
+are bf16 and D⁻¹ and the coarse operator stay at the working dtype, as in
+the JAX package's tail cache; the kernel's ``f32_bf16`` entry converts each
+coefficient to float where it loads it.  ``fused_tail`` takes the plain version only for tensors
 on the CPU; on a CUDA tensor it launches the kernel or raises.  Its launches
 count under ``launches["tail"]`` of ``vcycle_legs``.
 
@@ -38,17 +41,19 @@ import torch
 
 from .vcycle_legs import (
     MAX_STEPS,
-    SUFFIX,
     FusedLegCache,
     build_level_legs,
     check_vector,
+    coef_dtype_of,
     fused_down_reference,
     fused_up_reference,
     launches,
     leg_halo,
     load_library,
     plan_tile,
+    plane_suffix,
     raise_on,
+    round_planes,
     stencil_args,
     tile_smem_bytes,
 )
@@ -117,9 +122,9 @@ def tail_tiles(levels):
 
 def tail_smem(levels, tiles) -> int:
     """The largest tiled level's tile buffers (its down leg's: the up leg's
-    halo is smaller), in bytes."""
+    halo is smaller; vectors only, at the working dtype), in bytes."""
     return max(
-        (tile_smem_bytes(*t, leg_halo(len(L.steps), L.reach, True), L.reach, L.A.element_size())
+        (tile_smem_bytes(*t, leg_halo(len(L.steps), L.reach, True), L.reach, L.dtype.itemsize)
          for L, t in zip(levels, tiles) if t[0] > 0),
         default=0,
     )
@@ -213,13 +218,16 @@ def _coarse_operator(ml) -> np.ndarray:
     return np.linalg.pinv(np.asarray(ml.final_A.toarray()))
 
 
-def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int = 250_000):
+def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int = 250_000, coef_dtype=None):
     """The whole-tail cache for ``levels[start:]`` plus the coarse solve, or
     None when the tail's first level has more than ``max_rows`` rows or any
     tail level fails the gate: fused legs as ``build_level_legs`` builds
     them, the JAX tail's reach limits, at most 64 color steps a leg (the
     kernel's descriptor), chained grids, and a final grid of at most 4096
-    rows."""
+    rows.  ``coef_dtype=torch.bfloat16`` rounds each level's A, T and S to
+    bf16; D⁻¹ is taken at ``dtype`` (from the level's float32 diagonal, not
+    from a bf16 leg cache)."""
+    coef_dtype = coef_dtype_of(coef_dtype, dtype)
     tail = levels[start:]
     if not tail or tail[0].A.shape[0] > max_rows or len(tail) > MAX_LEVELS:
         return None
@@ -230,7 +238,7 @@ def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int 
             return None
         if len(leg.steps) > MAX_STEPS:  # the kernel's descriptor holds 64
             return None
-        legs.append(leg)
+        legs.append(leg if coef_dtype is None else round_planes(leg, coef_dtype, dinv=False))
     W7x, W7y = legs[-1].col_dims
     if ml.final_A.shape[0] != W7x * W7y or W7x * W7y > MAX_COARSE_ROWS:
         return None
@@ -270,10 +278,11 @@ def fused_tail(cache: FusedTailCache, x, b, x_zero: bool = False):
         raise ValueError(f"fused_tail runs on cuda or cpu tensors, not {x.device}")
     L0 = cache.levels[0]
     n = L0.row_dims[0] * L0.row_dims[1]
-    check_vector("x", x, L0.A, n)
-    check_vector("b", b, L0.A, n)
-    if x.dtype not in SUFFIX:
-        raise TypeError(f"fused_tail takes float32 or float64, not {x.dtype}")
+    check_vector("x", x, L0.A, n, L0.dtype)
+    check_vector("b", b, L0.A, n, L0.dtype)
+    suffixes = {plane_suffix(L, "fused_tail", dinv_working=True) for L in cache.levels}
+    if len(suffixes) != 1 or cache.Mc.dtype != L0.dtype:
+        raise TypeError(f"fused_tail: the levels' planes {suffixes} and Mc {cache.Mc.dtype} differ")
     if cache.desc is None or cache.desc.device != x.device:
         raise ValueError("the tail cache was not built on this card")
     lib = load_library()
@@ -284,7 +293,7 @@ def fused_tail(cache: FusedTailCache, x, b, x_zero: bool = False):
     x_out = torch.empty_like(x)
     if x.shape[0] > n:
         x_out[n:].zero_()
-    err = getattr(lib, f"amg_fused_tail_{SUFFIX[x.dtype]}")(
+    err = getattr(lib, f"amg_fused_tail_{suffixes.pop()}")(
         cache.desc.data_ptr(), len(cache.levels), n_grid, work.data_ptr(), x_out.data_ptr(),
         None if x_zero else x.data_ptr(), b.data_ptr(), cache.Mc.data_ptr(), cache.n7, b7, x7,
         cache.smem, torch.cuda.current_stream(x.device).cuda_stream,

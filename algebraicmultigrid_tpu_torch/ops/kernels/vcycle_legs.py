@@ -32,8 +32,15 @@ whole-subcycle kernel's, ``bsg`` the BSG SpMV's, ``scan_gs`` the natural-order s
 K7's and ``halo`` K8's); ``level_launches`` counts the leg and whole-sweep
 kernels' launches by level.
 
+bf16 coefficient planes (``coef_dtype=torch.bfloat16``, the JAX
+package's ``AMG_COEF_DTYPE=bfloat16``): a cache's A, D⁻¹, T and S are
+computed at float32 and rounded to bf16 (round to nearest even, as the JAX
+package rounds them); x, b and the arithmetic stay float32.  The kernels
+convert each coefficient to float where they load it (the ``*_f32_bf16``
+entries); the plain versions upcast the planes to the vectors' dtype at use.
+
 Left for later (as in the JAX package, they are not on the SA main path):
-the non-factored R/P-plane branches and bf16 coefficient storage.
+the non-factored R/P-plane branches.
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ __all__ = [
     "FusedLegCache",
     "build_fused_leg_cache",
     "build_level_legs",
+    "round_planes",
+    "coef_dtype_of",
+    "plane_suffix",
     "fused_down",
     "fused_up",
     "fused_updown",
@@ -124,7 +134,8 @@ level_launches = collections.Counter()
 
 @dataclasses.dataclass(frozen=True)
 class FusedLegCache:
-    """Full-size coefficient planes of one level's factored legs."""
+    """Full-size coefficient planes of one level's factored legs, at the
+    working dtype or in bf16 (``round_planes``)."""
 
     A: torch.Tensor      # [nA, Wx, Wy] stencil planes
     dinv: torch.Tensor   # [Wx, Wy] 1/diag, 0 where diag == 0
@@ -149,6 +160,11 @@ class FusedLegCache:
     down_tile: Optional[Tuple[int, int]] = None
     up_tile: Optional[Tuple[int, int]] = None
     up_pipelined: bool = False
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The working dtype of the vectors: float32 under bf16 planes."""
+        return torch.float32 if self.A.dtype == torch.bfloat16 else self.A.dtype
 
     @property
     def steps(self) -> Tuple[int, ...]:
@@ -223,26 +239,42 @@ def plan_up(row_dims, k: int, offs, n_steps: int):
     return _plan_leg(row_dims, k, offs, n_steps, False, 1, UP_TILE)
 
 
-def stage_bytes(box, n_off: int, reach: int, k: int, itemsize: int) -> int:
+def stage_bytes(box, n_off: int, reach: int, k: int, itemsize: int, coef_itemsize: Optional[int] = None) -> int:
     """Shared memory of the pipelined K2's stage (csrc/vcycle_legs.cu
-    ``stage_bytes``): the box planes (A, dinv, b, x, S), T over the box
-    plus one reach and x_c over its coarse cells; to 16 bytes."""
+    ``stage_bytes``, ``pair_stage``): b and x over the box and x_c over its
+    coarse cells at ``itemsize``, the planes A, dinv and S over the box and
+    T over the box plus one reach at ``coef_itemsize`` (default
+    ``itemsize``), 2-byte planes in rows padded to an even length (and b, x
+    with them); to 16 bytes."""
+    c = coef_itemsize or itemsize
     E0, E1 = box
     U0, U1 = E0 + 2 * reach, E1 + 2 * reach
-    words = (n_off + 4) * E0 * E1 + U0 * U1 + (U0 // k + 2) * (U1 // k + 2)
-    return -(-words * itemsize // 16) * 16
+    E1s, U1s = ((E1 + 2) & ~1, (U1 + 2) & ~1) if c == 2 else (E1, U1)
+    vectors = 2 * E0 * E1s + (U0 // k + 2) * (U1 // k + 2)
+    planes = (n_off + 2) * E0 * E1s + U0 * U1s
+    return -(-(vectors * itemsize + planes * c) // 16) * 16
 
 
-def plan_up_pipelined(cache: "FusedLegCache", itemsize: int) -> bool:
+def _pairs_ok(cache: "FusedLegCache") -> bool:
+    """2-byte planes stage a pair of coefficients a 4-byte copy: an even
+    row length and 4-byte aligned planes."""
+    ptrs = (cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr())
+    return cache.row_dims[1] % 2 == 0 and all(p % 4 == 0 for p in ptrs)
+
+
+def plan_up_pipelined(cache: "FusedLegCache") -> bool:
     """Whether a level's tiled K2 runs pipelined: a 5-point level whose
     stage and tile buffers fit a block's shared memory (float32 at the
-    flagship's L0; not float64)."""
+    flagship's L0; not float64), with 2-byte planes also an even Wy."""
     if len(cache.offsA) != PIPE_OFFSETS or cache.up_tile is None:
+        return False
+    size, coef = cache.dtype.itemsize, cache.A.element_size()
+    if coef == 2 and not _pairs_ok(cache):
         return False
     r, h = cache.reach, leg_halo(len(cache.steps), cache.reach, False)
     tile = cache.up_tile
     box = (tile[0] + 2 * h, tile[1] + 2 * h)
-    need = stage_bytes(box, PIPE_OFFSETS, r, cache.k, itemsize) + tile_smem_bytes(*tile, h, r, itemsize)
+    need = stage_bytes(box, PIPE_OFFSETS, r, cache.k, size, coef) + tile_smem_bytes(*tile, h, r, size)
     return need <= SMEM_LIMIT - DESC_BYTES
 
 
@@ -255,7 +287,41 @@ def with_tile_plans(cache: "FusedLegCache") -> "FusedLegCache":
         down_tile=plan_down(cache.row_dims, cache.k, cache.offsA, n),
         up_tile=plan_up(cache.row_dims, cache.k, cache.offsA, n),
     )
-    return dataclasses.replace(c, up_pipelined=plan_up_pipelined(c, c.A.element_size()))
+    return dataclasses.replace(c, up_pipelined=plan_up_pipelined(c))
+
+
+def coef_dtype_of(coef_dtype, dtype) -> Optional[torch.dtype]:
+    """The plane dtype a ``coef_dtype`` keyword asks for: None (or the
+    working dtype) keeps the planes at ``dtype``; ``torch.bfloat16`` (or
+    ``"bfloat16"``) asks for bf16 planes under float32 vectors.  Raises for
+    any other value, and ``NotImplementedError`` for bf16 under another
+    working dtype."""
+    if isinstance(coef_dtype, str):
+        coef_dtype = getattr(torch, coef_dtype, coef_dtype)
+    if coef_dtype is None or coef_dtype == dtype:
+        return None
+    if coef_dtype != torch.bfloat16:
+        raise ValueError(f"coef_dtype is None or torch.bfloat16, not {coef_dtype!r}")
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"bf16 coefficient planes under {dtype} vectors are not ported (ROADMAP B3): "
+            "the JAX package's K1–K4 take them under float32 only"
+        )
+    return coef_dtype
+
+
+def round_planes(cache: "FusedLegCache", coef_dtype, dinv: bool = True) -> "FusedLegCache":
+    """The cache with its A, T and S planes (and D⁻¹ with ``dinv``) rounded
+    from the working dtype to ``coef_dtype`` (round to nearest even), the
+    tiles planned again.  The legs round D⁻¹ too; the whole-tail cache keeps
+    it at the working dtype, as the JAX package's caches do."""
+    return with_tile_plans(dataclasses.replace(
+        cache,
+        A=cache.A.to(coef_dtype),
+        dinv=cache.dinv.to(coef_dtype) if dinv else cache.dinv,
+        T=cache.T.to(coef_dtype),
+        S=cache.S.to(coef_dtype),
+    ))
 
 
 def _factored_ok(specT, k, dims, cdims) -> bool:
@@ -274,13 +340,16 @@ def _factored_ok(specT, k, dims, cdims) -> bool:
 
 def build_fused_leg_cache(
     specA, specR, specP, color_grid, n_colors: int, dtype, device,
-    omega: float, iters: int, fwd: bool, bwd: bool, factored_T,
+    omega: float, iters: int, fwd: bool, bwd: bool, factored_T, coef_dtype=None,
 ) -> Optional[FusedLegCache]:
     """Planes for the factored legs, from the same inputs as the JAX
     package's ``_maybe_build_fused_legs``: ``factored_T = (specT, scale)``
     with ``scale`` either ``("table", table, (Kx, sx, Ky, sy))`` or
     ``("vector", v)``.  None when the level is not a box-k factored level
-    the kernels take (the cycle then runs the unfused path)."""
+    the kernels take (the cycle then runs the unfused path).  The planes
+    are computed at ``dtype``; ``coef_dtype=torch.bfloat16`` then rounds
+    A, D⁻¹, T and S to bf16 (``round_planes``)."""
+    coef_dtype = coef_dtype_of(coef_dtype, dtype)
     if factored_T is None:
         return None
     if tuple(specA.base_x) != (1, 1) or tuple(specA.base_y) != (1, 1):
@@ -325,7 +394,7 @@ def build_fused_leg_cache(
         S = S[torch.as_tensor(cxS, device=device)][:, torch.as_tensor(cyS, device=device)]
     else:
         S = torch.as_tensor(np.asarray(scale[1], dtype=np_dtype).reshape(Wx, Wy), device=device)
-    return with_tile_plans(FusedLegCache(
+    cache = with_tile_plans(FusedLegCache(
         A=A,
         dinv=dinv.contiguous(),
         T=T.contiguous(),
@@ -341,9 +410,10 @@ def build_fused_leg_cache(
         forward=bool(fwd),
         backward=bool(bwd),
     ))
+    return cache if coef_dtype is None else round_planes(cache, coef_dtype)
 
 
-def build_level_legs(level, dtype, device) -> Optional[FusedLegCache]:
+def build_level_legs(level, dtype, device, coef_dtype=None) -> Optional[FusedLegCache]:
     """Fused legs for a host hierarchy level, wired as the JAX package's
     ``_maybe_build_fused_legs``: Lat2D A/P/R with box-k ratios, equal
     symmetric multicolor GS/SOR pre/post configs, a periodic coloring and
@@ -378,7 +448,7 @@ def build_level_legs(level, dtype, device) -> Optional[FusedLegCache]:
     omega = float(cfg.omega) if isinstance(cfg, SOR) else 1.0
     return build_fused_leg_cache(
         level.A.spec, level.R.spec, level.P.spec, grid, n_colors, dtype, device,
-        omega, cfg.iter, True, True, (T_t.spec, scale),
+        omega, cfg.iter, True, True, (T_t.spec, scale), coef_dtype=coef_dtype,
     )
 
 
@@ -408,11 +478,18 @@ def _color_plane(cache: FusedLegCache, device) -> torch.Tensor:
     return grid[ix][:, iy]
 
 
+def _planes(cache: FusedLegCache, dtype):
+    """(A, dinv, T, S) at the vectors' dtype: bf16 planes upcast at use,
+    exactly, as the JAX kernels do once a bf16 plane meets an f32 vector."""
+    return tuple(p.to(dtype) for p in (cache.A, cache.dinv, cache.T, cache.S))
+
+
 def _sweep(cache: FusedLegCache, X, B, steps):
     col = _color_plane(cache, X.device)
+    A, dinv, _, _ = _planes(cache, X.dtype)
     for c in steps:
-        r = B - _stencil(cache.A, X, cache.offsA)
-        X = torch.where(col == c, X + cache.omega * cache.dinv * r, X)
+        r = B - _stencil(A, X, cache.offsA)
+        X = torch.where(col == c, X + cache.omega * dinv * r, X)
     return X
 
 
@@ -426,8 +503,9 @@ def _restrict(cache: FusedLegCache, X, B):
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     k = cache.k
-    r = B - _stencil(cache.A, X, cache.offsA)
-    ts = cache.T * (r - _stencil(cache.A, cache.S * r, cache.offsA))
+    A, _, T, S = _planes(cache, X.dtype)
+    r = B - _stencil(A, X, cache.offsA)
+    ts = T * (r - _stencil(A, S * r, cache.offsA))
     ts = torch.nn.functional.pad(ts, (0, k * Wyc - Wy, 0, k * Wxc - Wx))
     return ts.reshape(Wxc, k, Wyc, k).sum(dim=1).sum(dim=2).reshape(Wxc * Wyc)
 
@@ -439,8 +517,9 @@ def _correct(cache: FusedLegCache, X, xc):
     k = cache.k
     XC = xc[: Wxc * Wyc].reshape(Wxc, Wyc)
     up = XC.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)[:Wx, :Wy]
-    Tup = cache.T * up
-    return X + (Tup - cache.S * _stencil(cache.A, Tup, cache.offsA))
+    A, _, T, S = _planes(cache, X.dtype)
+    Tup = T * up
+    return X + (Tup - S * _stencil(A, Tup, cache.offsA))
 
 
 def fused_down_reference(cache: FusedLegCache, x, b, x_zero: bool = False):
@@ -552,6 +631,10 @@ _SIGNATURES = {
 }
 
 
+# the entries with bf16 coefficient planes under float32 vectors
+_BF16_ENTRIES = ("amg_fused_down_{}", "amg_fused_up_{}", "amg_fused_updown_{}", "amg_fused_tail_{}")
+
+
 def load_library():
     """Build (at first use) and load the port's CUDA library: the legs, the
     whole-tail and whole-subcycle kernels, the BSG SpMV, the natural-order GS sweep, the
@@ -565,7 +648,7 @@ def load_library():
         build_library(out)
     lib = ctypes.CDLL(str(out))
     for name, args in _SIGNATURES.items():
-        for sfx in ("f32", "f64"):
+        for sfx in ("f32", "f64") + (("f32_bf16",) if name in _BF16_ENTRIES else ()):
             fn = getattr(lib, name.format(sfx))
             fn.argtypes, fn.restype = args, _I
     lib.amg_tail_level_bytes.argtypes, lib.amg_tail_level_bytes.restype = [], _I
@@ -592,13 +675,14 @@ def _ints(vals):
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def check_vector(name: str, t: torch.Tensor, like: torch.Tensor, min_len: int):
+def check_vector(name: str, t: torch.Tensor, like: torch.Tensor, min_len: int, dtype=None):
     """Raise unless ``t`` is a contiguous flat vector of at least ``min_len``
-    on ``like``'s device with ``like``'s dtype."""
+    on ``like``'s device with ``dtype`` (default ``like``'s dtype)."""
+    dtype = like.dtype if dtype is None else dtype
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, the level's planes on {like.device}")
-    if t.dtype != like.dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, the level's planes {like.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the level's vectors {dtype}")
     if t.dim() != 1 or t.shape[0] < min_len:
         raise ValueError(f"{name} must be a flat vector of length >= {min_len}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -616,6 +700,25 @@ def stencil_args(cache: FusedLegCache, steps):
     )
 
 
+def plane_suffix(cache: FusedLegCache, name: str, dinv_working: bool = False) -> str:
+    """The C entry suffix of a cache's (vector, plane) dtypes: "f32",
+    "f64", or "f32_bf16" for bf16 A, T and S (and D⁻¹, or D⁻¹ at float32
+    with ``dinv_working``, the whole-tail cache's); raises for a pair with
+    no entry."""
+    vec, coef = cache.dtype, cache.A.dtype
+    want_dinv = vec if dinv_working else coef
+    if any(p.dtype != coef for p in (cache.T, cache.S)) or cache.dinv.dtype != want_dinv:
+        raise TypeError(
+            f"{name}: planes A/T/S {cache.A.dtype}/{cache.T.dtype}/{cache.S.dtype} and D⁻¹ {cache.dinv.dtype}"
+            f" have no entry (D⁻¹ must be {want_dinv})"
+        )
+    if coef == vec and vec in SUFFIX:
+        return SUFFIX[vec]
+    if (vec, coef) == (torch.float32, torch.bfloat16):
+        return "f32_bf16"
+    raise TypeError(f"{name} takes float32 or float64 planes, or bf16 planes under float32, not {coef}")
+
+
 def raise_on(err: int, what: str):
     if err:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
@@ -627,10 +730,8 @@ def _prepare(cache: FusedLegCache, name: str, x, vecs):
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {x.device}")
     for vname, t, n in vecs:
-        check_vector(vname, t, cache.A, n)
-    if cache.A.dtype not in SUFFIX:
-        raise TypeError(f"{name} takes float32 or float64, not {cache.A.dtype}")
-    fn = getattr(load_library(), f"amg_{name}_{SUFFIX[x.dtype]}")
+        check_vector(vname, t, cache.A, n, cache.dtype)
+    fn = getattr(load_library(), f"amg_{name}_{plane_suffix(cache, name)}")
     x_out = torch.empty_like(x)
     n = cache.row_dims[0] * cache.row_dims[1]
     if x.shape[0] > n:

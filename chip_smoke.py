@@ -108,7 +108,22 @@ Runs, in order, and exits non-zero on the first failure:
     n_sh = 1's iterations (±1), and times K8 on the whole 4096² grid (one
     slab), its plain version and ``torch.sparse.mm`` on the same operator
     as CSR.  With 4 or more cards the same runs under NCCL, a card per
-    rank; with fewer it prints that NCCL across cards was not run.
+    rank; with fewer it prints that NCCL across cards was not run;
+14. lowers the flagship of phase 4 a third time with bf16 coefficient
+    planes (``coef_dtype=torch.bfloat16``, ``bench.py``'s default
+    ``AMG_COEF_DTYPE=bfloat16``) and asserts 8 levels, tail start 2, the
+    legs' A, D⁻¹, T and S in bf16, the tail levels' A, T and S in bf16 with
+    D⁻¹ and the coarse operator in float32, every level's own operator in
+    float32, and the tile plans of float32; holds K1 (L0, L1, ``x_zero``
+    both ways), K2 (L0 pipelined, L1), K3 (L0, L1) and K4 (``x_zero`` both
+    ways) on the bf16 planes against their plain versions (max relative
+    error <= 1e-5) and times each in turns with its float32 kernel on the
+    same vectors (f32, bf16, bf16, f32), beside its bound with 2-byte
+    planes; runs ``solve_refined(tol=1e-8)`` on b = A·1 and 400
+    ``run_fixed_cycles`` with the counters zeroed just before each
+    (relres < 1e-8 within 4 rounds; < 1e-5 after the cycles, with exactly
+    phase 5's launches, by kernel and by level), and times a V-cycle and a
+    fixed cycle in turns with float32's.
 
 The last two lines of output are the card's ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``; the line before them lists every
@@ -279,16 +294,24 @@ def _color_cells(leg):
     return cells
 
 
+def plane_words(leg):
+    """Words at the vectors' itemsize of a level's planes A, D⁻¹, T and S,
+    each at its own itemsize (a bf16 plane is half a float32 word a cell)."""
+    size = len(leg.offsA) * leg.A.element_size() + sum(p.element_size() for p in (leg.dinv, leg.T, leg.S))
+    return leg.row_dims[0] * leg.row_dims[1] * size / leg.dtype.itemsize
+
+
 def leg_work(leg, steps, correct, restrict, x_zero=False):
     """(words moved, flops) of one leg's passes on one level: the A planes,
     dinv, T, S and b read, x written, and x read unless it starts at zero;
-    x_c read for a correction, b_c written for a restriction."""
+    x_c read for a correction, b_c written for a restriction.  Words are at
+    the vectors' itemsize (``plane_words``)."""
     Wx, Wy = leg.row_dims
     n = Wx * Wy
     nc = leg.col_dims[0] * leg.col_dims[1]
     nA = len(leg.offsA)
     cells = _color_cells(leg)
-    words = (nA + 3) * n + 2 * n
+    words = plane_words(leg) + 2 * n
     flops = sum(cells.get(c, 0) * (2 * nA + 3) for c in steps)
     if not x_zero:
         words += n
@@ -316,7 +339,7 @@ def tail_work(tail, x_zero):
     words = tail.Mc.numel() + (2 if x_zero else 3) * n0
     flops = 2 * tail.Mc.numel()
     for leg in tail.levels:
-        words += (len(leg.offsA) + 3) * leg.row_dims[0] * leg.row_dims[1]
+        words += plane_words(leg)
         flops += leg_work(leg, leg.steps, False, True)[1] + leg_work(leg, leg.steps, True, False)[1]
     return words, flops
 
@@ -1618,6 +1641,172 @@ def slab_path(device, ml):
     return row
 
 
+# --------------------------------------------------------------------------
+# the flagship with bf16 coefficient planes (phase 14)
+# --------------------------------------------------------------------------
+
+# the C entries of K1–K4 with bf16 planes under float32 vectors
+BF16_SUFFIX = "f32_bf16"
+
+
+def bf16_path(device, ml, f32_counts, f32_levels):
+    """Phase 14: the flagship lowered with bf16 planes; K1–K4 against their
+    plain versions and timed in turns with float32's, the refined solve and
+    the fixed-cycle loop with the counters zeroed just before each."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    h = amt.get_device_hierarchy(ml, device=device, dtype=f32, coef_dtype=bf16)
+    torch.cuda.synchronize()
+    lowering_s = time.perf_counter() - t0
+    h32 = amt.build_device_hierarchy(ml, device=device, dtype=f32)
+
+    def plans(hh):
+        return ([(L.fused.down_tile, L.fused.up_tile, L.fused.up_pipelined, L.fused.updown_tile)
+                 for L in hh.levels[: hh.tail_start]], hh.tail.tiles)
+
+    legs = [L.fused for L in h.levels[: h.tail_start]]
+    log(f"bf16 planes {N}x{N}: lowering_s {lowering_s!r} tail_start {h.tail_start};"
+        f" plans (K1, K2, K2 pipelined, K3 tiles by leg level; K4 tiles) {plans(h)}; float32's {plans(h32)}")
+    if len(ml.levels) + 1 != EXPECT_LEVELS or h.tail_start != EXPECT_TAIL_START:
+        raise AssertionError(f"bf16: {len(ml.levels) + 1} levels, tail start {h.tail_start}")
+    if not all(f is not None and (f.A.dtype, f.dinv.dtype, f.T.dtype, f.S.dtype) == (bf16,) * 4 for f in legs):
+        raise AssertionError("bf16: a leg cache's A, D⁻¹, T, S are not all bf16")
+    if not (all((L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype) == (bf16, bf16, bf16, f32) for L in h.tail.levels)
+            and h.tail.Mc.dtype == f32):
+        raise AssertionError("bf16: a tail level's A, T, S are not bf16 with D⁻¹ and Mc in float32")
+    if not all(L.A.data.dtype == f32 for L in h.levels) or plans(h) != plans(h32):
+        raise AssertionError("bf16: a level's own operator is not float32, or the plans differ from float32's")
+
+    gen = torch.Generator(device="cpu").manual_seed(14)
+
+    def vec(m, length):
+        v = torch.zeros(length)
+        v[:m] = torch.randn(m, generator=gen)
+        return v.to(device)
+
+    rows = {name: [] for name in ("fused_down", "fused_up", "fused_updown", "fused_tail")}
+
+    def record(name, got, ref, fn, fn32, plain, work, **extra):
+        """A row: errors against the plain version on the bf16 planes, the
+        bf16 kernel timed in turns with the float32 one, the plain time and
+        the bound with 2-byte planes."""
+        errs = [errors(g, r) for g, r in zip(got, ref)]
+        row = dict(extra, max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
+        row["f32_ms"], row["ms"], row["turns_ms"] = in_turns(fn32, fn)
+        row["plain_ms"] = time_ms(plain)
+        row["bound_ms"], row["bound_by"] = bound(*work, 4)
+        rows[name].append(row)
+
+    for lvl in (0, 1):
+        L, f, g = h.levels[lvl], h.levels[lvl].fused, h32.levels[lvl].fused
+        n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
+        x, b, xc = vec(n, pad), vec(n, pad), vec(nc, nc)
+        for x_zero in (False, True):
+            record(
+                "fused_down", vl.fused_down(f, x, b, x_zero=x_zero), vl.fused_down_reference(f, x, b, x_zero=x_zero),
+                lambda: vl.fused_down(f, x, b, x_zero=x_zero), lambda: vl.fused_down(g, x, b, x_zero=x_zero),
+                lambda: vl.fused_down_reference(f, x, b, x_zero=x_zero),
+                leg_work(f, f.steps, False, True, x_zero=x_zero), level=lvl, dims=f.row_dims, x_zero=x_zero,
+                leg_route="tiles", tile=f.down_tile,
+            )
+        record(
+            "fused_up", [vl.fused_up(f, x, b, xc)], [vl.fused_up_reference(f, x, b, xc)],
+            lambda: vl.fused_up(f, x, b, xc), lambda: vl.fused_up(g, x, b, xc),
+            lambda: vl.fused_up_reference(f, x, b, xc), leg_work(f, f.steps, True, False), level=lvl,
+            dims=f.row_dims, leg_route="pipelined" if f.up_pipelined else "tiles", tile=f.up_tile,
+        )
+        record(
+            "fused_updown", vl.fused_updown(f, x, b, xc), vl.fused_updown_reference(f, x, b, xc),
+            lambda: vl.fused_updown(f, x, b, xc), lambda: vl.fused_updown(g, x, b, xc),
+            lambda: vl.fused_updown_reference(f, x, b, xc), leg_work(f, f.steps2, True, True), level=lvl,
+            dims=f.row_dims, tile=f.updown_tile,
+        )
+    lvl = h.tail_start
+    L = h.levels[lvl]
+    x, b = vec(L.A.shape[0], L.A.rows_padded), vec(L.A.shape[0], L.A.rows_padded)
+    for x_zero in (False, True):
+        xin = torch.zeros_like(x) if x_zero else x
+        record(
+            "fused_tail", [tk.fused_tail(h.tail, xin, b, x_zero=x_zero)],
+            [tk.fused_tail_reference(h.tail, xin, b, x_zero=x_zero)],
+            lambda: tk.fused_tail(h.tail, xin, b, x_zero=x_zero), lambda: tk.fused_tail(h32.tail, xin, b, x_zero=x_zero),
+            lambda: tk.fused_tail_reference(h.tail, xin, b, x_zero=x_zero), tail_work(h.tail, x_zero), level=lvl,
+            dims=h.tail.levels[0].row_dims, x_zero=x_zero,
+        )
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"kernel {name}_bf16 L{r['level']} {r['dims']}"
+                + (f" x_zero={r['x_zero']}" if "x_zero" in r else "")
+                + (f" {r['leg_route']}" if "leg_route" in r else "") + (f" tile {r['tile']}" if "tile" in r else "")
+                + f": max_rel_err {r['max_rel_err']!r} max_abs_err {r['max_abs_err']!r} bf16 {r['ms']!r} ms"
+                f" f32 {r['f32_ms']!r} ms (in turns, f32/bf16/bf16/f32: {r['turns_ms']!r}) plain {r['plain_ms']!r} ms"
+                f" bound {r['bound_ms']!r} ms ({r['bound_by']}, 2-byte planes)")
+            if not r["max_rel_err"] <= KERNEL_RTOL:
+                raise AssertionError(f"{name} with bf16 planes disagrees with its plain version: {r}")
+
+    # the refined solve on b = A·1, then the fixed-cycle loop, counters zeroed before each
+    b1 = ml.levels[0].A @ np.ones(N * N)
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    stats = {}
+    x, hist = amt.solve_refined(ml, b1, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats,
+                                coef_dtype=bf16)
+    t2 = time.perf_counter()
+    solve_counts = read_counts()
+    relres = float(np.linalg.norm(b1 - ml.levels[0].A @ x) / np.linalg.norm(b1))
+    log(f"bf16 solve_refined (b = A·1): rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']}"
+        f" relres {relres!r} history {hist} {t2 - t1!r} s; launches {solve_counts}")
+
+    bv = torch.zeros(h.fine_padded, device=device)
+    bv[: N * N] = torch.as_tensor(b1, dtype=f32, device=device)
+    xv = torch.zeros_like(bv)
+    torch.cuda.synchronize()
+    zero_counts()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    xf = run_fixed_cycles(h, xv, bv, CYCLES)
+    stop.record()
+    torch.cuda.synchronize()
+    cycle_counts, cycle_levels = read_counts(), read_level_counts()
+    fixed_ms = start.elapsed_time(stop) / CYCLES
+    xh = xf[: N * N].double().cpu().numpy()
+    relres_fixed = float(np.linalg.norm(b1 - ml.levels[0].A @ xh) / np.linalg.norm(b1))
+    log(f"bf16 fixed cycles {CYCLES}: ms_per_cycle {fixed_ms!r} relres_after_cycles {relres_fixed!r};"
+        f" launches {cycle_counts}; by level {cycle_levels}")
+
+    # a V-cycle and a fixed cycle, float32 and bf16 planes in turns
+    times = {"vcycle_f32": [], "vcycle_bf16": [], "fixed_f32": [], "fixed_bf16": []}
+    for hh, tag in ((h32, "f32"), (h, "bf16"), (h, "bf16"), (h32, "f32")):
+        times[f"vcycle_{tag}"].append(time_ms(lambda: _one_iteration(hh, amt.V(), xv, bv), reps=10))
+        times[f"fixed_{tag}"].append(time_ms(lambda: run_fixed_cycles(hh, xv, bv, 50), reps=2) / 50)
+    del h32
+    log(f"bf16 timings in turns (f32, bf16, bf16, f32), ms: {times}; card {card_line()}")
+
+    if not (x.shape == (N * N,) and np.isfinite(x).all()):
+        raise AssertionError("bf16: the solution is not a finite vector of the problem's size")
+    if not (relres < TOL and len(hist) - 1 <= MAX_ROUNDS):
+        raise AssertionError(f"bf16 solve_refined relres {relres} after {len(hist) - 1} rounds")
+    if not (all(solve_counts[k] > 0 for k in ("down", "up", "tail")) and solve_counts["updown"] == 0):
+        raise AssertionError(f"the bf16 solve did not launch K1, K2 and K4: {solve_counts}")
+    if not (np.isfinite(xh).all() and relres_fixed < CYCLES_RELRES):
+        raise AssertionError(f"bf16 relres_after_cycles {relres_fixed} >= {CYCLES_RELRES}")
+    if cycle_counts != f32_counts or cycle_levels != f32_levels:
+        raise AssertionError(f"bf16 fixed-cycle launches {cycle_counts} {cycle_levels} != float32's"
+                             f" {f32_counts} {f32_levels}")
+    summary = dict(vcycle_ms=times["vcycle_bf16"][0], vcycle_f32_ms=times["vcycle_f32"][0],
+                   fixed_ms=times["fixed_bf16"][0], fixed_f32_ms=times["fixed_f32"][0], fixed_400_ms=fixed_ms,
+                   rounds=len(hist) - 1, relres=relres, relres_after_cycles=relres_fixed)
+    return rows, solve_counts, cycle_counts, cycle_levels, summary
+
+
 def main():
     import torch
 
@@ -1662,6 +1851,9 @@ def main():
     ml._device_cache.clear()
     torch.cuda.empty_cache()
     row_halo = slab_path(device, ml)
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
+    rows_bf16, counts_bf16, cycle_bf16, levels_bf16, summary_bf16 = bf16_path(device, ml, cycle_counts, cycle_levels)
 
     kernels = []
     for name, rs in rows.items():
@@ -1727,8 +1919,23 @@ def main():
         name="halo_stencil", route="cuda", source=SOURCES["halo_stencil"], replaces=REPLACES["halo_stencil"],
         **row_halo,
     ))
+    for name, rs in rows_bf16.items():
+        first = rs[0]  # L0 (the tail's entry level for K4), x read from its input
+        row = dict(
+            name=f"{name}_bf16", route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=cycle_bf16[COUNTER[name]], launches_solve=counts_bf16[COUNTER[name]],
+            max_abs_err=max(r["max_abs_err"] for r in rs), ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, entry=BF16_SUFFIX,
+            f32_ms=first["f32_ms"],
+        )
+        if name != "fused_tail":
+            l1 = next(r for r in rs if r["level"] == 1)
+            row.update(l1_ms=l1["ms"], l1_f32_ms=l1["f32_ms"], l1_bound_ms=l1["bound_ms"],
+                       launches_by_level=levels_bf16.get(COUNTER[name], {}))
+        kernels.append(row)
     log(f"flagship {N}x{N} f32, CUDA events: fixed cycle {fixed_ms!r} ms (first design, recorded:"
         f" {FIRST_DESIGN_FIXED_CYCLE_MS} ms), V-cycle {vcycle_ms!r} ms; card {card}")
+    log(f"flagship {N}x{N} bf16 planes, CUDA events: {summary_bf16}; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ whole-subcycle kernel K9 (``fused_subcycle``, at L1 of 4096²) with its
 levels tiled or pass by pass (``sub_grid_passes``) and under alternative
 tile edges; with ``legs``, the down and up legs K1 (``fused_down``) and K2
 (``fused_up``) at L0 and L1 of 4096² under alternative tiles, routes and
-load phases.
+load phases; with ``against DIR``, this tree's library against the one
+built from another checkout's sources in DIR (for example an unpacked
+``git archive`` of the parent commit).
 
 Each variant is the tree's CUDA sources with a few lines edited, built into
 its own library (all builds run in parallel) and swapped in under the same
@@ -27,7 +29,7 @@ diagnostics split K4's time, dropping its block-0 levels and coarse solve
 (``k4_diag_no_block0``) or its grid levels (``k4_diag_no_grid``).  Run from
 the repository root:
 
-    python3 kernel_variants.py [legs | sweeps [march | march2d] | subcycle | scan]
+    python3 kernel_variants.py [legs | sweeps [march | march2d] | subcycle | scan | against DIR]
 
 In ``sweeps`` mode each source variant runs K7's first design (the
 halo-tile kernel) and K5 with each box of ``BOXES_3D`` / ``BOXES_2D`` (the
@@ -59,6 +61,13 @@ read everything in their first memory phase: ``LEG_VARIANTS``) runs K1
 from x and from zero and K2 under each tile of ``LEG_TILES``, one tile a
 block and, for K2 where its stage fits, pipelined; then the legs pass by
 pass; then K3, K4, a V-cycle and a fixed cycle with the planned tiles.
+In ``against DIR`` mode the two libraries run the float32 and float64
+K1 (from x and from zero), K2 and K3 at L0 and L1 of 1800² on their
+planned routes and pass by pass, K4 (x read and from zero) and K9 at L1
+on the same inputs, and it prints whether each output is bitwise equal;
+then it times float32 K1–K4 at 4096² (L0 and L1 for the legs), a V-cycle
+and a fixed cycle in turns (DIR, tree, tree, DIR).  DIR's library is
+loaded without the entries it may lack (the bf16-plane ones).
 """
 
 import subprocess
@@ -692,7 +701,7 @@ def legs(use):
                     for tile in LEG_TILES[lvl][key]:
                         base = dataclasses.replace(f, **{f"{key}_tile": tile}, up_pipelined=False)
                         routes = [("tiles", base)]
-                        if key == "up" and vl.plan_up_pipelined(base, 4):
+                        if key == "up" and vl.plan_up_pipelined(base):
                             routes.append(("pipelined", dataclasses.replace(base, up_pipelined=True)))
                         for route, c in routes:
                             ms, err = timed(fn, c, args, want)
@@ -774,6 +783,101 @@ def legs_and_tail(use):
         print(f"K2 + K1 at L{lvl}: {ms!r} ms")
 
 
+def against(other):
+    """``against DIR`` mode (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    import chip_smoke as cs
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    tree = vl.load_library()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "other.so"
+        vl.build_library(out, [Path(other) / "algebraicmultigrid_tpu_torch" / "csrc" / f.name for f in vl.SOURCES])
+        entries, path = vl._BF16_ENTRIES, vl.library_path
+        vl._BF16_ENTRIES, vl.library_path, vl._lib = (), (lambda: out), None
+        try:
+            libs = {"other": vl.load_library(), "tree": tree}
+        finally:
+            vl._BF16_ENTRIES, vl.library_path, vl._lib = entries, path, tree
+    gen = torch.Generator().manual_seed(3)
+
+    def vec(m, length, dtype=torch.float32):
+        v = torch.zeros(length, dtype=dtype)
+        v[:m] = torch.randn(m, generator=gen, dtype=dtype)
+        return v.cuda()
+
+    def run(name, fn):
+        vl._lib = libs[name]
+        got = fn()
+        return got if isinstance(got, tuple) else (got,)
+
+    same = []
+
+    def bitwise(tag, fn):
+        a, b = run("other", fn), run("tree", fn)
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(u, v) for u, v in zip(a, b)))
+        print(f"{tag}: {'bitwise equal' if same[-1] else 'DIFFERENT'}", flush=True)
+
+    ml = cs.setup(1800)
+    for dtype in (torch.float32, torch.float64):
+        h = amt.build_device_hierarchy(ml, device="cuda", dtype=dtype)
+        for lvl in (0, 1):
+            L, f = h.levels[lvl], h.levels[lvl].fused
+            n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
+            x, b, xc = vec(n, pad, dtype), vec(n, pad, dtype), vec(nc, nc, dtype)
+            for route, c in (("planned", f), ("pass", dataclasses.replace(f, down_tile=None, up_tile=None,
+                                                                           up_pipelined=False))):
+                for xz in (False, True):
+                    bitwise(f"{dtype} L{lvl} K1 {route} x_zero={xz}", lambda: vl.fused_down(c, x, b, x_zero=xz))
+                bitwise(f"{dtype} L{lvl} K2 {route}", lambda: vl.fused_up(c, x, b, xc))
+            bitwise(f"{dtype} L{lvl} K3", lambda: vl.fused_updown(f, x, b, xc))
+        L = h.levels[h.tail_start]
+        x, b = vec(L.A.shape[0], L.A.rows_padded, dtype), vec(L.A.shape[0], L.A.rows_padded, dtype)
+        for xz in (False, True):
+            bitwise(f"{dtype} K4 x_zero={xz}", lambda: tk.fused_tail(h.tail, torch.zeros_like(x) if xz else x, b,
+                                                                       x_zero=xz))
+        hs = amt.build_device_hierarchy(ml, device="cuda", dtype=dtype, subcycle=True)
+        L = hs.levels[hs.sub_start]
+        b = vec(L.A.shape[0], L.A.rows_padded, dtype)
+        bitwise(f"{dtype} K9 at L{hs.sub_start}", lambda: sk.fused_subcycle(hs.sub, b))
+        del h, hs
+    print(f"bitwise equal: {sum(same)} of {len(same)}", flush=True)
+
+    ml = cs.setup(N)
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    cases = []
+    for lvl in (0, 1):
+        L, f = h.levels[lvl], h.levels[lvl].fused
+        n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
+        x, b, xc = vec(n, pad), vec(n, pad), vec(nc, nc)
+        cases += [(f"K1 L{lvl}", lambda f=f, x=x, b=b: vl.fused_down(f, x, b), 1),
+                  (f"K2 L{lvl}", lambda f=f, x=x, b=b, xc=xc: vl.fused_up(f, x, b, xc), 1),
+                  (f"K3 L{lvl}", lambda f=f, x=x, b=b, xc=xc: vl.fused_updown(f, x, b, xc), 1)]
+    L = h.levels[h.tail_start]
+    x4, b4 = vec(L.A.shape[0], L.A.rows_padded), vec(L.A.shape[0], L.A.rows_padded)
+    bv = torch.zeros(h.fine_padded, device="cuda")
+    bv[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
+    xv = torch.zeros_like(bv)
+    cases += [("K4", lambda: tk.fused_tail(h.tail, x4, b4), 1),
+              ("V-cycle", lambda: _one_iteration(h, amt.V(), xv, bv), 1),
+              ("fixed cycle", lambda: run_fixed_cycles(h, xv, bv, 50), 50)]
+    for tag, fn, per in cases:
+        t = [cs.time_ms(lambda: run(name, fn), 2 if per > 1 else cs.TIMED_REPS) / per
+             for name in ("other", "tree", "tree", "other")]
+        print(f"{tag} float32 4096²: DIR {(t[0] + t[3]) / 2!r} ms tree {(t[1] + t[2]) / 2!r} ms"
+              f" (DIR/tree/tree/DIR {t!r})", flush=True)
+    vl._lib = tree
+    return 0 if all(same) else 1
+
+
 def main():
     import torch
 
@@ -781,6 +885,14 @@ def main():
         print("no CUDA card: kernel_variants needs one")
         return 1
     mode = sys.argv[1] if sys.argv[1:] else ""
+    if mode == "against":
+        import chip_smoke as cs
+
+        card = cs.card_line()
+        print(f"card: {card}")
+        rc = against(sys.argv[2])
+        print(card)
+        return rc
     variants = {"sweeps": SWEEP_VARIANTS, "subcycle": SUB_VARIANTS, "legs": LEG_VARIANTS,
                 "scan": SCAN_VARIANTS}.get(mode, VARIANTS)
     march_only = mode == "sweeps" and sys.argv[2:] == ["march"]

@@ -401,6 +401,154 @@ def test_cuda_solve_refined(ml):
     assert np.linalg.norm(b - A @ x_gpu) / np.linalg.norm(b) < 1e-8
 
 
+# bf16 coefficient planes under float32 vectors (coef_dtype=torch.bfloat16):
+# K1/K2 cases as LEG_CASES, with even-Wy 5-point levels, where K2 pipelines
+# with 2-byte planes (odd Wy does not), and the 192² hierarchy's L0 (5-point,
+# pipelined) and L1 (9-point)
+BF16_LEG_CASES = [
+    ("s", (37, 41), 3, 5), ("s", (64, 70), 2, 5), ("s", (300, 258), 3, 5), ("s", (300, 257), 2, 9),
+    ("s", (64, 70), 3, 9), ("h", 192, 3, 0), ("h", 192, 3, 1), ("h", 200, 2, 1),
+]
+BF16 = dict(dtype=torch.float32, coef_dtype=torch.bfloat16)
+
+
+def _bf16_cache(case, seed):
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from torch_port_common import synthetic_leg_cache
+
+    if case[0] == "h":
+        _, n, box, lvl = case
+        f = build_device_hierarchy(_small(n, box), device="cuda", tail=False, **BF16).levels[lvl].fused
+    else:
+        _, dims, k, n_off = case
+        f = synthetic_leg_cache(dims, k, n_off, seed=seed, device="cuda", **BF16)
+    assert f.A.dtype == f.dinv.dtype == f.T.dtype == f.S.dtype == torch.bfloat16 and f.dtype == torch.float32
+    return f
+
+
+@pytest.mark.parametrize("route", ["planned", "tiles", "pass"])
+@pytest.mark.parametrize("case", BF16_LEG_CASES, ids=str)
+def test_cuda_bf16_legs_match_plain_versions(ml, case, route):
+    """K1 (from x and from zero) and K2 with bf16 planes against their
+    plain versions on every route: tiled, K2 pipelined (its stage a pair of
+    coefficients a copy) and pass by pass."""
+    import dataclasses
+
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    f = _bf16_cache(case, seed=sum(case[1]) if case[0] == "s" else 0)
+    if len(f.offsA) == 13:
+        assert f.down_tile is None and f.up_tile is None
+    else:
+        assert f.up_pipelined == (len(f.offsA) == 5 and f.row_dims[1] % 2 == 0)
+    if route == "tiles":
+        f = dataclasses.replace(f, up_pipelined=False)
+    elif route == "pass":
+        f = dataclasses.replace(f, down_tile=None, up_tile=None, up_pipelined=False)
+    Wx, Wy = f.row_dims
+    n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
+    x, b, xc = _vec(n, n + 3, 1), _vec(n, n + 3, 2), _vec(nc, nc, 3)
+    before = dict(vl.launches)
+    for x_zero in (False, True):
+        got = vl.fused_down(f, x, b, x_zero=x_zero)
+        ref = vl.fused_down_reference(f, x, b, x_zero=x_zero)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert g.dtype == torch.float32 and g.shape == r.shape and _rel(g, r) < TOL
+    got = vl.fused_up(f, x, b, xc)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and _rel(got, vl.fused_up_reference(f, x, b, xc)) < TOL
+    assert vl.launches["down"] == before["down"] + 2 and vl.launches["up"] == before["up"] + 1
+
+
+@pytest.mark.parametrize("case", [c for c in BF16_LEG_CASES if c != ("h", 200, 2, 1)], ids=str)
+def test_cuda_bf16_updown_matches_plain_version(ml, case):
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    f = _bf16_cache(case, seed=sum(case[1]) + 2 if case[0] == "s" else 0)
+    assert f.updown_tile is not None
+    Wx, Wy = f.row_dims
+    n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
+    x, b, xc = _vec(n, n + 3, 4), _vec(n, n + 3, 5), _vec(nc, nc, 6)
+    before = vl.launches["updown"]
+    got = vl.fused_updown(f, x, b, xc)
+    ref = vl.fused_updown_reference(f, x, b, xc)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _rel(g, r) < TOL
+    assert vl.launches["updown"] == before + 1
+
+
+@pytest.mark.parametrize("problem,rows", TAIL_CASES, ids=str)
+def test_cuda_bf16_tail_matches_plain_version(ml, problem, rows):
+    """K4 with bf16 A, T, S and float32 D⁻¹ on its tiled grid levels, a
+    grid level pass by pass (5 sweeps) and its block-0 levels."""
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.tail_kernel import fused_tail, fused_tail_reference
+
+    n, box, iters = problem
+    h = build_device_hierarchy(_small(n, box, iters), device="cuda", tail_max_rows=rows, **BF16)
+    assert h.tail is not None and h.tail_start == TAIL_START[rows, iters]
+    assert all((L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype) == (torch.bfloat16,) * 3 + (torch.float32,)
+               for L in h.tail.levels)
+    L = h.levels[h.tail_start]
+    n, pad = L.A.shape[0], L.A.rows_padded
+    x, b = _vec(n, pad, 4), _vec(n, pad, 5)
+    before = vl.launches["tail"]
+    for x_zero in (False, True):
+        got = fused_tail(h.tail, x, b, x_zero=x_zero)
+        ref = fused_tail_reference(h.tail, x, b, x_zero=x_zero)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and _rel(got, ref) < TOL
+    assert vl.launches["tail"] == before + 2
+
+
+def test_cuda_bf16_fixed_cycles_and_solve(ml):
+    """With bf16 planes: 3 fixed cycles on the card against the CPU's plain
+    versions (the same bf16 values, float32 arithmetic in another order),
+    with the f32 path's launches; the refined solve to 1e-9."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml, device=dev, tail_max_rows=5000, **BF16)
+        b = _vec(N * N, h.fine_padded, 6).to(dev)
+        before = dict(vl.launches)
+        out[dev] = run_fixed_cycles(h, torch.zeros_like(b), b, 3)
+        counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+    assert _rel(out["cuda"], out["cpu"]) < TOL
+    assert counts["cuda"] == {
+        "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
+    }
+    b = np.random.default_rng(6).standard_normal(N * N)
+    x, hist = amt.solve_refined(ml, b, tol=1e-10, device="cuda", log=True, coef_dtype=torch.bfloat16)
+    assert np.linalg.norm(b - ml.levels[0].A @ x) / np.linalg.norm(b) < 1e-9 and len(hist) - 1 <= 4
+
+
+def test_cuda_bf16_entries_refuse_other_pairs(ml):
+    """bf16 planes run only under float32 vectors with the legs' own dtypes;
+    a pair with no entry raises and launches nothing."""
+    import dataclasses
+
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    lib = vl.load_library()
+    for name in ("down", "up", "updown", "tail"):
+        assert getattr(lib, f"amg_fused_{name}_f32_bf16") is not None
+    f = _bf16_cache(("s", (64, 70), 2, 5), seed=1)
+    n = 64 * 70
+    x = _vec(n, n, 1)
+    before = dict(vl.launches)
+    with pytest.raises(TypeError):
+        vl.fused_down(f, x.double(), x.double())
+    with pytest.raises(TypeError):  # D⁻¹ at float32 beside bf16 planes is the tail's, not a leg's
+        vl.fused_down(dataclasses.replace(f, dinv=f.dinv.float()), x, x)
+    assert vl.launches == before
+
+
 @pytest.fixture(scope="module")
 def ml_unstructured():
     if not torch.cuda.is_available():

@@ -53,10 +53,12 @@ LEG_OFFSETS = {
 LEG_COLORS = {5: ((0, 1), (1, 0)), 9: ((0, 1), (2, 3))}
 
 
-def synthetic_leg_cache(dims, k, n_off, seed, iters=1, dtype=None, device="cpu"):
+def synthetic_leg_cache(dims, k, n_off, seed, iters=1, dtype=None, device="cpu", coef_dtype=None):
     """A factored leg cache of a ``dims`` lattice level with box-k coarsening
     and random planes (the arithmetic, not the matrix, is under test), the
-    stencil's periodic coloring and the K1–K3 tiles planned from the shapes."""
+    stencil's periodic coloring and the K1–K3 tiles planned from the shapes;
+    ``coef_dtype=torch.bfloat16`` rounds the planes (made at ``dtype``,
+    float32) to bf16."""
     import torch
 
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
@@ -71,12 +73,13 @@ def synthetic_leg_cache(dims, k, n_off, seed, iters=1, dtype=None, device="cpu")
         return torch.as_tensor(rng.uniform(0.1, 1.0, shape), dtype=dtype, device=device)
 
     scale = torch.as_tensor([4.0 if o == (0, 0) else -0.25 for o in offs], dtype=dtype, device=device)
-    return vl.with_tile_plans(vl.FusedLegCache(
+    cache = vl.with_tile_plans(vl.FusedLegCache(
         A=(t(len(offs), Wx, Wy) * scale[:, None, None]).contiguous(), dinv=t(Wx, Wy), T=t(Wx, Wy),
         S=t(Wx, Wy) * 0.3, offsA=offs, color_grid=grid, n_colors=len({c for row in grid for c in row}), k=k,
         row_dims=tuple(dims), col_dims=(-(-Wx // k), -(-Wy // k)), omega=1.0, iter=iters, forward=True,
         backward=True,
     ))
+    return cache if coef_dtype is None else vl.round_planes(cache, coef_dtype)
 
 
 # the JAX fused-leg caches in a layout that untiles to full planes:
