@@ -10,6 +10,9 @@ Covered so far:
 * the structured smoothed-aggregation Poisson solve on Lat2D levels —
   ``poisson((N, N), lattice=True)`` → ``structured_smoothed_aggregation``
   → ``cg_device`` / ``solve_refined``;
+* structured Ruge–Stüben on 2-D lattice problems — ``ruge_stuben(poisson((N,
+  N), lattice=True), CF=StructuredRS())`` (``structured_ruge_stuben``):
+  semi-coarsened Lat2D levels, smoothed by the whole-sweep kernel K5;
 * 3-D lattice problems — ``poisson((N, N, N), lattice=True)`` →
   ``structured_smoothed_aggregation_nd`` → LatND levels smoothed by the
   whole-sweep kernel K7;
@@ -46,7 +49,7 @@ from .models.device import (
     solve_device,
     solve_refined,
 )
-from .models.fastsetup import structured_smoothed_aggregation
+from .models.fastsetup import structured_ruge_stuben, structured_smoothed_aggregation
 from .models.gallery import poisson
 from .models.lattice import LatticeMatrix, LatticeProblem
 from .models.lattice_nd import (
@@ -56,15 +59,15 @@ from .models.lattice_nd import (
     structured_smoothed_aggregation_nd,
 )
 from .models.multilevel import MultiLevel, operator_complexity
-from .models.structured import StructuredAggregation
+from .models.structured import StructuredAggregation, StructuredRS
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Cycle", "V", "W", "F", "Sweep", "SymmetricSweep", "ForwardSweep", "BackwardSweep",
     "GaussSeidel", "Jacobi", "SOR",
-    "StructuredAggregation", "smoothed_aggregation", "structured_smoothed_aggregation",
-    "structured_smoothed_aggregation_nd", "ruge_stuben",
+    "StructuredAggregation", "StructuredRS", "smoothed_aggregation", "structured_smoothed_aggregation",
+    "structured_smoothed_aggregation_nd", "ruge_stuben", "structured_ruge_stuben",
     "MultiLevel", "operator_complexity", "LatticeMatrix", "LatticeProblem", "LatticeMatrixND",
     "LatticeProblemND", "BoxAggregationND", "poisson",
     "build_device_hierarchy", "get_device_hierarchy", "cg_device", "solve_refined",

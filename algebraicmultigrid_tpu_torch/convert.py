@@ -55,10 +55,11 @@ operators.  The input is plain data:
 bf16 coefficient planes: numpy has no bf16 dtype that ``torch.as_tensor``
 reads, so they travel as float32 arrays holding bf16 values, and
 ``coef_dtype=torch.bfloat16`` rounds them on arrival (exactly, for such
-values): the ``"fused"`` planes A, dinv, T and S, and the tail levels' A, T
-and S (their dinv and ``Mc`` stay at ``dtype``), as
-``build_device_hierarchy(..., coef_dtype=torch.bfloat16)`` stores them.  A
-``sub`` cache takes no bf16 planes (ROADMAP B3).
+values): the ``"fused"`` planes A, dinv, T and S, the tail levels' A, T
+and S (their dinv and ``Mc`` stay at ``dtype``) and, under float32 only,
+the LatND operators' planes, as ``build_device_hierarchy(...,
+coef_dtype=torch.bfloat16)`` stores them under float32 or float64 vectors.
+A ``sub`` cache takes no bf16 planes (ROADMAP B3).
 """
 
 from __future__ import annotations
@@ -115,15 +116,18 @@ def _lat2d(d, dtype, device) -> Lat2D:
     )
 
 
-def _op(d, dtype, device):
+def _op(d, dtype, device, nd_coef=None):
+    """An operator from its dict; a LatND's planes in ``nd_coef`` (bf16)
+    where given."""
     fmt = d.get("format", "Lat2D")
     if fmt == "Lat2D":
         return _lat2d(d, dtype, device)
     if fmt == "LatND":
         return LatND(
-            data=_tensor(d["data"], dtype, device), offsets=_pairs(d["offsets"]),
+            data=_tensor(d["data"], nd_coef or dtype, device), offsets=_pairs(d["offsets"]),
             row_dims=_ints(d["row_dims"]), col_dims=_ints(d["col_dims"]), bases=_pairs(d["bases"]),
             shape=_ints(d["shape"]), nnz=int(d["nnz"]), rows_padded=int(d["rows_padded"]),
+            vec_dtype=None if nd_coef is None else dtype,
         )
     if fmt == "ELL":
         return ELL(
@@ -213,13 +217,14 @@ def hierarchy_from_numpy(
     coef_dtype = coef_dtype_of(coef_dtype, dtype)
     if coef_dtype is not None and sub is not None:
         raise NotImplementedError("the whole-subcycle cache takes no bf16 coefficient planes (ROADMAP B3)")
+    nd_coef = coef_dtype if dtype == torch.float32 else None
     out = []
     for L in levels:
-        A = _op(L["A"], dtype, device)
+        A = _op(L["A"], dtype, device, nd_coef)
         out.append(DeviceLevel(
             A=A,
-            P=_op(L["P"], dtype, device),
-            R=_op(L["R"], dtype, device),
+            P=_op(L["P"], dtype, device, nd_coef),
+            R=_op(L["R"], dtype, device, nd_coef),
             pre=_smoother(L["pre"], dtype, device, A),
             post=_smoother(L["post"], dtype, device, A),
             fused=_fused(L.get("fused"), dtype, device, coef_dtype),
@@ -260,7 +265,7 @@ def hierarchy_from_numpy(
         sub_start = -1
     perms = [None if v is None else _tensor(v, torch.int64, device) for v in (perm0, iperm0)]
     return DeviceHierarchy(
-        levels=out, coarse=cc, final_A=None if final_A is None else _op(final_A, dtype, device),
+        levels=out, coarse=cc, final_A=None if final_A is None else _op(final_A, dtype, device, nd_coef),
         tail=tail_cache, tail_start=tail_start, sub=sub_cache, sub_start=sub_start,
         perm0=perms[0], iperm0=perms[1],
     )

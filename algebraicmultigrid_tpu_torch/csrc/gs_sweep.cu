@@ -35,16 +35,23 @@
 // loads, steps and stores: 2 on the 5-point level (L0), 4 on the 9-point
 // ones (kernel_variants.py sweeps march2d on an H100: L0 0.304 ms at 2
 // rows against 0.355 at 4; L1 0.079 at 4 against 0.083 at 2 and 0.100 at
-// 8; the 1024-thread bound 0.305 and 0.091).
+// 8; the 1024-thread bound 0.305 and 0.091).  Other counts take the
+// generic instance, and past kMaxOff offsets (the structured Ruge-Stueben
+// hierarchy's coarse levels) the wide one.
 constexpr int kGsMarchThreads = 512;
 constexpr int kGsBatch5 = 2;
 constexpr int kGsBatch9 = 4;
 
 template <typename T>
 amg::MarchInstance<T> gs_march(int n_off) {
-  if (n_off == 5) return {amg::march_sweep_kernel<T, 5, kGsMarchThreads, kGsBatch5>, kGsBatch5, kGsMarchThreads};
-  if (n_off == 9) return {amg::march_sweep_kernel<T, 9, kGsMarchThreads, kGsBatch9>, kGsBatch9, kGsMarchThreads};
-  return {amg::march_sweep_kernel<T, 0, kGsMarchThreads, amg::kMarchBatch>, amg::kMarchBatch, kGsMarchThreads};
+  if (n_off == 5) return {amg::march_sweep_kernel<T, 5, kGsMarchThreads, kGsBatch5>, kGsBatch5, kGsMarchThreads, 5};
+  if (n_off == 9) return {amg::march_sweep_kernel<T, 9, kGsMarchThreads, kGsBatch9>, kGsBatch9, kGsMarchThreads, 9};
+  if (n_off > amg::kMaxOff) {
+    return {amg::march_sweep_kernel<T, -1, kGsMarchThreads, amg::kMarchBatch>, amg::kMarchBatch, kGsMarchThreads,
+            amg::kMarchMaxOff};
+  }
+  return {amg::march_sweep_kernel<T, 0, kGsMarchThreads, amg::kMarchBatch>, amg::kMarchBatch, kGsMarchThreads,
+          amg::kMaxOff};
 }
 
 // x_out = the smoother applied to x_in with rhs b on a Wx x Wy Lat2D level

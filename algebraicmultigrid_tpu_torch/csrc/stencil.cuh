@@ -12,8 +12,9 @@
 //
 // The vectors and the arithmetic are of type T; the planes A, T and S of
 // type C and dinv of type D, each T itself or, with bf16 coefficient
-// planes under float32 vectors, __nv_bfloat16, converted to T where it is
-// read (coef, coef_ldg), so every sum and product stays in T.
+// planes under float32 or float64 vectors, __nv_bfloat16, converted to T
+// where it is read (coef, coef_ldg; through float, exactly), so every sum
+// and product stays in T.
 
 #pragma once
 

@@ -64,6 +64,12 @@
 // Its byte bound: the n_off planes, b, dinv and x read once and x written
 // once (11 words a cell for a 7-point level); the column's halo and the
 // segments' end planes add their share of x's reads.
+//
+// The planes are of type C: T itself, or __nv_bfloat16 under float vectors
+// (K7's bf16 entry, the reference's AMG_COEF_DTYPE=bfloat16 on a 3-D
+// level), each coefficient converted to T where it is loaded (stencil.cuh
+// coef_ldg), so the ring, dinv, b and the arithmetic stay in T and a
+// 7-point cell reads 7 * 2 + 4 * 4 bytes in place of 11 * 4.
 
 #pragma once
 
@@ -74,6 +80,12 @@
 #include "stencil.cuh"
 
 namespace amg {
+
+// the offsets a march takes at most: its wide instance (NOFF = -1, K5 on
+// the structured Ruge-Stueben hierarchy's coarse Lat2D levels, whose
+// Galerkin stencils reach 37 and 45 offsets); the generic one (NOFF = 0)
+// takes kMaxOff
+constexpr int kMarchMaxOff = 64;
 
 struct MarchParams {
   int dims[3];      // grid extents, axis 2 contiguous
@@ -86,8 +98,8 @@ struct MarchParams {
   int seg;          // planes a segment owns (the last may own fewer)
   int ring;         // x's ring depth in planes
   int pad;          // x's rows past the grid, copied to x_out by block 0
-  int d0[kMaxOff];     // offset k's axis-0 component
-  int shift[kMaxOff];  // offset k's axes-1/2 part as a flat shift in a box plane
+  int d0[kMarchMaxOff];     // offset k's axis-0 component
+  int shift[kMarchMaxOff];  // offset k's axes-1/2 part as a flat shift in a box plane
   int tab[kMaxColorCells];
   int steps[kMaxSteps];
 };
@@ -134,19 +146,20 @@ __device__ __forceinline__ void march_wait() {
 
 // NOFF: the offsets' count as a compile-time constant (5 and 9, the 2-D
 // 5- and 9-point stencils, and 7, the 3-D 7-point one: the offsets' ring
-// pointers in registers), or 0 for any count.  MAXT: the block's threads
+// pointers in registers), or 0 for any count up to kMaxOff, -1 for any up
+// to kMarchMaxOff.  MAXT: the block's threads
 // at most, as each entry compiles the kernel: 1024 for K7's y-z boxes, 512
 // for K5's strips, which leaves a thread 128 registers rather than 64 (the
 // 9-point instance takes 80).  P: the planes a time step loads, steps and
-// stores.
-template <typename T, int NOFF, int MAXT, int P>
+// stores.  C: the planes' type (default T).
+template <typename T, int NOFF, int MAXT, int P, typename C = T>
 __global__ void __launch_bounds__(MAXT)
     march_sweep_kernel(T* __restrict__ x_out, const T* __restrict__ x_in,
-                       const T* __restrict__ b, const T* __restrict__ A,
+                       const T* __restrict__ b, const C* __restrict__ A,
                        const T* __restrict__ dinv, const MarchParams p,
                        const T omega) {
   extern __shared__ __align__(16) unsigned char march_smem[];
-  constexpr int KOFF = NOFF > 0 ? NOFF : kMaxOff;
+  constexpr int KOFF = NOFF > 0 ? NOFF : (NOFF == 0 ? kMaxOff : kMarchMaxOff);
   const int n_off = NOFF > 0 ? NOFF : p.n_off;
   const int E1 = p.ext[0], E2 = p.ext[1], E = E1 * E2;
   const int RX = p.ring;
@@ -271,7 +284,7 @@ __global__ void __launch_bounds__(MAXT)
           T acc = T(0);
 #pragma unroll
           for (int k = 0; k < KOFF; ++k) {
-            if (k < n_off) acc += __ldg(A + k * plane + gpl + ug[v]) * xr[xk[k] + e];
+            if (k < n_off) acc += coef_ldg<T>(A, k * plane + gpl + ug[v]) * xr[xk[k] + e];
           }
           xs[e] = xs[e] + omega * __ldg(dinv + gpl + ug[v]) * (__ldg(b + gpl + ug[v]) - acc);
         }
@@ -294,19 +307,20 @@ __global__ void __launch_bounds__(MAXT)
 
 // a march kernel's pointer type: every instance's signature, declared once
 // more (never defined) so that naming the type instantiates no kernel
-template <typename T>
+template <typename T, typename C>
 void march_kernel_signature(T* __restrict__, const T* __restrict__, const T* __restrict__,
-                            const T* __restrict__, const T* __restrict__, const MarchParams, const T);
-template <typename T>
-using MarchKernel = decltype(&march_kernel_signature<T>);
+                            const C* __restrict__, const T* __restrict__, const MarchParams, const T);
+template <typename T, typename C = T>
+using MarchKernel = decltype(&march_kernel_signature<T, C>);
 
 // an instance of the march as an entry launches it: the kernel, its batch
-// P and its thread bound
-template <typename T>
+// P, its thread bound and the offsets it takes at most
+template <typename T, typename C = T>
 struct MarchInstance {
-  MarchKernel<T> kernel;
+  MarchKernel<T, C> kernel;
   int batch;
   int max_threads;
+  int max_off;
 };
 
 // the threads of a block over an E1 x E2 box: one step unit a thread,
@@ -317,8 +331,8 @@ inline int march_threads(int E1, int E2) {
 
 // the blocks of `inst` an SM holds with `smem` bytes a block (registers,
 // shared memory and threads), for the planner's waves; -1 on an error
-template <typename T>
-int march_blocks_per_sm(const MarchInstance<T>& inst, int threads, size_t smem) {
+template <typename T, typename C>
+int march_blocks_per_sm(const MarchInstance<T, C>& inst, int threads, size_t smem) {
   if (ensure_dynamic_smem(reinterpret_cast<const void*>(inst.kernel), smem)) return -1;
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, inst.kernel, threads, smem) != cudaSuccess) return -1;
@@ -330,16 +344,16 @@ int march_blocks_per_sm(const MarchInstance<T>& inst, int threads, size_t smem) 
 // holds n_off triples (d0, d1, d2), tab per0*per1*per2 colors; plan =
 // (E1, E2, seg): the y-z box and the planes a segment owns; pad counts x's
 // rows past the grid, which x_out takes unchanged; inst the entry's
-// instance for n_off.
-template <typename T>
-int launch_march_sweep(const MarchInstance<T>& inst, void* x_out, const void* x_in, const void* b,
+// instance for n_off, its planes A of type C.
+template <typename T, typename C>
+int launch_march_sweep(const MarchInstance<T, C>& inst, void* x_out, const void* x_in, const void* b,
                        const void* A, const void* dinv, const int* dims,
                        const int* offs, int n_off, const int* per,
                        const int* tab, const int* steps, int n_steps,
                        const int* plan, int pad, double omega, void* stream) {
   const int bad = (int)cudaErrorInvalidValue;
   MarchParams p;
-  if (n_off < 1 || n_off > kMaxOff || n_steps < 1 || n_steps > kMaxSteps || pad < 0) return bad;
+  if (n_off < 1 || n_off > inst.max_off || n_steps < 1 || n_steps > kMaxSteps || pad < 0) return bad;
   for (int a = 0; a < 3; ++a) {
     p.dims[a] = dims[a];
     p.per[a] = per[a];
@@ -386,7 +400,7 @@ int launch_march_sweep(const MarchInstance<T>& inst, void* x_out, const void* x_
   if (err) return err;
   inst.kernel<<<dim3(tiles[1], tiles[0], segs), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(x_out), static_cast<const T*>(x_in), static_cast<const T*>(b),
-      static_cast<const T*>(A), static_cast<const T*>(dinv), p, static_cast<T>(omega));
+      static_cast<const C*>(A), static_cast<const T*>(dinv), p, static_cast<T>(omega));
   return (int)cudaGetLastError();
 }
 

@@ -37,11 +37,13 @@
 // x_mid and the coarse vectors, and the tiles' dynamic shared memory size;
 // the kernel allocates nothing.
 //
-// bf16 coefficient planes (the entry amg_fused_tail_f32_bf16): the A, T and
-// S planes of every level in bf16, D^-1 and the vectors in float32, as the
-// reference's whole-tail cache stores them under AMG_COEF_DTYPE=bfloat16;
-// each coefficient is converted to float where it is loaded and all the
-// arithmetic stays in float32.  The same code, a type apart.
+// bf16 coefficient planes (the entries amg_fused_tail_f32_bf16 and
+// amg_fused_tail_f64_bf16): the A, T and S planes of every level in bf16,
+// D^-1 and the vectors in float32 or float64, as the reference's whole-tail
+// cache stores them under AMG_COEF_DTYPE=bfloat16 with either working
+// dtype; each coefficient is converted to the vectors' type where it is
+// loaded (bf16 to float to double, exactly) and all the arithmetic stays in
+// that type.  The same code, a type apart.
 
 #include <cuda_runtime.h>
 
@@ -135,3 +137,4 @@ extern "C" int amg_tile_smem_bytes(int tx, int ty, int halo, int reach,
 AMG_DEFINE_TAIL(f32, float, float, float)
 AMG_DEFINE_TAIL(f64, double, double, double)
 AMG_DEFINE_TAIL(f32_bf16, float, __nv_bfloat16, float)
+AMG_DEFINE_TAIL(f64_bf16, double, __nv_bfloat16, double)

@@ -43,15 +43,19 @@
 // 1.385 ms at 4096^2 that way, K3's first version (a cooperative launch
 // of 9 grid-wide passes) 2.26 ms, against a ~0.22 ms byte bound.
 
-// bf16 coefficient planes (the entries *_f32_bf16: the reference's
-// AMG_COEF_DTYPE=bfloat16, which stores A, D^-1, T and S of the legs in
-// bf16).  The same kernels with the plane type C = __nv_bfloat16 beside the
-// float32 vectors: each coefficient is converted to float where it is
-// loaded (stencil.cuh coef), so the registers, shared memory and the
-// arithmetic are float32, as the reference's kernel bodies are once a bf16
-// plane meets an f32 vector.  A leg reads 2 bytes a coefficient in place of
-// 4 (8 words of 11 at a 5-point level).  The pipelined up leg stages the
-// planes a pair of coefficients a 4-byte cp.async (PairStage).
+// bf16 coefficient planes (the entries *_f32_bf16 and *_f64_bf16: the
+// reference's AMG_COEF_DTYPE=bfloat16, which stores A, D^-1, T and S of the
+// legs in bf16 under float32 or float64 vectors).  The same kernels with
+// the plane type C = __nv_bfloat16 beside the vectors: each coefficient is
+// converted to the vectors' type where it is loaded (stencil.cuh coef;
+// through float, exactly), so the registers, shared memory and the
+// arithmetic are the vectors', as the reference's kernel bodies are once a
+// bf16 plane meets an f32 or f64 vector.  A leg reads 2 bytes a coefficient
+// in place of 4 or 8.  The pipelined up leg stages the planes a pair of
+// coefficients a 4-byte cp.async (PairStage), b and x beside them an
+// element a copy; with float64 vectors the stage and the tile buffers fit
+// a block's shared memory where float64 planes did not (the wrapper's
+// plan), so the pipelined route runs under both vector types.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns a CUDA error code (cudaGetLastError() after the launches) for
@@ -776,3 +780,4 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const C* A,
 AMG_DEFINE_LEGS(f32, float, float)
 AMG_DEFINE_LEGS(f64, double, double)
 AMG_DEFINE_LEGS(f32_bf16, float, __nv_bfloat16)
+AMG_DEFINE_LEGS(f64_bf16, double, __nv_bfloat16)

@@ -7,8 +7,10 @@ The near-null-space kwarg ``B`` is rejected (classical.jl:17-18).
 
 The Galerkin triple product runs as scipy CSR SpGEMM (C-speed two-pass, the
 same count/fill structure the reference gets from Julia's stdlib SpGEMM).
-A lattice operator is assembled and runs the generic path: this package
-does not port the JAX package's ``structured_ruge_stuben`` fast path.
+A lattice operator with ``CF=StructuredRS()`` and classical strength takes
+the structured fast path (``fastsetup.structured_ruge_stuben``, the same
+hierarchy at O(boundary) cost); any other lattice operator is assembled and
+runs the generic path.
 """
 
 from __future__ import annotations
@@ -51,10 +53,21 @@ def ruge_stuben(
 
     if isinstance(A, LatticeMatrix):
         if isinstance(CF, StructuredRS) and isinstance(strength, Classical):
-            raise NotImplementedError(
-                "structured Ruge-Stüben (StructuredRS on a LatticeMatrix) is not ported"
+            from .fastsetup import structured_ruge_stuben
+
+            return structured_ruge_stuben(
+                A,
+                CF=CF,
+                strength=strength,
+                symmetry=symmetry,
+                presmoother=presmoother,
+                postsmoother=postsmoother,
+                max_levels=max_levels,
+                max_coarse=max_coarse,
+                coarse_solver=coarse_solver,
+                **kwargs,
             )
-        A = A.tocsr()  # assemble + generic path
+        A = A.tocsr()  # non-structured policies: assemble + generic path
     A = as_csc(A)
     if coarse_solver is None:
         coarse_solver = default_coarse_solver(A)

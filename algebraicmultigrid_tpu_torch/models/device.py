@@ -569,30 +569,29 @@ def build_device_hierarchy(
     2 or deeper, the phased whole-subcycle cache of the level above it
     (``sub_start = tail_start − 1``, where its gate holds); V-cycles then
     run that level, the tail and the coarse solve as one call.
-    ``coef_dtype=torch.bfloat16`` stores the coefficient planes of the
-    legs (A, D⁻¹, T, S) and of the whole-tail levels (A, T, S; D⁻¹ and the
-    coarse operator stay float32) in bf16, under float32 vectors; every
-    level's own operator, the smoother caches and the unstructured path
-    keep ``dtype``.  It raises ``NotImplementedError`` with ``subcycle``, on
-    a hierarchy with N-D lattice levels and under float64 (ROADMAP B3).  The
-    keywords are the counterparts of the JAX package's
+    ``coef_dtype=torch.bfloat16`` stores, under float32 or float64
+    vectors, the coefficient planes of the legs (A, D⁻¹, T, S, computed at
+    float32 and rounded) and of the whole-tail levels (A, T, S rounded from
+    ``dtype``; D⁻¹ and the coarse operator stay at ``dtype``) in bf16, and
+    under float32 only, as the JAX package does, the planes of N-D lattice
+    levels' A, P and R (LatND, read in place by K7); every other level
+    operator, the smoother caches' D⁻¹ and the unstructured path keep
+    ``dtype``.  It raises ``NotImplementedError`` with ``subcycle`` (K9,
+    ROADMAP B3).  The keywords are the counterparts of the JAX package's
     ``AMG_PALLAS_FUSED``/``AMG_PALLAS_TAIL``, ``AMG_TAIL_MAX_ROWS``,
     ``AMG_PALLAS_GS``/``AMG_SWEEP3D``, ``AMG_PALLAS_SUB`` and
     ``AMG_COEF_DTYPE``."""
     device = torch.device(device)
     coef_dtype = coef_dtype_of(coef_dtype, dtype)
-    if coef_dtype is not None:
-        if subcycle:
-            raise NotImplementedError("bf16 coefficient planes with subcycle=True (K9) are not ported (ROADMAP B3)")
-        if any(isinstance(M, LatticeMatrixND) for M in [L.A for L in ml.levels] + [ml.final_A]):
-            raise NotImplementedError(
-                "bf16 coefficient planes on N-D lattice levels (LatND, K7) are not ported (ROADMAP B3)"
-            )
+    if coef_dtype is not None and subcycle:
+        raise NotImplementedError("bf16 coefficient planes with subcycle=True (K9) are not ported (ROADMAP B3)")
+    # the JAX package's LatND takes bf16 planes under float32 only
+    nd_coef = coef_dtype if dtype == torch.float32 else None
 
     def lower(M, target_pad, force_ell=False):
         if isinstance(M, LatticeMatrixND):
             if not force_ell:
-                return latnd_from_spec(M.spec, dtype, device, row_pad=target_pad)
+                return latnd_from_spec(M.spec, dtype, device, row_pad=target_pad, coef_dtype=nd_coef)
             M = M.tocsr()
         if isinstance(M, LatticeMatrix):
             if not force_ell:

@@ -1,10 +1,10 @@
-"""Structured (proxy-extrapolated) SA setup driver.
+"""Structured (proxy-extrapolated) setup drivers — RS and SA.
 
-``structured_smoothed_aggregation(problem, **kwargs)`` builds the same
-hierarchy the generic ``smoothed_aggregation(A,
+``structured_ruge_stuben(problem, **kwargs)`` / ``structured_smoothed_
+aggregation(problem, **kwargs)`` build the same hierarchies the generic
+``ruge_stuben(A, CF=StructuredRS())`` / ``smoothed_aggregation(A,
 aggregate=StructuredAggregation())`` would produce on a lattice problem, at
-O(boundary) cost instead of O(nnz).  (The JAX package's RS counterpart,
-``structured_ruge_stuben``, is not ported yet.)  The steps:
+O(boundary) cost instead of O(nnz):
 
 1. run the *generic* setup on a small proxy grid (same stencil, same kwargs
    — strength thresholds, smoother configs etc. all take effect),
@@ -44,9 +44,10 @@ from ..config import GaussSeidel, Jacobi
 from ..utils.symmetry import HermitianSymmetry
 from .lattice import LatticeMatrix, axis_classes, extract_spec
 from .multilevel import Level, MultiLevel
-from .structured import StructuredAggregation
+from .structured import StructuredAggregation, StructuredRS
 
 __all__ = [
+    "structured_ruge_stuben",
     "structured_smoothed_aggregation",
     "latticify_tail",
 ]
@@ -373,6 +374,71 @@ def _too_small(problem, pdims, cut_rows, min_proxy_dim):
 # --------------------------------------------------------------------------
 # drivers
 # --------------------------------------------------------------------------
+
+
+def structured_ruge_stuben(
+    problem: LatticeMatrix,
+    *,
+    proxy: int = 128,
+    cut_rows: int = 40_000,
+    min_proxy_dim: int = 16,
+    presmoother=None,
+    postsmoother=None,
+    CF=None,
+    max_levels: int = 10,
+    max_coarse: int = 10,
+    **kwargs,
+) -> MultiLevel:
+    """Classical AMG for a lattice problem at O(boundary) setup cost.
+    Hierarchies are bitwise-equal to ``ruge_stuben(A, CF=StructuredRS())``;
+    falls back to the generic path when extraction fails."""
+    from .classical import ruge_stuben  # deferred: circular import
+
+    if presmoother is None:
+        presmoother = GaussSeidel(ordering="multicolor")
+    if postsmoother is None:
+        postsmoother = GaussSeidel(ordering="multicolor")
+    if CF is None:
+        CF = StructuredRS()
+
+    def generic(A_like, levels_left):
+        A_csr = A_like.tocsr() if isinstance(A_like, LatticeMatrix) else A_like
+        return ruge_stuben(
+            A_csr,
+            CF=CF,
+            presmoother=presmoother,
+            postsmoother=postsmoother,
+            max_levels=levels_left,
+            max_coarse=max_coarse,
+            **kwargs,
+        )
+
+    fdims = tuple(problem.spec.row_dims)
+    pdims = _proxy_dims(fdims, proxy, k=2, depth=6)
+    if _too_small(problem, pdims, cut_rows, min_proxy_dim):
+        return generic(problem, max_levels)
+
+    A_proxy = problem.spec.with_dims(pdims, pdims).tocsr()
+    ml_p = generic(A_proxy, max_levels)
+
+    fast_levels, spec_A_cut, _, cut_fdims = _extrapolate_levels(
+        problem,
+        ml_p,
+        pdims,
+        fdims,
+        cut_rows=cut_rows,
+        min_proxy_dim=min_proxy_dim,
+        max_levels=max_levels,
+        max_coarse=max_coarse,
+        presmoother=presmoother,
+        postsmoother=postsmoother,
+    )
+    if not fast_levels:
+        return generic(problem, max_levels)
+
+    A_cut = LatticeMatrix(spec_A_cut.with_dims(cut_fdims, cut_fdims))
+    tail = generic(A_cut, max_levels - len(fast_levels))
+    return _splice(problem, fast_levels, tail, problem.dtype)
 
 
 def structured_smoothed_aggregation(

@@ -14,9 +14,10 @@ device code, planned here from the shapes), one grid barrier a leg, and the
 smaller levels and the coarse solve run inside one block, pass by pass.
 ``fused_tail_reference`` is its plain PyTorch version, the recursion of the
 plain legs.  Under ``coef_dtype=torch.bfloat16`` every level's A, T and S
-are bf16 and D⁻¹ and the coarse operator stay at the working dtype, as in
-the JAX package's tail cache; the kernel's ``f32_bf16`` entry converts each
-coefficient to float where it loads it.  ``fused_tail`` takes the plain version only for tensors
+are bf16 (rounded from the working dtype) and D⁻¹ and the coarse operator
+stay at the working dtype, as in the JAX package's tail cache; the
+kernel's ``f32_bf16`` and ``f64_bf16`` entries convert each coefficient to
+the vectors' type where they load it.  ``fused_tail`` takes the plain version only for tensors
 on the CPU; on a CUDA tensor it launches the kernel or raises.  Its launches
 count under ``launches["tail"]`` of ``vcycle_legs``.
 
@@ -224,9 +225,10 @@ def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int 
     tail level fails the gate: fused legs as ``build_level_legs`` builds
     them, the JAX tail's reach limits, at most 64 color steps a leg (the
     kernel's descriptor), chained grids, and a final grid of at most 4096
-    rows.  ``coef_dtype=torch.bfloat16`` rounds each level's A, T and S to
-    bf16; D⁻¹ is taken at ``dtype`` (from the level's float32 diagonal, not
-    from a bf16 leg cache)."""
+    rows.  ``coef_dtype=torch.bfloat16`` rounds each level's A, T and S
+    from ``dtype`` to bf16; D⁻¹ stays at ``dtype`` (from the level's own
+    diagonal, not from a bf16 leg cache), as in the JAX package's tail
+    cache under float32 and float64."""
     coef_dtype = coef_dtype_of(coef_dtype, dtype)
     tail = levels[start:]
     if not tail or tail[0].A.shape[0] > max_rows or len(tail) > MAX_LEVELS:

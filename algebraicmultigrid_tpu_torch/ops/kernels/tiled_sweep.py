@@ -34,6 +34,11 @@ The plain version (``tiled_sweep_reference``) is the step-by-step masked
 sweep: per step one full stencil pass and a masked blend, the arithmetic of
 ``models/device.py::_smooth_masked_multicolor`` on the same operator, so
 on the CPU the two agree bitwise.
+
+A 3-D LatND level with bf16 planes under float32 vectors (``coef_dtype``)
+runs K7's march entry ``amg_sweep3d_march_f32_bf16``, which converts each
+coefficient to float where it loads it; D⁻¹, x and b stay float32 (the JAX
+K7's).  The halo-tile kernel takes no bf16 planes (``tile_view`` raises).
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ import torch
 from ..coloring import color_steps
 from .vcycle_legs import (
     MAX_COLOR_CELLS, MAX_OFFSETS, SMEM_LIMIT, SUFFIX, _ints, _stream, check_vector, launches, level_launches,
-    load_library, raise_on,
+    BF16_SUFFIX, load_library, raise_on,
 )
 
 __all__ = [
@@ -60,6 +65,10 @@ __all__ = [
 log = logging.getLogger(__name__)
 
 MAX_STEPS = 64  # csrc/stencil.cuh kMaxSteps
+# the offsets K5's march takes (its wide instance, csrc/sweep_march.cuh
+# kMarchMaxOff: the structured Ruge-Stueben hierarchy's coarse Lat2D levels
+# reach 37 and 45); K7's march and the halo-tile kernel take MAX_OFFSETS
+MARCH_MAX_OFFSETS_2D = 64
 # the halo-tile kernel's loaded box (tile + halo) per axis, chosen by
 # kernel_variants.py sweeps: 3-D boxes of 14 x 14 x 64 cells (50 KB of
 # float32, four blocks an SM), 2-D boxes of 32 x 64 cells
@@ -153,7 +162,7 @@ class TiledSweepCache:
         object.__setattr__(self, "launch_args", args)
         planes = self.A.data
         if planes.device.type == "cuda":
-            check_vector("dinv", self.dinv, planes, math.prod(self.dims))
+            check_vector("dinv", self.dinv, planes, math.prod(self.dims), self.A.dtype)
 
     @property
     def halo(self) -> Tuple[int, int, int]:
@@ -172,7 +181,12 @@ def _as3(dims, offsets, periods):
 def tile_view(cache: "TiledSweepCache") -> "TiledSweepCache":
     """The same smoother on the halo-tile kernel, the march's comparison: a
     2-D level as that kernel's grid (1, Wx, Wy), with the box ``plan_box``
-    gives it (ValueError where it gives none)."""
+    gives it (ValueError where it gives none, and on bf16 planes, which that
+    kernel does not take)."""
+    if cache.A.data.dtype != cache.A.dtype:
+        raise ValueError(f"the halo-tile kernel takes no {cache.A.data.dtype} planes (the march does)")
+    if len(cache.offsets) > MAX_OFFSETS:
+        raise ValueError(f"the halo-tile kernel takes {MAX_OFFSETS} offsets, not {len(cache.offsets)}")
     dims, offsets, periods = cache.dims, cache.offsets, cache.periods
     if cache.nd == 2:
         dims, periods = (1, dims[0], dims[2]), (1, periods[0], periods[2])
@@ -245,7 +259,7 @@ def march_ring(n_steps: int, r0: int, batch: int = MARCH_BATCH) -> int:
     return (n_steps + 1) * r0 + batch + MARCH_DEPTH * batch + max(batch - r0, 0)
 
 
-def plan_march(dims, offsets, n_steps: int, itemsize: int, box=None, seg=None, device=None):
+def plan_march(dims, offsets, n_steps: int, itemsize: int, box=None, seg=None, device=None, coef_itemsize=None):
     """(MarchPlan, None), or (None, why) when the level is past the march's
     limits: more than 64 color steps, a ring that leaves no ``MIN_TILE``
     tile of the y-z box within an SM's shared memory and the block's
@@ -256,7 +270,10 @@ def plan_march(dims, offsets, n_steps: int, itemsize: int, box=None, seg=None, d
     ``MARCH_STRIP`` cells, a block takes at most ``MARCH_MAX_THREADS_2D``
     threads and a time step ``MARCH_BATCH_2D`` rows.  The segment is
     ``seg`` planes at most (default: ``march_segment`` on ``device``'s card,
-    with the occupancy of the kernel instance where ``device`` is a card)."""
+    with the occupancy of the kernel instance where ``device`` is a card).
+    ``itemsize`` is the vectors' (x's ring), ``coef_itemsize`` the planes'
+    (default ``itemsize``; 2 for K7's bf16 instance), which picks the
+    instance whose occupancy the card reports."""
     if not 1 <= n_steps <= MAX_STEPS:
         return None, f"{n_steps} color steps (the kernel takes 1..{MAX_STEPS})"
     reach = [max(abs(d[a]) for d in offsets) for a in range(3)]
@@ -290,7 +307,8 @@ def plan_march(dims, offsets, n_steps: int, itemsize: int, box=None, seg=None, d
         if device is not None and torch.device(device).type == "cuda":
             lib = load_library()
             per_sm = (lib.amg_gs_sweep_march_blocks_per_sm(len(offsets), itemsize, ext[1], smem) if flat else
-                      lib.amg_sweep3d_march_blocks_per_sm(len(offsets), itemsize, *ext, smem))
+                      lib.amg_sweep3d_march_blocks_per_sm(len(offsets), itemsize, coef_itemsize or itemsize, *ext,
+                                                          smem))
             if per_sm < 1:
                 raise RuntimeError(f"the march's occupancy query failed ({per_sm}) for a box of {ext} cells")
         seg = march_segment(dims[0], halo[0], tiles[0] * tiles[1], smem, threads(ext), card_shape(device), batch,
@@ -316,12 +334,14 @@ def tiled_sweep_cache(
     dims, offsets, periods = _as3(A.row_dims, A.offsets, tab.shape)
     steps = color_steps(int(n_colors), int(iters), bool(fwd), bool(bwd), float(omega))
     march = None
-    if len(offsets) > MAX_OFFSETS:
-        why = f"{len(offsets)} offsets (the kernel takes {MAX_OFFSETS})"
+    max_off = MARCH_MAX_OFFSETS_2D if nd == 2 else MAX_OFFSETS
+    if len(offsets) > max_off:
+        why = f"{len(offsets)} offsets (the kernel takes {max_off})"
     elif tab.size > MAX_COLOR_CELLS:
         why = f"a color table of {tab.size} cells (the kernel takes {MAX_COLOR_CELLS})"
     else:
-        march, why = plan_march(dims, offsets, len(steps), A.data.element_size(), device=A.data.device)
+        march, why = plan_march(dims, offsets, len(steps), A.dtype.itemsize, device=A.data.device,
+                                coef_itemsize=A.data.element_size())
     if why is not None:
         log.info("level %s keeps the masked sweep: %s", tuple(A.row_dims), why)
         return None
@@ -387,25 +407,31 @@ def tiled_sweep_reference(cache: TiledSweepCache, x, b):
 
 def launch_tiled_sweep(cache: TiledSweepCache, x, b, entry: str, counter: str):
     """Run the smoother: the plain version on a CPU tensor, else one launch
-    of ``amg_<entry>_march_<f32|f64>`` on a cache with a march plan or
-    ``amg_<entry>_<f32|f64>`` on its tile box (counted under
-    ``launches[counter]`` and, by grid, ``level_launches``) or an
-    exception."""
+    of ``amg_<entry>_march_<f32|f64>`` (``amg_sweep3d_march_f32_bf16`` for
+    bf16 planes) on a cache with a march plan or ``amg_<entry>_<f32|f64>``
+    on its tile box (counted under ``launches[counter]`` and, by grid,
+    ``level_launches``) or an exception."""
     if x.device.type == "cpu":
         return tiled_sweep_reference(cache, x, b)
     if x.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda or cpu tensors, not {x.device}")
     planes = cache.A.data
     n = math.prod(cache.dims)
-    check_vector("x", x, planes, n)
-    check_vector("b", b, planes, n)
+    check_vector("x", x, planes, n, cache.A.dtype)
+    check_vector("b", b, planes, n, cache.A.dtype)
     if x.dtype not in SUFFIX:
         raise TypeError(f"{entry} takes float32 or float64, not {x.dtype}")
     if not planes.is_contiguous():
         raise ValueError(f"{entry} reads the level's planes in place: they must be contiguous")
     if cache.launch_args is None:
         raise ValueError(f"{entry}: the cache has no plan")
-    fn = getattr(load_library(), f"amg_{entry}{'_march' if cache.march is not None else ''}_{SUFFIX[x.dtype]}")
+    sfx = SUFFIX[x.dtype]
+    if planes.dtype != x.dtype:
+        if not (planes.dtype == torch.bfloat16 and x.dtype == torch.float32 and entry == "sweep3d"
+                and cache.march is not None):
+            raise TypeError(f"{entry} takes no {planes.dtype} planes under {x.dtype} vectors on this route")
+        sfx = BF16_SUFFIX[x.dtype]
+    fn = getattr(load_library(), f"amg_{entry}{'_march' if cache.march is not None else ''}_{sfx}")
     x_out = torch.empty_like(x)
     err = fn(
         x_out.data_ptr(), x.data_ptr(), b.data_ptr(), planes.data_ptr(), cache.dinv.data_ptr(),

@@ -33,11 +33,14 @@ K7's and ``halo`` K8's); ``level_launches`` counts the leg and whole-sweep
 kernels' launches by level.
 
 bf16 coefficient planes (``coef_dtype=torch.bfloat16``, the JAX
-package's ``AMG_COEF_DTYPE=bfloat16``): a cache's A, D⁻¹, T and S are
-computed at float32 and rounded to bf16 (round to nearest even, as the JAX
-package rounds them); x, b and the arithmetic stay float32.  The kernels
-convert each coefficient to float where they load it (the ``*_f32_bf16``
-entries); the plain versions upcast the planes to the vectors' dtype at use.
+package's ``AMG_COEF_DTYPE=bfloat16``, under float32 or float64 vectors): a
+cache's A, D⁻¹, T and S are computed at float32 and rounded to bf16 (round
+to nearest even, as the JAX package's leg builder computes and rounds them
+under either working dtype); x, b and the arithmetic stay at the working
+dtype.  The kernels convert each coefficient to the vectors' type where
+they load it (the ``*_f32_bf16`` and ``*_f64_bf16`` entries; bf16 widens to
+float, and float to double, exactly); the plain versions upcast the planes
+to the vectors' dtype at use.
 
 Left for later (as in the JAX package, they are not on the SA main path):
 the non-factored R/P-plane branches.
@@ -160,10 +163,15 @@ class FusedLegCache:
     down_tile: Optional[Tuple[int, int]] = None
     up_tile: Optional[Tuple[int, int]] = None
     up_pipelined: bool = False
+    # the vectors' dtype where it is not the planes' (bf16 planes,
+    # ``round_planes``); None: the planes' own, float32 under bf16 planes
+    vec_dtype: Optional[torch.dtype] = None
 
     @property
     def dtype(self) -> torch.dtype:
-        """The working dtype of the vectors: float32 under bf16 planes."""
+        """The working dtype of the vectors."""
+        if self.vec_dtype is not None:
+            return self.vec_dtype
         return torch.float32 if self.A.dtype == torch.bfloat16 else self.A.dtype
 
     @property
@@ -265,7 +273,8 @@ def _pairs_ok(cache: "FusedLegCache") -> bool:
 def plan_up_pipelined(cache: "FusedLegCache") -> bool:
     """Whether a level's tiled K2 runs pipelined: a 5-point level whose
     stage and tile buffers fit a block's shared memory (float32 at the
-    flagship's L0; not float64), with 2-byte planes also an even Wy."""
+    flagship's L0, and float64 vectors with bf16 planes; not float64 with
+    float64 planes), with 2-byte planes also an even Wy."""
     if len(cache.offsA) != PIPE_OFFSETS or cache.up_tile is None:
         return False
     size, coef = cache.dtype.itemsize, cache.A.element_size()
@@ -293,34 +302,33 @@ def with_tile_plans(cache: "FusedLegCache") -> "FusedLegCache":
 def coef_dtype_of(coef_dtype, dtype) -> Optional[torch.dtype]:
     """The plane dtype a ``coef_dtype`` keyword asks for: None (or the
     working dtype) keeps the planes at ``dtype``; ``torch.bfloat16`` (or
-    ``"bfloat16"``) asks for bf16 planes under float32 vectors.  Raises for
-    any other value, and ``NotImplementedError`` for bf16 under another
-    working dtype."""
+    ``"bfloat16"``) asks for bf16 planes under float32 or float64 vectors,
+    as the JAX package's ``AMG_COEF_DTYPE=bfloat16`` does under either.
+    Raises for any other value or working dtype."""
     if isinstance(coef_dtype, str):
         coef_dtype = getattr(torch, coef_dtype, coef_dtype)
     if coef_dtype is None or coef_dtype == dtype:
         return None
     if coef_dtype != torch.bfloat16:
         raise ValueError(f"coef_dtype is None or torch.bfloat16, not {coef_dtype!r}")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"bf16 coefficient planes under {dtype} vectors are not ported (ROADMAP B3): "
-            "the JAX package's K1–K4 take them under float32 only"
-        )
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"bf16 coefficient planes go under float32 or float64 vectors, not {dtype}")
     return coef_dtype
 
 
-def round_planes(cache: "FusedLegCache", coef_dtype, dinv: bool = True) -> "FusedLegCache":
+def round_planes(cache: "FusedLegCache", coef_dtype, dinv: bool = True, dtype=None) -> "FusedLegCache":
     """The cache with its A, T and S planes (and D⁻¹ with ``dinv``) rounded
-    from the working dtype to ``coef_dtype`` (round to nearest even), the
-    tiles planned again.  The legs round D⁻¹ too; the whole-tail cache keeps
-    it at the working dtype, as the JAX package's caches do."""
+    from their dtype to ``coef_dtype`` (round to nearest even), under
+    vectors of ``dtype`` (default the cache's), the tiles planned again.
+    The legs round D⁻¹ too; the whole-tail cache keeps it at the working
+    dtype, as the JAX package's caches do."""
     return with_tile_plans(dataclasses.replace(
         cache,
         A=cache.A.to(coef_dtype),
         dinv=cache.dinv.to(coef_dtype) if dinv else cache.dinv,
         T=cache.T.to(coef_dtype),
         S=cache.S.to(coef_dtype),
+        vec_dtype=dtype or cache.dtype,
     ))
 
 
@@ -347,9 +355,11 @@ def build_fused_leg_cache(
     with ``scale`` either ``("table", table, (Kx, sx, Ky, sy))`` or
     ``("vector", v)``.  None when the level is not a box-k factored level
     the kernels take (the cycle then runs the unfused path).  The planes
-    are computed at ``dtype``; ``coef_dtype=torch.bfloat16`` then rounds
-    A, D⁻¹, T and S to bf16 (``round_planes``)."""
+    are computed at ``dtype``; with ``coef_dtype=torch.bfloat16`` they are
+    computed at float32 under either working dtype and rounded to bf16
+    (``round_planes``), as the JAX package's leg builder does."""
     coef_dtype = coef_dtype_of(coef_dtype, dtype)
+    vec_dtype, dtype = dtype, (dtype if coef_dtype is None else torch.float32)
     if factored_T is None:
         return None
     if tuple(specA.base_x) != (1, 1) or tuple(specA.base_y) != (1, 1):
@@ -410,7 +420,7 @@ def build_fused_leg_cache(
         forward=bool(fwd),
         backward=bool(bwd),
     ))
-    return cache if coef_dtype is None else round_planes(cache, coef_dtype)
+    return cache if coef_dtype is None else round_planes(cache, coef_dtype, dtype=vec_dtype)
 
 
 def build_level_legs(level, dtype, device, coef_dtype=None) -> Optional[FusedLegCache]:
@@ -631,8 +641,12 @@ _SIGNATURES = {
 }
 
 
-# the entries with bf16 coefficient planes under float32 vectors
-_BF16_ENTRIES = ("amg_fused_down_{}", "amg_fused_up_{}", "amg_fused_updown_{}", "amg_fused_tail_{}")
+# the entries with bf16 coefficient planes, by the vectors' type
+_BF16_ENTRIES = {
+    "amg_fused_down_{}": ("f32_bf16", "f64_bf16"), "amg_fused_up_{}": ("f32_bf16", "f64_bf16"),
+    "amg_fused_updown_{}": ("f32_bf16", "f64_bf16"), "amg_fused_tail_{}": ("f32_bf16", "f64_bf16"),
+    "amg_sweep3d_march_{}": ("f32_bf16",),
+}
 
 
 def load_library():
@@ -648,7 +662,7 @@ def load_library():
         build_library(out)
     lib = ctypes.CDLL(str(out))
     for name, args in _SIGNATURES.items():
-        for sfx in ("f32", "f64") + (("f32_bf16",) if name in _BF16_ENTRIES else ()):
+        for sfx in ("f32", "f64") + _BF16_ENTRIES.get(name, ()):
             fn = getattr(lib, name.format(sfx))
             fn.argtypes, fn.restype = args, _I
     lib.amg_tail_level_bytes.argtypes, lib.amg_tail_level_bytes.restype = [], _I
@@ -659,7 +673,7 @@ def load_library():
     lib.amg_scan_gs_smem_bytes.argtypes, lib.amg_scan_gs_smem_bytes.restype = [_I] * 5, _I
     for name, n_args in (("amg_sweep3d_march_smem_bytes", 5), ("amg_gs_sweep_march_smem_bytes", 6),
                          ("amg_gs_sweep_march_batch", 1), ("amg_gs_sweep_march_blocks_per_sm", 4),
-                         ("amg_sweep3d_march_blocks_per_sm", 5)):
+                         ("amg_sweep3d_march_blocks_per_sm", 6)):
         getattr(lib, name).argtypes, getattr(lib, name).restype = [_I] * n_args, _I
     lib.amg_bsg_spmv_f32.argtypes = [_P] * 5 + [_L, _I, _I, _L, _P]
     lib.amg_bsg_spmv_f32.restype = _I
@@ -673,6 +687,8 @@ def _ints(vals):
 
 
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# (vectors, planes) -> the C entry suffix, for bf16 planes
+BF16_SUFFIX = {torch.float32: "f32_bf16", torch.float64: "f64_bf16"}
 
 
 def check_vector(name: str, t: torch.Tensor, like: torch.Tensor, min_len: int, dtype=None):
@@ -702,9 +718,9 @@ def stencil_args(cache: FusedLegCache, steps):
 
 def plane_suffix(cache: FusedLegCache, name: str, dinv_working: bool = False) -> str:
     """The C entry suffix of a cache's (vector, plane) dtypes: "f32",
-    "f64", or "f32_bf16" for bf16 A, T and S (and D⁻¹, or D⁻¹ at float32
-    with ``dinv_working``, the whole-tail cache's); raises for a pair with
-    no entry."""
+    "f64", or "f32_bf16" / "f64_bf16" for bf16 A, T and S (and D⁻¹, or D⁻¹
+    at the vectors' dtype with ``dinv_working``, the whole-tail cache's);
+    raises for a pair with no entry."""
     vec, coef = cache.dtype, cache.A.dtype
     want_dinv = vec if dinv_working else coef
     if any(p.dtype != coef for p in (cache.T, cache.S)) or cache.dinv.dtype != want_dinv:
@@ -714,9 +730,10 @@ def plane_suffix(cache: FusedLegCache, name: str, dinv_working: bool = False) ->
         )
     if coef == vec and vec in SUFFIX:
         return SUFFIX[vec]
-    if (vec, coef) == (torch.float32, torch.bfloat16):
-        return "f32_bf16"
-    raise TypeError(f"{name} takes float32 or float64 planes, or bf16 planes under float32, not {coef}")
+    if coef == torch.bfloat16 and vec in BF16_SUFFIX:
+        return BF16_SUFFIX[vec]
+    raise TypeError(f"{name} takes float32 or float64 planes, or bf16 planes under either, not {coef}"
+                    f" under {vec}")
 
 
 def raise_on(err: int, what: str):

@@ -9,13 +9,15 @@ Each offset k is one (possibly strided or repeated) N-D slice of the
 zero-padded input grid — multiply-add on whole grids, no gathers.  Covers
 square level operators (all bases (1,1)) and the per-axis k-coarsened
 transfer operators P/R of box aggregation.  Coefficients are stored in the
-working dtype (the JAX package's bf16 planes are not ported).
+working dtype, or in bf16 under float32 vectors (``coef_dtype``, the JAX
+package's ``AMG_COEF_DTYPE=bfloat16``): the planes expanded at float32 and
+rounded, multiplied as float32 values in float32 arithmetic.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,10 +38,14 @@ class LatND:
     shape: Tuple[int, int]
     nnz: int
     rows_padded: int
+    # the vectors' dtype where it is not the planes' (bf16 planes); None:
+    # the planes' own
+    vec_dtype: Optional[torch.dtype] = None
 
     @property
     def dtype(self):
-        return self.data.dtype
+        """The working dtype of the level's vectors."""
+        return self.vec_dtype or self.data.dtype
 
 
 def expand_planes_nd(spec, dtype, device) -> torch.Tensor:
@@ -58,11 +64,15 @@ def expand_planes_nd(spec, dtype, device) -> torch.Tensor:
     return T[(slice(None), *idx)].contiguous()
 
 
-def latnd_from_spec(spec, dtype, device, row_pad: int = 8) -> LatND:
-    """Instantiate a device LatND from a host LatticeSpecND."""
+def latnd_from_spec(spec, dtype, device, row_pad: int = 8, coef_dtype=None) -> LatND:
+    """Instantiate a device LatND from a host LatticeSpecND.  With
+    ``coef_dtype=torch.bfloat16`` the planes are expanded at float32 and
+    rounded to bf16 under vectors of ``dtype``; the caller asks for it under
+    float32 only, as the JAX package does."""
     n_r = int(np.prod(spec.row_dims))
+    data = expand_planes_nd(spec, dtype if coef_dtype is None else torch.float32, device)
     return LatND(
-        data=expand_planes_nd(spec, dtype, device),
+        data=data if coef_dtype is None else data.to(coef_dtype),
         offsets=tuple(tuple(int(v) for v in d) for d in spec.offsets),
         row_dims=tuple(int(w) for w in spec.row_dims),
         col_dims=tuple(int(w) for w in spec.col_dims),
@@ -70,12 +80,15 @@ def latnd_from_spec(spec, dtype, device, row_pad: int = 8) -> LatND:
         shape=(n_r, int(np.prod(spec.col_dims))),
         nnz=spec.nnz(),
         rows_padded=max(round_up(n_r, row_pad), row_pad),
+        vec_dtype=None if coef_dtype is None else dtype,
     )
 
 
 def latnd_spmv(A: LatND, x: torch.Tensor) -> torch.Tensor:
     """y = A·x for a flat (padded) x, or a multi-RHS block ``x[n, k]``;
-    returns y of length rows_padded (by k)."""
+    returns y of length rows_padded (by k).  bf16 planes multiply as
+    float32 values in float32 arithmetic (the JAX package's
+    ``result_type(bf16, f32)``)."""
     N = len(A.row_dims)
     X = grid_first(x, int(np.prod(A.col_dims)), A.col_dims)  # [(k,) *col_dims]
     lead = X.dim() - N

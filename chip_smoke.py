@@ -5,7 +5,8 @@ Runs, in order, and exits non-zero on the first failure:
 1. checks that a CUDA card is present and prints its name and power limit;
 2. builds the port's CUDA library from the sources in the checkout
    (``csrc/vcycle_legs.cu`` with K1 ``fused_down``, K2 ``fused_up``, K3
-   ``fused_updown``; ``csrc/tail_kernel.cu`` with K4 ``fused_tail``;
+   ``fused_updown``, each with float32 or float64 planes or bf16 planes
+   under either; ``csrc/tail_kernel.cu`` with K4 ``fused_tail``;
    ``csrc/subcycle_kernel.cu`` with K9 ``fused_subcycle``;
    ``csrc/bsg_spmv.cu`` with K6; ``csrc/scan_gs.cu``; ``csrc/gs_sweep.cu``
    with K5's march and ``csrc/sweep3d.cu`` with K7's, each with its first
@@ -123,7 +124,37 @@ Runs, in order, and exits non-zero on the first failure:
     ``run_fixed_cycles`` with the counters zeroed just before each
     (relres < 1e-8 within 4 rounds; < 1e-5 after the cycles, with exactly
     phase 5's launches, by kernel and by level), and times a V-cycle and a
-    fixed cycle in turns with float32's.
+    fixed cycle in turns with float32's;
+15. does the same in float64 (``bench.py``'s ``AMG_BENCH_DTYPE=float64``
+    under its default bf16 planes): the legs' planes bf16 (rounded from
+    float32), the tail's A, T, S bf16 with D⁻¹ and the coarse operator in
+    float64, every level's operator float64, the float64 tiles with K2
+    pipelined at L0; K1–K4's ``f64_bf16`` entries against their plain
+    versions (max relative error <= 1e-10) and timed in turns with the
+    float64 entries; ``solve_refined`` (< 1e-8 within 4 rounds) and 400
+    fixed cycles on b = A·1 (< 1e-10, launches equal to the same loop on
+    float64 planes, run here);
+16. lowers phase 10's 256³ hierarchy with bf16 planes under float32
+    (``bench.py``'s 3-D cell): asserts 5 levels + an 8-row QR, OC 1.14878,
+    L0's LatND A, P, R in bf16 with K7 on them, L1–L4 as phase 10 in
+    float32; holds K7's ``f32_bf16`` entry against its plain version at L0
+    and times it in turns with phase 10's float32 K7, beside its bound with
+    2-byte planes; runs ``cg_device(tol=1e-6)`` with the counters zeroed
+    just before (relres < 1e-5 against the float64 LatND operator, its
+    iterations within 2 of phase 10's), and counts one V-cycle (2 K7 and
+    the hierarchy's K6 launches) and times it in turns with phase 10's;
+17. sets up ``bench.py``'s ``AMG_BENCH_METHOD=rs`` at 4096²: ``ruge_stuben``
+    with ``StructuredRS`` and multicolor GS (the structured fast path;
+    setup seconds printed), asserts 10 levels, OC 4.536 and a 6624-row
+    coarse solve, no legs and no tail, K5 on every Lat2D level (the
+    semi-coarsened levels' 11- to 45-point stencils, past 32 offsets
+    through K5's wide instance), holds K5 against its plain version on each
+    and times it, runs ``solve_refined(tol=1e-8)`` and 400
+    ``run_fixed_cycles`` on b = A·1 with the counters zeroed just before
+    each (rounds, PCG iterations and the cycles' relres printed), and
+    counts one V-cycle (exactly 2 K5 launches on each Lat2D level and the
+    K6 launches of its BSG levels, derived from the hierarchy) and times it
+    by CUDA events.
 
 The last two lines of output are the card's ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``; the line before them lists every
@@ -324,10 +355,11 @@ def leg_work(leg, steps, correct, restrict, x_zero=False):
     return words, flops
 
 
-def bound(words, flops, itemsize):
-    """(bound_ms, bound_by) on the H100's published peaks."""
+def bound(words, flops, itemsize, flops_s=F32_FLOPS):
+    """(bound_ms, bound_by) on the H100's published peaks (``flops_s`` the
+    vectors' type's rate)."""
     t_bytes = words * itemsize / HBM_BYTES_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -901,8 +933,9 @@ FB_K5_PER_VCYCLE = 14
 
 def sweep_work(cache):
     """(words, flops) of one whole-sweep application: the planes, dinv, b
-    and x read once and x written once; per color step, 2 flops an offset
-    plus 3 at each cell of that color."""
+    and x read once and x written once (words at the vectors' itemsize, a
+    bf16 plane half a float32 word a cell); per color step, 2 flops an
+    offset plus 3 at each cell of that color."""
     n = int(np.prod(cache.dims))
     tab = np.asarray(cache.color_table).reshape(cache.periods)
     cells = {}
@@ -910,7 +943,8 @@ def sweep_work(cache):
         count = int(np.prod([len(range(i, w, p)) for i, w, p in zip(idx, cache.dims, tab.shape)]))
         cells[int(tab[idx])] = cells.get(int(tab[idx]), 0) + count
     flops = sum(cells.get(c, 0) * (2 * len(cache.offsets) + 3) for c in cache.steps)
-    return (len(cache.offsets) + 4) * n, flops
+    planes = len(cache.offsets) * cache.A.data.element_size() / cache.A.dtype.itemsize
+    return (planes + 4) * n, flops
 
 
 def compare_sweep(name, fn, ref, cache, x, b, level, timed=True, tile=False):
@@ -1077,7 +1111,7 @@ def lattice_3d(device):
     want.update(sweep3d=2, bsg=want_bsg)
     if per_cycle != want:
         raise AssertionError(f"3-D V-cycle launches {per_cycle} != {want}")
-    return rows_k7, counts, per_cycle, vcycle_ms
+    return rows_k7, counts, per_cycle, vcycle_ms, ml, iters
 
 
 def lattice_fwd_bwd(device):
@@ -1642,17 +1676,27 @@ def slab_path(device, ml):
 
 
 # --------------------------------------------------------------------------
-# the flagship with bf16 coefficient planes (phase 14)
+# the flagship with bf16 coefficient planes (phases 14 and 15)
 # --------------------------------------------------------------------------
 
-# the C entries of K1–K4 with bf16 planes under float32 vectors
-BF16_SUFFIX = "f32_bf16"
+# the C entries of K1–K4 with bf16 planes, by the vectors' dtype
+BF16_SUFFIX = {"float32": "f32_bf16", "float64": "f64_bf16"}
+# the f64 fixed cycles' plateau: the 5-point L0 stencil (4, −1) is exact in
+# bf16, so 400 cycles go far below float32's (phase 5)
+CYCLES_RELRES_F64 = 1e-10
+# H100 SXM published peak, float64 outside the tensor cores (NVIDIA data
+# sheet)
+F64_FLOPS = 34e12
 
 
-def bf16_path(device, ml, f32_counts, f32_levels):
-    """Phase 14: the flagship lowered with bf16 planes; K1–K4 against their
-    plain versions and timed in turns with float32's, the refined solve and
-    the fixed-cycle loop with the counters zeroed just before each."""
+def bf16_path(device, ml, dtype, ref_counts=None, ref_levels=None):
+    """Phases 14 (float32 vectors) and 15 (float64): the flagship lowered
+    with bf16 planes under ``dtype`` vectors; K1–K4 against their plain
+    versions and timed in turns with ``dtype``'s own planes, the refined
+    solve and the fixed-cycle loop with the counters zeroed just before
+    each, the loop's launches held against ``ref_counts``/``ref_levels``
+    (phase 5's for float32; for float64 the same loop on float64 planes,
+    run here)."""
     import torch
 
     import algebraicmultigrid_tpu_torch as amt
@@ -1660,52 +1704,61 @@ def bf16_path(device, ml, f32_counts, f32_levels):
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
+    key = str(dtype).removeprefix("torch.")
+    tag = {"float32": "f32", "float64": "f64"}[key]
+    rtol = FIXED_RTOL[key] if key == "float64" else KERNEL_RTOL
+    cycles_relres = CYCLES_RELRES if key == "float32" else CYCLES_RELRES_F64
     t0 = time.perf_counter()
-    h = amt.get_device_hierarchy(ml, device=device, dtype=f32, coef_dtype=bf16)
+    h = amt.get_device_hierarchy(ml, device=device, dtype=dtype, coef_dtype=bf16)
     torch.cuda.synchronize()
     lowering_s = time.perf_counter() - t0
-    h32 = amt.build_device_hierarchy(ml, device=device, dtype=f32)
+    href = amt.build_device_hierarchy(ml, device=device, dtype=dtype)
 
-    def plans(hh):
-        return ([(L.fused.down_tile, L.fused.up_tile, L.fused.up_pipelined, L.fused.updown_tile)
-                 for L in hh.levels[: hh.tail_start]], hh.tail.tiles)
+    def plans(hh, pipelined=True):
+        return ([(L.fused.down_tile, L.fused.up_tile, L.fused.up_pipelined if pipelined else None,
+                  L.fused.updown_tile) for L in hh.levels[: hh.tail_start]], hh.tail.tiles)
 
     legs = [L.fused for L in h.levels[: h.tail_start]]
-    log(f"bf16 planes {N}x{N}: lowering_s {lowering_s!r} tail_start {h.tail_start};"
-        f" plans (K1, K2, K2 pipelined, K3 tiles by leg level; K4 tiles) {plans(h)}; float32's {plans(h32)}")
+    log(f"bf16 planes, {key} vectors, {N}x{N}: lowering_s {lowering_s!r} tail_start {h.tail_start};"
+        f" plans (K1, K2, K2 pipelined, K3 tiles by leg level; K4 tiles) {plans(h)}; {key} planes' {plans(href)}")
     if len(ml.levels) + 1 != EXPECT_LEVELS or h.tail_start != EXPECT_TAIL_START:
-        raise AssertionError(f"bf16: {len(ml.levels) + 1} levels, tail start {h.tail_start}")
-    if not all(f is not None and (f.A.dtype, f.dinv.dtype, f.T.dtype, f.S.dtype) == (bf16,) * 4 for f in legs):
-        raise AssertionError("bf16: a leg cache's A, D⁻¹, T, S are not all bf16")
-    if not (all((L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype) == (bf16, bf16, bf16, f32) for L in h.tail.levels)
-            and h.tail.Mc.dtype == f32):
-        raise AssertionError("bf16: a tail level's A, T, S are not bf16 with D⁻¹ and Mc in float32")
-    if not all(L.A.data.dtype == f32 for L in h.levels) or plans(h) != plans(h32):
-        raise AssertionError("bf16: a level's own operator is not float32, or the plans differ from float32's")
+        raise AssertionError(f"bf16 {key}: {len(ml.levels) + 1} levels, tail start {h.tail_start}")
+    if not all(f is not None and (f.A.dtype, f.dinv.dtype, f.T.dtype, f.S.dtype) == (bf16,) * 4 and f.dtype == dtype
+               for f in legs):
+        raise AssertionError(f"bf16 {key}: a leg cache's A, D⁻¹, T, S are not all bf16 under {key} vectors")
+    if not (all((L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype) == (bf16, bf16, bf16, dtype) for L in h.tail.levels)
+            and h.tail.Mc.dtype == dtype):
+        raise AssertionError(f"bf16 {key}: a tail level's A, T, S are not bf16 with D⁻¹ and Mc in {key}")
+    if not all(L.A.data.dtype == dtype for L in h.levels):
+        raise AssertionError(f"bf16 {key}: a level's own operator is not {key}")
+    # the tiles are the vectors' plans; float64 K2 pipelines at L0 only with
+    # 2-byte planes (its stage and tile buffers fit a block's shared memory)
+    if plans(h, key == "float32") != plans(href, key == "float32") or (key == "float64" and not legs[0].up_pipelined):
+        raise AssertionError(f"bf16 {key}: the plans differ from {key} planes' (K2 pipelined at L0 with bf16)")
 
     gen = torch.Generator(device="cpu").manual_seed(14)
 
     def vec(m, length):
-        v = torch.zeros(length)
-        v[:m] = torch.randn(m, generator=gen)
+        v = torch.zeros(length, dtype=dtype)
+        v[:m] = torch.randn(m, generator=gen, dtype=dtype)
         return v.to(device)
 
     rows = {name: [] for name in ("fused_down", "fused_up", "fused_updown", "fused_tail")}
 
-    def record(name, got, ref, fn, fn32, plain, work, **extra):
+    def record(name, got, ref, fn, fn_ref, plain, work, **extra):
         """A row: errors against the plain version on the bf16 planes, the
-        bf16 kernel timed in turns with the float32 one, the plain time and
-        the bound with 2-byte planes."""
+        bf16 kernel timed in turns with the one on ``dtype``'s planes, the
+        plain time and the bound with 2-byte planes."""
         errs = [errors(g, r) for g, r in zip(got, ref)]
         row = dict(extra, max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs))
-        row["f32_ms"], row["ms"], row["turns_ms"] = in_turns(fn32, fn)
+        row[f"{tag}_ms"], row["ms"], row["turns_ms"] = in_turns(fn_ref, fn)
         row["plain_ms"] = time_ms(plain)
-        row["bound_ms"], row["bound_by"] = bound(*work, 4)
+        row["bound_ms"], row["bound_by"] = bound(*work, dtype.itemsize, F32_FLOPS if tag == "f32" else F64_FLOPS)
         rows[name].append(row)
 
     for lvl in (0, 1):
-        L, f, g = h.levels[lvl], h.levels[lvl].fused, h32.levels[lvl].fused
+        L, f, g = h.levels[lvl], h.levels[lvl].fused, href.levels[lvl].fused
         n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
         x, b, xc = vec(n, pad), vec(n, pad), vec(nc, nc)
         for x_zero in (False, True):
@@ -1721,6 +1774,7 @@ def bf16_path(device, ml, f32_counts, f32_levels):
             lambda: vl.fused_up(f, x, b, xc), lambda: vl.fused_up(g, x, b, xc),
             lambda: vl.fused_up_reference(f, x, b, xc), leg_work(f, f.steps, True, False), level=lvl,
             dims=f.row_dims, leg_route="pipelined" if f.up_pipelined else "tiles", tile=f.up_tile,
+            ref_route="pipelined" if g.up_pipelined else "tiles",
         )
         record(
             "fused_updown", vl.fused_updown(f, x, b, xc), vl.fused_updown_reference(f, x, b, xc),
@@ -1736,20 +1790,22 @@ def bf16_path(device, ml, f32_counts, f32_levels):
         record(
             "fused_tail", [tk.fused_tail(h.tail, xin, b, x_zero=x_zero)],
             [tk.fused_tail_reference(h.tail, xin, b, x_zero=x_zero)],
-            lambda: tk.fused_tail(h.tail, xin, b, x_zero=x_zero), lambda: tk.fused_tail(h32.tail, xin, b, x_zero=x_zero),
+            lambda: tk.fused_tail(h.tail, xin, b, x_zero=x_zero),
+            lambda: tk.fused_tail(href.tail, xin, b, x_zero=x_zero),
             lambda: tk.fused_tail_reference(h.tail, xin, b, x_zero=x_zero), tail_work(h.tail, x_zero), level=lvl,
             dims=h.tail.levels[0].row_dims, x_zero=x_zero,
         )
     for name, rs in rows.items():
         for r in rs:
-            log(f"kernel {name}_bf16 L{r['level']} {r['dims']}"
+            log(f"kernel {name}_{BF16_SUFFIX[key]} L{r['level']} {r['dims']}"
                 + (f" x_zero={r['x_zero']}" if "x_zero" in r else "")
                 + (f" {r['leg_route']}" if "leg_route" in r else "") + (f" tile {r['tile']}" if "tile" in r else "")
+                + (f" ({tag} planes: {r['ref_route']})" if "ref_route" in r else "")
                 + f": max_rel_err {r['max_rel_err']!r} max_abs_err {r['max_abs_err']!r} bf16 {r['ms']!r} ms"
-                f" f32 {r['f32_ms']!r} ms (in turns, f32/bf16/bf16/f32: {r['turns_ms']!r}) plain {r['plain_ms']!r} ms"
-                f" bound {r['bound_ms']!r} ms ({r['bound_by']}, 2-byte planes)")
-            if not r["max_rel_err"] <= KERNEL_RTOL:
-                raise AssertionError(f"{name} with bf16 planes disagrees with its plain version: {r}")
+                f" {tag} {r[f'{tag}_ms']!r} ms (in turns, {tag}/bf16/bf16/{tag}: {r['turns_ms']!r})"
+                f" plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']}, 2-byte planes)")
+            if not r["max_rel_err"] <= rtol:
+                raise AssertionError(f"{name} with bf16 planes under {key} disagrees with its plain version: {r}")
 
     # the refined solve on b = A·1, then the fixed-cycle loop, counters zeroed before each
     b1 = ml.levels[0].A @ np.ones(N * N)
@@ -1757,16 +1813,265 @@ def bf16_path(device, ml, f32_counts, f32_levels):
     zero_counts()
     t1 = time.perf_counter()
     stats = {}
-    x, hist = amt.solve_refined(ml, b1, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats,
-                                coef_dtype=bf16)
+    x, hist = amt.solve_refined(ml, b1, tol=TOL, max_rounds=MAX_ROUNDS, device=device, dtype=dtype, log=True,
+                                stats=stats, coef_dtype=bf16)
     t2 = time.perf_counter()
     solve_counts = read_counts()
     relres = float(np.linalg.norm(b1 - ml.levels[0].A @ x) / np.linalg.norm(b1))
-    log(f"bf16 solve_refined (b = A·1): rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']}"
+    log(f"bf16 {key} solve_refined (b = A·1): rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']}"
         f" relres {relres!r} history {hist} {t2 - t1!r} s; launches {solve_counts}")
 
+    bv = torch.zeros(h.fine_padded, dtype=dtype, device=device)
+    bv[: N * N] = torch.as_tensor(b1, dtype=dtype, device=device)
+    xv = torch.zeros_like(bv)
+
+    def fixed_400(hh):
+        torch.cuda.synchronize()
+        zero_counts()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        xf = run_fixed_cycles(hh, xv, bv, CYCLES)
+        stop.record()
+        torch.cuda.synchronize()
+        xh = xf[: N * N].double().cpu().numpy()
+        rel = float(np.linalg.norm(b1 - ml.levels[0].A @ xh) / np.linalg.norm(b1))
+        return xh, rel, start.elapsed_time(stop) / CYCLES, read_counts(), read_level_counts()
+
+    if ref_counts is None:
+        _, rel_ref, ms_ref, ref_counts, ref_levels = fixed_400(href)
+        log(f"{key} planes fixed cycles {CYCLES}: ms_per_cycle {ms_ref!r} relres_after_cycles {rel_ref!r};"
+            f" launches {ref_counts}; by level {ref_levels}")
+    xh, relres_fixed, fixed_ms, cycle_counts, cycle_levels = fixed_400(h)
+    log(f"bf16 {key} fixed cycles {CYCLES}: ms_per_cycle {fixed_ms!r} relres_after_cycles {relres_fixed!r};"
+        f" launches {cycle_counts}; by level {cycle_levels}")
+
+    # a V-cycle and a fixed cycle, dtype's planes and bf16 planes in turns
+    times = {f"vcycle_{tag}": [], "vcycle_bf16": [], f"fixed_{tag}": [], "fixed_bf16": []}
+    for hh, t in ((href, tag), (h, "bf16"), (h, "bf16"), (href, tag)):
+        times[f"vcycle_{t}"].append(time_ms(lambda: _one_iteration(hh, amt.V(), xv, bv), reps=10))
+        times[f"fixed_{t}"].append(time_ms(lambda: run_fixed_cycles(hh, xv, bv, 50), reps=2) / 50)
+    del href
+    log(f"bf16 {key} timings in turns ({tag}, bf16, bf16, {tag}), ms: {times}; card {card_line()}")
+
+    if not (x.shape == (N * N,) and np.isfinite(x).all()):
+        raise AssertionError(f"bf16 {key}: the solution is not a finite vector of the problem's size")
+    if not (relres < TOL and len(hist) - 1 <= MAX_ROUNDS):
+        raise AssertionError(f"bf16 {key} solve_refined relres {relres} after {len(hist) - 1} rounds")
+    if not (all(solve_counts[k] > 0 for k in ("down", "up", "tail")) and solve_counts["updown"] == 0):
+        raise AssertionError(f"the bf16 {key} solve did not launch K1, K2 and K4: {solve_counts}")
+    if not (np.isfinite(xh).all() and relres_fixed < cycles_relres):
+        raise AssertionError(f"bf16 {key} relres_after_cycles {relres_fixed} >= {cycles_relres}")
+    if cycle_counts != ref_counts or cycle_levels != ref_levels:
+        raise AssertionError(f"bf16 {key} fixed-cycle launches {cycle_counts} {cycle_levels} != {key} planes'"
+                             f" {ref_counts} {ref_levels}")
+    summary = dict(vcycle_ms=times["vcycle_bf16"][0], fixed_ms=times["fixed_bf16"][0], fixed_400_ms=fixed_ms,
+                   rounds=len(hist) - 1, pcg_iters=stats["inner_iters"], relres=relres,
+                   relres_after_cycles=relres_fixed)
+    summary[f"vcycle_{tag}_ms"], summary[f"fixed_{tag}_ms"] = times[f"vcycle_{tag}"][0], times[f"fixed_{tag}"][0]
+    return rows, solve_counts, cycle_counts, cycle_levels, summary
+
+
+# --------------------------------------------------------------------------
+# the 3-D problem with bf16 planes (phase 16) and the structured
+# Ruge–Stüben flagship (phase 17)
+# --------------------------------------------------------------------------
+
+# phase 16's cg_device against the f64 LatND operator, and its iterations
+# against phase 10's float32 planes
+N3_BF16_CG_TRUE = 1e-5
+N3_BF16_ITERS = 2
+# bench.py's AMG_BENCH_METHOD=rs at 4096²: what the JAX package's setup
+# gives (host run of the same numpy code)
+RS_LEVELS = 10
+RS_OC = 4.536
+RS_COARSE = 6624
+# the f32 fixed cycles' plateau on the rs hierarchy: printed, held only
+# to this sanity bound
+RS_CYCLES_RELRES = 1e-4
+
+
+def lattice_3d_bf16(device, ml, f32_iters):
+    """Phase 16: phase 10's 256³ hierarchy lowered with bf16 planes under
+    float32 (``bench.py``'s opt-in 3-D cell under its default
+    ``AMG_COEF_DTYPE=bfloat16``): the LatND operators' planes bf16, K7's
+    bf16 entry against its plain version and in turns with phase 10's
+    float32 K7, ``cg_device`` with the counters zeroed just before, and a
+    V-cycle's launches."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _get_fine_f64, _one_iteration
+    from algebraicmultigrid_tpu_torch.ops.banded import mat_vec
+    from algebraicmultigrid_tpu_torch.ops.kernels.sweep3d import Sweep3DCache, smooth_sweep3d, smooth_sweep3d_reference
+    from algebraicmultigrid_tpu_torch.ops.lattice_nd_op import LatND
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    h = amt.get_device_hierarchy(ml, device=device, dtype=f32, coef_dtype=bf16)
+    torch.cuda.synchronize()
+    lowering_s = time.perf_counter() - t0
+    h32 = amt.get_device_hierarchy(ml, device=device, dtype=f32)  # phase 10's, cached on ml
+    rows = tuple(L.A.shape[0] for L in ml.levels)
+    oc = ml.operator_complexity()
+    # each operator's format and the dtype it stores its coefficients in
+    fmt = [tuple((type(M).__name__, str(M.data.dtype if isinstance(M, LatND) else M.dtype).removeprefix("torch."))
+                 for M in (L.A, L.P, L.R)) for L in h.levels]
+    L0, R0 = h.levels[0], h32.levels[0]
+    log(f"3-D {N3}^3 bf16 planes: lowering_s {lowering_s!r} rows {rows} coarse {ml.final_A.shape}"
+        f" operator_complexity {oc!r}; formats (A, P, R) with plane dtypes {fmt}; L0 K7 march"
+        f" {L0.pre.march.args() if isinstance(L0.pre, Sweep3DCache) and L0.pre.march else None}"
+        f" (float32 planes: {R0.pre.march.args() if R0.pre.march else None})")
+    if rows != N3_ROWS or ml.final_A.shape != (N3_COARSE, N3_COARSE) or h.coarse.kind != "qr":
+        raise AssertionError(f"3-D bf16: levels {rows} + {ml.final_A.shape}, not {N3_ROWS} + an 8-row QR")
+    if abs(oc - N3_OC) > 1e-4:
+        raise AssertionError(f"3-D bf16: operator complexity {oc} != {N3_OC}")
+    if fmt[0] != (("LatND", "bfloat16"),) * 3 or not all(M.dtype == f32 for M in (L0.A, L0.P, L0.R)):
+        raise AssertionError(f"3-D bf16: L0 is {fmt[0]}, not LatND A, P, R with bf16 planes under float32")
+    if [tuple(t for t, _ in f) for f in fmt[1:]] != N3_FORMATS or any(d != "float32" for f in fmt[1:] for _, d in f):
+        raise AssertionError(f"3-D bf16: L1-L4 lowered to {fmt[1:]}, not {N3_FORMATS} in float32")
+    for c in (L0.pre, L0.post):
+        if not (isinstance(c, Sweep3DCache) and c.A is L0.A and c.march is not None and c.dinv.dtype == f32):
+            raise AssertionError(f"3-D bf16: L0 smoother {c!r} is not K7's march on the level's bf16 planes")
+
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    n0, pad0 = L0.A.shape[0], L0.A.rows_padded
+    x, b = (torch.zeros(pad0) for _ in range(2))
+    x[:n0], b[:n0] = torch.randn(n0, generator=gen), torch.randn(n0, generator=gen)
+    x, b = x.to(device), b.to(device)
+    rows_k7 = []
+    for c, c32 in ((L0.pre, R0.pre), (L0.post, R0.post)):
+        got, want = smooth_sweep3d(c, x, b), smooth_sweep3d_reference(c, x, b)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got, want)
+        r = dict(level="L0", dims=c.dims, steps=c.steps, march=c.march.args(), max_abs_err=abs_err,
+                 max_rel_err=rel_err)
+        if c is L0.pre:
+            r["f32_ms"], r["ms"], r["turns_ms"] = in_turns(lambda: smooth_sweep3d(c32, x, b),
+                                                           lambda: smooth_sweep3d(c, x, b))
+            r["plain_ms"] = time_ms(lambda: smooth_sweep3d_reference(c, x, b))
+            r["bound_ms"], r["bound_by"] = bound(*sweep_work(c), 4)
+        rows_k7.append(r)
+        log(f"kernel sweep3d_bf16 L0 dims {c.dims} steps {c.steps} march {r['march']}: max_rel_err {rel_err!r}"
+            f" max_abs_err {abs_err!r}"
+            + (f" bf16 {r['ms']!r} ms f32 {r['f32_ms']!r} ms (in turns, f32/bf16/bf16/f32: {r['turns_ms']!r})"
+               f" plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']}, 2-byte planes)"
+               if "ms" in r else ""))
+        if not rel_err <= KERNEL_RTOL:
+            raise AssertionError(f"K7 with bf16 planes disagrees with its plain version: {r}")
+    del x, b
+
+    bh = np.random.default_rng(4).standard_normal(n0)  # phase 10's right-hand side
+    A64 = _get_fine_f64(ml, device)
+    b64 = torch.as_tensor(np.pad(bh, (0, A64.rows_padded - n0)), device=device)
+    normb = float(torch.linalg.norm(b64))
+    torch.cuda.synchronize()
+    zero_counts()
+    t1 = time.perf_counter()
+    x_cg, iters, normr = amt.cg_device(ml, bh, tol=U_CG_TOL, device=device, dtype=f32, log=True, coef_dtype=bf16)
+    t2 = time.perf_counter()
+    counts = read_counts()
+    xp = torch.zeros_like(b64)
+    xp[:n0] = torch.as_tensor(x_cg, dtype=torch.float64, device=device)
+    rr = float(torch.linalg.norm(b64 - mat_vec(A64, xp)) / normb)
+    log(f"3-D bf16 cg_device: {iters} iterations (float32 planes, phase 10: {f32_iters}), its own relres"
+        f" {normr / normb!r}, f64 LatND relres {rr!r}, {t2 - t1!r} s; launches {counts}")
+
+    want_bsg, _ = expected_vcycle_launches(h)
+    bv = torch.zeros(pad0, device=device)
+    bv[:n0] = torch.as_tensor(bh, dtype=f32, device=device)
+    xv = torch.zeros_like(bv)
+    torch.cuda.synchronize()
+    zero_counts()
+    _one_iteration(h, amt.V(), xv, bv)
+    torch.cuda.synchronize()
+    per_cycle = read_counts()
+    vc = [time_ms(lambda: _one_iteration(hh, amt.V(), xv, bv), reps=10) for hh in (h32, h, h, h32)]
+    log(f"3-D bf16 vcycle_ms in turns (f32, bf16, bf16, f32) {vc}; launches per V-cycle {per_cycle};"
+        f" expected sweep3d 2 bsg {want_bsg}")
+
+    if not (x_cg.shape == (n0,) and np.isfinite(x_cg).all()):
+        raise AssertionError("3-D bf16 cg_device: the solution is not a finite vector of the problem's size")
+    if not (normr / normb < U_CG_TOL and rr < N3_BF16_CG_TRUE):
+        raise AssertionError(f"3-D bf16 cg_device relres {normr / normb} (f64 LatND: {rr})")
+    if abs(iters - f32_iters) > N3_BF16_ITERS:
+        raise AssertionError(f"3-D bf16 cg_device took {iters} iterations, float32 planes {f32_iters}")
+    if not (counts["sweep3d"] > 0 and counts["bsg"] > 0):
+        raise AssertionError(f"the 3-D bf16 solve did not launch K7 and K6: {counts}")
+    want = dict.fromkeys(per_cycle, 0)
+    want.update(sweep3d=2, bsg=want_bsg)
+    if per_cycle != want:
+        raise AssertionError(f"3-D bf16 V-cycle launches {per_cycle} != {want}")
+    summary = dict(vcycle_ms=(vc[1] + vc[2]) / 2, vcycle_f32_ms=(vc[0] + vc[3]) / 2, cg_iters=iters,
+                   cg_f32_iters=f32_iters, cg_relres_f64=rr)
+    return rows_k7, counts, per_cycle, summary
+
+
+def rs_path(device):
+    """Phase 17: ``bench.py``'s ``AMG_BENCH_METHOD=rs`` at 4096² —
+    ``ruge_stuben`` with ``StructuredRS`` and multicolor GS (the structured
+    fast path), lowered in float32: no legs, no tail, K5 on every Lat2D
+    level (the semi-coarsened levels' wider stencils through its generic
+    and wide instances), each held against its plain version and timed;
+    ``solve_refined`` and 400 ``run_fixed_cycles`` on b = A·1 with the
+    counters zeroed just before each; one V-cycle's launches (K5, and K6 on
+    the BSG levels) and time."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels.gs_sweep import GSSweepCache, smooth_gs, smooth_gs_reference
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import Lat2D
+
+    gs = amt.GaussSeidel(ordering="multicolor")
+    t0 = time.perf_counter()
+    ml = amt.ruge_stuben(amt.poisson((N, N), lattice=True), CF=amt.StructuredRS(), presmoother=gs, postsmoother=gs)
+    t1 = time.perf_counter()
+    h = amt.get_device_hierarchy(ml, device=device, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    levels = len(ml.levels) + 1
+    oc = ml.operator_complexity()
+    coarse = ml.final_A.shape[0]
+    lat = [i for i, L in enumerate(h.levels) if isinstance(L.A, Lat2D)]
+    k5 = [i for i, L in enumerate(h.levels)
+          if isinstance(L.pre, GSSweepCache) and isinstance(L.post, GSSweepCache) and L.pre.march is not None]
+    log(f"rs {N}x{N}: setup_s {t1 - t0!r} lowering_s {t2 - t1!r} levels {levels} operator_complexity {oc!r}"
+        f" coarse {coarse} rows ({h.coarse.kind}); level rows {[L.A.shape[0] for L in ml.levels]}")
+    log(f"rs formats {[type(L.A).__name__ for L in h.levels]} Lat2D offsets"
+        f" {[len(h.levels[i].A.offsets) for i in lat]} P bases"
+        f" {[(h.levels[i].P.base_x, h.levels[i].P.base_y) for i in lat]} K5 levels {k5}"
+        f" marches {[h.levels[i].pre.march.args() for i in k5]}; tail {h.tail_start}")
+    if levels != RS_LEVELS or round(oc, 3) != RS_OC or coarse != RS_COARSE:
+        raise AssertionError(f"rs: {levels} levels, operator complexity {oc}, coarse {coarse} rows")
+    if h.tail is not None or any(L.fused is not None for L in h.levels) or not lat or k5 != lat:
+        raise AssertionError(f"rs: legs or a tail, or K5 on levels {k5} where the Lat2D levels are {lat}")
+
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    rows_k5 = []
+    for lvl in lat:
+        L = h.levels[lvl]
+        n, pad = L.A.shape[0], L.A.rows_padded
+        x, b = torch.zeros(pad), torch.zeros(pad)
+        x[:n], b[:n] = torch.randn(n, generator=gen), torch.randn(n, generator=gen)
+        x, b = x.to(device), b.to(device)
+        for c in (L.pre, L.post):
+            r = compare_sweep("gs_sweep", smooth_gs, smooth_gs_reference, c, x, b, f"L{lvl}", timed=c is L.pre)
+            rows_k5.append(dict(r, offsets=len(c.offsets)))
+
+    b1 = ml.levels[0].A @ np.ones(N * N)
+    torch.cuda.synchronize()
+    zero_counts()
+    t3 = time.perf_counter()
+    stats = {}
+    x, hist = amt.solve_refined(ml, b1, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats)
+    t4 = time.perf_counter()
+    solve_counts = read_counts()
+    relres = float(np.linalg.norm(b1 - ml.levels[0].A @ x) / np.linalg.norm(b1))
+    log(f"rs solve_refined (b = A·1): rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']}"
+        f" relres {relres!r} history {hist} {t4 - t3!r} s; launches {solve_counts}")
+
     bv = torch.zeros(h.fine_padded, device=device)
-    bv[: N * N] = torch.as_tensor(b1, dtype=f32, device=device)
+    bv[: N * N] = torch.as_tensor(b1, dtype=torch.float32, device=device)
     xv = torch.zeros_like(bv)
     torch.cuda.synchronize()
     zero_counts()
@@ -1775,36 +2080,43 @@ def bf16_path(device, ml, f32_counts, f32_levels):
     xf = run_fixed_cycles(h, xv, bv, CYCLES)
     stop.record()
     torch.cuda.synchronize()
-    cycle_counts, cycle_levels = read_counts(), read_level_counts()
+    cycle_counts = read_counts()
     fixed_ms = start.elapsed_time(stop) / CYCLES
     xh = xf[: N * N].double().cpu().numpy()
     relres_fixed = float(np.linalg.norm(b1 - ml.levels[0].A @ xh) / np.linalg.norm(b1))
-    log(f"bf16 fixed cycles {CYCLES}: ms_per_cycle {fixed_ms!r} relres_after_cycles {relres_fixed!r};"
-        f" launches {cycle_counts}; by level {cycle_levels}")
+    log(f"rs fixed cycles {CYCLES}: ms_per_cycle (CUDA events) {fixed_ms!r} relres_after_cycles {relres_fixed!r};"
+        f" launches {cycle_counts}")
 
-    # a V-cycle and a fixed cycle, float32 and bf16 planes in turns
-    times = {"vcycle_f32": [], "vcycle_bf16": [], "fixed_f32": [], "fixed_bf16": []}
-    for hh, tag in ((h32, "f32"), (h, "bf16"), (h, "bf16"), (h32, "f32")):
-        times[f"vcycle_{tag}"].append(time_ms(lambda: _one_iteration(hh, amt.V(), xv, bv), reps=10))
-        times[f"fixed_{tag}"].append(time_ms(lambda: run_fixed_cycles(hh, xv, bv, 50), reps=2) / 50)
-    del h32
-    log(f"bf16 timings in turns (f32, bf16, bf16, f32), ms: {times}; card {card_line()}")
+    torch.cuda.synchronize()
+    zero_counts()
+    _one_iteration(h, amt.V(), xv, bv)
+    torch.cuda.synchronize()
+    per_cycle = read_counts()
+    per_level = read_level_counts().get("gs", {})
+    want_bsg, _ = expected_vcycle_launches(h)
+    vcycle_ms = time_ms(lambda: _one_iteration(h, amt.V(), xv, bv), reps=10)
+    log(f"rs vcycle_ms (CUDA events) {vcycle_ms!r}; launches per V-cycle {per_cycle} (expected gs {2 * len(lat)}"
+        f" bsg {want_bsg}); K5 by level {per_level}; card {card_line()}")
+    for r in rows_k5:
+        r["launches_per_vcycle"] = per_level.get("x".join(str(d) for d in r["dims"]), 0)
 
     if not (x.shape == (N * N,) and np.isfinite(x).all()):
-        raise AssertionError("bf16: the solution is not a finite vector of the problem's size")
+        raise AssertionError("rs: the solution is not a finite vector of the problem's size")
     if not (relres < TOL and len(hist) - 1 <= MAX_ROUNDS):
-        raise AssertionError(f"bf16 solve_refined relres {relres} after {len(hist) - 1} rounds")
-    if not (all(solve_counts[k] > 0 for k in ("down", "up", "tail")) and solve_counts["updown"] == 0):
-        raise AssertionError(f"the bf16 solve did not launch K1, K2 and K4: {solve_counts}")
-    if not (np.isfinite(xh).all() and relres_fixed < CYCLES_RELRES):
-        raise AssertionError(f"bf16 relres_after_cycles {relres_fixed} >= {CYCLES_RELRES}")
-    if cycle_counts != f32_counts or cycle_levels != f32_levels:
-        raise AssertionError(f"bf16 fixed-cycle launches {cycle_counts} {cycle_levels} != float32's"
-                             f" {f32_counts} {f32_levels}")
-    summary = dict(vcycle_ms=times["vcycle_bf16"][0], vcycle_f32_ms=times["vcycle_f32"][0],
-                   fixed_ms=times["fixed_bf16"][0], fixed_f32_ms=times["fixed_f32"][0], fixed_400_ms=fixed_ms,
-                   rounds=len(hist) - 1, relres=relres, relres_after_cycles=relres_fixed)
-    return rows, solve_counts, cycle_counts, cycle_levels, summary
+        raise AssertionError(f"rs solve_refined relres {relres} after {len(hist) - 1} rounds")
+    if not (np.isfinite(xh).all() and relres_fixed < RS_CYCLES_RELRES):
+        raise AssertionError(f"rs relres_after_cycles {relres_fixed} >= {RS_CYCLES_RELRES}")
+    want = dict.fromkeys(per_cycle, 0)
+    want.update(gs=2 * len(lat), bsg=want_bsg)
+    if per_cycle != want or cycle_counts != {k: v * CYCLES for k, v in want.items()}:
+        raise AssertionError(f"rs launches per V-cycle {per_cycle} (400 cycles {cycle_counts}), not {want}: 2 K5"
+                             " a Lat2D level and the hierarchy's K6")
+    if any(r["launches_per_vcycle"] != 2 for r in rows_k5):
+        raise AssertionError(f"rs K5 launches by level {per_level}: not 2 (pre, post) on every Lat2D level")
+    summary = dict(setup_s=t1 - t0, lowering_s=t2 - t1, levels=levels, operator_complexity=oc, coarse_rows=coarse,
+                   rounds=len(hist) - 1, pcg_iters=stats["inner_iters"], relres=relres, fixed_400_ms=fixed_ms,
+                   relres_after_cycles=relres_fixed, vcycle_ms=vcycle_ms)
+    return rows_k5, solve_counts, per_cycle, summary
 
 
 def main():
@@ -1843,7 +2155,7 @@ def main():
     del Ap, ml_u, h_u
     torch.cuda.empty_cache()
 
-    rows_k7, counts_3d, cycle_3d, _ = lattice_3d(device)
+    rows_k7, counts_3d, cycle_3d, _, ml_3d, iters_3d = lattice_3d(device)
     torch.cuda.empty_cache()
     rows_k5, counts_fb, cycle_fb, vcycle_fb = lattice_fwd_bwd(device)
     torch.cuda.empty_cache()
@@ -1853,7 +2165,16 @@ def main():
     row_halo = slab_path(device, ml)
     ml._device_cache.clear()
     torch.cuda.empty_cache()
-    rows_bf16, counts_bf16, cycle_bf16, levels_bf16, summary_bf16 = bf16_path(device, ml, cycle_counts, cycle_levels)
+    bf16 = {"float32": bf16_path(device, ml, torch.float32, cycle_counts, cycle_levels)}
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
+    bf16["float64"] = bf16_path(device, ml, torch.float64)
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
+    rows_k7b, counts_3db, cycle_3db, summary_3db = lattice_3d_bf16(device, ml_3d, iters_3d)
+    del ml_3d
+    torch.cuda.empty_cache()
+    rows_rs, counts_rs, cycle_rs, summary_rs = rs_path(device)
 
     kernels = []
     for name, rs in rows.items():
@@ -1919,23 +2240,51 @@ def main():
         name="halo_stencil", route="cuda", source=SOURCES["halo_stencil"], replaces=REPLACES["halo_stencil"],
         **row_halo,
     ))
-    for name, rs in rows_bf16.items():
-        first = rs[0]  # L0 (the tail's entry level for K4), x read from its input
-        row = dict(
-            name=f"{name}_bf16", route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=cycle_bf16[COUNTER[name]], launches_solve=counts_bf16[COUNTER[name]],
-            max_abs_err=max(r["max_abs_err"] for r in rs), ms=first["ms"], plain_ms=first["plain_ms"],
-            bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, entry=BF16_SUFFIX,
-            f32_ms=first["f32_ms"],
-        )
-        if name != "fused_tail":
-            l1 = next(r for r in rs if r["level"] == 1)
-            row.update(l1_ms=l1["ms"], l1_f32_ms=l1["f32_ms"], l1_bound_ms=l1["bound_ms"],
-                       launches_by_level=levels_bf16.get(COUNTER[name], {}))
-        kernels.append(row)
+    for key, (rows_b, counts_b, cycle_b, levels_b, _) in bf16.items():
+        tag = {"float32": "f32", "float64": "f64"}[key]
+        suffix = "bf16" if key == "float32" else "f64_bf16"
+        for name, rs in rows_b.items():
+            first = rs[0]  # L0 (the tail's entry level for K4), x read from its input
+            row = dict(
+                name=f"{name}_{suffix}", route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+                launches=cycle_b[COUNTER[name]], launches_solve=counts_b[COUNTER[name]],
+                max_abs_err=max(r["max_abs_err"] for r in rs), ms=first["ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, entry=BF16_SUFFIX[key],
+            )
+            row[f"{tag}_ms"] = first[f"{tag}_ms"]
+            if name != "fused_tail":
+                l1 = next(r for r in rs if r["level"] == 1)
+                row.update(l1_ms=l1["ms"], l1_bound_ms=l1["bound_ms"], launches_by_level=levels_b.get(COUNTER[name], {}))
+                row[f"l1_{tag}_ms"] = l1[f"{tag}_ms"]
+            if name == "fused_up":
+                row["routes"] = {f"L{r['level']}": r["leg_route"] for r in rs}
+            kernels.append(row)
+    first = rows_k7b[0]  # L0's presmoother
+    kernels.append(dict(
+        name="sweep3d_bf16", route="cuda", source=SOURCES["sweep3d"], replaces=REPLACES["sweep3d"],
+        launches=counts_3db["sweep3d"], launches_per_vcycle=cycle_3db["sweep3d"],
+        max_abs_err=max(r["max_abs_err"] for r in rows_k7b), ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, entry="f32_bf16",
+        f32_ms=first["f32_ms"], kernel_route="march",
+    ))
+    # K5 on the rs hierarchy: its widest level (the wide instance) as the row, every Lat2D level by level
+    timed = [r for r in rows_rs if "ms" in r]
+    first = max(timed, key=lambda r: r["offsets"])
+    kernels.append(dict(
+        name="gs_sweep_rs", route="cuda", source=SOURCES["gs_sweep"], replaces=REPLACES["gs_sweep"],
+        launches=counts_rs["gs"], launches_per_vcycle=cycle_rs["gs"],
+        max_abs_err=max(r["max_abs_err"] for r in rows_rs), ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, level=first["level"],
+        offsets=first["offsets"], kernel_route="march",
+        by_level=[{k: r[k] for k in ("level", "dims", "offsets", "steps", "march", "ms", "plain_ms", "bound_ms",
+                                     "launches_per_vcycle")} for r in timed],
+    ))
     log(f"flagship {N}x{N} f32, CUDA events: fixed cycle {fixed_ms!r} ms (first design, recorded:"
         f" {FIRST_DESIGN_FIXED_CYCLE_MS} ms), V-cycle {vcycle_ms!r} ms; card {card}")
-    log(f"flagship {N}x{N} bf16 planes, CUDA events: {summary_bf16}; card {card}")
+    for key, b in bf16.items():
+        log(f"flagship {N}x{N} bf16 planes, {key} vectors, CUDA events: {b[-1]}; card {card}")
+    log(f"3-D {N3}^3 bf16 planes, CUDA events: {summary_3db}; card {card}")
+    log(f"rs {N}x{N}, CUDA events: {summary_rs}; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -63,8 +63,10 @@ block and, for K2 where its stage fits, pipelined; then the legs pass by
 pass; then K3, K4, a V-cycle and a fixed cycle with the planned tiles.
 In ``against DIR`` mode the two libraries run the float32 and float64
 K1 (from x and from zero), K2 and K3 at L0 and L1 of 1800² on their
-planned routes and pass by pass, K4 (x read and from zero) and K9 at L1
-on the same inputs, and it prints whether each output is bitwise equal;
+planned routes and pass by pass, K4 (x read and from zero), K9 at L1, and
+K5's and K7's marches (5-point 1800², 9-point 600², 96³; planned with the
+tree's library) on the same inputs, and it prints whether each output is
+bitwise equal;
 then it times float32 K1–K4 at 4096² (L0 and L1 for the legs), a V-cycle
 and a fixed cycle in turns (DIR, tree, tree, DIR).  DIR's library is
 loaded without the entries it may lack (the bf16-plane ones).
@@ -111,6 +113,11 @@ MARCH_RING_C = "(n_steps * p.reach[0] + (1 + kMarchDepth) * kMarchBatch)"
 MARCH_LOAD_X = "      march_cp_async(xs + le[j], x_in + (in ? gm + lg[j] : 0), in);\n"
 MARCH_UPDATE = "          xs[e] = xs[e] + omega * __ldg(dinv + gpl + ug[v]) * (__ldg(b + gpl + ug[v]) - acc);"
 MARCH_SMEM = "  const size_t smem = march_smem_bytes(p.ext[0], p.ext[1], p.ring, (int)sizeof(T));"
+MARCH_COEF = "if (k < n_off) acc += coef_ldg<T>(A, k * plane + gpl + ug[v]) * xr[xk[k] + e];"
+# the edits that stage the coefficient planes in rings of the vectors' type
+# take no bf16 planes: their variants drop K7's bf16 entry (``use`` loads
+# such a library without it)
+MARCH_NO_BF16 = [("sweep3d.cu", "AMG_SWEEP3D_MARCH_ENTRY(float, __nv_bfloat16, f32_bf16)\n", "")]
 
 
 def march_staged(coef):
@@ -135,8 +142,9 @@ def march_staged(coef):
         (MARCH_H, MARCH_SMEM, MARCH_SMEM.replace("p.ring,", f"p.ring + {arrays} * {MARCH_RING_C},")),
     ]
     if coef:
-        edits.append((MARCH_H, "if (k < n_off) acc += __ldg(A + k * plane + gpl + ug[v]) * xr[xk[k] + e];",
+        edits.append((MARCH_H, MARCH_COEF,
                       "if (k < n_off) acc += cs[(2 + k) * RC * E] * xr[xk[k] + e];"))
+        edits += MARCH_NO_BF16
     return edits
 
 
@@ -193,7 +201,7 @@ MARCH_STAGE16 = [
      "          const uintptr_t ra = (uintptr_t)arr(q) + (uintptr_t)((gpl + o2) * (int64_t)sizeof(T));\n"
      "          csh[q] = (int)(((int64_t)q * RC + sc) * ES) + (int)((ra & 15) / sizeof(T));\n"
      "        }\n"),
-    (MARCH_H, "if (k < n_off) acc += __ldg(A + k * plane + gpl + ug[v]) * xr[xk[k] + e];",
+    (MARCH_H, MARCH_COEF,
      "if (k < n_off) acc += cr[csh[2 + k] + e] * xr[xk[k] + e];"),
     (MARCH_H, MARCH_UPDATE, "          xs[e] = xs[e] + omega * cr[csh[0] + e] * (cr[csh[1] + e] - acc);"),
     (MARCH_H, MARCH_SMEM,
@@ -225,7 +233,7 @@ MARCH_REGS = [
      "          if (!uin[v] || e2 < l2 || e2 >= E2 - l2 || p.tab[ptab + ucol[v]] != c) continue;\n"
      "#pragma unroll\n"
      "          for (int k = 0; k < KOFF; ++k) {\n"
-     "            if (k < n_off) cv[i][v][k] = __ldg(A + k * plane + gpl + ug[v]);\n"
+     "            if (k < n_off) cv[i][v][k] = coef_ldg<T>(A, k * plane + gpl + ug[v]);\n"
      "          }\n"
      "          cv[i][v][KOFF] = __ldg(dinv + gpl + ug[v]);\n"
      "          cv[i][v][KOFF + 1] = __ldg(b + gpl + ug[v]);\n"
@@ -237,7 +245,7 @@ MARCH_REGS = [
      "    __syncthreads();\n"),
     (MARCH_H, "      for (int pl = M - (s + 1) * r0 - P + 1; pl <= M - (s + 1) * r0; ++pl) {\n",
      "      for (int i = 0; i < P; ++i) {\n        const int pl = M - (s + 1) * r0 - P + 1 + i;\n"),
-    (MARCH_H, "if (k < n_off) acc += __ldg(A + k * plane + gpl + ug[v]) * xr[xk[k] + e];",
+    (MARCH_H, MARCH_COEF,
      "if (k < n_off) acc += cv[i][v][k] * xr[xk[k] + e];"),
     (MARCH_H, MARCH_UPDATE, "          xs[e] = xs[e] + omega * cv[i][v][KOFF] * (cv[i][v][KOFF + 1] - acc);"),
     (MARCH_H, "      }\n      __syncthreads();\n    }\n\n    // the planes M",
@@ -254,7 +262,7 @@ def gs_batch(stencil, n):
 
 MARCH2D_VARIANTS = {
     "tree": [],
-    "march2d_stage16": MARCH_STAGE16,
+    "march2d_stage16": MARCH_STAGE16 + MARCH_NO_BF16,
     "march2d_regs": MARCH_REGS,
     "march2d_unit4": [(MARCH_H, "constexpr int kMarchUnit = 2;", "constexpr int kMarchUnit = 4;"),
                       (MARCH_H, "constexpr int kMarchCells = 3;", "constexpr int kMarchCells = 5;")],
@@ -792,16 +800,24 @@ def against(other):
     import algebraicmultigrid_tpu_torch as amt
     import chip_smoke as cs
     from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.models.lattice import lattice_coloring
+    from algebraicmultigrid_tpu_torch.models.lattice_nd import lattice_coloring_nd
+    from algebraicmultigrid_tpu_torch.ops.kernels import gs_sweep as gs
     from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+    from algebraicmultigrid_tpu_torch.ops.kernels import sweep3d as s3
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.lattice_nd_op import latnd_from_spec
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import lat2d_from_spec
 
+    nine = -np.ones((3, 3))
+    nine[1, 1] = 8.0
     tree = vl.load_library()
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "other.so"
         vl.build_library(out, [Path(other) / "algebraicmultigrid_tpu_torch" / "csrc" / f.name for f in vl.SOURCES])
         entries, path = vl._BF16_ENTRIES, vl.library_path
-        vl._BF16_ENTRIES, vl.library_path, vl._lib = (), (lambda: out), None
+        vl._BF16_ENTRIES, vl.library_path, vl._lib = {}, (lambda: out), None
         try:
             libs = {"other": vl.load_library(), "tree": tree}
         finally:
@@ -849,6 +865,23 @@ def against(other):
         b = vec(L.A.shape[0], L.A.rows_padded, dtype)
         bitwise(f"{dtype} K9 at L{hs.sub_start}", lambda: sk.fused_subcycle(hs.sub, b))
         del h, hs
+        # K5's march (5- and 9-point Lat2D levels) and K7's (a 3-D LatND
+        # level), planned with the tree's library
+        for tag, prob, build, smooth in (
+            ("K5 5-point 1800²", amt.poisson((1800, 1800), lattice=True), gs.build_gs_sweep_cache, gs.smooth_gs),
+            ("K5 9-point 600²", amt.LatticeProblem(nine, (600, 600)), gs.build_gs_sweep_cache, gs.smooth_gs),
+            ("K7 96³", amt.poisson((96,) * 3, lattice=True), s3.build_sweep3d_cache, s3.smooth_sweep3d),
+        ):
+            spec = prob.spec
+            if len(spec.row_dims) == 3:
+                A, (tab, nc) = latnd_from_spec(spec, dtype, "cuda"), lattice_coloring_nd(spec)
+            else:
+                A, (tab, nc) = lat2d_from_spec(spec, dtype, "cuda", row_pad=8), lattice_coloring(spec)
+            dinv = torch.zeros(A.rows_padded, dtype=dtype)
+            dinv[: A.shape[0]] = torch.as_tensor(1.0 / spec.diagonal(), dtype=dtype)
+            c = build(A, dinv.cuda(), tab, nc, 1.0, 1, True, True)
+            x, b = vec(A.shape[0], A.rows_padded, dtype), vec(A.shape[0], A.rows_padded, dtype)
+            bitwise(f"{dtype} {tag} march {c.march.args()}", lambda: smooth(c, x, b))
     print(f"bitwise equal: {sum(same)} of {len(same)}", flush=True)
 
     ml = cs.setup(N)
@@ -918,7 +951,13 @@ def main():
         def use(name):
             vl._lib = None
             vl.library_path = lambda: root / name / "lib.so"
-            vl.load_library()
+            entries = vl._BF16_ENTRIES
+            if any(e in MARCH_NO_BF16 for e in variants[name]):
+                vl._BF16_ENTRIES = {k: v for k, v in entries.items() if k != "amg_sweep3d_march_{}"}
+            try:
+                vl.load_library()
+            finally:
+                vl._BF16_ENTRIES = entries
 
         if mode == "march2d":
             march2d(use, list(variants))

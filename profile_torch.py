@@ -16,14 +16,20 @@ through ``structured_smoothed_aggregation_nd(proxy=47, cut_rows=20000)``
 V-cycles of the 4096² flagship with forward/backward GS (K5 on every
 Lat2D level, no legs, no tail); with ``subcycle``, the flagship's ``fixed``
 and ``vcycle`` runs on the hierarchy built with ``subcycle=True`` (K9 in
-place of the L1 legs and K4).
+place of the L1 legs and K4); with ``f64bf16``, the same runs in float64
+with bf16 coefficient planes (``bench.py``'s ``AMG_BENCH_DTYPE=float64``
+under its default ``AMG_COEF_DTYPE=bfloat16``: K1–K4's ``f64_bf16``
+entries); with ``rs``, 20 V-cycles of ``bench.py``'s
+``AMG_BENCH_METHOD=rs`` at 4096² (``ruge_stuben`` with ``StructuredRS``
+and multicolor GS: K5 on the Lat2D levels, masked sweeps and K6 on the
+others).
 
 For each it prints the ms per cycle by CUDA events, the device time of each
 kernel and its share, the device's idle share of the window (1 − the
 summed kernel time over the window's elapsed time) and the port's kernel
 launches per cycle.  Run from the repository root:
 
-    python3 profile_torch.py [unstructured | 3d | fwdbwd | subcycle]
+    python3 profile_torch.py [unstructured | 3d | fwdbwd | subcycle | f64bf16 | rs]
 """
 
 import functools
@@ -37,17 +43,18 @@ NU = 1024
 CYCLES = 20
 
 
-def lattice_runs(amt, torch, subcycle=False):
+def lattice_runs(amt, torch, subcycle=False, dtype="float32", coef_dtype=None):
     from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
 
     ml = amt.structured_smoothed_aggregation(
         amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3)
     )
-    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32, subcycle=subcycle)
+    dtype = getattr(torch, dtype)
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=dtype, subcycle=subcycle, coef_dtype=coef_dtype)
     if subcycle and h.sub is None:
         raise SystemExit("the flagship built no subcycle cache")
-    b = torch.zeros(h.fine_padded, device="cuda")
-    b[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
+    b = torch.zeros(h.fine_padded, dtype=dtype, device="cuda")
+    b[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=dtype, device="cuda")
 
     def fixed():
         run_fixed_cycles(h, torch.zeros_like(b), b, CYCLES)
@@ -115,9 +122,18 @@ def fwd_bwd_runs(amt, torch):
     return vcycle_runs("vcycle_fwdbwd", ml, h, amt, torch)
 
 
+def rs_runs(amt, torch):
+    gs = amt.GaussSeidel(ordering="multicolor")
+    ml = amt.ruge_stuben(amt.poisson((N, N), lattice=True), CF=amt.StructuredRS(), presmoother=gs, postsmoother=gs)
+    h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32)
+    return vcycle_runs("vcycle_rs", ml, h, amt, torch)
+
+
 RUNS = {
     "unstructured": unstructured_runs, "3d": lattice_3d_runs, "fwdbwd": fwd_bwd_runs,
     "subcycle": functools.partial(lattice_runs, subcycle=True),
+    "f64bf16": functools.partial(lattice_runs, dtype="float64", coef_dtype="bfloat16"),
+    "rs": rs_runs,
 }
 
 

@@ -7,7 +7,8 @@ kernels on those planes to relative 1e-5 (the bound of
 tests/test_torch_vcycle_legs.py), three fixed cycles against three JAX
 cycles, the refined solve, the combinations that raise, the paths the
 switch leaves at float32, the conversion from numpy, and the plans with
-2-byte planes.  The CUDA kernels are held against these plain versions on
+2-byte planes.  Float64 vectors and 3-D lattices with bf16 planes:
+tests/test_torch_bf16_f64_3d.py.  The CUDA kernels are held against these plain versions on
 the card by tests/test_torch_cuda.py."""
 
 import dataclasses
@@ -229,31 +230,27 @@ def test_solve_refined_with_bf16_planes(problem):
 
 
 def test_unsupported_combinations_raise(problem):
-    """bf16 planes with the subcycle (K9), on an N-D lattice (LatND, K7)
-    and under float64 have no port yet (ROADMAP B3): each raises, none
-    falls back to float32 planes."""
+    """bf16 planes with the subcycle (K9) have no port yet (ROADMAP B3): the
+    builder, the drivers and the conversion raise, none falls back to
+    float32 planes; planes of another dtype, or bf16 under vectors other
+    than float32/float64, are refused.  (Under float64 and on N-D lattices
+    bf16 planes are ported: tests/test_torch_bf16_f64_3d.py.)"""
     from algebraicmultigrid_tpu_torch.convert import hierarchy_from_numpy
-    from algebraicmultigrid_tpu_torch.models.lattice_nd import LatticeMatrixND
 
     _, ml_t, h_j, _, _, _ = problem
     with pytest.raises(NotImplementedError, match="B3"):
         _build(ml_t, tail_max_rows=600, subcycle=True)
     with pytest.raises(NotImplementedError, match="B3"):
-        amt.build_device_hierarchy(ml_t, device="cpu", dtype=torch.float64, coef_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="B3"):
-        amt.solve_refined(ml_t, np.ones(N * N), device="cpu", dtype="float64", coef_dtype="bfloat16")
-    ml3 = amt.structured_smoothed_aggregation_nd(
-        amt.poisson((32,) * 3, lattice=True), proxy=12, cut_rows=2000, min_proxy_dim=9,
-    )
-    assert isinstance(ml3.levels[0].A, LatticeMatrixND)
-    with pytest.raises(NotImplementedError, match="B3"):
-        _build(ml3)
+        amt.solve_refined(ml_t, np.ones(N * N), device="cpu", dtype="float64", coef_dtype="bfloat16",
+                          subcycle=True)
     levels, coarse = jax_hierarchy_to_numpy(h_j)
     with pytest.raises(NotImplementedError, match="B3"):
         hierarchy_from_numpy(levels, coarse, device="cpu", dtype=torch.float32, coef_dtype=torch.bfloat16,
                              sub={}, sub_start=0)
     with pytest.raises(ValueError):
         amt.build_device_hierarchy(ml_t, device="cpu", dtype=torch.float32, coef_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        amt.build_device_hierarchy(ml_t, device="cpu", dtype=torch.float16, coef_dtype=torch.bfloat16)
 
 
 def _all_float32(h):

@@ -401,42 +401,51 @@ def test_cuda_solve_refined(ml):
     assert np.linalg.norm(b - A @ x_gpu) / np.linalg.norm(b) < 1e-8
 
 
-# bf16 coefficient planes under float32 vectors (coef_dtype=torch.bfloat16):
-# K1/K2 cases as LEG_CASES, with even-Wy 5-point levels, where K2 pipelines
-# with 2-byte planes (odd Wy does not), and the 192² hierarchy's L0 (5-point,
-# pipelined) and L1 (9-point)
+# bf16 coefficient planes (coef_dtype=torch.bfloat16) under float32 and
+# float64 vectors (the *_f32_bf16 and *_f64_bf16 entries): K1/K2 cases as
+# LEG_CASES, with even-Wy 5-point levels, where K2 pipelines with 2-byte
+# planes under either vector type (odd Wy does not), and the 192²
+# hierarchy's L0 (5-point, pipelined) and L1 (9-point)
 BF16_LEG_CASES = [
     ("s", (37, 41), 3, 5), ("s", (64, 70), 2, 5), ("s", (300, 258), 3, 5), ("s", (300, 257), 2, 9),
     ("s", (64, 70), 3, 9), ("h", 192, 3, 0), ("h", 192, 3, 1), ("h", 200, 2, 1),
 ]
 BF16 = dict(dtype=torch.float32, coef_dtype=torch.bfloat16)
+VEC_DTYPES = [torch.float32, torch.float64]
 
 
-def _bf16_cache(case, seed):
+def _tol(dtype):
+    return TOL if dtype == torch.float32 else 1e-12
+
+
+def _bf16_cache(case, seed, dtype=torch.float32):
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
     from torch_port_common import synthetic_leg_cache
 
     if case[0] == "h":
         _, n, box, lvl = case
-        f = build_device_hierarchy(_small(n, box), device="cuda", tail=False, **BF16).levels[lvl].fused
+        f = build_device_hierarchy(_small(n, box), device="cuda", tail=False, **dict(BF16, dtype=dtype))
+        f = f.levels[lvl].fused
     else:
         _, dims, k, n_off = case
-        f = synthetic_leg_cache(dims, k, n_off, seed=seed, device="cuda", **BF16)
-    assert f.A.dtype == f.dinv.dtype == f.T.dtype == f.S.dtype == torch.bfloat16 and f.dtype == torch.float32
+        f = synthetic_leg_cache(dims, k, n_off, seed=seed, device="cuda", **dict(BF16, dtype=dtype))
+    assert f.A.dtype == f.dinv.dtype == f.T.dtype == f.S.dtype == torch.bfloat16 and f.dtype == dtype
     return f
 
 
+@pytest.mark.parametrize("dtype", VEC_DTYPES)
 @pytest.mark.parametrize("route", ["planned", "tiles", "pass"])
 @pytest.mark.parametrize("case", BF16_LEG_CASES, ids=str)
-def test_cuda_bf16_legs_match_plain_versions(ml, case, route):
-    """K1 (from x and from zero) and K2 with bf16 planes against their
-    plain versions on every route: tiled, K2 pipelined (its stage a pair of
-    coefficients a copy) and pass by pass."""
+def test_cuda_bf16_legs_match_plain_versions(ml, case, route, dtype):
+    """K1 (from x and from zero) and K2 with bf16 planes under float32 and
+    float64 vectors against their plain versions on every route: tiled, K2
+    pipelined (its stage a pair of coefficients a copy, b and x an element
+    a copy) and pass by pass."""
     import dataclasses
 
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
-    f = _bf16_cache(case, seed=sum(case[1]) if case[0] == "s" else 0)
+    f = _bf16_cache(case, seed=sum(case[1]) if case[0] == "s" else 0, dtype=dtype)
     if len(f.offsA) == 13:
         assert f.down_tile is None and f.up_tile is None
     else:
@@ -447,97 +456,104 @@ def test_cuda_bf16_legs_match_plain_versions(ml, case, route):
         f = dataclasses.replace(f, down_tile=None, up_tile=None, up_pipelined=False)
     Wx, Wy = f.row_dims
     n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
-    x, b, xc = _vec(n, n + 3, 1), _vec(n, n + 3, 2), _vec(nc, nc, 3)
+    x, b, xc = _vec(n, n + 3, 1, dtype), _vec(n, n + 3, 2, dtype), _vec(nc, nc, 3, dtype)
     before = dict(vl.launches)
     for x_zero in (False, True):
         got = vl.fused_down(f, x, b, x_zero=x_zero)
         ref = vl.fused_down_reference(f, x, b, x_zero=x_zero)
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
-            assert g.dtype == torch.float32 and g.shape == r.shape and _rel(g, r) < TOL
+            assert g.dtype == dtype and g.shape == r.shape and _rel(g, r) < _tol(dtype)
     got = vl.fused_up(f, x, b, xc)
     torch.cuda.synchronize()
-    assert got.shape == x.shape and _rel(got, vl.fused_up_reference(f, x, b, xc)) < TOL
+    assert got.shape == x.shape and _rel(got, vl.fused_up_reference(f, x, b, xc)) < _tol(dtype)
     assert vl.launches["down"] == before["down"] + 2 and vl.launches["up"] == before["up"] + 1
 
 
+@pytest.mark.parametrize("dtype", VEC_DTYPES)
 @pytest.mark.parametrize("case", [c for c in BF16_LEG_CASES if c != ("h", 200, 2, 1)], ids=str)
-def test_cuda_bf16_updown_matches_plain_version(ml, case):
+def test_cuda_bf16_updown_matches_plain_version(ml, case, dtype):
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
-    f = _bf16_cache(case, seed=sum(case[1]) + 2 if case[0] == "s" else 0)
+    f = _bf16_cache(case, seed=sum(case[1]) + 2 if case[0] == "s" else 0, dtype=dtype)
     assert f.updown_tile is not None
     Wx, Wy = f.row_dims
     n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
-    x, b, xc = _vec(n, n + 3, 4), _vec(n, n + 3, 5), _vec(nc, nc, 6)
+    x, b, xc = _vec(n, n + 3, 4, dtype), _vec(n, n + 3, 5, dtype), _vec(nc, nc, 6, dtype)
     before = vl.launches["updown"]
     got = vl.fused_updown(f, x, b, xc)
     ref = vl.fused_updown_reference(f, x, b, xc)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
-        assert g.shape == r.shape and _rel(g, r) < TOL
+        assert g.shape == r.shape and _rel(g, r) < _tol(dtype)
     assert vl.launches["updown"] == before + 1
 
 
+@pytest.mark.parametrize("dtype", VEC_DTYPES)
 @pytest.mark.parametrize("problem,rows", TAIL_CASES, ids=str)
-def test_cuda_bf16_tail_matches_plain_version(ml, problem, rows):
-    """K4 with bf16 A, T, S and float32 D⁻¹ on its tiled grid levels, a
-    grid level pass by pass (5 sweeps) and its block-0 levels."""
+def test_cuda_bf16_tail_matches_plain_version(ml, problem, rows, dtype):
+    """K4 with bf16 A, T, S and D⁻¹ at the vectors' dtype (float32 or
+    float64) on its tiled grid levels, a grid level pass by pass (5 sweeps)
+    and its block-0 levels."""
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
     from algebraicmultigrid_tpu_torch.ops.kernels.tail_kernel import fused_tail, fused_tail_reference
 
     n, box, iters = problem
-    h = build_device_hierarchy(_small(n, box, iters), device="cuda", tail_max_rows=rows, **BF16)
+    h = build_device_hierarchy(_small(n, box, iters), device="cuda", tail_max_rows=rows, **dict(BF16, dtype=dtype))
     assert h.tail is not None and h.tail_start == TAIL_START[rows, iters]
-    assert all((L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype) == (torch.bfloat16,) * 3 + (torch.float32,)
+    assert all((L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype) == (torch.bfloat16,) * 3 + (dtype,)
                for L in h.tail.levels)
     L = h.levels[h.tail_start]
     n, pad = L.A.shape[0], L.A.rows_padded
-    x, b = _vec(n, pad, 4), _vec(n, pad, 5)
+    x, b = _vec(n, pad, 4, dtype), _vec(n, pad, 5, dtype)
     before = vl.launches["tail"]
     for x_zero in (False, True):
         got = fused_tail(h.tail, x, b, x_zero=x_zero)
         ref = fused_tail_reference(h.tail, x, b, x_zero=x_zero)
         torch.cuda.synchronize()
-        assert got.shape == ref.shape and _rel(got, ref) < TOL
+        assert got.shape == ref.shape and _rel(got, ref) < _tol(dtype)
     assert vl.launches["tail"] == before + 2
 
 
-def test_cuda_bf16_fixed_cycles_and_solve(ml):
-    """With bf16 planes: 3 fixed cycles on the card against the CPU's plain
-    versions (the same bf16 values, float32 arithmetic in another order),
-    with the f32 path's launches; the refined solve to 1e-9."""
+@pytest.mark.parametrize("dtype", VEC_DTYPES)
+def test_cuda_bf16_fixed_cycles_and_solve(ml, dtype):
+    """With bf16 planes under float32 or float64 vectors: 3 fixed cycles on
+    the card against the CPU's plain versions (the same bf16 values, the
+    vectors' arithmetic in another order), with the f32 path's launches;
+    the refined solve to 1e-9."""
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy, run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     out, counts = {}, {}
     for dev in ("cuda", "cpu"):
-        h = build_device_hierarchy(ml, device=dev, tail_max_rows=5000, **BF16)
-        b = _vec(N * N, h.fine_padded, 6).to(dev)
+        h = build_device_hierarchy(ml, device=dev, tail_max_rows=5000, **dict(BF16, dtype=dtype))
+        b = _vec(N * N, h.fine_padded, 6, dtype).to(dev)
         before = dict(vl.launches)
         out[dev] = run_fixed_cycles(h, torch.zeros_like(b), b, 3)
         counts[dev] = {k: vl.launches[k] - before[k] for k in before}
-    assert _rel(out["cuda"], out["cpu"]) < TOL
+    assert out["cuda"].dtype == dtype and _rel(out["cuda"], out["cpu"]) < _tol(dtype)
     assert counts["cuda"] == {
         "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
     }
     b = np.random.default_rng(6).standard_normal(N * N)
-    x, hist = amt.solve_refined(ml, b, tol=1e-10, device="cuda", log=True, coef_dtype=torch.bfloat16)
+    x, hist = amt.solve_refined(ml, b, tol=1e-10, device="cuda", dtype=dtype, log=True, coef_dtype=torch.bfloat16)
     assert np.linalg.norm(b - ml.levels[0].A @ x) / np.linalg.norm(b) < 1e-9 and len(hist) - 1 <= 4
 
 
 def test_cuda_bf16_entries_refuse_other_pairs(ml):
-    """bf16 planes run only under float32 vectors with the legs' own dtypes;
-    a pair with no entry raises and launches nothing."""
+    """bf16 planes run under the vectors' dtype the cache was built for,
+    with the legs' own dtypes; a pair with no entry raises and launches
+    nothing."""
     import dataclasses
 
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     lib = vl.load_library()
     for name in ("down", "up", "updown", "tail"):
-        assert getattr(lib, f"amg_fused_{name}_f32_bf16") is not None
+        for sfx in ("f32_bf16", "f64_bf16"):
+            assert getattr(lib, f"amg_fused_{name}_{sfx}") is not None
     f = _bf16_cache(("s", (64, 70), 2, 5), seed=1)
     n = 64 * 70
     x = _vec(n, n, 1)
@@ -717,6 +733,111 @@ def test_cuda_sweep3d_matches_plain_version(ml, dims, dtype):
             assert got.shape == x.shape and _rel(got, want) < tol, v.march
         runs += len(variants) + 1
     assert vl.launches["sweep3d"] == before + runs
+
+
+@pytest.mark.parametrize("dims", [(5, 3, 4), (13, 9, 100), (45, 45, 45)])
+def test_cuda_sweep3d_bf16_planes_match_plain_version(ml, dims):
+    """K7's march with bf16 planes under float32 vectors
+    (``amg_sweep3d_march_f32_bf16``) against its plain version, as planned
+    and on other boxes and short segments; the halo-tile kernel refuses bf16
+    planes, and a float32 x beside them is the only pair with an entry."""
+    import dataclasses
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.lattice_nd import lattice_coloring_nd
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.kernels.sweep3d import (
+        build_sweep3d_cache, smooth_sweep3d, smooth_sweep3d_reference, smooth_sweep3d_tile,
+    )
+    from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import plan_march
+    from algebraicmultigrid_tpu_torch.ops.lattice_nd_op import latnd_from_spec
+
+    lib = vl.load_library()
+    prob = amt.poisson(dims, lattice=True)
+    A = latnd_from_spec(prob.spec, torch.float32, "cuda", coef_dtype=torch.bfloat16)
+    assert A.data.dtype == torch.bfloat16 and A.dtype == torch.float32
+    tab, nc = lattice_coloring_nd(prob.spec)
+    dinv = torch.zeros(A.rows_padded)
+    dinv[: A.shape[0]] = torch.as_tensor(1.0 / prob.spec.diagonal())
+    dinv = dinv.cuda()
+    n = A.shape[0]
+    x, b = _vec(n, A.rows_padded, 12), _vec(n, A.rows_padded, 13)
+    before = vl.launches["sweep3d"]
+    runs = 0
+    for it, fwd, bwd, omega in SWEEP_CONFIGS:
+        c = build_sweep3d_cache(A, dinv, tab, nc, omega, it, fwd, bwd)
+        S = len(c.steps)
+        assert c.march is not None and lib.amg_sweep3d_march_smem_bytes(*c.march.box, S, 1, 4) == c.march.smem
+        assert c.march == plan_march(c.dims, c.offsets, S, 4, device="cuda", coef_itemsize=2)[0]
+        want = smooth_sweep3d_reference(c, x, b)
+        variants = [c]
+        for kw in (dict(seg=3), dict(seg=1), dict(box=(16, 16)), dict(box=(24, 48), seg=7)):
+            plan, _ = plan_march(c.dims, c.offsets, S, 4, coef_itemsize=2, **kw)
+            variants.append(dataclasses.replace(c, march=plan))
+        for v in variants:
+            got = smooth_sweep3d(v, x, b)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == x.shape and _rel(got, want) < TOL, v.march
+        runs += len(variants)
+    assert vl.launches["sweep3d"] == before + runs
+    with pytest.raises(ValueError, match="halo-tile"):
+        smooth_sweep3d_tile(c, x, b)
+    with pytest.raises(TypeError):
+        smooth_sweep3d(c, x.double(), b.double())
+    assert vl.launches["sweep3d"] == before + runs
+
+
+def test_cuda_3d_bf16_cycle_and_solve(ml_3d):
+    """A 3-D hierarchy with bf16 LatND planes under float32: one V-cycle on
+    the card against the CPU's (K7's bf16 entry against its plain version,
+    2 launches), and the refined solve to 1e-8."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml_3d, device=dev, **BF16)
+        assert h.levels[0].A.data.dtype == torch.bfloat16 and h.levels[0].pre.A is h.levels[0].A
+        b = _vec(h.n_fine, h.fine_padded, 16).to(dev)
+        before = dict(vl.launches)
+        out[dev] = _one_iteration(h, amt.V(), torch.zeros_like(b), b)
+        counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+    assert _rel(out["cuda"], out["cpu"]) < TOL
+    assert counts["cuda"]["sweep3d"] == 2 and not any(counts["cpu"].values())
+    A = ml_3d.levels[0].A
+    b = np.random.default_rng(17).standard_normal(A.shape[0])
+    x, hist = amt.solve_refined(ml_3d, b, tol=1e-8, log=True, coef_dtype=torch.bfloat16)
+    assert len(hist) <= 5 and np.linalg.norm(b - A @ x) < 1e-8 * np.linalg.norm(b)
+
+
+def test_cuda_rs_cycle_matches_cpu(ml):
+    """The structured Ruge–Stüben hierarchy (``StructuredRS``, 192² cut to
+    six levels): one float64 V-cycle on the card against the CPU, K5 twice
+    on every Lat2D level (the 37-offset one through its wide instance) and
+    nothing else; the refined solve to 1e-8."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from algebraicmultigrid_tpu_torch.ops.lattice_op import Lat2D
+
+    gs = amt.GaussSeidel(ordering="multicolor")
+    ml_rs = amt.ruge_stuben(amt.poisson((N, N), lattice=True), CF=amt.StructuredRS(), presmoother=gs,
+                            postsmoother=gs, max_levels=6, **SETUP_KW)
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml_rs, device=dev, dtype=torch.float64)
+        lat = [L for L in h.levels if isinstance(L.A, Lat2D)]
+        assert len(lat) == 5 and max(len(L.A.offsets) for L in lat) == 37
+        b = _vec(N * N, h.fine_padded, 19, torch.float64).to(dev)
+        before = dict(vl.launches)
+        out[dev] = _one_iteration(h, amt.V(), torch.zeros_like(b), b)
+        counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+    assert _rel(out["cuda"], out["cpu"]) < 1e-12
+    assert counts["cuda"] == dict(dict.fromkeys(counts["cuda"], 0), gs=2 * len(lat))
+    b = np.random.default_rng(20).standard_normal(N * N)
+    x, hist = amt.solve_refined(ml_rs, b, tol=1e-8, log=True)
+    assert len(hist) <= 5 and np.linalg.norm(b - ml_rs.levels[0].A @ x) < 1e-8 * np.linalg.norm(b)
 
 
 def _gs_case(grid, dtype):
