@@ -21,6 +21,10 @@ Covered so far:
   RCM basis where it helps) → ``cg_device`` / ``solve_device`` /
   ``solve_refined`` / ``device_cycle_fn``; the drivers and
   ``ml.solve(B, engine="torch")`` take a multi-RHS B of shape [n, k];
+* the public API of the JAX package: ``solve``/``init``/``AMGSolver``
+  (``engine="torch"``), ``aspreconditioner`` and ``cg``, the preconditioner
+  builders, ``PMIS``/``LabelPropAggregation``, ``save_hierarchy``/
+  ``load_hierarchy`` (a file written by either package loads in the other);
 * the multi-GPU lattice tier (``algebraicmultigrid_tpu_torch.parallel``) on
   ``torch.distributed``: one process per x-slab, the halo-exchange SpMV
   with K8 overlapping the exchange, the slab-sharded V/W/F cycle and PCG.
@@ -39,8 +43,11 @@ from .config import (
     V,
     W,
 )
-from .models.aggregation import smoothed_aggregation
+from .models.aggregate import StandardAggregation
+from .models.aggregation import fit_candidates, smoothed_aggregation
+from .models.api import AMGSolver, RugeStubenAMG, SmoothedAggregationAMG, init, solve
 from .models.classical import ruge_stuben
+from .models.coarse import LinearSolveWrapper, Pinv, QRSolver, SpluSolver
 from .models.device import (
     build_device_hierarchy,
     cg_device,
@@ -50,7 +57,8 @@ from .models.device import (
     solve_refined,
 )
 from .models.fastsetup import structured_ruge_stuben, structured_smoothed_aggregation
-from .models.gallery import poisson
+from .models.gallery import poisson, stencil_grid
+from .models.interpolation import direct_interpolation
 from .models.lattice import LatticeMatrix, LatticeProblem
 from .models.lattice_nd import (
     BoxAggregationND,
@@ -58,18 +66,51 @@ from .models.lattice_nd import (
     LatticeProblemND,
     structured_smoothed_aggregation_nd,
 )
-from .models.multilevel import MultiLevel, operator_complexity
+from .models.multilevel import Level, MultiLevel, grid_complexity, operator_complexity, solve_mg
+from .models.parallel_setup import LabelPropAggregation, PMIS
+from .models.preconditioner import Preconditioner, aspreconditioner
+from .models.precs import RugeStubenPreconBuilder, SmoothedAggregationPreconBuilder
+from .models.prolongation_smooth import JacobiProlongation
+from .models.splitting import RS, rs_cf_splitting
+from .models.strength import Classical, SymmetricStrength
 from .models.structured import StructuredAggregation, StructuredRS
+from .ops.krylov import cg
+from .utils.arnoldi import approximate_spectral_radius
+from .utils.serialize import load_hierarchy, save_hierarchy
+from .utils.symmetry import HermitianSymmetry, NoSymmetry
 
 __version__ = "0.1.0"
 
 __all__ = [
+    # cycles & sweeps
     "Cycle", "V", "W", "F", "Sweep", "SymmetricSweep", "ForwardSweep", "BackwardSweep",
+    # smoothers
     "GaussSeidel", "Jacobi", "SOR",
-    "StructuredAggregation", "StructuredRS", "smoothed_aggregation", "structured_smoothed_aggregation",
-    "structured_smoothed_aggregation_nd", "ruge_stuben", "structured_ruge_stuben",
-    "MultiLevel", "operator_complexity", "LatticeMatrix", "LatticeProblem", "LatticeMatrixND",
-    "LatticeProblemND", "BoxAggregationND", "poisson",
-    "build_device_hierarchy", "get_device_hierarchy", "cg_device", "solve_refined",
-    "solve_device", "device_cycle_fn",
+    # strength / splitting / aggregation
+    "Classical", "SymmetricStrength", "RS", "StructuredRS", "rs_cf_splitting",
+    "StandardAggregation", "StructuredAggregation", "fit_candidates",
+    "PMIS", "LabelPropAggregation",
+    "JacobiProlongation",
+    "direct_interpolation",
+    # hierarchy
+    "ruge_stuben", "smoothed_aggregation", "Level", "MultiLevel", "solve_mg",
+    "operator_complexity", "grid_complexity",
+    # coarse solvers
+    "Pinv", "QRSolver", "LinearSolveWrapper", "SpluSolver",
+    # preconditioner / Krylov
+    "Preconditioner", "aspreconditioner", "cg", "cg_device", "solve_refined",
+    "RugeStubenPreconBuilder", "SmoothedAggregationPreconBuilder",
+    # CommonSolve-style API
+    "AMGSolver", "RugeStubenAMG", "SmoothedAggregationAMG", "solve", "init",
+    # lattice fast path
+    "LatticeMatrix", "LatticeProblem", "structured_ruge_stuben",
+    "structured_smoothed_aggregation",
+    "LatticeMatrixND", "LatticeProblemND", "BoxAggregationND",
+    "structured_smoothed_aggregation_nd",
+    # gallery & utils
+    "poisson", "stencil_grid", "approximate_spectral_radius",
+    "HermitianSymmetry", "NoSymmetry",
+    "save_hierarchy", "load_hierarchy",
+    # the torch engine
+    "build_device_hierarchy", "get_device_hierarchy", "solve_device", "device_cycle_fn",
 ]

@@ -37,14 +37,16 @@ operators.  The input is plain data:
       coloring's table, of the period shape), ``n_colors`` and optionally
       ``fallback``, the masked multicolor smoother dict that runs a
       multi-RHS x; the cache reads the level's own A;
-  - ``"fused"``: None, or the factored legs' full-size planes ``A``
-    [nA, Wx, Wy], ``dinv``, ``T``, ``S`` [Wx, Wy] plus ``offsA``,
-    ``color_grid``, ``n_colors``, ``k``, ``row_dims``, ``col_dims``,
-    ``omega``, ``iter``, ``forward``, ``backward``;
+  - ``"fused"``: None, or the legs' full-size planes ``A`` [nA, Wx, Wy]
+    and ``dinv`` [Wx, Wy] with either the factored ``T``, ``S`` [Wx, Wy]
+    or the non-factored ``R`` [nR, Wxc, Wyc] and ``P`` [nP, Wx, Wy] with
+    their ``offsR``, ``offsP``, plus ``offsA``, ``color_grid``,
+    ``n_colors``, ``k``, ``row_dims``, ``col_dims``, ``omega``, ``iter``,
+    ``forward``, ``backward``;
 * ``coarse``: ``kind`` ('qr' | 'pinv'), ``n``, ``rows_padded`` and the
   matrices ``qr_q``/``qr_r`` or ``mat``;
 * optionally ``tail``: the whole-tail cache of ``levels[tail_start:]`` —
-  ``"levels"``, one factored-leg dict (as ``"fused"`` above) per tail level,
+  ``"levels"``, one leg dict (as ``"fused"`` above) per tail level,
   fine to coarse, and ``"Mc"``, the [n7, n7] coarse solve operator;
 * optionally ``sub``: the whole-subcycle cache of ``levels[sub_start:]`` —
   the factored-leg dict of level ``sub_start`` (as ``"fused"`` above); its
@@ -55,8 +57,9 @@ operators.  The input is plain data:
 bf16 coefficient planes: numpy has no bf16 dtype that ``torch.as_tensor``
 reads, so they travel as float32 arrays holding bf16 values, and
 ``coef_dtype=torch.bfloat16`` rounds them on arrival (exactly, for such
-values): the ``"fused"`` planes A, dinv, T and S, the tail levels' A, T
-and S (their dinv and ``Mc`` stay at ``dtype``) and, under float32 only,
+values): the ``"fused"`` planes A, dinv, T and S (or R and P), the tail
+levels' A, T and S (or P; their dinv, R and ``Mc`` stay at ``dtype``) and,
+under float32 only,
 the LatND operators' planes, as ``build_device_hierarchy(...,
 coef_dtype=torch.bfloat16)`` stores them under float32 or float64 vectors.
 A ``sub`` cache takes no bf16 planes (ROADMAP B3).
@@ -185,15 +188,22 @@ def _smoother(d, dtype, device, A):
 
 
 def _fused(d, dtype, device, coef_dtype=None, dinv=True):
-    """A factored-leg cache from its dict; with ``coef_dtype`` its planes
-    rounded (``round_planes``)."""
+    """A leg cache from its dict (factored with ``T``/``S``, else ``R``/``P``);
+    with ``coef_dtype`` its planes rounded (``round_planes``; a tail level,
+    ``dinv=False``, keeps D⁻¹ and R)."""
     if d is None:
         return None
+    plane = lambda name: None if d.get(name) is None else _tensor(d[name], dtype, device)
+    factored = d.get("T") is not None
     cache = with_tile_plans(FusedLegCache(
         A=_tensor(d["A"], dtype, device),
         dinv=_tensor(d["dinv"], dtype, device),
-        T=_tensor(d["T"], dtype, device),
-        S=_tensor(d["S"], dtype, device),
+        T=plane("T"),
+        S=plane("S"),
+        R=None if factored else plane("R"),
+        P=None if factored else plane("P"),
+        offsR=() if factored else _pairs(d["offsR"]),
+        offsP=() if factored else _pairs(d["offsP"]),
         offsA=_pairs(d["offsA"]),
         color_grid=_pairs(d["color_grid"]),
         n_colors=int(d["n_colors"]),
@@ -205,7 +215,7 @@ def _fused(d, dtype, device, coef_dtype=None, dinv=True):
         forward=bool(d["forward"]),
         backward=bool(d["backward"]),
     ))
-    return cache if coef_dtype is None else round_planes(cache, coef_dtype, dinv=dinv)
+    return cache if coef_dtype is None else round_planes(cache, coef_dtype, dinv=dinv, restriction=dinv)
 
 
 def hierarchy_from_numpy(

@@ -231,6 +231,64 @@ __device__ __forceinline__ void correct_cell(T* x_out, const T* x_in,
   }
 }
 
+// ---- the non-factored R/P-plane transfers (the reference kernels' else
+// branches): R holds nR planes over the coarse grid, P nP planes over the
+// fine grid; the terms are summed in offset order, as the plain versions
+// sum them.
+
+// b_c[I, J] = sum_q R[q, I, J] * r[k I + dx_q, k J + dy_q], zero outside
+// the fine grid
+template <typename T, typename C>
+__device__ __forceinline__ void restrict_planes_cell(T* bc, const T* r,
+                                                     const C* __restrict__ R,
+                                                     const Stencil& sr, int I,
+                                                     int J, int Wx, int Wy,
+                                                     int Wxc, int Wyc, int k) {
+  const int64_t cplane = (int64_t)Wxc * Wyc;
+  const int64_t c = (int64_t)I * Wyc + J;
+  T acc = T(0);
+  for (int q = 0; q < sr.n; ++q) {
+    const int i = k * I + sr.dx[q];
+    const int j = k * J + sr.dy[q];
+    if (i >= 0 && i < Wx && j >= 0 && j < Wy) {
+      acc += coef<T>(R, q * cplane + c) * r[(int64_t)i * Wy + j];
+    }
+  }
+  bc[c] = acc;
+}
+
+// x_out = x_in + sum_q P[q, i, j] * x_c[i / K + dx_q, j / K + dy_q], zero
+// outside the coarse grid; x_out may alias x_in (a cell reads only its own
+// x)
+template <int K, typename T, typename C>
+__device__ __forceinline__ void correct_planes_cell_k(
+    T* x_out, const T* x_in, const T* xc, const C* __restrict__ P,
+    const Stencil& sp, int i, int j, int Wx, int Wy, int Wxc, int Wyc) {
+  const int64_t plane = (int64_t)Wx * Wy;
+  const int64_t c = (int64_t)i * Wy + j;
+  const int I = i / K, J = j / K;
+  T acc = T(0);
+  for (int q = 0; q < sp.n; ++q) {
+    const int ii = I + sp.dx[q];
+    const int jj = J + sp.dy[q];
+    if (ii >= 0 && ii < Wxc && jj >= 0 && jj < Wyc) {
+      acc += coef<T>(P, q * plane + c) * xc[(int64_t)ii * Wyc + jj];
+    }
+  }
+  x_out[c] = x_in[c] + acc;
+}
+
+template <typename T, typename C>
+__device__ __forceinline__ void correct_planes_cell(
+    T* x_out, const T* x_in, const T* xc, const C* __restrict__ P,
+    const Stencil& sp, int i, int j, int Wx, int Wy, int Wxc, int Wyc, int k) {
+  if (k == 2) {
+    correct_planes_cell_k<2>(x_out, x_in, xc, P, sp, i, j, Wx, Wy, Wxc, Wyc);
+  } else {
+    correct_planes_cell_k<3>(x_out, x_in, xc, P, sp, i, j, Wx, Wy, Wxc, Wyc);
+  }
+}
+
 // Visit every cell (i, j) of a Wx x Wy grid from a loop over blocks
 // first, first + stride, ...: thread t of block v takes flat cells
 // v * blockDim.x + t, then strides by stride * blockDim.x.  Coalesced, with

@@ -1,6 +1,7 @@
 // The whole-tail V-cycle recursion over a table of Lat2D level
-// descriptors, shared by the whole-tail kernel K4 (tail_kernel.cu) and the
-// phased whole-subcycle kernel K9 (subcycle_kernel.cu, its phase B).
+// descriptors, shared by the whole-tail kernel K4 (tail_kernel.cu, and
+// tail_nf_kernel.cu for its non-factored levels) and the phased
+// whole-subcycle kernel K9 (subcycle_kernel.cu, its phase B).
 //
 // For every tail level, fine to coarse: the presmooth color steps, the
 // residual and the factored restriction b_c = box_k-sum(T * (r - A (S r)));
@@ -28,6 +29,16 @@
 // no two coupled cells share a color.  The restriction sums each coarse
 // cell's k x k box of T (r - A g) in the same pass, one thread per coarse
 // cell.
+//
+// Non-factored levels (the reference's _tail_go else branches; the
+// instance with NF = true, K4's amg_fused_tail_nf_* entries in
+// tail_nf_kernel.cu): a level whose
+// Transfer holds R and P planes restricts with b_c[c] = sum_q R_q[c]
+// r[k c + d_q] (R at the vectors' type, as the reference's tail keeps it)
+// and corrects with x += sum_q P_q[i] x_c[i / k + d_q] (P of type C), pass
+// by pass on the grid or in block 0 (it has no tile).  A level with no R
+// in the table is factored; the NF = false instance (K4's factored entries
+// and K9) compiles none of it.
 //
 // The vectors and the arithmetic are of type T, the planes A, T and S of
 // type C and dinv of type D (stencil.cuh): T itself, or with bf16 planes
@@ -57,6 +68,27 @@ constexpr int kMaxTailLevels = 16;
 // a descriptor table holds a tail, or a subcycle's top level and its tail
 constexpr int kMaxTableLevels = kMaxTailLevels + 1;
 constexpr int kBlockCells = 4096;
+
+// A level's non-factored R/P planes, in a device table beside the LevelDesc
+// table (amg_tail_fill_transfer); R == nullptr: a factored level.
+struct Transfer {
+  const void* R;  // [nR, Wxc, Wyc] restriction planes, the vectors' type
+  const void* P;  // [nP, Wx, Wy] prolongation planes, the planes' type
+  Stencil sr;     // coarse (I, J) reads fine (k I + dx, k J + dy)
+  Stencil sp;     // fine (i, j) reads coarse (i / k + dx, j / k + dy)
+};
+
+inline int fill_transfer(Transfer* t, const void* R, const void* P,
+                         const int* offs_r, int n_r, const int* offs_p,
+                         int n_p) {
+  if (R == nullptr || P == nullptr || make_stencil(&t->sr, offs_r, n_r) ||
+      make_stencil(&t->sp, offs_p, n_p)) {
+    return 1;
+  }
+  t->R = R;
+  t->P = P;
+  return 0;
+}
 
 struct Span {  // the blocks first, first + stride, ... share a level's cells
   int first;
@@ -139,18 +171,75 @@ __device__ void level_up(const LevelDesc& L, T* x, const T* b, const T* xc,
   }
 }
 
+// the color steps of one leg of a level; the first reads x_in (nullptr:
+// the zero start) when first_in, else every step runs in place
+template <typename T, typename C, typename D, typename Barrier>
+__device__ void level_steps(const LevelDesc& L, T* x, const T* x_in,
+                            const T* b, bool first_in, Span sp, Barrier bar) {
+  const C* A = (const C*)L.A;
+  const D* dinv = (const D*)L.dinv;
+  const T omega = (T)L.omega;
+  for (int s = 0; s < L.n_steps; ++s) {
+    const bool first = first_in && s == 0;
+    const T* src = first ? x_in : (const T*)x;
+    const int color = L.steps[s];
+    for_cells(L.Wx, L.Wy, sp.first, sp.stride, [&](int i, int j) {
+      step_cell(x, src, b, A, dinv, L.st, L.cg, color, omega, i, j, L.Wx,
+                L.Wy, first);
+    });
+    bar();
+  }
+}
+
+// level_down on a non-factored level: presmooth, r = b - A x, then
+// b_c = sum_q R_q r[k c + d_q] through the R planes (at T)
+template <typename T, typename C, typename D, typename Barrier>
+__device__ void level_down_nf(const LevelDesc& L, const Transfer& tf, T* x,
+                              const T* x_in, const T* b, T* r, T* bc,
+                              Span sp, Barrier bar) {
+  const C* A = (const C*)L.A;
+  const int Wx = L.Wx, Wy = L.Wy;
+  level_steps<T, C, D>(L, x, x_in, b, true, sp, bar);
+  for_cells(Wx, Wy, sp.first, sp.stride, [&](int i, int j) {
+    r[(int64_t)i * Wy + j] =
+        b[(int64_t)i * Wy + j] - stencil_at(A, (const T*)x, L.st, i, j, Wx, Wy);
+  });
+  bar();
+  for_cells(L.Wxc, L.Wyc, sp.first, sp.stride, [&](int I, int J) {
+    restrict_planes_cell(bc, (const T*)r, (const T*)tf.R, tf.sr, I, J, Wx, Wy,
+                         L.Wxc, L.Wyc, L.k);
+  });
+  bar();
+}
+
+// level_up on a non-factored level: x += sum_q P_q x_c[i / k + d_q], then
+// postsmooth
+template <typename T, typename C, typename D, typename Barrier>
+__device__ void level_up_nf(const LevelDesc& L, const Transfer& tf, T* x,
+                            const T* b, const T* xc, Span sp, Barrier bar) {
+  for_cells(L.Wx, L.Wy, sp.first, sp.stride, [&](int i, int j) {
+    correct_planes_cell(x, (const T*)x, xc, (const C*)tf.P, tf.sp, i, j, L.Wx,
+                        L.Wy, L.Wxc, L.Wyc, L.k);
+  });
+  bar();
+  level_steps<T, C, D>(L, x, (const T*)x, b, false, sp, bar);
+}
+
 // One V-cycle over the n_lvl levels of sh (in shared memory): levels
 // [0, n_grid) on the whole grid, levels [n_grid, n_lvl) and the coarse solve
 // on block 0.  Level 0 reads x_in (nullptr: the zero start) and b_in and
 // writes x_out.  A tiled level's tile buffers are at smem + smem_off.  Every
 // thread of the grid reaches every grid.sync() (no early return); with
-// final_barrier the call ends on a grid barrier after its last write.
-template <typename T, typename C = T, typename D = C>
+// final_barrier the call ends on a grid barrier after its last write.  NF:
+// tf holds n_lvl Transfers (in device memory), a level's non-factored
+// planes where its R is set (the factored code unchanged where not).
+template <typename T, typename C = T, typename D = C, bool NF = false>
 __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
                            T* work, T* x_out, const T* x_in, const T* b_in,
                            const T* __restrict__ Mc, int n7, int64_t b7_off,
                            int64_t x7_off, unsigned char* smem,
-                           unsigned smem_off, bool final_barrier) {
+                           unsigned smem_off, bool final_barrier,
+                           const Transfer* tf = nullptr) {
   GridBarrier gbar{coop::this_grid()};
   BlockBarrier bbar;
   const Span gspan{(int)blockIdx.x, (int)gridDim.x};
@@ -167,6 +256,14 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
     return l + 1 < n_lvl ? (const T*)X(l + 1) : (const T*)(work + x7_off);
   };
   auto down = [&](int l, Span sp, auto bar) {
+    if constexpr (NF) {
+      if (tf[l].R != nullptr) {
+        level_down_nf<T, C, D>(sh[l], tf[l], X(l),
+                               l == 0 ? x_in : (const T*)nullptr, B(l),
+                               work + sh[l].r_off, BC(l), sp, bar);
+        return;
+      }
+    }
     level_down<T, C, D>(sh[l], X(l), l == 0 ? x_in : (const T*)nullptr, B(l),
                   work + sh[l].r_off, work + sh[l].g_off, BC(l), sp, bar);
   };
@@ -201,6 +298,12 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
     }
     __syncthreads();
     for (int l = n_lvl - 1; l >= n_grid; --l) {
+      if constexpr (NF) {
+        if (tf[l].R != nullptr) {
+          level_up_nf<T, C, D>(sh[l], tf[l], X(l), B(l), XC(l), bspan, bbar);
+          continue;
+        }
+      }
       level_up<T, C, D>(sh[l], X(l), B(l), XC(l), bspan, bbar);
     }
   }
@@ -214,6 +317,12 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
       });
       if (l > 0 || final_barrier) gbar();
     } else {
+      if constexpr (NF) {
+        if (tf[l].R != nullptr) {
+          level_up_nf<T, C, D>(L, tf[l], X(l), B(l), XC(l), gspan, gbar);
+          continue;
+        }
+      }
       level_up<T, C, D>(L, X(l), B(l), XC(l), gspan, gbar);
     }
   }

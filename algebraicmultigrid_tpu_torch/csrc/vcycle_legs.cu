@@ -43,6 +43,20 @@
 // 1.385 ms at 4096^2 that way, K3's first version (a cooperative launch
 // of 9 grid-wide passes) 2.26 ms, against a ~0.22 ms byte bound.
 
+// The non-factored R/P-plane branches (amg_fused_down_nf_*, amg_fused_up_nf_*;
+// the reference kernels' else branches, _down_kernel and _up_kernel): a
+// level without the factored stash keeps nR restriction planes over the
+// coarse grid and nP prolongation planes over the fine grid.  K1 runs the
+// presmooth passes, a pass writing r = b - A x and a pass with one thread a
+// coarse cell, b_c[c] = sum_q R_q[c] r[k c + d_q]; K2 a pass with one
+// thread a fine cell, x += sum_q P_q[i] x_c[i / k + d_q], then the
+// postsmooth passes.  Bytes bound them like the factored legs (the planes
+// read once a pass); the design is the first, simple one: the R and P
+// planes (21 and 5 at 4096^2's L0, 25 and 9 below) do not fit the tiles'
+// register map of 64 registers a thread, so they are read from device
+// memory, pass by pass.  K3 takes factored levels only, as the reference's
+// fused_updown does.
+//
 // bf16 coefficient planes (the entries *_f32_bf16 and *_f64_bf16: the
 // reference's AMG_COEF_DTYPE=bfloat16, which stores A, D^-1, T and S of the
 // legs in bf16 under float32 or float64 vectors).  The same kernels with
@@ -149,6 +163,52 @@ __global__ void correct_kernel(T* __restrict__ x_out,
   if (j >= Wy) return;
   for (int i = blockIdx.y; i < Wx; i += gridDim.y) {
     amg::correct_cell(x_out, x_in, xc, A, Tp, S, st, i, j, Wx, Wy, Wyc, k);
+  }
+}
+
+// ---- the non-factored R/P-plane legs (pass by pass) ---------------------
+
+// r = b - A x
+template <typename T, typename C>
+__global__ void residual_kernel(T* __restrict__ r, const T* __restrict__ x,
+                                const T* __restrict__ b,
+                                const C* __restrict__ A, Stencil st, int Wx,
+                                int Wy) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= Wy) return;
+  for (int i = blockIdx.y; i < Wx; i += gridDim.y) {
+    const int64_t c = (int64_t)i * Wy + j;
+    r[c] = b[c] - amg::stencil_at(A, x, st, i, j, Wx, Wy);
+  }
+}
+
+// one thread a coarse cell: b_c = sum_q R_q * r[k c + d_q]
+template <typename T, typename C>
+__global__ void restrict_planes_kernel(T* __restrict__ bc,
+                                       const T* __restrict__ r,
+                                       const C* __restrict__ R, Stencil sr,
+                                       int Wx, int Wy, int Wxc, int Wyc,
+                                       int k) {
+  const int J = blockIdx.x * blockDim.x + threadIdx.x;
+  if (J >= Wyc) return;
+  for (int I = blockIdx.y; I < Wxc; I += gridDim.y) {
+    amg::restrict_planes_cell(bc, r, R, sr, I, J, Wx, Wy, Wxc, Wyc, k);
+  }
+}
+
+// one thread a fine cell: x_out = x_in + sum_q P_q * x_c[c / k + d_q]
+template <typename T, typename C>
+__global__ void correct_planes_kernel(T* __restrict__ x_out,
+                                      const T* __restrict__ x_in,
+                                      const T* __restrict__ xc,
+                                      const C* __restrict__ P, Stencil sp,
+                                      int Wx, int Wy, int Wxc, int Wyc,
+                                      int k) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= Wy) return;
+  for (int i = blockIdx.y; i < Wx; i += gridDim.y) {
+    amg::correct_planes_cell(x_out, x_in, xc, P, sp, i, j, Wx, Wy, Wxc, Wyc,
+                             k);
   }
 }
 
@@ -736,6 +796,55 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const C* A,
                          x_in, b, xc, bc);
 }
 
+// K1 on a non-factored level: the presmooth passes (the first reads x_in,
+// nullptr the zero start), r = b - A x, then the R-plane restriction
+template <typename T, typename C>
+int fused_down_nf(T* x_out, const T* x_in, const T* b, const C* A,
+                  const C* dinv, const C* R, T* r, T* bc, const int* offs,
+                  int n_off, const int* ctab, int ca, int cb,
+                  const int* steps, int n_steps, double omega,
+                  const int* offs_r, int n_r, int Wx, int Wy, int Wxc,
+                  int Wyc, int k, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  Stencil st, sr;
+  ColorGrid cg;
+  if (amg::make_stencil(&st, offs, n_off) ||
+      amg::make_stencil(&sr, offs_r, n_r) ||
+      amg::make_colors(&cg, ctab, ca, cb) || n_steps < 1 || k < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  run_steps<T, C>(x_out, x_in, b, A, dinv, st, cg, steps, n_steps, (T)omega,
+                  Wx, Wy, true, stream);
+  residual_kernel<T, C><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
+      r, x_out, b, A, st, Wx, Wy);
+  restrict_planes_kernel<T, C><<<grid_for(Wxc, Wyc), kThreads, 0, stream>>>(
+      bc, r, R, sr, Wx, Wy, Wxc, Wyc, k);
+  return (int)cudaGetLastError();
+}
+
+// K2 on a non-factored level: the P-plane correction, then the postsmooth
+// passes in place
+template <typename T, typename C>
+int fused_up_nf(T* x_out, const T* x_in, const T* b, const C* A,
+                const C* dinv, const C* P, const T* xc, const int* offs,
+                int n_off, const int* ctab, int ca, int cb, const int* steps,
+                int n_steps, double omega, const int* offs_p, int n_p, int Wx,
+                int Wy, int Wxc, int Wyc, int k, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  Stencil st, sp;
+  ColorGrid cg;
+  if (amg::make_stencil(&st, offs, n_off) ||
+      amg::make_stencil(&sp, offs_p, n_p) ||
+      amg::make_colors(&cg, ctab, ca, cb) || (k != 2 && k != 3)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  correct_planes_kernel<T, C><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
+      x_out, x_in, xc, P, sp, Wx, Wy, Wxc, Wyc, k);
+  run_steps<T, C>(x_out, x_out, b, A, dinv, st, cg, steps, n_steps, (T)omega,
+                  Wx, Wy, false, stream);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // one entry per (vector, plane) type: T vectors, C planes A, dinv, T, S
@@ -777,7 +886,38 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const C* A,
                            Wyc, k, tile_x, tile_y, stream);                    \
   }
 
+// the non-factored entries: C planes A, dinv, R, P
+#define AMG_DEFINE_LEGS_NF(SUFFIX, T, C)                                       \
+  extern "C" int amg_fused_down_nf_##SUFFIX(                                   \
+      void* x_out, const void* x_in, const void* b, const void* A,             \
+      const void* dinv, const void* R, void* r, void* bc, const int* offs,     \
+      int n_off, const int* ctab, int ca, int cb, const int* steps,            \
+      int n_steps, double omega, const int* offs_r, int n_r, int Wx, int Wy,   \
+      int Wxc, int Wyc, int k, void* stream) {                                 \
+    return fused_down_nf<T, C>((T*)x_out, (const T*)x_in, (const T*)b,         \
+                               (const C*)A, (const C*)dinv, (const C*)R,       \
+                               (T*)r, (T*)bc, offs, n_off, ctab, ca, cb,       \
+                               steps, n_steps, omega, offs_r, n_r, Wx, Wy,     \
+                               Wxc, Wyc, k, stream);                           \
+  }                                                                            \
+  extern "C" int amg_fused_up_nf_##SUFFIX(                                     \
+      void* x_out, const void* x_in, const void* b, const void* A,             \
+      const void* dinv, const void* P, const void* xc, const int* offs,        \
+      int n_off, const int* ctab, int ca, int cb, const int* steps,            \
+      int n_steps, double omega, const int* offs_p, int n_p, int Wx, int Wy,   \
+      int Wxc, int Wyc, int k, void* stream) {                                 \
+    return fused_up_nf<T, C>((T*)x_out, (const T*)x_in, (const T*)b,           \
+                             (const C*)A, (const C*)dinv, (const C*)P,         \
+                             (const T*)xc, offs, n_off, ctab, ca, cb, steps,   \
+                             n_steps, omega, offs_p, n_p, Wx, Wy, Wxc, Wyc, k, \
+                             stream);                                          \
+  }
+
 AMG_DEFINE_LEGS(f32, float, float)
 AMG_DEFINE_LEGS(f64, double, double)
 AMG_DEFINE_LEGS(f32_bf16, float, __nv_bfloat16)
 AMG_DEFINE_LEGS(f64_bf16, double, __nv_bfloat16)
+AMG_DEFINE_LEGS_NF(f32, float, float)
+AMG_DEFINE_LEGS_NF(f64, double, double)
+AMG_DEFINE_LEGS_NF(f32_bf16, float, __nv_bfloat16)
+AMG_DEFINE_LEGS_NF(f64_bf16, double, __nv_bfloat16)

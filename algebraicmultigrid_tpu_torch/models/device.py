@@ -20,9 +20,11 @@ Port of the JAX package's ``models/device.py``:
   and the exact natural-order recurrence on small ELL levels (a CUDA kernel,
   ``ops/kernels/scan_gs.py``); natural-order GS/SOR above 2048 rows is
   promoted to multicolor, as in the JAX package;
-* levels whose SA setup stashed the factored prolongator run the fused legs
-  (``ops/kernels/vcycle_legs.py``): hand-written CUDA kernels on the card,
-  their plain versions on the CPU;
+* Lat2D levels with box-k transfers and symmetric multicolor GS/SOR run
+  the fused legs (``ops/kernels/vcycle_legs.py``): factored where the SA
+  setup stashed the factored prolongator, else through their R/P planes
+  (SA with ``NoSymmetry()``, a hierarchy from ``load_hierarchy``);
+  hand-written CUDA kernels on the card, their plain versions on the CPU;
 * the trailing run of small such levels plus the coarse solve runs as one
   whole-tail V-cycle (``ops/kernels/tail_kernel.py``) in V-cycles; those
   levels build no legs, and W/F cycles run them through the masked sweeps;
@@ -30,7 +32,11 @@ Port of the JAX package's ``models/device.py``:
   solve run as one phased whole-subcycle V-cycle from zero
   (``ops/kernels/subcycle_kernel.py``) in the V recursion;
 * ``run_fixed_cycles`` runs the top level's cross-cycle updown leg once per
-  cycle;
+  cycle where that level's legs are factored (K3 takes no R/P planes);
+* while a ``torch.profiler`` records (``utils.diagnostics.profile_trace``)
+  the cycle marks its phases with
+  ``torch.profiler.record_function`` ranges under the JAX package's
+  ``jax.named_scope`` names;
 * a multi-RHS block ``x[n, k]`` runs through every format's SpMV and every
   smoother, past the legs, the tail and the subcycle (which take a flat
   x), as in the JAX package: K5/K7 caches hand it to their masked
@@ -62,6 +68,7 @@ from ..ops.kernels.subcycle_kernel import build_fused_subcycle_cache, fused_subc
 from ..ops.kernels.sweep3d import Sweep3DCache, build_sweep3d_cache, smooth_sweep3d
 from ..ops.kernels.tail_kernel import build_fused_tail_cache, fused_tail
 from ..ops.kernels.vcycle_legs import build_level_legs, coef_dtype_of, fused_down, fused_up, fused_updown
+from ..utils.diagnostics import phase_range
 from ..ops.lattice_nd_op import LatND, latnd_from_spec
 from ..ops.lattice_op import Lat2D, lat2d_from_spec, pad_rows
 from ..ops.sparse import ELL, as_csr, ell_from_csr, np_dtype, round_up
@@ -726,10 +733,12 @@ def _cycle(h: DeviceHierarchy, cycle: Cycle, x, b, lvl: int, x_zero: bool = Fals
         # this level, every level below it and the coarse solve, one call
         # from the zero guess.  Unlike the JAX package's branch it requires
         # x_zero: an F cycle's V pass reaches this level with a nonzero x.
-        return fit_len(fused_subcycle(h.sub, b), x.shape[0])
+        with phase_range(f"L{lvl}/fused_subcycle"):
+            return fit_len(fused_subcycle(h.sub, b), x.shape[0])
     if h.tail is not None and lvl == h.tail_start and isinstance(cycle, V) and x.dim() == 1:
         # every level from here down plus the coarse solve, one call
-        return fused_tail(h.tail, x, b, x_zero=x_zero)
+        with phase_range(f"L{lvl}/fused_tail"):
+            return fused_tail(h.tail, x, b, x_zero=x_zero)
 
     level = h.levels[lvl]
     n_here = x.shape[0]
@@ -739,22 +748,30 @@ def _cycle(h: DeviceHierarchy, cycle: Cycle, x, b, lvl: int, x_zero: bool = Fals
     # sweeps and transfer operators, as in the JAX package
     legs = level.fused if x.dim() == 1 else None
     if legs is not None:
-        x, coarse_b = fused_down(legs, x, b, x_zero=x_zero)
-        coarse_b = fit_len(coarse_b, n_next)
+        with phase_range(f"L{lvl}/down"):
+            x, coarse_b = fused_down(legs, x, b, x_zero=x_zero)
+            coarse_b = fit_len(coarse_b, n_next)
     else:
-        x = _apply_smoother(level.pre, level.A, x, b)
-        res = b - fit_len(mat_vec(level.A, x), n_here)
-        coarse_b = fit_len(mat_vec(level.R, res), n_next)
+        with phase_range(f"L{lvl}/presmooth"):
+            x = _apply_smoother(level.pre, level.A, x, b)
+        with phase_range(f"L{lvl}/residual"):
+            res = b - fit_len(mat_vec(level.A, x), n_here)
+        with phase_range(f"L{lvl}/restrict"):
+            coarse_b = fit_len(mat_vec(level.R, res), n_next)
 
     if lvl == len(h.levels) - 1:
-        coarse_x = _coarse_solve(h.coarse, coarse_b)
+        with phase_range("coarse_solve"):
+            coarse_x = _coarse_solve(h.coarse, coarse_b)
     else:
         coarse_x = _next(h, cycle, torch.zeros_like(coarse_b), coarse_b, lvl + 1, x_zero=True)
 
     if legs is not None:
-        return fused_up(legs, x, b, coarse_x)
-    x = x + fit_len(mat_vec(level.P, coarse_x), n_here)
-    return _apply_smoother(level.post, level.A, x, b)
+        with phase_range(f"L{lvl}/up"):
+            return fused_up(legs, x, b, coarse_x)
+    with phase_range(f"L{lvl}/prolong"):
+        x = x + fit_len(mat_vec(level.P, coarse_x), n_here)
+    with phase_range(f"L{lvl}/postsmooth"):
+        return _apply_smoother(level.post, level.A, x, b)
 
 
 def _next(h, cycle, x, b, lvl, x_zero: bool = False):
@@ -784,8 +801,8 @@ def _subsolve(h: DeviceHierarchy, coarse_b, lvl: int):
 
 def run_fixed_cycles(h: DeviceHierarchy, x, b, n_cycles: int):
     """``n_cycles`` V-cycles, the same math as iterating
-    :func:`_one_iteration`.  When the top level has fused legs (and the tail
-    does not start there), the loop is: the down leg once, then per cycle
+    :func:`_one_iteration`.  When the top level has factored fused legs (and
+    the tail does not start there), the loop is: the down leg once, then per cycle
     the sub-hierarchy's V-cycle and the cross-cycle ``fused_updown`` (up of
     this cycle and down of the next in one launch; the up then the down leg
     on a level whose legs have no updown tile), and a last sub-cycle and
@@ -795,6 +812,7 @@ def run_fixed_cycles(h: DeviceHierarchy, x, b, n_cycles: int):
     usable = (
         n_cycles >= 1
         and fused is not None
+        and fused.factored
         and x.dim() == 1
         and not (h.tail is not None and h.tail_start == 0)
     )
@@ -804,16 +822,20 @@ def run_fixed_cycles(h: DeviceHierarchy, x, b, n_cycles: int):
         return x
 
     n_next = h.levels[1].A.rows_padded if len(h.levels) > 1 else h.coarse.rows_padded
-    xf, bc = fused_down(fused, x, b)
+    with phase_range("L0/down"):
+        xf, bc = fused_down(fused, x, b)
     for _ in range(n_cycles - 1):
         xc = _subsolve(h, fit_len(bc, n_next), 1)
         if fused.updown_tile is None:
             # past the tiled updown's limits (decided when the cache was built)
-            xf, bc = fused_down(fused, fused_up(fused, xf, b, xc), b)
+            with phase_range("L0/down"):
+                xf, bc = fused_down(fused, fused_up(fused, xf, b, xc), b)
         else:
-            xf, bc = fused_updown(fused, xf, b, xc)
+            with phase_range("L0/updown"):
+                xf, bc = fused_updown(fused, xf, b, xc)
     xc = _subsolve(h, fit_len(bc, n_next), 1)
-    return fused_up(fused, xf, b, xc)
+    with phase_range("L0/up"):
+        return fused_up(fused, xf, b, xc)
 
 
 def _resolve(ml: MultiLevel, device, dtype):

@@ -142,11 +142,15 @@ def build_fused_subcycle_cache(
         return None
     if legs is None:
         legs = build_level_legs(top, dtype, device)
-    if legs is None or _reach(legs.offsA) > MAX_REACH:
+    if legs is None or not legs.factored or _reach(legs.offsA) > MAX_REACH:
         return None
     if tail is None:
         tail = build_fused_tail_cache(levels, ml, start + 1, dtype, device, max_rows=10**9)
+    # the port's K9 runs a factored tail (the JAX kernel shares the tail's
+    # non-factored branch, which no hierarchy with a factored top reaches)
     if tail is None or tuple(tail.levels[0].row_dims) != tuple(legs.col_dims):
+        return None
+    if not all(L.factored for L in tail.levels):
         return None
     return make_fused_subcycle_cache(legs, tail)
 

@@ -21,14 +21,22 @@ the vectors' type where they load it.  ``fused_tail`` takes the plain version on
 on the CPU; on a CUDA tensor it launches the kernel or raises.  Its launches
 count under ``launches["tail"]`` of ``vcycle_legs``.
 
+Non-factored levels (the JAX ``_tail_go``'s ``else`` branches): a tail
+level without the factored stash keeps its R planes (at the working dtype,
+under bf16 planes too, as the JAX tail cache keeps them) and its P planes
+(bf16 under bf16 planes), and restricts and corrects through them; such a
+tail runs the kernel's ``amg_fused_tail_nf_*`` entry
+(``csrc/tail_nf_kernel.cu``), with the levels' R/P
+planes in a second descriptor table (``transfers``), its non-factored
+levels pass by pass (no tile), and counts under ``launches["tail_nf"]``.
+
 Differences from the JAX cache builder, all TPU layout: the planes stay
 unpadded (the kernel guards reads outside the grid to zero), so the ``_H``
 halo and the one-hot selector matrices are gone, and so is the VMEM audit
 (``AMG_TAIL_VMEM_MB``): the tail lives in device memory and L2.  The gate on
 levels is the JAX package's (``_level_ok``, ``_factored_spec``,
 ``_scale_plane``, final level ≤ 4096 rows; the legs' part of it is
-``build_level_legs``), less its non-factored R/P-plane branch, which is not
-ported: a tail level without the factored stash builds no tail.
+``build_level_legs``).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 from .vcycle_legs import (
     MAX_STEPS,
     FusedLegCache,
+    _offsets,
     build_level_legs,
     check_vector,
     coef_dtype_of,
@@ -96,6 +105,14 @@ class FusedTailCache:
     # block, or on the grid where the plan gives none)
     tiles: Tuple[Tuple[int, int], ...] = ()
     desc: Optional[torch.Tensor] = None  # uint8 LevelDesc table (CUDA only)
+    # uint8 Transfer table of the levels' R/P planes (CUDA only; None when
+    # every level is factored)
+    transfers: Optional[torch.Tensor] = None
+
+    @property
+    def factored(self) -> bool:
+        """Every level factored (the kernel's factored entries)."""
+        return all(L.factored for L in self.levels)
 
     @property
     def n7(self) -> int:
@@ -108,13 +125,14 @@ class FusedTailCache:
 
 
 def tail_tiles(levels):
-    """Each level's tile: the levels of more than ``BLOCK_CELLS`` cells in
-    tiles of about ``TAIL_TILE`` (``plan_tile``: a 5- or 9-point level whose
-    box fits the register map), else (0, 0): the level runs pass by pass."""
+    """Each level's tile: the factored levels of more than ``BLOCK_CELLS``
+    cells in tiles of about ``TAIL_TILE`` (``plan_tile``: a 5- or 9-point
+    level whose box fits the register map), else (0, 0): the level runs
+    pass by pass."""
     out = []
     for L in levels:
         tile = None
-        if L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS:
+        if L.factored and L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS:
             halo = leg_halo(len(L.steps), L.reach, True)
             tile = plan_tile(L.row_dims, L.k, len(L.offsA), halo, TAIL_TILE)
         out.append(tile or (0, 0))
@@ -148,6 +166,10 @@ def _work_layout(levels):
     return per, (off, off + n7), off + 2 * n7
 
 
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _descriptor(levels, per, tiles) -> torch.Tensor:
     """The kernels' LevelDesc table, filled by the library and copied to the
     card once."""
@@ -157,10 +179,27 @@ def _descriptor(levels, per, tiles) -> torch.Tensor:
     for i, (L, offs, tile) in enumerate(zip(levels, per, tiles)):
         err = lib.amg_tail_fill_level(
             ctypes.addressof(table), i,
-            L.A.data_ptr(), L.dinv.data_ptr(), L.T.data_ptr(), L.S.data_ptr(),
+            L.A.data_ptr(), L.dinv.data_ptr(), _ptr(L.T), _ptr(L.S),
             *offs, *L.row_dims, *L.col_dims, L.k, *tile, *stencil_args(L, L.steps),
         )
         raise_on(err, f"tail descriptor of level {i}")
+    host = torch.frombuffer(bytearray(table), dtype=torch.uint8)
+    return host.to(levels[0].A.device)
+
+
+def _transfers(levels) -> torch.Tensor:
+    """The kernel's Transfer table: each non-factored level's R/P planes
+    and offsets, a factored level's entry zero; copied to the card once."""
+    lib = load_library()
+    size = lib.amg_tail_transfer_bytes()
+    table = (ctypes.c_char * (size * len(levels)))()
+    for i, L in enumerate(levels):
+        if L.factored:
+            continue
+        err = lib.amg_tail_fill_transfer(
+            ctypes.addressof(table), i, L.R.data_ptr(), L.P.data_ptr(), *_offsets(L.offsR), *_offsets(L.offsP),
+        )
+        raise_on(err, f"tail transfer of level {i}")
     host = torch.frombuffer(bytearray(table), dtype=torch.uint8)
     return host.to(levels[0].A.device)
 
@@ -183,8 +222,13 @@ def make_fused_tail_cache(levels, Mc: torch.Tensor) -> FusedTailCache:
         raise ValueError(f"coarse operator {tuple(Mc.shape)} does not fit the grid {dims7}")
     per, _, work_len = _work_layout(levels)
     tiles = tail_tiles(levels)
-    desc = _descriptor(levels, per, tiles) if Mc.device.type == "cuda" else None
-    return FusedTailCache(levels=levels, Mc=Mc.contiguous(), dims7=dims7, work_len=work_len, tiles=tiles, desc=desc)
+    cuda = Mc.device.type == "cuda"
+    desc = _descriptor(levels, per, tiles) if cuda else None
+    transfers = _transfers(levels) if cuda and not all(L.factored for L in levels) else None
+    return FusedTailCache(
+        levels=levels, Mc=Mc.contiguous(), dims7=dims7, work_len=work_len, tiles=tiles, desc=desc,
+        transfers=transfers,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -225,8 +269,9 @@ def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int 
     tail level fails the gate: fused legs as ``build_level_legs`` builds
     them, the JAX tail's reach limits, at most 64 color steps a leg (the
     kernel's descriptor), chained grids, and a final grid of at most 4096
-    rows.  ``coef_dtype=torch.bfloat16`` rounds each level's A, T and S
-    from ``dtype`` to bf16; D⁻¹ stays at ``dtype`` (from the level's own
+    rows.  A level without the factored stash takes its R and P planes.
+    ``coef_dtype=torch.bfloat16`` rounds each level's A, T, S and P from
+    ``dtype`` to bf16; D⁻¹ and R stay at ``dtype`` (D⁻¹ from the level's own
     diagonal, not from a bf16 leg cache), as in the JAX package's tail
     cache under float32 and float64."""
     coef_dtype = coef_dtype_of(coef_dtype, dtype)
@@ -240,7 +285,7 @@ def build_fused_tail_cache(levels, ml, start: int, dtype, device, max_rows: int 
             return None
         if len(leg.steps) > MAX_STEPS:  # the kernel's descriptor holds 64
             return None
-        legs.append(leg if coef_dtype is None else round_planes(leg, coef_dtype, dinv=False))
+        legs.append(leg if coef_dtype is None else round_planes(leg, coef_dtype, dinv=False, restriction=False))
     W7x, W7y = legs[-1].col_dims
     if ml.final_A.shape[0] != W7x * W7y or W7x * W7y > MAX_COARSE_ROWS:
         return None
@@ -287,6 +332,9 @@ def fused_tail(cache: FusedTailCache, x, b, x_zero: bool = False):
         raise TypeError(f"fused_tail: the levels' planes {suffixes} and Mc {cache.Mc.dtype} differ")
     if cache.desc is None or cache.desc.device != x.device:
         raise ValueError("the tail cache was not built on this card")
+    nf = not cache.factored
+    if nf and (cache.transfers is None or cache.transfers.device != x.device):
+        raise ValueError("the tail cache's R/P planes were not put on this card")
     lib = load_library()
     per, (b7, x7), _ = _work_layout(cache.levels)
     block_cells = lib.amg_tail_block_cells()
@@ -295,11 +343,12 @@ def fused_tail(cache: FusedTailCache, x, b, x_zero: bool = False):
     x_out = torch.empty_like(x)
     if x.shape[0] > n:
         x_out[n:].zero_()
-    err = getattr(lib, f"amg_fused_tail_{suffixes.pop()}")(
-        cache.desc.data_ptr(), len(cache.levels), n_grid, work.data_ptr(), x_out.data_ptr(),
+    tables = (cache.desc.data_ptr(), cache.transfers.data_ptr()) if nf else (cache.desc.data_ptr(),)
+    err = getattr(lib, f"amg_fused_tail_{'nf_' if nf else ''}{suffixes.pop()}")(
+        *tables, len(cache.levels), n_grid, work.data_ptr(), x_out.data_ptr(),
         None if x_zero else x.data_ptr(), b.data_ptr(), cache.Mc.data_ptr(), cache.n7, b7, x7,
         cache.smem, torch.cuda.current_stream(x.device).cuda_stream,
     )
     raise_on(err, "fused_tail kernel")
-    launches["tail"] += 1
+    launches["tail_nf" if nf else "tail"] += 1
     return x_out

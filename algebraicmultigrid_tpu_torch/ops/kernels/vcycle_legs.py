@@ -18,7 +18,8 @@ launch of independent tiles, each the tile plus a halo in shared memory,
 ``csrc/leg_tile.cuh``) and a plain PyTorch version beside it
 (``fused_down_reference``, ``fused_up_reference``,
 ``fused_updown_reference``).  The port's CUDA sources (these legs, the
-whole-tail kernel ``csrc/tail_kernel.cu``, the whole-subcycle kernel
+whole-tail kernel ``csrc/tail_kernel.cu`` and its non-factored entries
+``csrc/tail_nf_kernel.cu``, the whole-subcycle kernel
 ``csrc/subcycle_kernel.cu``, the BSG SpMV ``csrc/bsg_spmv.cu``, the
 natural-order GS sweep ``csrc/scan_gs.cu``, the whole-sweep kernels K5
 ``csrc/gs_sweep.cu`` and K7 ``csrc/sweep3d.cu``, and the slab stencil K8
@@ -42,8 +43,17 @@ they load it (the ``*_f32_bf16`` and ``*_f64_bf16`` entries; bf16 widens to
 float, and float to double, exactly); the plain versions upcast the planes
 to the vectors' dtype at use.
 
-Left for later (as in the JAX package, they are not on the SA main path):
-the non-factored R/P-plane branches.
+The non-factored R/P-plane branches (the JAX kernels' ``else`` branches):
+a level without the SA factored stash — SA with ``NoSymmetry()``, or a
+hierarchy loaded by ``load_hierarchy`` — keeps its R planes (nR coarse
+planes) and P planes (nP fine planes) in the cache, expanded as the JAX
+leg builder expands them (bf16: at float32, then rounded), and its legs
+restrict with b_c = Σ_q R_q ⊙ r[k·c + δ_q] and correct with
+x += Σ_q P_q ⊙ x_c[⌊i/k⌋ + δ_q].  On the card they run pass by pass
+(``amg_fused_down_nf_*``, ``amg_fused_up_nf_*``: the color-step passes of
+the factored pass route, a residual pass, then one pass of the R-plane sum;
+the P-plane sum, then the color steps); K3 takes factored levels only, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -76,6 +86,8 @@ __all__ = [
     "fused_down_reference",
     "fused_up_reference",
     "fused_updown_reference",
+    "restrict_planes_reference",
+    "correct_planes_reference",
     "leg_halo",
     "plan_tile",
     "plan_updown",
@@ -94,8 +106,8 @@ CSRC = PACKAGE_DIR / "csrc"
 SOURCES = tuple(
     CSRC / f
     for f in (
-        "vcycle_legs.cu", "tail_kernel.cu", "subcycle_kernel.cu", "bsg_spmv.cu", "scan_gs.cu", "gs_sweep.cu",
-        "sweep3d.cu", "halo_stencil.cu",
+        "vcycle_legs.cu", "tail_kernel.cu", "tail_nf_kernel.cu", "subcycle_kernel.cu", "bsg_spmv.cu", "scan_gs.cu",
+        "gs_sweep.cu", "sweep3d.cu", "halo_stencil.cu",
     )
 )
 HEADERS = tuple(
@@ -130,6 +142,8 @@ MAX_TILE_ROWS = 65_535
 
 launches = {
     "down": 0, "up": 0, "updown": 0, "tail": 0, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
+    # the non-factored R/P-plane entries of K1, K2 and K4
+    "down_nf": 0, "up_nf": 0, "tail_nf": 0,
 }
 # the leg and whole-sweep kernels' launches by level: (counter, grid dims) -> count
 level_launches = collections.Counter()
@@ -137,13 +151,14 @@ level_launches = collections.Counter()
 
 @dataclasses.dataclass(frozen=True)
 class FusedLegCache:
-    """Full-size coefficient planes of one level's factored legs, at the
-    working dtype or in bf16 (``round_planes``)."""
+    """Full-size coefficient planes of one level's legs, at the working
+    dtype or in bf16 (``round_planes``): factored (T and S), or the R and P
+    planes (T and S None)."""
 
     A: torch.Tensor      # [nA, Wx, Wy] stencil planes
     dinv: torch.Tensor   # [Wx, Wy] 1/diag, 0 where diag == 0
-    T: torch.Tensor      # [Wx, Wy] tentative prolongator (offset (0, 0))
-    S: torch.Tensor      # [Wx, Wy] ω·D̃⁻¹ smoothing scale
+    T: Optional[torch.Tensor]  # [Wx, Wy] tentative prolongator (offset (0, 0))
+    S: Optional[torch.Tensor]  # [Wx, Wy] ω·D̃⁻¹ smoothing scale
     offsA: Tuple[Tuple[int, int], ...]
     color_grid: Tuple[Tuple[int, ...], ...]
     n_colors: int
@@ -166,6 +181,18 @@ class FusedLegCache:
     # the vectors' dtype where it is not the planes' (bf16 planes,
     # ``round_planes``); None: the planes' own, float32 under bf16 planes
     vec_dtype: Optional[torch.dtype] = None
+    # the non-factored R/P planes: R [nR, Wxc, Wyc], coarse (I, J) reading
+    # fine (k·I + dx, k·J + dy); P [nP, Wx, Wy], fine (i, j) reading coarse
+    # (⌊i/k⌋ + dx, ⌊j/k⌋ + dy)
+    R: Optional[torch.Tensor] = None
+    P: Optional[torch.Tensor] = None
+    offsR: Tuple[Tuple[int, int], ...] = ()
+    offsP: Tuple[Tuple[int, int], ...] = ()
+
+    @property
+    def factored(self) -> bool:
+        """P = (I − diag(S)·A)·T with T and S planes; else R and P planes."""
+        return self.T is not None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -265,7 +292,7 @@ def stage_bytes(box, n_off: int, reach: int, k: int, itemsize: int, coef_itemsiz
 
 def _pairs_ok(cache: "FusedLegCache") -> bool:
     """2-byte planes stage a pair of coefficients a 4-byte copy: an even
-    row length and 4-byte aligned planes."""
+    row length and 4-byte aligned planes (a factored cache's)."""
     ptrs = (cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr())
     return cache.row_dims[1] % 2 == 0 and all(p % 4 == 0 for p in ptrs)
 
@@ -288,7 +315,11 @@ def plan_up_pipelined(cache: "FusedLegCache") -> bool:
 
 
 def with_tile_plans(cache: "FusedLegCache") -> "FusedLegCache":
-    """The cache with K3's, K1's and K2's tiles planned from its shapes."""
+    """The cache with K3's, K1's and K2's tiles planned from its shapes; a
+    non-factored cache gets none (its legs run pass by pass, and it has no
+    K3)."""
+    if not cache.factored:
+        return dataclasses.replace(cache, updown_tile=None, down_tile=None, up_tile=None, up_pipelined=False)
     n = len(cache.steps)
     c = dataclasses.replace(
         cache,
@@ -316,18 +347,26 @@ def coef_dtype_of(coef_dtype, dtype) -> Optional[torch.dtype]:
     return coef_dtype
 
 
-def round_planes(cache: "FusedLegCache", coef_dtype, dinv: bool = True, dtype=None) -> "FusedLegCache":
-    """The cache with its A, T and S planes (and D⁻¹ with ``dinv``) rounded
-    from their dtype to ``coef_dtype`` (round to nearest even), under
-    vectors of ``dtype`` (default the cache's), the tiles planned again.
-    The legs round D⁻¹ too; the whole-tail cache keeps it at the working
-    dtype, as the JAX package's caches do."""
+def round_planes(
+    cache: "FusedLegCache", coef_dtype, dinv: bool = True, dtype=None, restriction: bool = True,
+) -> "FusedLegCache":
+    """The cache with its A, T, S and P planes (D⁻¹ with ``dinv``, R with
+    ``restriction``) rounded from their dtype to ``coef_dtype`` (round to
+    nearest even), under vectors of ``dtype`` (default the cache's), the
+    tiles planned again.  The legs round D⁻¹ and R too; the whole-tail
+    cache keeps D⁻¹ and its R planes at the working dtype, as the JAX
+    package's caches do."""
+    def rnd(t, keep=False):
+        return t if t is None or keep else t.to(coef_dtype)
+
     return with_tile_plans(dataclasses.replace(
         cache,
-        A=cache.A.to(coef_dtype),
-        dinv=cache.dinv.to(coef_dtype) if dinv else cache.dinv,
-        T=cache.T.to(coef_dtype),
-        S=cache.S.to(coef_dtype),
+        A=rnd(cache.A),
+        dinv=rnd(cache.dinv, not dinv),
+        T=rnd(cache.T),
+        S=rnd(cache.S),
+        R=rnd(cache.R, not restriction),
+        P=rnd(cache.P),
         vec_dtype=dtype or cache.dtype,
     ))
 
@@ -350,18 +389,18 @@ def build_fused_leg_cache(
     specA, specR, specP, color_grid, n_colors: int, dtype, device,
     omega: float, iters: int, fwd: bool, bwd: bool, factored_T, coef_dtype=None,
 ) -> Optional[FusedLegCache]:
-    """Planes for the factored legs, from the same inputs as the JAX
-    package's ``_maybe_build_fused_legs``: ``factored_T = (specT, scale)``
-    with ``scale`` either ``("table", table, (Kx, sx, Ky, sy))`` or
-    ``("vector", v)``.  None when the level is not a box-k factored level
-    the kernels take (the cycle then runs the unfused path).  The planes
-    are computed at ``dtype``; with ``coef_dtype=torch.bfloat16`` they are
-    computed at float32 under either working dtype and rounded to bf16
-    (``round_planes``), as the JAX package's leg builder does."""
+    """Planes for the legs, from the same inputs as the JAX package's
+    ``_maybe_build_fused_legs``: ``factored_T = (specT, scale)`` with
+    ``scale`` either ``("table", table, (Kx, sx, Ky, sy))`` or ``("vector",
+    v)`` gives the factored legs where T passes the JAX builder's check;
+    ``factored_T=None`` (or a T it refuses) the R and P planes.  None when
+    the level is not a box-k level the kernels take (the cycle then runs the
+    unfused path).  The planes are computed at ``dtype``; with
+    ``coef_dtype=torch.bfloat16`` they are computed at float32 under either
+    working dtype and rounded to bf16 (``round_planes``), as the JAX
+    package's leg builder does."""
     coef_dtype = coef_dtype_of(coef_dtype, dtype)
     vec_dtype, dtype = dtype, (dtype if coef_dtype is None else torch.float32)
-    if factored_T is None:
-        return None
     if tuple(specA.base_x) != (1, 1) or tuple(specA.base_y) != (1, 1):
         return None
     kx, ky = tuple(specR.base_x), tuple(specR.base_y)
@@ -377,8 +416,9 @@ def build_fused_leg_cache(
     grid = np.asarray(color_grid, dtype=np.int64)
     if len(specA.offsets) > MAX_OFFSETS or grid.size > MAX_COLOR_CELLS:
         return None
-    specT, scale = factored_T
-    if specT is None or scale is None or not _factored_ok(specT, k, dims, cdims):
+    specT, scale = factored_T if factored_T is not None else (None, None)
+    factored = specT is not None and scale is not None and _factored_ok(specT, k, dims, cdims)
+    if not factored and max(len(specR.offsets), len(specP.offsets)) > MAX_OFFSETS:
         return None
 
     Wx, Wy = dims
@@ -390,6 +430,27 @@ def build_fused_leg_cache(
         dinv = torch.where(diag != 0, 1.0 / torch.where(diag != 0, diag, 1.0), 0.0)
     else:
         dinv = torch.zeros((Wx, Wy), dtype=dtype, device=device)
+    meta = dict(
+        offsA=offsA,
+        color_grid=tuple(tuple(int(c) for c in row) for row in grid),
+        n_colors=int(n_colors),
+        k=k,
+        row_dims=dims,
+        col_dims=cdims,
+        omega=float(omega),
+        iter=int(iters),
+        forward=bool(fwd),
+        backward=bool(bwd),
+    )
+    if not factored:
+        cache = with_tile_plans(FusedLegCache(
+            A=A, dinv=dinv.contiguous(), T=None, S=None,
+            R=expand_planes(specR, dtype, device), P=expand_planes(specP, dtype, device),
+            offsR=tuple(tuple(int(v) for v in o) for o in specR.offsets),
+            offsP=tuple(tuple(int(v) for v in o) for o in specP.offsets),
+            **meta,
+        ))
+        return cache if coef_dtype is None else round_planes(cache, coef_dtype, dtype=vec_dtype)
     idxT = [tuple(o) for o in specT.offsets].index((0, 0))
     cxT, cyT = specT.row_class_arrays()
     T = torch.as_tensor(np.asarray(specT.table[idxT], dtype=np_dtype), device=device)
@@ -404,30 +465,16 @@ def build_fused_leg_cache(
         S = S[torch.as_tensor(cxS, device=device)][:, torch.as_tensor(cyS, device=device)]
     else:
         S = torch.as_tensor(np.asarray(scale[1], dtype=np_dtype).reshape(Wx, Wy), device=device)
-    cache = with_tile_plans(FusedLegCache(
-        A=A,
-        dinv=dinv.contiguous(),
-        T=T.contiguous(),
-        S=S.contiguous(),
-        offsA=offsA,
-        color_grid=tuple(tuple(int(c) for c in row) for row in grid),
-        n_colors=int(n_colors),
-        k=k,
-        row_dims=dims,
-        col_dims=cdims,
-        omega=float(omega),
-        iter=int(iters),
-        forward=bool(fwd),
-        backward=bool(bwd),
-    ))
+    cache = with_tile_plans(FusedLegCache(A=A, dinv=dinv.contiguous(), T=T.contiguous(), S=S.contiguous(), **meta))
     return cache if coef_dtype is None else round_planes(cache, coef_dtype, dtype=vec_dtype)
 
 
 def build_level_legs(level, dtype, device, coef_dtype=None) -> Optional[FusedLegCache]:
     """Fused legs for a host hierarchy level, wired as the JAX package's
     ``_maybe_build_fused_legs``: Lat2D A/P/R with box-k ratios, equal
-    symmetric multicolor GS/SOR pre/post configs, a periodic coloring and
-    the SA factored-prolongator stash.  None → the level runs unfused."""
+    symmetric multicolor GS/SOR pre/post configs and a periodic coloring;
+    factored where the SA setup stashed the factored prolongator, else on
+    the R and P planes.  None → the level runs unfused."""
     from ...config import SOR, GaussSeidel, SymmetricSweep
     from ...models.lattice import LatticeMatrix, lattice_coloring
 
@@ -444,21 +491,22 @@ def build_level_legs(level, dtype, device, coef_dtype=None) -> Optional[FusedLeg
     if got is None:
         return None
     grid, n_colors = got
+    factored_T = None
     T_t = getattr(level, "T_tent", None)
     s_t = getattr(level, "psmooth_scale", None)
-    if not isinstance(T_t, LatticeMatrix) or s_t is None:
-        return None
-    if isinstance(s_t, tuple) and s_t and s_t[0] == "table":
-        scale = s_t
-    else:
-        v = np.asarray(s_t).ravel()
-        if v.shape[0] != level.A.spec.row_dims[0] * level.A.spec.row_dims[1]:
-            return None
-        scale = ("vector", v)
+    if isinstance(T_t, LatticeMatrix) and s_t is not None:
+        if isinstance(s_t, tuple) and s_t and s_t[0] == "table":
+            factored_T = (T_t.spec, s_t)
+        else:
+            v = np.asarray(s_t).ravel()
+            # the JAX builder takes the vector as it is and fails on a
+            # wrong length; here that level keeps its R and P planes
+            if v.shape[0] == level.A.spec.row_dims[0] * level.A.spec.row_dims[1]:
+                factored_T = (T_t.spec, ("vector", v))
     omega = float(cfg.omega) if isinstance(cfg, SOR) else 1.0
     return build_fused_leg_cache(
         level.A.spec, level.R.spec, level.P.spec, grid, n_colors, dtype, device,
-        omega, cfg.iter, True, True, (T_t.spec, scale), coef_dtype=coef_dtype,
+        omega, cfg.iter, True, True, factored_T, coef_dtype=coef_dtype,
     )
 
 
@@ -489,9 +537,10 @@ def _color_plane(cache: FusedLegCache, device) -> torch.Tensor:
 
 
 def _planes(cache: FusedLegCache, dtype):
-    """(A, dinv, T, S) at the vectors' dtype: bf16 planes upcast at use,
-    exactly, as the JAX kernels do once a bf16 plane meets an f32 vector."""
-    return tuple(p.to(dtype) for p in (cache.A, cache.dinv, cache.T, cache.S))
+    """(A, dinv, T, S) at the vectors' dtype (T and S None on a non-factored
+    cache): bf16 planes upcast at use, exactly, as the JAX kernels do once a
+    bf16 plane meets an f32 vector."""
+    return tuple(None if p is None else p.to(dtype) for p in (cache.A, cache.dinv, cache.T, cache.S))
 
 
 def _sweep(cache: FusedLegCache, X, B, steps):
@@ -508,24 +557,72 @@ def _pad_out(X: torch.Tensor, length: int) -> torch.Tensor:
     return torch.nn.functional.pad(v, (0, length - v.shape[0])) if length > v.shape[0] else v
 
 
+def _margins(offs, n_src: int, n_dst: int) -> Tuple[int, int]:
+    """(lo, hi) zero padding of a source axis of ``n_src`` cells so that
+    ``d + i`` over a span of ``n_dst`` cells stays inside it for every
+    offset d."""
+    return max([0] + [-d for d in offs]), max([0] + [d + n_dst - n_src for d in offs])
+
+
+def restrict_planes_reference(R: torch.Tensor, offsR, r: torch.Tensor, k: int, col_dims):
+    """b_c[I, J] = Σ_q R_q[I, J] · r[k·I + dx_q, k·J + dy_q], r zero outside
+    its grid (the JAX down kernel's residue-subsample sum), as a [Wxc, Wyc]
+    grid; the terms summed in offset order."""
+    Wx, Wy = r.shape
+    Wxc, Wyc = col_dims
+    span = lambda W: k * (W - 1) + 1
+    lx, hx = _margins([d for d, _ in offsR], Wx, span(Wxc))
+    ly, hy = _margins([d for _, d in offsR], Wy, span(Wyc))
+    rp = torch.nn.functional.pad(r, (ly, hy, lx, hx))
+    acc = None
+    for q, (dx, dy) in enumerate(offsR):
+        sub = rp[lx + dx : lx + dx + span(Wxc) : k, ly + dy : ly + dy + span(Wyc) : k]
+        term = R[q] * sub
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def correct_planes_reference(P: torch.Tensor, offsP, xc: torch.Tensor, k: int, row_dims):
+    """Σ_q P_q[i, j] · x_c[⌊i/k⌋ + dx_q, ⌊j/k⌋ + dy_q], x_c zero outside its
+    grid (the JAX up kernel's shifted slices of the k-fold upsampled x_c), as
+    a [Wx, Wy] grid; the terms summed in offset order."""
+    Wx, Wy = row_dims
+    Wxc, Wyc = xc.shape
+    lx, hx = _margins([d for d, _ in offsP], Wxc, -(-Wx // k))
+    ly, hy = _margins([d for _, d in offsP], Wyc, -(-Wy // k))
+    up = torch.nn.functional.pad(xc, (ly, hy, lx, hx)).repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)
+    acc = None
+    for q, (dx, dy) in enumerate(offsP):
+        src = up[k * (lx + dx) : k * (lx + dx) + Wx, k * (ly + dy) : k * (ly + dy) + Wy]
+        term = P[q] * src
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def _restrict(cache: FusedLegCache, X, B):
-    """b_c = box_k-sum(T⊙(r − A·(S⊙r))), r = B − A·X, flat [Wxc·Wyc]."""
+    """r = B − A·X restricted, flat [Wxc·Wyc]: b_c = box_k-sum(T⊙(r −
+    A·(S⊙r))) on a factored cache, else the R-plane sum."""
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     k = cache.k
     A, _, T, S = _planes(cache, X.dtype)
     r = B - _stencil(A, X, cache.offsA)
+    if not cache.factored:
+        return restrict_planes_reference(cache.R.to(X.dtype), cache.offsR, r, k, cache.col_dims).reshape(Wxc * Wyc)
     ts = T * (r - _stencil(A, S * r, cache.offsA))
     ts = torch.nn.functional.pad(ts, (0, k * Wyc - Wy, 0, k * Wxc - Wx))
     return ts.reshape(Wxc, k, Wyc, k).sum(dim=1).sum(dim=2).reshape(Wxc * Wyc)
 
 
 def _correct(cache: FusedLegCache, X, xc):
-    """X + P·x_c with P = (I − diag(S)·A)·T."""
+    """X + P·x_c: P = (I − diag(S)·A)·T on a factored cache, else the
+    P-plane sum."""
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     k = cache.k
     XC = xc[: Wxc * Wyc].reshape(Wxc, Wyc)
+    if not cache.factored:
+        return X + correct_planes_reference(cache.P.to(X.dtype), cache.offsP, XC, k, cache.row_dims)
     up = XC.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)[:Wx, :Wy]
     A, _, T, S = _planes(cache, X.dtype)
     Tup = T * up
@@ -552,9 +649,16 @@ def fused_up_reference(cache: FusedLegCache, x, b, xc):
     return _pad_out(X, x.shape[0])
 
 
+def _factored_only(cache: FusedLegCache):
+    """K3 takes factored levels only, as the JAX ``fused_updown`` does."""
+    if not cache.factored:
+        raise ValueError("fused_updown takes a factored leg cache (T and S planes), not the R/P planes")
+
+
 def fused_updown_reference(cache: FusedLegCache, x, b, xc):
     """(x', b_c') = down(up(x, x_c)) across the cycle boundary, with the
     double step list, in plain PyTorch."""
+    _factored_only(cache)
     Wx, Wy = cache.row_dims
     n = Wx * Wy
     B = b[:n].reshape(Wx, Wy)
@@ -631,6 +735,9 @@ _SIGNATURES = {
     "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 8 + [_P],
     "amg_fused_updown_{}": [_P] * 9 + _STENCIL + [_I] * 7 + [_P],
     "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
+    "amg_fused_down_nf_{}": [_P] * 8 + _STENCIL + [_IP, _I] + [_I] * 5 + [_P],
+    "amg_fused_up_nf_{}": [_P] * 7 + _STENCIL + [_IP, _I] + [_I] * 5 + [_P],
+    "amg_fused_tail_nf_{}": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_fused_subcycle_{}": [_P, _I, _I, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_scan_gs_{}": [_P] * 9 + [_I, _I, _I, _D, _I, _I, _I, _I, _P],
     "amg_gs_sweep_{}": [_P] * 5 + _SWEEP,
@@ -645,7 +752,27 @@ _SIGNATURES = {
 _BF16_ENTRIES = {
     "amg_fused_down_{}": ("f32_bf16", "f64_bf16"), "amg_fused_up_{}": ("f32_bf16", "f64_bf16"),
     "amg_fused_updown_{}": ("f32_bf16", "f64_bf16"), "amg_fused_tail_{}": ("f32_bf16", "f64_bf16"),
+    "amg_fused_down_nf_{}": ("f32_bf16", "f64_bf16"), "amg_fused_up_nf_{}": ("f32_bf16", "f64_bf16"),
+    "amg_fused_tail_nf_{}": ("f32_bf16", "f64_bf16"),
     "amg_sweep3d_march_{}": ("f32_bf16",),
+}
+
+
+# the library's other entries (all return int)
+_HELPERS = {
+    "amg_tail_level_bytes": [],
+    "amg_tail_block_cells": [],
+    "amg_tile_smem_bytes": [_I] * 5,
+    "amg_tail_fill_level": [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L] + [_I] * 7 + _STENCIL,
+    "amg_tail_transfer_bytes": [],
+    "amg_tail_fill_transfer": [_P, _I, _P, _P, _IP, _I, _IP, _I],
+    "amg_scan_gs_smem_bytes": [_I] * 5,
+    "amg_sweep3d_march_smem_bytes": [_I] * 5,
+    "amg_gs_sweep_march_smem_bytes": [_I] * 6,
+    "amg_gs_sweep_march_batch": [_I],
+    "amg_gs_sweep_march_blocks_per_sm": [_I] * 4,
+    "amg_sweep3d_march_blocks_per_sm": [_I] * 6,
+    "amg_bsg_spmv_f32": [_P] * 5 + [_L, _I, _I, _L, _P],
 }
 
 
@@ -665,18 +792,9 @@ def load_library():
         for sfx in ("f32", "f64") + _BF16_ENTRIES.get(name, ()):
             fn = getattr(lib, name.format(sfx))
             fn.argtypes, fn.restype = args, _I
-    lib.amg_tail_level_bytes.argtypes, lib.amg_tail_level_bytes.restype = [], _I
-    lib.amg_tail_block_cells.argtypes, lib.amg_tail_block_cells.restype = [], _I
-    lib.amg_tile_smem_bytes.argtypes, lib.amg_tile_smem_bytes.restype = [_I] * 5, _I
-    lib.amg_tail_fill_level.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L] + [_I] * 7 + _STENCIL
-    lib.amg_tail_fill_level.restype = _I
-    lib.amg_scan_gs_smem_bytes.argtypes, lib.amg_scan_gs_smem_bytes.restype = [_I] * 5, _I
-    for name, n_args in (("amg_sweep3d_march_smem_bytes", 5), ("amg_gs_sweep_march_smem_bytes", 6),
-                         ("amg_gs_sweep_march_batch", 1), ("amg_gs_sweep_march_blocks_per_sm", 4),
-                         ("amg_sweep3d_march_blocks_per_sm", 6)):
-        getattr(lib, name).argtypes, getattr(lib, name).restype = [_I] * n_args, _I
-    lib.amg_bsg_spmv_f32.argtypes = [_P] * 5 + [_L, _I, _I, _L, _P]
-    lib.amg_bsg_spmv_f32.restype = _I
+    for name, args in _HELPERS.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, _I
     _lib = lib
     return lib
 
@@ -718,15 +836,21 @@ def stencil_args(cache: FusedLegCache, steps):
 
 def plane_suffix(cache: FusedLegCache, name: str, dinv_working: bool = False) -> str:
     """The C entry suffix of a cache's (vector, plane) dtypes: "f32",
-    "f64", or "f32_bf16" / "f64_bf16" for bf16 A, T and S (and D⁻¹, or D⁻¹
-    at the vectors' dtype with ``dinv_working``, the whole-tail cache's);
-    raises for a pair with no entry."""
+    "f64", or "f32_bf16" / "f64_bf16" for bf16 A, T and S, or A, R and P
+    (and D⁻¹, or D⁻¹ and R at the vectors' dtype with ``dinv_working``, the
+    whole-tail cache's); raises for a pair with no entry."""
     vec, coef = cache.dtype, cache.A.dtype
     want_dinv = vec if dinv_working else coef
-    if any(p.dtype != coef for p in (cache.T, cache.S)) or cache.dinv.dtype != want_dinv:
+    if cache.factored:
+        want = {"T": (cache.T, coef), "S": (cache.S, coef)}
+    else:
+        want = {"R": (cache.R, want_dinv), "P": (cache.P, coef)}
+    want["D⁻¹"] = (cache.dinv, want_dinv)
+    bad = {k: (t.dtype, d) for k, (t, d) in want.items() if t.dtype != d}
+    if bad:
         raise TypeError(
-            f"{name}: planes A/T/S {cache.A.dtype}/{cache.T.dtype}/{cache.S.dtype} and D⁻¹ {cache.dinv.dtype}"
-            f" have no entry (D⁻¹ must be {want_dinv})"
+            f"{name}: planes A {coef} and " + ", ".join(f"{k} {g} (must be {d})" for k, (g, d) in bad.items())
+            + " have no entry"
         )
     if coef == vec and vec in SUFFIX:
         return SUFFIX[vec]
@@ -770,14 +894,60 @@ def _tile_args(cache: FusedLegCache, tile, name: str):
     return tile
 
 
+def _offsets(offs):
+    """(offsets, count) as a C entry takes a stencil."""
+    return _ints([v for o in offs for v in o]), len(offs)
+
+
+def _fused_down_nf(cache: FusedLegCache, x, b, x_zero: bool):
+    """K1's non-factored entry: the presmooth passes, a residual pass into
+    r and the R-plane restriction pass."""
+    Wx, Wy = cache.row_dims
+    Wxc, Wyc = cache.col_dims
+    n = Wx * Wy
+    fn, x_out = _prepare(cache, "fused_down_nf", x, [("x", x, n), ("b", b, n)])
+    r = torch.empty((Wx, Wy), dtype=x.dtype, device=x.device)
+    bc = torch.empty(Wxc * Wyc, dtype=x.dtype, device=x.device)
+    err = fn(
+        x_out.data_ptr(), None if x_zero else x.data_ptr(), b.data_ptr(),
+        cache.A.data_ptr(), cache.dinv.data_ptr(), cache.R.data_ptr(), r.data_ptr(), bc.data_ptr(),
+        *stencil_args(cache, cache.steps), *_offsets(cache.offsR), Wx, Wy, Wxc, Wyc, cache.k, _stream(x),
+    )
+    raise_on(err, "fused_down_nf kernel")
+    launches["down_nf"] += 1
+    level_launches["down_nf", cache.row_dims] += 1
+    return x_out, bc
+
+
+def _fused_up_nf(cache: FusedLegCache, x, b, xc):
+    """K2's non-factored entry: the P-plane correction pass, then the
+    postsmooth passes."""
+    Wx, Wy = cache.row_dims
+    Wxc, Wyc = cache.col_dims
+    n = Wx * Wy
+    fn, x_out = _prepare(cache, "fused_up_nf", x, [("x", x, n), ("b", b, n), ("xc", xc, Wxc * Wyc)])
+    err = fn(
+        x_out.data_ptr(), x.data_ptr(), b.data_ptr(), cache.A.data_ptr(), cache.dinv.data_ptr(),
+        cache.P.data_ptr(), xc.data_ptr(), *stencil_args(cache, cache.steps), *_offsets(cache.offsP),
+        Wx, Wy, Wxc, Wyc, cache.k, _stream(x),
+    )
+    raise_on(err, "fused_up_nf kernel")
+    launches["up_nf"] += 1
+    level_launches["up_nf", cache.row_dims] += 1
+    return x_out
+
+
 def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
     """(x', b_c) = (presmooth(x, b), R·(b − A·x')); ``x_zero`` asserts x is
     the zero vector (coarse-level cycles start from it), so x is not read.
     Returns x' at ``x``'s (padded) length and b_c at Wxc·Wyc.  A level with
     a planned tile (``cache.down_tile``) runs one launch of independent
-    tiles; any other, pass by pass."""
+    tiles; any other, pass by pass; a non-factored level its own entry,
+    pass by pass."""
     if x.device.type == "cpu":
         return fused_down_reference(cache, x, b, x_zero=x_zero)
+    if not cache.factored:
+        return _fused_down_nf(cache, x, b, x_zero)
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
@@ -803,9 +973,11 @@ def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
 def fused_up(cache: FusedLegCache, x, b, xc):
     """x = postsmooth(x + P·x_c, b); returns x at ``x``'s (padded) length.
     Tiled (``cache.up_tile``; pipelined where ``cache.up_pipelined``) or
-    pass by pass, as ``fused_down``."""
+    pass by pass, as ``fused_down`` (a non-factored level pass by pass)."""
     if x.device.type == "cpu":
         return fused_up_reference(cache, x, b, xc)
+    if not cache.factored:
+        return _fused_up_nf(cache, x, b, xc)
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
@@ -828,7 +1000,9 @@ def fused_updown(cache: FusedLegCache, x, b, xc):
     launch of independent tiles: returns the corrected and twice-smoothed x
     at ``x``'s (padded) length and the next cycle's coarse rhs at Wxc·Wyc.
     A level with no planned tile (``cache.updown_tile`` None) has no K3 on
-    the card; ``run_fixed_cycles`` runs K2 then K1 there."""
+    the card; ``run_fixed_cycles`` runs K2 then K1 there.  Factored levels
+    only, as in the JAX package."""
+    _factored_only(cache)
     if x.device.type == "cpu":
         return fused_updown_reference(cache, x, b, xc)
     if cache.updown_tile is None:

@@ -6,7 +6,9 @@ Runs, in order, and exits non-zero on the first failure:
 2. builds the port's CUDA library from the sources in the checkout
    (``csrc/vcycle_legs.cu`` with K1 ``fused_down``, K2 ``fused_up``, K3
    ``fused_updown``, each with float32 or float64 planes or bf16 planes
-   under either; ``csrc/tail_kernel.cu`` with K4 ``fused_tail``;
+   under either, and the non-factored K1/K2 entries; ``csrc/tail_kernel.cu``
+   with K4 ``fused_tail`` and ``csrc/tail_nf_kernel.cu`` with its
+   non-factored entry;
    ``csrc/subcycle_kernel.cu`` with K9 ``fused_subcycle``;
    ``csrc/bsg_spmv.cu`` with K6; ``csrc/scan_gs.cu``; ``csrc/gs_sweep.cu``
    with K5's march and ``csrc/sweep3d.cu`` with K7's, each with its first
@@ -154,7 +156,28 @@ Runs, in order, and exits non-zero on the first failure:
     each (rounds, PCG iterations and the cycles' relres printed), and
     counts one V-cycle (exactly 2 K5 launches on each Lat2D level and the
     K6 launches of its BSG levels, derived from the hierarchy) and times it
-    by CUDA events.
+    by CUDA events;
+18. drives the public API tier into the non-factored R/P-plane branches:
+    (a) ``amt.solve(LP, A·1, SmoothedAggregationAMG(),
+    aggregate=StructuredAggregation(box=3), symmetry=NoSymmetry(),
+    presmoother=postsmoother=GaussSeidel(ordering="multicolor"),
+    engine="torch", dtype=float32, coef_dtype=bfloat16, reltol=1e-5)`` with
+    the counters zeroed just before (setup, lowering and V-cycles on the
+    card): asserts 8 levels, OC 1.225, tail start 2, the legs of L0 and L1
+    and the tail non-factored (legs' A, D⁻¹, R, P bf16; the tail's A, P
+    bf16 with R and D⁻¹ float32) and exactly the non-factored K1/K2 on L0
+    and L1 and K4 once a V-cycle, no other kernel and no masked sweep;
+    (b) ``save_hierarchy`` → ``load_hierarchy`` of phase 4's flagship (no
+    factored stash: non-factored legs and tail) → ``solve_refined(tol=1e-8,
+    coef_dtype=bfloat16)`` (< 1e-8 within 4 rounds, the counters zeroed
+    just before); (c) the non-factored K1 (L0, L1, ``x_zero`` both ways),
+    K2 (L0, L1) and K4 (``x_zero`` both ways) on bf16 and on float32 planes
+    against their plain versions (max relative error <= 1e-5), each timed
+    in turns with the factored entry on phase 4's hierarchy on the same
+    vectors (factored, nf, nf, factored), beside its 2-byte and 4-byte
+    bound; (d) a V-cycle and a fixed cycle, non-factored and factored,
+    timed in turns, and one V-cycle of each on the same x and b with
+    float32 planes held to 1e-5 (2-norm: the same P two ways).
 
 The last two lines of output are the card's ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``; the line before them lists every
@@ -216,6 +239,9 @@ SOURCES = {
     "sweep3d": "algebraicmultigrid_tpu_torch/csrc/sweep3d.cu",
     "fused_subcycle": "algebraicmultigrid_tpu_torch/csrc/subcycle_kernel.cu",
     "halo_stencil": "algebraicmultigrid_tpu_torch/csrc/halo_stencil.cu",
+    "fused_down_nf": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
+    "fused_up_nf": "algebraicmultigrid_tpu_torch/csrc/vcycle_legs.cu",
+    "fused_tail_nf": "algebraicmultigrid_tpu_torch/csrc/tail_nf_kernel.cu",
 }
 REPLACES = {
     "fused_down": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:1432",
@@ -229,11 +255,15 @@ REPLACES = {
     "sweep3d": "algebraicmultigrid_tpu/ops/pallas/sweep3d_kernel.py:209",
     "fused_subcycle": "algebraicmultigrid_tpu/ops/pallas/subcycle_kernel.py:310",
     "halo_stencil": "algebraicmultigrid_tpu/parallel/async_halo.py:80",
+    # the non-factored (R/P-plane) else branches of the same Pallas kernels
+    "fused_down_nf": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:1539",
+    "fused_up_nf": "algebraicmultigrid_tpu/ops/pallas/vcycle_kernels.py:1816",
+    "fused_tail_nf": "algebraicmultigrid_tpu/ops/pallas/tail_kernel.py:519",
 }
 COUNTER = {
     "fused_down": "down", "fused_up": "up", "fused_updown": "updown", "fused_tail": "tail",
     "bsg_spmv": "bsg", "scan_gs": "scan_gs", "gs_sweep": "gs", "sweep3d": "sweep3d", "fused_subcycle": "sub",
-    "halo_stencil": "halo",
+    "halo_stencil": "halo", "fused_down_nf": "down_nf", "fused_up_nf": "up_nf", "fused_tail_nf": "tail_nf",
 }
 # the unstructured problem: bench.py's scrambled Poisson
 NU = 1024
@@ -325,11 +355,13 @@ def _color_cells(leg):
     return cells
 
 
-def plane_words(leg):
-    """Words at the vectors' itemsize of a level's planes A, D⁻¹, T and S,
-    each at its own itemsize (a bf16 plane is half a float32 word a cell)."""
-    size = len(leg.offsA) * leg.A.element_size() + sum(p.element_size() for p in (leg.dinv, leg.T, leg.S))
-    return leg.row_dims[0] * leg.row_dims[1] * size / leg.dtype.itemsize
+def plane_words(leg, correct=True, restrict=True):
+    """Words at the vectors' itemsize of the planes a level's legs read, each
+    at its own itemsize (a bf16 plane is half a float32 word a cell): A,
+    D⁻¹ and T, S; non-factored, R (over the coarse grid) for a restriction
+    and P for a correction."""
+    planes = (leg.A, leg.dinv, leg.T, leg.S, leg.R if restrict else None, leg.P if correct else None)
+    return sum(p.numel() * p.element_size() for p in planes if p is not None) / leg.dtype.itemsize
 
 
 def leg_work(leg, steps, correct, restrict, x_zero=False):
@@ -342,16 +374,22 @@ def leg_work(leg, steps, correct, restrict, x_zero=False):
     nc = leg.col_dims[0] * leg.col_dims[1]
     nA = len(leg.offsA)
     cells = _color_cells(leg)
-    words = plane_words(leg) + 2 * n
+    words = plane_words(leg, correct, restrict) + 2 * n
     flops = sum(cells.get(c, 0) * (2 * nA + 3) for c in steps)
     if not x_zero:
         words += n
     if correct:
         words += nc
-        flops += n * (3 * nA + 4)  # T·x_c at each neighbour, the stencil, S
+        if leg.factored:
+            flops += n * (3 * nA + 4)  # T·x_c at each neighbour, the stencil, S
+        else:
+            flops += n * (2 * len(leg.offsP) + 1)  # the P-plane sum and the add
     if restrict:
         words += nc
-        flops += n * (2 * nA + 2) + n * (2 * nA + 3) + n  # residual and g, terms, box sums
+        if leg.factored:
+            flops += n * (2 * nA + 2) + n * (2 * nA + 3) + n  # residual and g, terms, box sums
+        else:
+            flops += n * (2 * nA + 1) + nc * 2 * len(leg.offsR)  # residual, the R-plane sum
     return words, flops
 
 
@@ -629,7 +667,7 @@ def fixed_cycles(device, ml, h):
     if not np.isfinite(xh).all() or not relres < CYCLES_RELRES:
         raise AssertionError(f"relres_after_cycles {relres} >= {CYCLES_RELRES}")
     want = {"updown": CYCLES - 1, "tail": CYCLES, "down": CYCLES + 1, "up": CYCLES + 1, "sub": 0, "bsg": 0,
-            "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0}
+            "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0, "down_nf": 0, "up_nf": 0, "tail_nf": 0}
     if counts != want:
         raise AssertionError(f"fixed-cycle launches {counts} != {want}")
     l0, l1 = (f"{d[0]}x{d[1]}" for d in (h.levels[0].fused.row_dims, h.levels[1].fused.row_dims))
@@ -2119,6 +2157,222 @@ def rs_path(device):
     return rows_k5, solve_counts, per_cycle, summary
 
 
+# --------------------------------------------------------------------------
+# the public API tier and the non-factored R/P-plane legs and tail (phase 18)
+# --------------------------------------------------------------------------
+
+# phase 18's api.solve: float32 cycles on b = A·1 (bench.py's right-hand
+# side), whose plateau (phase 5: 3.8e-6 after 400 cycles) sits under this
+# tolerance
+API_RELTOL = 1e-5
+API_MAXITER = 50
+# one non-factored against one factored V-cycle with float32 planes: the
+# same P = (I − diag(s)A)T two ways, so float32 rounding apart (2-norm)
+NF_VCYCLE_RTOL = 1e-5
+
+
+def nonfactored_path(device, ml):
+    """Phase 18: the flagship through the public API with
+    ``symmetry=NoSymmetry()`` (no factored stash: the R/P-plane legs at L0,
+    L1 and a non-factored tail), with bf16 planes under float32 cycles; the
+    save/load round trip of phase 4's hierarchy and its refined solve; the
+    new K1/K2/K4 entries against their plain versions and timed in turns
+    with the factored entries on phase 4's hierarchy; the cycles, factored
+    and not, timed in turns and compared."""
+    import os
+    import tempfile
+
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    LP = ml.levels[0].A
+    b1 = LP @ np.ones(N * N)
+    gs = amt.GaussSeidel(ordering="multicolor")  # the flagship's smoother (the API's default is natural order)
+    api_kw = dict(aggregate=amt.StructuredAggregation(box=BOX), symmetry=amt.NoSymmetry(), presmoother=gs,
+                  postsmoother=gs)
+
+    # (a) api.solve on the card, the counters zeroed just before
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    x, res = amt.solve(LP, b1, amt.SmoothedAggregationAMG(), engine="torch", device=device, dtype=f32, coef_dtype=bf16,
+                       reltol=API_RELTOL, maxiter=API_MAXITER, log=True, **api_kw)
+    api_s = time.perf_counter() - t0
+    api_counts, api_levels = read_counts(), read_level_counts()
+    api_iters = len(res) - 1
+    api_relres = float(np.linalg.norm(b1 - LP @ x.astype(np.float64)) / np.linalg.norm(b1))
+
+    # the same setup, kept: its hierarchy is what api.solve lowered
+    ml_nf = amt.init(amt.SmoothedAggregationAMG(), LP, b1, **api_kw).ml
+    h_nf = amt.get_device_hierarchy(ml_nf, device=device, dtype=f32, coef_dtype=bf16)
+    n_legs = h_nf.tail_start
+    legs = [L.fused for L in h_nf.levels[:n_legs]]
+    dims = [f"{f.row_dims[0]}x{f.row_dims[1]}" for f in legs]
+    log(f"api.solve {N}x{N} (SmoothedAggregationAMG, NoSymmetry, multicolor GS, engine torch, float32 cycles,"
+        f" bf16 planes): levels {len(ml_nf.levels) + 1} OC {ml_nf.operator_complexity()!r} tail_start"
+        f" {h_nf.tail_start}; legs factored {[f.factored for f in legs]} R/P offsets"
+        f" {[(len(f.offsR), len(f.offsP)) for f in legs]}; tail factored {h_nf.tail.factored} tiles"
+        f" {h_nf.tail.tiles}; {api_iters} V-cycles to relres {api_relres!r} (its own {res[-1] / res[0]!r}) in"
+        f" {api_s!r} s (setup, lowering and solve); launches {api_counts}; by level {api_levels}")
+    want = dict.fromkeys(api_counts, 0)
+    want.update(down_nf=n_legs * api_iters, up_nf=n_legs * api_iters, tail_nf=api_iters)
+    want_levels = {k: dict.fromkeys(dims, api_iters) for k in ("down_nf", "up_nf")}
+    if len(ml_nf.levels) + 1 != EXPECT_LEVELS or round(ml_nf.operator_complexity(), 3) != EXPECT_OC:
+        raise AssertionError(f"api.solve hierarchy: {len(ml_nf.levels) + 1} levels, OC {ml_nf.operator_complexity()}")
+    if h_nf.tail_start != EXPECT_TAIL_START or any(f is None or f.factored for f in legs) or h_nf.tail.factored:
+        raise AssertionError("api.solve: L0, L1 do not all run non-factored legs over a non-factored tail")
+    if not all((f.A.dtype, f.dinv.dtype, f.R.dtype, f.P.dtype) == (bf16,) * 4 for f in legs):
+        raise AssertionError("api.solve: the legs' A, D⁻¹, R, P planes are not bf16")
+    if not all((L.A.dtype, L.P.dtype, L.R.dtype, L.dinv.dtype) == (bf16, bf16, f32, f32) for L in h_nf.tail.levels):
+        raise AssertionError("api.solve: a tail level's A, P are not bf16 with R, D⁻¹ in float32")
+    if not (np.isfinite(x).all() and api_relres < 2 * API_RELTOL and res[-1] <= API_RELTOL * res[0]):
+        raise AssertionError(f"api.solve relres {api_relres} after {api_iters} V-cycles")
+    if api_counts != want or api_levels != want_levels:
+        raise AssertionError(f"api.solve launches {api_counts} {api_levels} != {want} {want_levels}: the"
+                             " non-factored K1/K2 on L0, L1 and K4 once a V-cycle, no masked sweep")
+
+    # (b) save/load of phase 4's hierarchy, then the refined solve with bf16 planes
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "flagship.npz")
+        t0 = time.perf_counter()
+        amt.save_hierarchy(ml, path)
+        size = os.path.getsize(path)
+        ml_l = amt.load_hierarchy(path)
+        io_s = time.perf_counter() - t0
+    b = np.random.default_rng(0).standard_normal(N * N)
+    torch.cuda.synchronize()
+    zero_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    xl, hist = amt.solve_refined(ml_l, b, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats,
+                                 coef_dtype=bf16)
+    load_s = time.perf_counter() - t0
+    load_counts = read_counts()
+    load_relres = float(np.linalg.norm(b - LP @ xl) / np.linalg.norm(b))
+    h_l = amt.get_device_hierarchy(ml_l, device=device, dtype=f32, coef_dtype=bf16)
+    log(f"save/load {N}x{N}: {size} bytes, save+load {io_s!r} s; solve_refined (bf16 planes): rounds {len(hist) - 1}"
+        f" pcg_iters_per_round {stats['inner_iters']} relres {load_relres!r} history {hist} {load_s!r} s"
+        f" (lowering included); legs factored {[L.fused.factored for L in h_l.levels[: h_l.tail_start]]}, tail"
+        f" factored {h_l.tail.factored}; launches {load_counts}")
+    if not (np.isfinite(xl).all() and load_relres < TOL and len(hist) - 1 <= MAX_ROUNDS):
+        raise AssertionError(f"loaded flagship: relres {load_relres} after {len(hist) - 1} rounds")
+    if h_l.tail_start != EXPECT_TAIL_START or any(L.fused.factored for L in h_l.levels[:2]) or h_l.tail.factored:
+        raise AssertionError("the loaded flagship does not lower to non-factored legs and tail")
+    if not (all(load_counts[k] > 0 for k in ("down_nf", "up_nf", "tail_nf"))
+            and not any(load_counts[k] for k in ("down", "up", "updown", "tail", "gs"))):
+        raise AssertionError(f"the loaded flagship's solve launches {load_counts}")
+
+    # (c) each new entry against its plain version, timed in turns with the
+    # factored entry of phase 4's hierarchy on the same vectors; with bf16
+    # planes (the configuration) and float32 planes
+    gen = torch.Generator(device="cpu").manual_seed(18)
+
+    def vec(m, length):
+        v = torch.zeros(length)
+        v[:m] = torch.randn(m, generator=gen)
+        return v.to(device)
+
+    rows = {name: [] for name in ("fused_down_nf", "fused_up_nf", "fused_tail_nf")}
+    hier = {}
+    for planes in ("bf16", "f32"):
+        coef = bf16 if planes == "bf16" else None
+        hier[planes] = (h_nf if coef else amt.build_device_hierarchy(ml_nf, device=device, dtype=f32),
+                        amt.build_device_hierarchy(ml, device=device, dtype=f32, coef_dtype=coef))
+        hn, hf = hier[planes]
+
+        def record(name, got, ref, fn, fn_fact, plain, work, **extra):
+            errs = [errors(g, r) for g, r in zip(got, ref)]
+            row = dict(extra, planes=planes, max_abs_err=max(e[0] for e in errs),
+                       max_rel_err=max(e[1] for e in errs))
+            row["factored_ms"], row["ms"], row["turns_ms"] = in_turns(fn_fact, fn)
+            row["plain_ms"] = time_ms(plain, reps=5)
+            row["bound_ms"], row["bound_by"] = bound(*work, 4)
+            rows[name].append(row)
+
+        for lvl in (0, 1):
+            L, f, g = hn.levels[lvl], hn.levels[lvl].fused, hf.levels[lvl].fused
+            n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
+            x, b, xc = vec(n, pad), vec(n, pad), vec(nc, nc)
+            for x_zero in (False, True):
+                record(
+                    "fused_down_nf", vl.fused_down(f, x, b, x_zero=x_zero),
+                    vl.fused_down_reference(f, x, b, x_zero=x_zero),
+                    lambda: vl.fused_down(f, x, b, x_zero=x_zero), lambda: vl.fused_down(g, x, b, x_zero=x_zero),
+                    lambda: vl.fused_down_reference(f, x, b, x_zero=x_zero),
+                    leg_work(f, f.steps, False, True, x_zero=x_zero),
+                    level=lvl, dims=f.row_dims, x_zero=x_zero, factored_route=("tiles", g.down_tile),
+                )
+            record(
+                "fused_up_nf", [vl.fused_up(f, x, b, xc)], [vl.fused_up_reference(f, x, b, xc)],
+                lambda: vl.fused_up(f, x, b, xc), lambda: vl.fused_up(g, x, b, xc),
+                lambda: vl.fused_up_reference(f, x, b, xc), leg_work(f, f.steps, True, False), level=lvl,
+                dims=f.row_dims,
+                factored_route=("pipelined" if g.up_pipelined else "tiles", g.up_tile),
+            )
+        lvl = hn.tail_start
+        L = hn.levels[lvl]
+        x, b = vec(L.A.shape[0], L.A.rows_padded), vec(L.A.shape[0], L.A.rows_padded)
+        for x_zero in (False, True):
+            xin = torch.zeros_like(x) if x_zero else x
+            record(
+                "fused_tail_nf", [tk.fused_tail(hn.tail, xin, b, x_zero=x_zero)],
+                [tk.fused_tail_reference(hn.tail, xin, b, x_zero=x_zero)],
+                lambda: tk.fused_tail(hn.tail, xin, b, x_zero=x_zero),
+                lambda: tk.fused_tail(hf.tail, xin, b, x_zero=x_zero),
+                lambda: tk.fused_tail_reference(hn.tail, xin, b, x_zero=x_zero), tail_work(hn.tail, x_zero), level=lvl,
+                dims=hn.tail.levels[0].row_dims, x_zero=x_zero, factored_route=("tail", hf.tail.tiles),
+            )
+    # each call's 4-byte bound: that of the same call on float32 planes
+    for rs in rows.values():
+        for r in rs:
+            twin = next(t for t in rs if t["planes"] == "f32"
+                        and (t["level"], t.get("x_zero")) == (r["level"], r.get("x_zero")))
+            r["bound_4byte_ms"] = twin["bound_ms"]
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"kernel {name} ({r['planes']} planes) L{r['level']} {r['dims']}"
+                + (f" x_zero={r['x_zero']}" if "x_zero" in r else "")
+                + f": max_rel_err {r['max_rel_err']!r} max_abs_err {r['max_abs_err']!r} non-factored {r['ms']!r} ms"
+                f" factored {r['factored_ms']!r} ms {r['factored_route']} (in turns, factored/nf/nf/factored:"
+                f" {r['turns_ms']!r}) plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']};"
+                f" 4-byte planes {r['bound_4byte_ms']!r} ms); card {card_line()}")
+            if not r["max_rel_err"] <= KERNEL_RTOL:
+                raise AssertionError(f"{name} on {r['planes']} planes disagrees with its plain version: {r}")
+
+    # (d) cycles: a V-cycle and 50 fixed cycles, factored and not, in turns
+    # (bf16 planes); one V-cycle of each on the same x, b (float32 planes)
+    bv = torch.zeros(hier["bf16"][0].fine_padded, device=device)
+    bv[: N * N] = torch.as_tensor(b1, dtype=f32, device=device)
+    xv = torch.zeros_like(bv)
+    times = {"vcycle_factored": [], "vcycle_nf": [], "fixed_factored": [], "fixed_nf": []}
+    hn, hf = hier["bf16"]
+    for hh, t in ((hf, "factored"), (hn, "nf"), (hn, "nf"), (hf, "factored")):
+        times[f"vcycle_{t}"].append(time_ms(lambda: _one_iteration(hh, amt.V(), xv, bv), reps=10))
+        times[f"fixed_{t}"].append(time_ms(lambda: run_fixed_cycles(hh, xv, bv, 50), reps=2) / 50)
+    agree = {}
+    xr = vec(N * N, bv.shape[0])
+    for planes, (hn, hf) in hier.items():
+        y_nf = _one_iteration(hn, amt.V(), xr, bv).double()
+        y_f = _one_iteration(hf, amt.V(), xr, bv).double()
+        agree[planes] = (float((y_nf - y_f).norm() / y_f.norm()), errors(y_nf, y_f)[1])
+    del hier
+    log(f"non-factored vs factored cycles {N}x{N}, bf16 planes, in turns (factored, nf, nf, factored), ms: {times};"
+        f" one V-cycle nf vs factored on the same x, b (norm_rel, max_rel) by planes: {agree}; card {card_line()}")
+    if not agree["f32"][0] <= NF_VCYCLE_RTOL:
+        raise AssertionError(f"the non-factored V-cycle disagrees with the factored one: {agree}")
+
+    summary = dict(api_iters=api_iters, api_relres=api_relres, api_s=api_s, load_rounds=len(hist) - 1,
+                   load_relres=load_relres, vcycle_nf_ms=times["vcycle_nf"][0], vcycle_factored_ms=times[
+                       "vcycle_factored"][0], fixed_nf_ms=times["fixed_nf"][0],
+                   fixed_factored_ms=times["fixed_factored"][0], vcycle_agree=agree)
+    return rows, api_counts, api_levels, load_counts, summary
+
+
 def main():
     import torch
 
@@ -2175,6 +2429,10 @@ def main():
     del ml_3d
     torch.cuda.empty_cache()
     rows_rs, counts_rs, cycle_rs, summary_rs = rs_path(device)
+    torch.cuda.empty_cache()
+    rows_nf, counts_nf, levels_nf, load_counts_nf, summary_nf = nonfactored_path(device, ml)
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, rs in rows.items():
@@ -2279,12 +2537,29 @@ def main():
         by_level=[{k: r[k] for k in ("level", "dims", "offsets", "steps", "march", "ms", "plain_ms", "bound_ms",
                                      "launches_per_vcycle")} for r in timed],
     ))
+    for name, rs in rows_nf.items():
+        first = rs[0]  # L0 (the tail's entry level for K4) on bf16 planes, x read from its input
+        row = dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=counts_nf[COUNTER[name]], launches_solve=load_counts_nf[COUNTER[name]],
+            max_abs_err=max(r["max_abs_err"] for r in rs), ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, entry="f32_bf16",
+            factored_ms=first["factored_ms"], bound_4byte_ms=first["bound_4byte_ms"],
+            by_call=[{k: r[k] for k in ("planes", "level", "dims", "ms", "factored_ms", "plain_ms", "bound_ms",
+                                        "bound_4byte_ms") if k in r} | ({"x_zero": r["x_zero"]} if "x_zero" in r
+                                                                        else {}) for r in rs],
+        )
+        if name != "fused_tail_nf":
+            row["launches_by_level"] = levels_nf.get(COUNTER[name], {})
+        kernels.append(row)
     log(f"flagship {N}x{N} f32, CUDA events: fixed cycle {fixed_ms!r} ms (first design, recorded:"
         f" {FIRST_DESIGN_FIXED_CYCLE_MS} ms), V-cycle {vcycle_ms!r} ms; card {card}")
     for key, b in bf16.items():
         log(f"flagship {N}x{N} bf16 planes, {key} vectors, CUDA events: {b[-1]}; card {card}")
     log(f"3-D {N3}^3 bf16 planes, CUDA events: {summary_3db}; card {card}")
     log(f"rs {N}x{N}, CUDA events: {summary_rs}; card {card}")
+    log(f"api.solve NoSymmetry / save-load {N}x{N}, non-factored legs and tail, CUDA events: {summary_nf};"
+        f" card {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

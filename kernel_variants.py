@@ -69,9 +69,11 @@ tree's library) on the same inputs, and it prints whether each output is
 bitwise equal;
 then it times float32 K1–K4 at 4096² (L0 and L1 for the legs), a V-cycle
 and a fixed cycle in turns (DIR, tree, tree, DIR).  DIR's library is
-loaded without the entries it may lack (the bf16-plane ones).
+loaded without the entries it may lack (the bf16-plane ones, the
+non-factored ones).
 """
 
+import ctypes
 import subprocess
 import sys
 import tempfile
@@ -815,13 +817,19 @@ def against(other):
     tree = vl.load_library()
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "other.so"
-        vl.build_library(out, [Path(other) / "algebraicmultigrid_tpu_torch" / "csrc" / f.name for f in vl.SOURCES])
-        entries, path = vl._BF16_ENTRIES, vl.library_path
+        csrc = Path(other) / "algebraicmultigrid_tpu_torch" / "csrc"
+        vl.build_library(out, [csrc / f.name for f in vl.SOURCES if (csrc / f.name).exists()])
+        # DIR's library without the entries it lacks (the bf16-plane ones, the non-factored ones)
+        probe = ctypes.CDLL(str(out))
+        saved = vl._BF16_ENTRIES, vl._SIGNATURES, vl._HELPERS, vl.library_path
         vl._BF16_ENTRIES, vl.library_path, vl._lib = {}, (lambda: out), None
+        vl._SIGNATURES = {k: v for k, v in saved[1].items() if hasattr(probe, k.format("f32"))}
+        vl._HELPERS = {k: v for k, v in saved[2].items() if hasattr(probe, k)}
         try:
             libs = {"other": vl.load_library(), "tree": tree}
         finally:
-            vl._BF16_ENTRIES, vl.library_path, vl._lib = entries, path, tree
+            vl._BF16_ENTRIES, vl._SIGNATURES, vl._HELPERS, vl.library_path = saved
+            vl._lib = tree
     gen = torch.Generator().manual_seed(3)
 
     def vec(m, length, dtype=torch.float32):

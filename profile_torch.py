@@ -22,14 +22,17 @@ under its default ``AMG_COEF_DTYPE=bfloat16``: K1–K4's ``f64_bf16``
 entries); with ``rs``, 20 V-cycles of ``bench.py``'s
 ``AMG_BENCH_METHOD=rs`` at 4096² (``ruge_stuben`` with ``StructuredRS``
 and multicolor GS: K5 on the Lat2D levels, masked sweeps and K6 on the
-others).
+others); with ``nosym``, the flagship's ``fixed`` and ``vcycle`` runs set up
+with ``symmetry=NoSymmetry()`` and bf16 planes (no factored stash: the
+non-factored K1/K2 at L0, L1 and the non-factored K4; the fixed-cycle loop
+iterates V-cycles, since K3 takes factored levels only).
 
 For each it prints the ms per cycle by CUDA events, the device time of each
 kernel and its share, the device's idle share of the window (1 − the
 summed kernel time over the window's elapsed time) and the port's kernel
 launches per cycle.  Run from the repository root:
 
-    python3 profile_torch.py [unstructured | 3d | fwdbwd | subcycle | f64bf16 | rs]
+    python3 profile_torch.py [unstructured | 3d | fwdbwd | subcycle | f64bf16 | rs | nosym]
 """
 
 import functools
@@ -43,11 +46,12 @@ NU = 1024
 CYCLES = 20
 
 
-def lattice_runs(amt, torch, subcycle=False, dtype="float32", coef_dtype=None):
+def lattice_runs(amt, torch, subcycle=False, dtype="float32", coef_dtype=None, nosym=False):
     from algebraicmultigrid_tpu_torch.models.device import _one_iteration, run_fixed_cycles
 
     ml = amt.structured_smoothed_aggregation(
-        amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3)
+        amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3),
+        **(dict(symmetry=amt.NoSymmetry()) if nosym else {}),
     )
     dtype = getattr(torch, dtype)
     h = amt.build_device_hierarchy(ml, device="cuda", dtype=dtype, subcycle=subcycle, coef_dtype=coef_dtype)
@@ -134,6 +138,7 @@ RUNS = {
     "subcycle": functools.partial(lattice_runs, subcycle=True),
     "f64bf16": functools.partial(lattice_runs, dtype="float64", coef_dtype="bfloat16"),
     "rs": rs_runs,
+    "nosym": functools.partial(lattice_runs, coef_dtype="bfloat16", nosym=True),
 }
 
 

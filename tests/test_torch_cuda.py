@@ -290,6 +290,7 @@ def test_cuda_fixed_cycles_match_cpu(ml):
     assert _rel(out["cuda"], out["cpu"]) < 1e-12
     assert counts["cuda"] == {
         "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
+        "down_nf": 0, "up_nf": 0, "tail_nf": 0,
     }
     assert not any(counts["cpu"].values())
 
@@ -536,6 +537,7 @@ def test_cuda_bf16_fixed_cycles_and_solve(ml, dtype):
     assert out["cuda"].dtype == dtype and _rel(out["cuda"], out["cpu"]) < _tol(dtype)
     assert counts["cuda"] == {
         "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
+        "down_nf": 0, "up_nf": 0, "tail_nf": 0,
     }
     b = np.random.default_rng(6).standard_normal(N * N)
     x, hist = amt.solve_refined(ml, b, tol=1e-10, device="cuda", dtype=dtype, log=True, coef_dtype=torch.bfloat16)
@@ -1125,3 +1127,133 @@ def test_cuda_halo_spmv_on_gloo_ranks_sharing_the_card():
             for which in (0, 1):
                 got = np.concatenate([r[name, dtype][which] for r in res])
                 assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+# --------------------------------------------------------------------------
+# the non-factored R/P-plane entries of K1, K2 and K4 (symmetry=NoSymmetry())
+# --------------------------------------------------------------------------
+
+# (vectors, planes) of each entry: f32, f64, f32_bf16, f64_bf16
+NF_ENTRIES = {
+    "f32": (torch.float32, None), "f64": (torch.float64, None),
+    "f32_bf16": (torch.float32, torch.bfloat16), "f64_bf16": (torch.float64, torch.bfloat16),
+}
+
+
+@pytest.fixture(scope="module")
+def ml_nosym():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    import algebraicmultigrid_tpu_torch as amt
+
+    return amt.structured_smoothed_aggregation(
+        amt.poisson((N, N), lattice=True), aggregate=amt.StructuredAggregation(box=3),
+        symmetry=amt.NoSymmetry(), **SETUP_KW,
+    )
+
+
+def _nf_tol(dtype):
+    return TOL if dtype == torch.float32 else 1e-12
+
+
+@pytest.mark.parametrize("entry", list(NF_ENTRIES))
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_cuda_nonfactored_legs_match_plain_versions(ml_nosym, lvl, entry):
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    dtype, coef = NF_ENTRIES[entry]
+    h = build_device_hierarchy(ml_nosym, device="cuda", dtype=dtype, tail=False, coef_dtype=coef)
+    L = h.levels[lvl]
+    f = L.fused
+    assert not f.factored and vl.plane_suffix(f, "fused_down") == entry
+    n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
+    x, b, xc = _vec(n, pad, 1, dtype), _vec(n, pad, 2, dtype), _vec(nc, nc, 3, dtype)
+    before = dict(vl.launches)
+    for x_zero in (False, True):
+        got = vl.fused_down(f, x, b, x_zero=x_zero)
+        ref = vl.fused_down_reference(f, x, b, x_zero=x_zero)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape and g.dtype == dtype and _rel(g, r) < _nf_tol(dtype)
+    got = vl.fused_up(f, x, b, xc)
+    assert _rel(got, vl.fused_up_reference(f, x, b, xc)) < _nf_tol(dtype)
+    assert vl.launches["down_nf"] == before["down_nf"] + 2 and vl.launches["up_nf"] == before["up_nf"] + 1
+    assert all(vl.launches[k] == before[k] for k in ("down", "up", "updown"))
+
+
+@pytest.mark.parametrize("entry", list(NF_ENTRIES))
+def test_cuda_nonfactored_tail_matches_plain_version(ml_nosym, entry):
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    dtype, coef = NF_ENTRIES[entry]
+    h = build_device_hierarchy(ml_nosym, device="cuda", dtype=dtype, coef_dtype=coef)
+    assert h.tail_start == 0 and not h.tail.factored and h.tail.transfers is not None
+    L = h.levels[0]
+    n, pad = L.A.shape[0], L.A.rows_padded
+    x, b = _vec(n, pad, 4, dtype), _vec(n, pad, 5, dtype)
+    before = dict(vl.launches)
+    for x_zero in (False, True):
+        xin = torch.zeros_like(x) if x_zero else x
+        got = tk.fused_tail(h.tail, xin, b, x_zero=x_zero)
+        torch.cuda.synchronize()
+        assert _rel(got, tk.fused_tail_reference(h.tail, xin, b, x_zero=x_zero)) < _nf_tol(dtype)
+    assert vl.launches["tail_nf"] == before["tail_nf"] + 2 and vl.launches["tail"] == before["tail"]
+
+
+def test_cuda_nonfactored_cycles_match_cpu_and_take_no_updown(ml_nosym):
+    """A float64 V-cycle and 3 fixed cycles on the card (non-factored L0
+    legs, a non-factored tail from L1) against the CPU: the fixed-cycle
+    loop iterates the V-cycle, no K3."""
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy, run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    import algebraicmultigrid_tpu_torch as amt
+
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml_nosym, device=dev, dtype=torch.float64, tail_max_rows=5000)
+        b = _vec(N * N, h.fine_padded, 6, torch.float64).to(dev)
+        before = dict(vl.launches)
+        out[dev] = (_one_iteration(h, amt.V(), torch.zeros_like(b), b), run_fixed_cycles(h, torch.zeros_like(b), b, 3))
+        counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert _rel(got, want) < 1e-12
+    assert counts["cuda"] == dict(dict.fromkeys(counts["cuda"], 0), down_nf=4, up_nf=4, tail_nf=4)
+    assert not any(counts["cpu"].values())
+
+
+def test_cuda_nonfactored_entries_raise_and_never_fall_back(ml_nosym, monkeypatch, tmp_path):
+    """An entry the C side refuses (more R offsets than its stencil holds)
+    raises and launches nothing; with the library failing to build, the
+    non-factored wrappers raise and run no plain version in its place."""
+    import dataclasses
+
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    h = build_device_hierarchy(ml_nosym, device="cuda", dtype=torch.float32, tail_max_rows=5000)
+    f = h.levels[0].fused
+    n, pad, nc = h.levels[0].A.shape[0], h.levels[0].A.rows_padded, h.levels[0].R.shape[0]
+    x, b, xc = _vec(n, pad, 7), _vec(n, pad, 8), _vec(nc, nc, 9)
+    before = dict(vl.launches)
+    with pytest.raises(RuntimeError, match="fused_down_nf"):
+        vl.fused_down(dataclasses.replace(f, offsR=f.offsR * 2), x, b)
+    with pytest.raises(RuntimeError, match="fused_up_nf"):
+        vl.fused_up(dataclasses.replace(f, offsP=f.offsP * 8), x, b, xc)
+    assert vl.launches == before
+
+    def no_nvcc(*a, **k):
+        raise RuntimeError("nvcc failed on ['vcycle_legs.cu']")
+
+    monkeypatch.setattr(vl, "_lib", None)
+    monkeypatch.setattr(vl, "library_path", lambda: tmp_path / "missing.so")
+    monkeypatch.setattr(vl, "build_library", no_nvcc)
+    bt = _vec(nc, h.levels[1].A.rows_padded, 10)
+    for call in (lambda: vl.fused_down(f, x, b), lambda: vl.fused_up(f, x, b, xc),
+                 lambda: tk.fused_tail(h.tail, bt, bt)):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    assert vl.launches == before

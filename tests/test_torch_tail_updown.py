@@ -161,8 +161,8 @@ def test_build_command_lists_both_sources():
 
     names = [f.name for f in vl.SOURCES]
     assert names == [
-        "vcycle_legs.cu", "tail_kernel.cu", "subcycle_kernel.cu", "bsg_spmv.cu", "scan_gs.cu", "gs_sweep.cu",
-        "sweep3d.cu", "halo_stencil.cu",
+        "vcycle_legs.cu", "tail_kernel.cu", "tail_nf_kernel.cu", "subcycle_kernel.cu", "bsg_spmv.cu", "scan_gs.cu",
+        "gs_sweep.cu", "sweep3d.cu", "halo_stencil.cu",
     ]
     for f in vl.SOURCES:
         cmd = vl.compile_command(f, vl.BUILD_DIR / "x.o")

@@ -13,20 +13,18 @@ N = 192
 SETUP_KW = dict(proxy=64, cut_rows=2000, min_proxy_dim=16)
 
 
-def setup_both(n=N, box=3):
-    """(JAX hierarchy, port hierarchy) of poisson((n, n)) with box-k SA."""
+def setup_both(n=N, box=3, nosym=False):
+    """(JAX hierarchy, port hierarchy) of poisson((n, n)) with box-k SA;
+    ``nosym``: with ``symmetry=NoSymmetry()``, which stashes no factored
+    prolongator (the legs' and the tail's R/P-plane branches)."""
     import algebraicmultigrid_tpu as amg
     import algebraicmultigrid_tpu_torch as amt
 
-    ml_j = amg.structured_smoothed_aggregation(
-        amg.poisson((n, n), lattice=True),
-        aggregate=amg.StructuredAggregation(box=box), **SETUP_KW,
+    hier = lambda pkg: pkg.structured_smoothed_aggregation(
+        pkg.poisson((n, n), lattice=True), aggregate=pkg.StructuredAggregation(box=box),
+        **SETUP_KW, **(dict(symmetry=pkg.NoSymmetry()) if nosym else {}),
     )
-    ml_t = amt.structured_smoothed_aggregation(
-        amt.poisson((n, n), lattice=True),
-        aggregate=amt.StructuredAggregation(box=box), **SETUP_KW,
-    )
-    return ml_j, ml_t
+    return hier(amg), hier(amt)
 
 
 @contextlib.contextmanager
@@ -178,13 +176,27 @@ def _untile(t, f):
     return a[..., :Wx, :Wy]
 
 
+def _untile_coarse(t, f):
+    """[gx, gy, n, TXc, TYc] coarse tiles (no halo) → full [n, Wxc, Wyc]."""
+    TXc, TYc = f.tile[0] // f.k, f.tile[1] // f.k
+    gx, gy = f.grid
+    a = np.moveaxis(np.asarray(t), 2, 0)  # [n, gx, gy, TXc, TYc]
+    a = np.swapaxes(a, -3, -2).reshape(a.shape[0], gx * TXc, gy * TYc)
+    return a[:, : f.col_dims[0], : f.col_dims[1]]
+
+
 def _fused(f):
+    """A JAX leg cache as the port's leg dict: the factored T/S planes, or
+    the non-factored R/P planes with their offsets."""
     if f is None:
         return None
-    assert f.factored and not f.packed and f.cA is None and not f.expand_in_kernel
+    assert not f.packed and f.cA is None and not f.expand_in_kernel
+    planes = (
+        dict(T=_untile(f.T_tiled, f), S=_untile(f.S_tiled, f)) if f.factored
+        else dict(R=_untile_coarse(f.R_tiled, f), P=_untile(f.P_tiled, f), offsR=f.offsR, offsP=f.offsP)
+    )
     return dict(
-        A=_untile(f.A_tiled, f), dinv=_untile(f.dinv_tiled, f),
-        T=_untile(f.T_tiled, f), S=_untile(f.S_tiled, f),
+        A=_untile(f.A_tiled, f), dinv=_untile(f.dinv_tiled, f), **planes,
         offsA=f.offsA, color_grid=f.color_grid, n_colors=f.n_colors, k=f.k,
         row_dims=f.row_dims, col_dims=f.col_dims, omega=f.omega, iter=f.iter,
         forward=f.forward, backward=f.backward,
@@ -221,23 +233,27 @@ def jax_basis_to_numpy(h):
 
 
 def jax_tail_to_numpy(h):
-    """The ``tail`` dict of a JAX DeviceHierarchy's factored whole-tail
-    cache: planes with the kernel's halo stripped, step metadata from the
-    levels' smoothers, and Mc read back from the coarse planes G."""
+    """The ``tail`` dict of a JAX DeviceHierarchy's whole-tail cache: planes
+    (factored T/S, or non-factored R/P) with the kernel's halo stripped, step
+    metadata from the levels' smoothers, and Mc read back from the coarse
+    planes G."""
     from algebraicmultigrid_tpu.ops.coloring import color_steps
     from algebraicmultigrid_tpu.ops.pallas.tail_kernel import _H
 
     t = h.tail
     levels = []
     for i, m in enumerate(t.metas):
-        assert m.factored
         sm = h.levels[h.tail_start + i].pre
         assert color_steps(sm.n_colors, sm.iter, sm.forward, sm.backward, sm.omega) == m.steps
         Wx, Wy = m.dims
         crop = (Ellipsis, slice(_H, _H + Wx), slice(_H, _H + Wy))
+        ccrop = (Ellipsis, slice(_H, _H + m.cdims[0]), slice(_H, _H + m.cdims[1]))
+        planes = (
+            dict(T=np.asarray(t.Tp[i])[crop], S=np.asarray(t.Sp[i])[crop]) if m.factored
+            else dict(R=np.asarray(t.Rp[i])[ccrop], P=np.asarray(t.Pp[i])[crop], offsR=m.offsR, offsP=m.offsP)
+        )
         levels.append(dict(
-            A=np.asarray(t.A[i])[crop], dinv=np.asarray(t.dinv[i])[crop],
-            T=np.asarray(t.Tp[i])[crop], S=np.asarray(t.Sp[i])[crop],
+            A=np.asarray(t.A[i])[crop], dinv=np.asarray(t.dinv[i])[crop], **planes,
             offsA=m.offsA, color_grid=m.color_grid, n_colors=sm.n_colors, k=m.k,
             row_dims=m.dims, col_dims=m.cdims, omega=m.omega, iter=sm.iter,
             forward=sm.forward, backward=sm.backward,
