@@ -25,9 +25,13 @@ Covered so far:
   (``engine="torch"``), ``aspreconditioner`` and ``cg``, the preconditioner
   builders, ``PMIS``/``LabelPropAggregation``, ``save_hierarchy``/
   ``load_hierarchy`` (a file written by either package loads in the other);
-* the multi-GPU lattice tier (``algebraicmultigrid_tpu_torch.parallel``) on
-  ``torch.distributed``: one process per x-slab, the halo-exchange SpMV
-  with K8 overlapping the exchange, the slab-sharded V/W/F cycle and PCG.
+* the multi-GPU tier (``algebraicmultigrid_tpu_torch.parallel``) on
+  ``torch.distributed``, one process per rank: ``solve_sharded`` over any
+  hierarchy (its big levels held as row blocks), and the lattice slab tier
+  (the halo-exchange SpMV with K8 overlapping the exchange, the
+  slab-sharded V/W/F cycle and PCG, ``rap_planes_sharded``);
+  ``algebraicmultigrid_tpu_torch.entry`` has its entry points (one V-cycle, a
+  multi-GPU dry run).
 """
 
 from .config import (

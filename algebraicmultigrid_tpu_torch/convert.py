@@ -61,8 +61,8 @@ values): the ``"fused"`` planes A, dinv, T and S (or R and P), the tail
 levels' A, T and S (or P; their dinv, R and ``Mc`` stay at ``dtype``) and,
 under float32 only,
 the LatND operators' planes, as ``build_device_hierarchy(...,
-coef_dtype=torch.bfloat16)`` stores them under float32 or float64 vectors.
-A ``sub`` cache takes no bf16 planes (ROADMAP B3).
+coef_dtype=torch.bfloat16)`` stores them under float32 or float64 vectors;
+a ``sub`` cache's A, T and S as the tail's (its dinv at ``dtype``).
 """
 
 from __future__ import annotations
@@ -225,8 +225,6 @@ def hierarchy_from_numpy(
     """Build the port's hierarchy from numpy arrays (see module docstring)."""
     device = torch.device(device)
     coef_dtype = coef_dtype_of(coef_dtype, dtype)
-    if coef_dtype is not None and sub is not None:
-        raise NotImplementedError("the whole-subcycle cache takes no bf16 coefficient planes (ROADMAP B3)")
     nd_coef = coef_dtype if dtype == torch.float32 else None
     out = []
     for L in levels:
@@ -270,7 +268,7 @@ def hierarchy_from_numpy(
     if sub is not None:
         if tail_cache is None or sub_start + 1 != tail_start:
             raise ValueError(f"sub_start {sub_start} is not the level above the tail ({tail_start})")
-        sub_cache = make_fused_subcycle_cache(_fused(sub, dtype, device), tail_cache)
+        sub_cache = make_fused_subcycle_cache(_fused(sub, dtype, device, coef_dtype, dinv=False), tail_cache)
     else:
         sub_start = -1
     perms = [None if v is None else _tensor(v, torch.int64, device) for v in (perm0, iperm0)]

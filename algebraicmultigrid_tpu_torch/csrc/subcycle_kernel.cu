@@ -39,6 +39,17 @@
 // buffer and the dynamic shared memory size (the descriptors, then the
 // largest tile's buffers); the kernel allocates nothing.  The grid is as
 // many blocks as fit on the card at once (launch_cooperative).
+//
+// bf16 coefficient planes (the entries amg_fused_subcycle_f32_bf16 and
+// amg_fused_subcycle_f64_bf16): the A, T and S planes of level t and of its
+// tail in bf16, D^-1, the coarse operator and the vectors in float32 or
+// float64, as the reference's subcycle cache stores them under
+// AMG_COEF_DTYPE=bfloat16 (level t rounded from the working dtype, like a
+// tail level).  The recursion is tail_levels.cuh's with the plane type C =
+// __nv_bfloat16 and D = T, K4's bf16 instance: each coefficient is
+// converted to the vectors' type where it is loaded, and a tiled level keeps
+// its converted coefficients in registers, so the arithmetic is the same
+// code a type apart.
 
 #include <cuda_runtime.h>
 
@@ -64,7 +75,7 @@ __host__ __device__ inline unsigned table_bytes(int n_lvl) {
 
 // lv[0] is level t, lv[1 .. n_lvl - 1] its tail.  Dynamic shared memory
 // holds the n_lvl descriptors, then the tile buffers.
-template <typename T>
+template <typename T, typename C, typename D>
 __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
     subcycle_kernel(const LevelDesc* lv, int n_lvl, int n_grid, T* work,
                     T* x_out, const T* b, const T* __restrict__ Mc, int n7,
@@ -72,11 +83,12 @@ __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
   extern __shared__ __align__(16) unsigned char sub_smem[];
   LevelDesc* sh = reinterpret_cast<LevelDesc*>(sub_smem);
   amg::load_levels(sh, lv, n_lvl);
-  amg::tail_cycle<T>(sh, n_lvl, n_grid, work, x_out, nullptr, b, Mc, n7,
-                     b7_off, x7_off, sub_smem, table_bytes(n_lvl), false);
+  amg::tail_cycle<T, C, D>(sh, n_lvl, n_grid, work, x_out, nullptr, b, Mc,
+                           n7, b7_off, x7_off, sub_smem, table_bytes(n_lvl),
+                           false);
 }
 
-template <typename T>
+template <typename T, typename C, typename D>
 int fused_subcycle(const void* desc, int n_lvl, int n_grid, T* work,
                    T* x_out, const T* b, const T* Mc, int n7, int64_t b7_off,
                    int64_t x7_off, int smem, void* stream_ptr) {
@@ -87,21 +99,26 @@ int fused_subcycle(const void* desc, int n_lvl, int n_grid, T* work,
   const LevelDesc* lv = (const LevelDesc*)desc;
   void* args[] = {&lv, &n_lvl, &n_grid, &work,   &x_out,
                   &b,  &Mc,    &n7,     &b7_off, &x7_off};
-  return amg::launch_cooperative((const void*)subcycle_kernel<T>, kSubThreads,
-                                 args, (cudaStream_t)stream_ptr, (size_t)smem);
+  return amg::launch_cooperative((const void*)subcycle_kernel<T, C, D>,
+                                 kSubThreads, args, (cudaStream_t)stream_ptr,
+                                 (size_t)smem);
 }
 
 }  // namespace
 
-#define AMG_DEFINE_SUBCYCLE(SUFFIX, T)                                       \
+// one entry per (vector, plane) type: T vectors, C planes A/T/S, D dinv
+#define AMG_DEFINE_SUBCYCLE(SUFFIX, T, C, D)                                 \
   extern "C" int amg_fused_subcycle_##SUFFIX(                                \
       const void* desc, int n_lvl, int n_grid, void* work, void* x_out,      \
       const void* b, const void* Mc, int n7, long long b7_off,               \
       long long x7_off, int smem, void* stream) {                            \
-    return fused_subcycle<T>(desc, n_lvl, n_grid, (T*)work, (T*)x_out,       \
-                             (const T*)b, (const T*)Mc, n7, (int64_t)b7_off, \
-                             (int64_t)x7_off, smem, stream);                 \
+    return fused_subcycle<T, C, D>(desc, n_lvl, n_grid, (T*)work, (T*)x_out, \
+                                   (const T*)b, (const T*)Mc, n7,            \
+                                   (int64_t)b7_off, (int64_t)x7_off, smem,   \
+                                   stream);                                  \
   }
 
-AMG_DEFINE_SUBCYCLE(f32, float)
-AMG_DEFINE_SUBCYCLE(f64, double)
+AMG_DEFINE_SUBCYCLE(f32, float, float, float)
+AMG_DEFINE_SUBCYCLE(f64, double, double, double)
+AMG_DEFINE_SUBCYCLE(f32_bf16, float, __nv_bfloat16, float)
+AMG_DEFINE_SUBCYCLE(f64_bf16, double, __nv_bfloat16, double)

@@ -42,8 +42,9 @@
 //
 // The vectors and the arithmetic are of type T, the planes A, T and S of
 // type C and dinv of type D (stencil.cuh): T itself, or with bf16 planes
-// (K4 only, under float32 or float64 vectors) C = __nv_bfloat16 and D = T,
-// the reference's whole-tail cache keeping D^-1 at the working dtype.
+// (K4 and K9, under float32 or float64 vectors) C = __nv_bfloat16 and
+// D = T, the reference's whole-tail and subcycle caches keeping D^-1 at the
+// working dtype.
 //
 // The per-level descriptors (plane pointers, shapes, stencil, coloring,
 // steps, tiles) exceed the kernel-parameter space, so they live in a

@@ -274,6 +274,10 @@ def _apply_smoother(cache, A, x, b):
         return _smooth_multicolor(cache, A, x, b)
     if isinstance(cache, ScanGSCache):
         return smooth_scan_gs(A, cache, x, b)
+    from ..parallel.rows import ShardedSmoother, sharded_smooth
+
+    if isinstance(cache, ShardedSmoother):  # a rank's rows (the sharded tier)
+        return sharded_smooth(cache, A, x, b)
     raise TypeError(f"unknown device smoother cache {type(cache).__name__}")
 
 
@@ -554,6 +558,7 @@ def _permute_rect(M, prow, pcol):
 def build_device_hierarchy(
     ml: MultiLevel, *, device, dtype, fused: bool = True, tail: bool = True,
     tail_max_rows: int = 250_000, sweeps: bool = True, subcycle: bool = False, coef_dtype=None,
+    row_pad: int = ROW_PAD,
 ) -> DeviceHierarchy:
     """Lower a host hierarchy to device tensors.
 
@@ -583,15 +588,16 @@ def build_device_hierarchy(
     under float32 only, as the JAX package does, the planes of N-D lattice
     levels' A, P and R (LatND, read in place by K7); every other level
     operator, the smoother caches' D⁻¹ and the unstructured path keep
-    ``dtype``.  It raises ``NotImplementedError`` with ``subcycle`` (K9,
-    ROADMAP B3).  The keywords are the counterparts of the JAX package's
+    ``dtype``.  With ``subcycle`` the subcycle's top level stores its A, T
+    and S in bf16 rounded from ``dtype`` and its D⁻¹ at ``dtype``, as a
+    tail level does (the JAX package's subcycle cache).  ``row_pad`` pads
+    every level's row space to a multiple of it (the sharded tier pads to
+    ``8·n_sh``).  The keywords are the counterparts of the JAX package's
     ``AMG_PALLAS_FUSED``/``AMG_PALLAS_TAIL``, ``AMG_TAIL_MAX_ROWS``,
     ``AMG_PALLAS_GS``/``AMG_SWEEP3D``, ``AMG_PALLAS_SUB`` and
     ``AMG_COEF_DTYPE``."""
     device = torch.device(device)
     coef_dtype = coef_dtype_of(coef_dtype, dtype)
-    if coef_dtype is not None and subcycle:
-        raise NotImplementedError("bf16 coefficient planes with subcycle=True (K9) are not ported (ROADMAP B3)")
     # the JAX package's LatND takes bf16 planes under float32 only
     nd_coef = coef_dtype if dtype == torch.float32 else None
 
@@ -624,8 +630,8 @@ def build_device_hierarchy(
         M = level.A
         force = _needs_ell(level)
         if isinstance(M, (LatticeMatrix, LatticeMatrixND)) or force:
-            return lower(M, ROW_PAD, force_ell=force), None, None
-        A_dev = lower(M, ROW_PAD)
+            return lower(M, row_pad, force_ell=force), None, None
+        A_dev = lower(M, row_pad)
         if not isinstance(A_dev, ELL):
             return A_dev, None, None
         # natural order fell through to the gather tier: try the RCM basis
@@ -634,7 +640,7 @@ def build_device_hierarchy(
         if np.array_equal(pi, np.arange(A_csr.shape[0])):
             return A_dev, None, None
         Ap = A_csr[pi][:, pi].tocsr()
-        G = bsg_from_csr(Ap, dtype, device, row_pad=ROW_PAD)
+        G = bsg_from_csr(Ap, dtype, device, row_pad=row_pad)
         if G is None:
             return A_dev, None, None
         return G, pi, Ap
@@ -642,7 +648,7 @@ def build_device_hierarchy(
     lowered = [lower_square(level) for level in ml.levels]
     pads = [A_dev.rows_padded for A_dev, _, _ in lowered]
     perms = [pi for _, pi, _ in lowered] + [None]  # the coarse level stays natural
-    final_pad = round_up(max(ml.final_A.shape[0], 1), ROW_PAD)
+    final_pad = round_up(max(ml.final_A.shape[0], 1), row_pad)
     pads.append(final_pad)
 
     tail_cache, tail_start = None, -1
@@ -680,7 +686,8 @@ def build_device_hierarchy(
     sub, sub_start = None, -1
     if subcycle and tail_cache is not None and tail_start >= 2:
         sub = build_fused_subcycle_cache(
-            ml.levels, ml, tail_start - 1, dtype, device, legs=out[tail_start - 1].fused, tail=tail_cache
+            ml.levels, ml, tail_start - 1, dtype, device, legs=out[tail_start - 1].fused, tail=tail_cache,
+            coef_dtype=coef_dtype,
         )
         if sub is not None:
             sub_start = tail_start - 1
@@ -695,7 +702,7 @@ def build_device_hierarchy(
     return DeviceHierarchy(
         levels=tuple(out),
         coarse=_build_coarse_cache(ml, dtype, device, final_pad),
-        final_A=lower(ml.final_A, ROW_PAD),
+        final_A=lower(ml.final_A, row_pad),
         tail=tail_cache,
         tail_start=tail_start,
         sub=sub,

@@ -315,7 +315,9 @@ def _bt_spmv(A: BTOp, x: torch.Tensor) -> torch.Tensor:
 
 def mat_vec(A, x: torch.Tensor) -> torch.Tensor:
     """SpMV over the device operator formats: x flat, or a multi-RHS block
-    ``x[n, k]`` (every format takes one, as in the JAX package)."""
+    ``x[n, k]`` (every format takes one, as in the JAX package); a rank's
+    row block of the sharded tier (``parallel/rows.py``) computes its rows
+    and all-gathers them."""
     if isinstance(A, Lat2D):
         return lat2d_spmv(A, x)
     if isinstance(A, LatND):
@@ -330,6 +332,10 @@ def mat_vec(A, x: torch.Tensor) -> torch.Tensor:
         return _dense_spmv(A, x)
     if isinstance(A, ELL):
         return ell_spmv(A, x)
+    from ..parallel.rows import ShardedOp, sharded_mat_vec
+
+    if isinstance(A, ShardedOp):  # a rank's row block (the sharded tier)
+        return sharded_mat_vec(A, x)
     raise TypeError(f"unknown device operator format {type(A).__name__}")
 
 

@@ -21,10 +21,20 @@ up leg.  ``fused_subcycle`` takes the plain version only for tensors on the
 CPU; on a CUDA tensor it launches the kernel or raises.  Its launches count
 under ``launches["sub"]`` of ``vcycle_legs``.
 
+Under ``coef_dtype=torch.bfloat16`` the cache stores what the JAX cache
+stores (``_build_slabs_jit``): the top level's A, T and S in bf16, rounded
+from the working dtype, and its D⁻¹ at the working dtype (unlike the legs
+K1–K3, whose planes and D⁻¹ round from float32) — the top level is a tail
+level in this — and the tail's own bf16 planes (A, T, S bf16, D⁻¹ and the
+coarse operator at the working dtype).  The kernel's ``f32_bf16`` and
+``f64_bf16`` entries take them; the plain version expands each plane at
+the working dtype, as the JAX kernel does.
+
 Differences from the JAX cache, all TPU layout: the slab-tiled plane
 copies ``A1/d1/T1/S1`` (``_build_slabs_jit``), the one-hot lane selectors
-(``_lane_sel``) and the VMEM budget loop are gone; the cache holds the
-level's full-size leg planes, read in place, and the hierarchy's tail.
+(``_lane_sel``, ``SRyT``/``UPyT``) and the VMEM budget loop are gone; the
+cache holds the level's full-size leg planes, read in place, and the
+hierarchy's tail.
 """
 
 from __future__ import annotations
@@ -44,15 +54,17 @@ from .tail_kernel import (
     tail_tiles,
 )
 from .vcycle_legs import (
-    SUFFIX,
     FusedLegCache,
     build_level_legs,
     check_vector,
+    coef_dtype_of,
     fused_down_reference,
     fused_up_reference,
     launches,
     load_library,
+    plane_suffix,
     raise_on,
+    round_planes,
 )
 
 __all__ = [
@@ -109,6 +121,9 @@ def make_fused_subcycle_cache(top: FusedLegCache, tail: FusedTailCache) -> Fused
         raise ValueError("the tail does not start at the top level's coarse grid")
     Wx, Wy = top.row_dims
     k = top.k
+    if top.dtype != tail.levels[0].dtype or top.A.dtype != tail.levels[0].A.dtype:
+        raise ValueError(f"the top level's planes ({top.A.dtype} under {top.dtype}) are not the tail's"
+                         f" ({tail.levels[0].A.dtype} under {tail.levels[0].dtype})")
     if tuple(top.col_dims) != (-(-Wx // k), -(-Wy // k)):
         raise ValueError(f"coarse grid {top.col_dims} is not the box-{k} grid of {top.row_dims}")
     if Wx * Wy >= 2**31:
@@ -124,7 +139,7 @@ def make_fused_subcycle_cache(top: FusedLegCache, tail: FusedTailCache) -> Fused
 
 def build_fused_subcycle_cache(
     levels, ml, start: int, dtype, device, legs: Optional[FusedLegCache] = None,
-    tail: Optional[FusedTailCache] = None, max_rows: int = MAX_ROWS,
+    tail: Optional[FusedTailCache] = None, max_rows: int = MAX_ROWS, coef_dtype=None,
 ) -> Optional[FusedSubcycleCache]:
     """The one-call subcycle cache for ``levels[start:]``, or None where the
     JAX builder gives None: ``start`` out of range, more than ``max_rows``
@@ -134,18 +149,25 @@ def build_fused_subcycle_cache(
     T and scale), a stencil reach over 2, or no tail from ``start + 1``
     whose first grid is the level's coarse grid.  ``legs`` and ``tail``
     reuse the hierarchy's caches of those levels; without them they are
-    built here (the tail with no row limit, as in the JAX package)."""
+    built here (the tail with no row limit, as in the JAX package).
+    ``coef_dtype=torch.bfloat16`` stores the top level's A, T and S in bf16
+    rounded from ``dtype`` with D⁻¹ at ``dtype`` (the JAX cache's), so
+    ``legs`` (the legs' own bf16 cache, D⁻¹ rounded too) is not reused
+    then; ``tail`` must carry the same planes."""
+    coef_dtype = coef_dtype_of(coef_dtype, dtype)
     if not 0 <= start < len(levels):
         return None
     top = levels[start]
     if top.A.shape[0] > max_rows:
         return None
-    if legs is None:
+    if legs is None or coef_dtype is not None:
         legs = build_level_legs(top, dtype, device)
     if legs is None or not legs.factored or _reach(legs.offsA) > MAX_REACH:
         return None
+    if coef_dtype is not None:
+        legs = round_planes(legs, coef_dtype, dinv=False, restriction=False)
     if tail is None:
-        tail = build_fused_tail_cache(levels, ml, start + 1, dtype, device, max_rows=10**9)
+        tail = build_fused_tail_cache(levels, ml, start + 1, dtype, device, max_rows=10**9, coef_dtype=coef_dtype)
     # the port's K9 runs a factored tail (the JAX kernel shares the tail's
     # non-factored branch, which no hierarchy with a factored top reaches)
     if tail is None or tuple(tail.levels[0].row_dims) != tuple(legs.col_dims):
@@ -162,8 +184,9 @@ def build_fused_subcycle_cache(
 
 def fused_subcycle_reference(cache: FusedSubcycleCache, b):
     """One V-cycle from zero over the sub-hierarchy in plain PyTorch: the
-    down leg from zero, the tail from zero on its coarse rhs, the up leg.
-    Returns x at ``b``'s (padded) length."""
+    down leg from zero, the tail from zero on its coarse rhs, the up leg
+    (bf16 planes expanded at the working dtype).  Returns x at ``b``'s
+    (padded) length."""
     x, bc = fused_down_reference(cache.top, torch.zeros_like(b), b, x_zero=True)
     xc = fused_tail_reference(cache.tail, torch.zeros_like(bc), bc, x_zero=True)
     return fused_up_reference(cache.top, x, b, xc)
@@ -178,12 +201,11 @@ def fused_subcycle(cache: FusedSubcycleCache, b):
     if b.device.type != "cuda":
         raise ValueError(f"fused_subcycle runs on cuda or cpu tensors, not {b.device}")
     top, tail = cache.top, cache.tail
-    if any(L.A.dtype != L.dtype for L in cache.levels):
-        raise NotImplementedError("the whole-subcycle kernel has no entry for bf16 coefficient planes (ROADMAP B3)")
     n = top.row_dims[0] * top.row_dims[1]
-    check_vector("b", b, top.A, n)
-    if b.dtype not in SUFFIX:
-        raise TypeError(f"fused_subcycle takes float32 or float64, not {b.dtype}")
+    check_vector("b", b, top.A, n, top.dtype)
+    suffixes = {plane_suffix(L, "fused_subcycle", dinv_working=True) for L in cache.levels}
+    if len(suffixes) != 1 or tail.Mc.dtype != top.dtype:
+        raise TypeError(f"fused_subcycle: the levels' planes {suffixes} and Mc {tail.Mc.dtype} differ")
     if cache.desc is None or cache.desc.device != b.device:
         raise ValueError("the subcycle cache was not built on this card")
     lib = load_library()
@@ -197,7 +219,7 @@ def fused_subcycle(cache: FusedSubcycleCache, b):
     x_out = torch.empty_like(b)
     if b.shape[0] > n:
         x_out[n:].zero_()
-    err = getattr(lib, f"amg_fused_subcycle_{SUFFIX[b.dtype]}")(
+    err = getattr(lib, f"amg_fused_subcycle_{suffixes.pop()}")(
         cache.desc.data_ptr(), len(levels), n_grid, work.data_ptr(), x_out.data_ptr(), b.data_ptr(),
         tail.Mc.data_ptr(), tail.n7, b7, x7, subcycle_smem(cache, lib.amg_tail_level_bytes()),
         torch.cuda.current_stream(b.device).cuda_stream,

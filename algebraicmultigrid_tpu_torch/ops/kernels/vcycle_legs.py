@@ -753,7 +753,7 @@ _BF16_ENTRIES = {
     "amg_fused_down_{}": ("f32_bf16", "f64_bf16"), "amg_fused_up_{}": ("f32_bf16", "f64_bf16"),
     "amg_fused_updown_{}": ("f32_bf16", "f64_bf16"), "amg_fused_tail_{}": ("f32_bf16", "f64_bf16"),
     "amg_fused_down_nf_{}": ("f32_bf16", "f64_bf16"), "amg_fused_up_nf_{}": ("f32_bf16", "f64_bf16"),
-    "amg_fused_tail_nf_{}": ("f32_bf16", "f64_bf16"),
+    "amg_fused_tail_nf_{}": ("f32_bf16", "f64_bf16"), "amg_fused_subcycle_{}": ("f32_bf16", "f64_bf16"),
     "amg_sweep3d_march_{}": ("f32_bf16",),
 }
 

@@ -84,11 +84,12 @@ def latnd_from_spec(spec, dtype, device, row_pad: int = 8, coef_dtype=None) -> L
     )
 
 
-def latnd_spmv(A: LatND, x: torch.Tensor) -> torch.Tensor:
+def latnd_spmv(A: LatND, x: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """y = A·x for a flat (padded) x, or a multi-RHS block ``x[n, k]``;
     returns y of length rows_padded (by k).  bf16 planes multiply as
     float32 values in float32 arithmetic (the JAX package's
-    ``result_type(bf16, f32)``)."""
+    ``result_type(bf16, f32)``).  ``row0`` makes ``A`` the block of the
+    leading grid axis from ``row0`` on, as in ``lat2d_spmv``."""
     N = len(A.row_dims)
     X = grid_first(x, int(np.prod(A.col_dims)), A.col_dims)  # [(k,) *col_dims]
     lead = X.dim() - N
@@ -103,6 +104,6 @@ def latnd_spmv(A: LatND, x: torch.Tensor) -> torch.Tensor:
     for k, d in enumerate(A.offsets):
         g = Xp
         for a in range(N):
-            g = _axis_take(g, lead + a, d[a], margins[a], A.row_dims[a], A.bases[a])
+            g = _axis_take(g, lead + a, d[a], margins[a], A.row_dims[a], A.bases[a], row0 if a == 0 else 0)
         y = y + A.data[k] * g
     return grid_last(y, int(np.prod(A.row_dims)), A.rows_padded, x.dim() == 2)

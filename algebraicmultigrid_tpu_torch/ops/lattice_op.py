@@ -72,21 +72,22 @@ def lat2d_from_spec(spec, dtype, device, row_pad: int) -> Lat2D:
     )
 
 
-def _axis_take(Xp, axis: int, d: int, m: int, W_row: int, base: Tuple[int, int]):
-    """Slice of the padded grid realising ``(i*p)//q + d`` along one axis.
-    ``Xp`` is padded by ``m`` on each side of ``axis``; returns extent
-    ``W_row`` along that axis."""
+def _axis_take(Xp, axis: int, d: int, m: int, W_row: int, base: Tuple[int, int], i0: int = 0):
+    """Slice of the padded grid realising ``(i*p)//q + d`` along one axis
+    for the rows ``i0 … i0 + W_row − 1``.  ``Xp`` is padded by ``m`` on
+    each side of ``axis``; returns extent ``W_row`` along that axis."""
     p, q = base
     start = d + m
     if p == 1 and q == 1:
-        return Xp.narrow(axis, start, W_row)
+        return Xp.narrow(axis, start + i0, W_row)
     if p == 1:  # fine rows (prolongation): base = i//q — q rows share a source
-        src = (W_row - 1) // q + 1
-        s = Xp.narrow(axis, start, src).repeat_interleave(q, dim=axis)
-        return s.narrow(axis, 0, W_row)
+        first = i0 // q
+        src = (i0 + W_row - 1) // q - first + 1
+        s = Xp.narrow(axis, start + first, src).repeat_interleave(q, dim=axis)
+        return s.narrow(axis, i0 - first * q, W_row)
     if q == 1:  # coarse rows (restriction): base = p·i — strided read
         idx = [slice(None)] * Xp.dim()
-        idx[axis] = slice(start, start + (W_row - 1) * p + 1, p)
+        idx[axis] = slice(start + i0 * p, start + (i0 + W_row - 1) * p + 1, p)
         return Xp[tuple(idx)]
     raise ValueError(f"unsupported rational base {base}")
 
@@ -114,9 +115,12 @@ def grid_last(y: torch.Tensor, n: int, rows_padded: int, rhs: bool) -> torch.Ten
     return pad_rows(y, 0, rows_padded - n) if rows_padded > n else y
 
 
-def lat2d_spmv(A: Lat2D, x: torch.Tensor) -> torch.Tensor:
+def lat2d_spmv(A: Lat2D, x: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """y = A·x for a flat (padded) x, or a multi-RHS block ``x[n, k]``;
-    returns y of length rows_padded (by k)."""
+    returns y of length rows_padded (by k).  ``row0`` makes ``A`` the block
+    of grid rows ``row0 … row0 + row_dims[0] − 1`` of a taller operator
+    (``data`` and ``row_dims`` the block's; the sharded tier's row block),
+    x the operator's whole input."""
     WxR, WyR = A.row_dims
     WxC, WyC = A.col_dims
     X = grid_first(x, WxC * WyC, (WxC, WyC))  # [(k,) WxC, WyC]
@@ -127,7 +131,7 @@ def lat2d_spmv(A: Lat2D, x: torch.Tensor) -> torch.Tensor:
 
     y = torch.zeros(X.shape[:-2] + (WxR, WyR), dtype=torch.promote_types(A.data.dtype, x.dtype), device=x.device)
     for k, (dx, dy) in enumerate(A.offsets):
-        g = _axis_take(Xp, ax, dx, mx, WxR, A.base_x)
+        g = _axis_take(Xp, ax, dx, mx, WxR, A.base_x, row0)
         g = _axis_take(g, ay, dy, my, WyR, A.base_y)
         y = y + A.data[k] * g
     return grid_last(y, WxR * WyR, A.rows_padded, x.dim() == 2)

@@ -1,10 +1,18 @@
-"""The multi-GPU lattice tier on ``torch.distributed``: one process per
-x-slab (SPMD), nearest-neighbour halo exchange, the slab-sharded V/W/F cycle
-and PCG.  Port of the JAX package's ``parallel/`` slab tier; the generic
-``dist.py`` rows (``shard_hierarchy``, ``build_sharded_hierarchy``,
-``solve_sharded``) and ``sharded_rap.py`` are not ported yet."""
+"""The multi-GPU tier on ``torch.distributed``, one process per rank (SPMD):
+the generic sharded hierarchy (``solve_sharded``: any hierarchy, its big
+levels held as row blocks), the slab-sharded lattice tier (x-slabs,
+nearest-neighbour halo exchange, the slab V/W/F cycle and PCG) and the
+probing Galerkin product on slabs (``rap_planes_sharded``).  Port of the
+JAX package's ``parallel/``."""
 
-from .dist import RowMesh, make_row_mesh, run_ranks
+from .dist import (
+    RowMesh,
+    build_sharded_hierarchy,
+    make_row_mesh,
+    run_ranks,
+    shard_hierarchy,
+    solve_sharded,
+)
 from .halo import lat2d_spmv_halo, shard_slab
 from .lattice_cycle import (
     SlabHierarchy,
@@ -13,11 +21,15 @@ from .lattice_cycle import (
     matvec_lattice_sharded,
     solve_lattice_sharded,
 )
+from .sharded_rap import rap_planes_sharded
 
 __all__ = [
     "RowMesh",
     "make_row_mesh",
     "run_ranks",
+    "shard_hierarchy",
+    "build_sharded_hierarchy",
+    "solve_sharded",
     "lat2d_spmv_halo",
     "shard_slab",
     "SlabHierarchy",
@@ -25,4 +37,5 @@ __all__ = [
     "cycle_lattice_sharded",
     "matvec_lattice_sharded",
     "solve_lattice_sharded",
+    "rap_planes_sharded",
 ]

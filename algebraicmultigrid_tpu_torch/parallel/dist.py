@@ -1,6 +1,7 @@
-"""The row "mesh" of the slab-sharded tier, on ``torch.distributed``.
+"""The row "mesh" of the multi-GPU tier, on ``torch.distributed``, and the
+generic sharded hierarchy.
 
-Port of ``make_row_mesh`` of the JAX package's ``parallel/dist.py``.  JAX
+Port of the JAX package's ``parallel/dist.py``.  JAX
 runs one controller over a ``Mesh`` of devices and ``shard_map`` hands each
 device its slab; here every slab is one process of a ``torch.distributed``
 process group (SPMD): the rank holds its slab on its own device, every rank
@@ -24,9 +25,21 @@ slab and no process group: the n_sh = 1 program, with no collective.
 runs a function on each and returns their results; a rank that fails or
 does not answer within its time limit fails the call.
 
-The rest of the JAX module — ``shard_hierarchy``, ``build_sharded_hierarchy``
-and ``solve_sharded``, the generic ELL/SDIA rows whose collectives XLA
-inserts from sharding annotations — is not ported yet.
+``shard_hierarchy`` / ``build_sharded_hierarchy`` / ``solve_sharded`` are
+the generic tier: any device hierarchy, its big levels' operators and
+smoother arrays held as each rank's row block (``rows.py``) and every level
+vector whole on every rank.  The JAX package annotates shardings and lets
+XLA insert the collectives; here a sharded SpMV or smoother step computes
+the rank's rows and all-gathers them, and the single-device cycle and
+solve loop (``models/device.py``) run unchanged: each row is computed as
+on one device, and every rank holds the same vectors, so the norms, the
+iteration count and x are the same on every rank.  What stays whole, as
+in the JAX module: the small levels (fewer than ``replicate_below`` rows),
+R, BSG and BT operators (K6 runs on every rank), a lattice whose leading
+axis does not split evenly, the gathered multicolor cache, the coarse
+solve, ``final_A`` and the RCM basis.  The single-card caches go: the
+fused legs, the tail and the subcycle, and K5's cache for its masked
+fallback; K7's cache goes for its masked fallback on a sharded level.
 """
 
 from __future__ import annotations
@@ -42,7 +55,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["RowMesh", "make_row_mesh", "run_ranks", "DEFAULT_TIMEOUT_S"]
+from ..config import V
+
+__all__ = [
+    "RowMesh", "make_row_mesh", "run_ranks", "DEFAULT_TIMEOUT_S", "shard_hierarchy", "build_sharded_hierarchy",
+    "solve_sharded",
+]
 
 # every collective and point-to-point call of the tier fails after this long
 DEFAULT_TIMEOUT_S = 300.0
@@ -227,3 +245,107 @@ def run_ranks(fn, n_sh: int, *args, backend: str = "gloo", device=None, timeout_
 
 def _failures(failed: dict) -> str:
     return "\n".join(f"rank {r} failed:\n{tb}" for r, tb in sorted(failed.items()))
+
+
+# --------------------------------------------------------------------------
+# the generic sharded hierarchy (the JAX module's shard_hierarchy,
+# build_sharded_hierarchy and solve_sharded)
+# --------------------------------------------------------------------------
+
+
+def _single_card_off(cache, sharded: bool):
+    """K5's cache → its masked fallback (as the JAX module drops
+    ``PallasGSCache``); K7's on a sharded level, whose rank holds no whole
+    operator to sweep."""
+    from ..ops.kernels.gs_sweep import GSSweepCache
+    from ..ops.kernels.sweep3d import Sweep3DCache
+
+    if isinstance(cache, GSSweepCache) or (sharded and isinstance(cache, Sweep3DCache)):
+        if cache.fallback is None:
+            raise ValueError(f"this {type(cache).__name__} has no masked fallback to shard")
+        return cache.fallback
+    return cache
+
+
+def shard_hierarchy(h, mesh: RowMesh, *, replicate_below: int = 4096):
+    """This rank's view of a device hierarchy (built on ``mesh.device``):
+    levels of at least ``replicate_below`` rows whose padded rows split
+    evenly over the ranks hold their A, P and smoother arrays as this
+    rank's row block; everything else stays whole; the fused legs, the
+    tail and the subcycle are dropped.  At one rank nothing is blocked."""
+    from ..models.device import DeviceHierarchy, DeviceLevel
+    from .rows import shard_op, shard_smoother
+
+    n_sh = mesh.n_sh
+    levels = []
+    for level in h.levels:
+        big = n_sh > 1 and level.A.shape[0] >= replicate_below and level.A.rows_padded % n_sh == 0
+        pre, post = (_single_card_off(c, big) for c in (level.pre, level.post))
+        levels.append(DeviceLevel(
+            A=shard_op(level.A, mesh) if big else level.A,
+            P=shard_op(level.P, mesh) if big else level.P,
+            R=level.R,
+            pre=shard_smoother(pre, mesh) if big else pre,
+            post=shard_smoother(post, mesh) if big else post,
+            fused=None,
+        ))
+    return DeviceHierarchy(levels=tuple(levels), coarse=h.coarse, final_A=h.final_A, perm0=h.perm0, iperm0=h.iperm0)
+
+
+def _dtype_name(dtype) -> str:
+    return "auto" if dtype is None else str(dtype).removeprefix("torch.")
+
+
+def build_sharded_hierarchy(ml, mesh: RowMesh, dtype=None, replicate_below: int = 4096):
+    """The device hierarchy padded to ``8·n_sh`` rows a level and sharded
+    over ``mesh`` (this rank's view), built on first use and cached on
+    ``ml`` under the JAX module's key."""
+    from ..models.device import _resolve, build_device_hierarchy
+
+    key = ("sharded", _dtype_name(dtype), mesh.n_sh, replicate_below)
+    if key not in ml._device_cache:
+        device, dt = _resolve(ml, mesh.device, dtype)
+        h = build_device_hierarchy(ml, device=device, dtype=dt, fused=False, tail=False, row_pad=8 * mesh.n_sh)
+        ml._device_cache[key] = shard_hierarchy(h, mesh, replicate_below=replicate_below)
+    return ml._device_cache[key]
+
+
+def solve_sharded(
+    ml,
+    b,
+    cycle=V(),
+    *,
+    mesh: Optional[RowMesh] = None,
+    maxiter: int = 100,
+    abstol: float = 0.0,
+    reltol: Optional[float] = None,
+    calculate_residual: bool = True,
+    dtype=None,
+    replicate_below: int = 4096,
+):
+    """The stationary multigrid solve over the sharded hierarchy: every rank
+    calls it with the same ``b`` (flat, or a multi-RHS block ``[n, k]``)
+    and gets the same ``(x, iterations, ‖r‖)``, x in the caller's order.
+    ``mesh`` defaults to ``make_row_mesh()`` (one rank, on the card);
+    ``reltol`` to √eps of the working dtype, and the stopping test is
+    ‖r‖ ≤ max(reltol·‖b‖, abstol)."""
+    import math
+
+    import numpy as np
+
+    from ..models.device import _solve_fused, fit_len
+
+    if mesh is None:
+        mesh = make_row_mesh()
+    h = build_sharded_hierarchy(ml, mesh, dtype=dtype, replicate_below=replicate_below)
+    wdtype = h.levels[0].A.dtype if h.levels else h.final_A.dtype
+    b_arr = torch.as_tensor(np.asarray(b), device=mesh.device).to(wdtype)
+    n = b_arr.shape[0]
+    bp = fit_len(b_arr, h.fine_padded)
+    if reltol is None:
+        reltol = math.sqrt(torch.finfo(wdtype).eps)
+    normb = float(torch.linalg.norm(b_arr))
+    if normb != 0:
+        abstol = max(reltol * normb, abstol)
+    xq, iters, normres = _solve_fused(h, bp, maxiter, abstol, cycle, calculate_residual)
+    return xq[:n].cpu().numpy(), int(iters), float(normres)

@@ -177,7 +177,33 @@ Runs, in order, and exits non-zero on the first failure:
     vectors (factored, nf, nf, factored), beside its 2-byte and 4-byte
     bound; (d) a V-cycle and a fixed cycle, non-factored and factored,
     timed in turns, and one V-cycle of each on the same x and b with
-    float32 planes held to 1e-5 (2-norm: the same P two ways).
+    float32 planes held to 1e-5 (2-norm: the same P two ways);
+19. lowers the flagship with ``subcycle=True`` and bf16 planes in float32
+    and float64: asserts ``sub_start`` 1, ``tail_start`` 2, the subcycle's
+    A, T, S in bf16 with D⁻¹ and the coarse operator at the vectors' dtype
+    (the top level rounded like a tail level, not the legs' cache), L0's
+    legs bf16; holds K9's ``f32_bf16`` / ``f64_bf16`` entries against the
+    plain version at L1 (1366²) and at L1 of the 192² problem with a
+    600-row tail (max relative error <= 1e-5 / 1e-12), times each in turns
+    with K9 on the vectors' own planes beside its 2-byte bound; runs
+    ``solve_refined(tol=1e-8, subcycle=True, coef_dtype=bfloat16)`` (< 1e-8
+    within 4 rounds, K9 launched, no K4, K1/K2 only at L0) and 400
+    ``run_fixed_cycles`` on b = A·1 (< 1e-5, exactly updown 399, sub 400,
+    down 1, up 1, tail 0) with the counters zeroed just before each, and a
+    float64 V-cycle (K1/K2 once, K9 once);
+20. runs the generic sharded tier on 4 gloo ranks sharing the card:
+    (a) ``solve_sharded`` on the flagship (multicolor GS, float32, reltol
+    1e-5) with the counters zeroed just before: the iterations of
+    ``solve_sharded`` at n_sh = 1 in this process, x within 1e-5 of it in
+    the 2-norm and the same on every rank, no K1–K4 or K9 launch; the L0
+    SpMV and V-cycle times per rank beside the single card's (CUDA events);
+    (b) ``solve_sharded`` on the scrambled 1024² problem, whose one
+    V-cycle launches K6 on every rank exactly as often as the single-card
+    count derived from the hierarchy; (c) ``rap_planes_sharded`` at L0 of
+    the 4-slab flagship against ``ml.levels[1].A.spec.expand_all()`` (5e-6
+    relative); (d) ``entry.dryrun_multichip(4)``; with 4 or more cards
+    (a)–(c) again under NCCL, a card a rank, else it prints that NCCL was
+    not run; each part's seconds.
 
 The last two lines of output are the card's ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``; the line before them lists every
@@ -1259,14 +1285,15 @@ SUB_ROUTE_TAIL_ROWS = 2_500_000  # K4 entered at L1: the one-launch route withou
 
 def sub_work(cache):
     """(words, flops) of one whole-subcycle call: level t's planes, D⁻¹, T,
-    S and b read once and x written once, the tail's planes and Mc read once
+    S (each at its own itemsize, ``plane_words``) and b read once and x
+    written once, the tail's planes and Mc read once
     (b_c, x_c and x_mid never leave the kernel's buffers); the flops of the
     down leg from zero, the tail and the up leg."""
     top = cache.top
     n = top.row_dims[0] * top.row_dims[1]
     n0 = cache.tail.levels[0].row_dims[0] * cache.tail.levels[0].row_dims[1]
     t_words, t_flops = tail_work(cache.tail, True)
-    words = (len(top.offsA) + 3) * n + 2 * n + t_words - 2 * n0
+    words = plane_words(top) + 2 * n + t_words - 2 * n0
     flops = (leg_work(top, top.steps, False, True, x_zero=True)[1] + t_flops
              + leg_work(top, top.steps, True, False)[1])
     return words, flops
@@ -1420,6 +1447,136 @@ def subcycle_path(device, ml):
     if cycle_counts != want:
         raise AssertionError(f"subcycle fixed-cycle launches {cycle_counts} != {want}")
     return row, solve_counts, cycle_counts
+
+
+def subcycle_bf16_path(device, ml):
+    """Phase 19: the flagship lowered with the subcycle and bf16 planes in
+    float32 and float64; K9's ``f32_bf16``/``f64_bf16`` entries against
+    their plain version and timed in turns with K9 on the vectors' own
+    planes; the refined solve and the fixed-cycle loop (float32) with the
+    counters zeroed just before each.  Returns {entry: row}."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
+    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(19)
+
+    def vec(m, length, dtype):
+        v = torch.zeros(length, dtype=dtype)
+        v[:m] = torch.randn(m, generator=gen, dtype=dtype)
+        return v.to(device)
+
+    rows = {}
+    ml_s = setup(SMALL, proxy=64, cut_rows=2000, min_proxy_dim=16)
+    for dtype in (torch.float32, torch.float64):
+        key = str(dtype).removeprefix("torch.")
+        entry = BF16_SUFFIX[key]
+        t0 = time.perf_counter()
+        h = amt.get_device_hierarchy(ml, device=device, dtype=dtype, subcycle=True, coef_dtype=bf16)
+        torch.cuda.synchronize()
+        log(f"subcycle bf16 planes, {key} vectors, {N}x{N}: tail_start {h.tail_start} sub_start {h.sub_start}"
+            f" tiles {h.sub and h.sub.tiles} lowering_s {time.perf_counter() - t0!r}")
+        if (h.sub_start, h.tail_start) != (EXPECT_SUB_START, EXPECT_TAIL_START):
+            raise AssertionError(f"bf16 {key}: sub_start {h.sub_start}, tail_start {h.tail_start}")
+        if not all((L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype, L.dtype) == (bf16,) * 3 + (dtype, dtype)
+                   for L in h.sub.levels) or h.sub.tail.Mc.dtype != dtype:
+            raise AssertionError(f"bf16 {key}: the subcycle's A, T, S are not bf16 with D⁻¹ and Mc in {key}")
+        f0 = h.levels[0].fused
+        if (f0.A.dtype, f0.dinv.dtype) != (bf16, bf16) or h.sub.top is h.levels[1].fused:
+            raise AssertionError(f"bf16 {key}: L0's legs are not the legs' bf16 cache, or L1's legs were reused")
+        if not all(L.A.data.dtype == dtype for L in h.levels):
+            raise AssertionError(f"bf16 {key}: a level's own operator is not {key}")
+
+        L1 = h.levels[1]
+        b = vec(L1.A.shape[0], L1.A.rows_padded, dtype)
+        _, abs_err = compare_subcycle(h.sub, b, "L1 bf16 planes")
+        hs = amt.build_device_hierarchy(ml_s, device=device, dtype=dtype, tail_max_rows=SUB_SMALL_TAIL_ROWS,
+                                        subcycle=True, coef_dtype=bf16)
+        if (hs.sub_start, hs.tail_start) != (1, 2):
+            raise AssertionError(f"{SMALL}² bf16: sub_start {hs.sub_start}, tail_start {hs.tail_start}")
+        Ls = hs.levels[1]
+        abs_err = max(abs_err, compare_subcycle(hs.sub, vec(Ls.A.shape[0], Ls.A.rows_padded, dtype),
+                                                f"{SMALL}² L1 bf16 planes")[1])
+        own = sk.build_fused_subcycle_cache(ml.levels, ml, EXPECT_SUB_START, dtype, device)
+        tag = {"float32": "f32", "float64": "f64"}[key]
+        row = dict(entry=entry, level=1, dims=h.sub.top.row_dims, max_abs_err=abs_err)
+        row[f"{tag}_ms"], row["ms"], row["turns_ms"] = in_turns(lambda: sk.fused_subcycle(own, b),
+                                                                lambda: sk.fused_subcycle(h.sub, b))
+        row["plain_ms"] = time_ms(lambda: sk.fused_subcycle_reference(h.sub, b))
+        row["bound_ms"], row["bound_by"] = bound(*sub_work(h.sub), dtype.itemsize,
+                                                 F32_FLOPS if key == "float32" else F64_FLOPS)
+        row[f"{tag}_bound_ms"] = bound(*sub_work(own), dtype.itemsize,
+                                       F32_FLOPS if key == "float32" else F64_FLOPS)[0]
+        del own
+        log(f"kernel fused_subcycle_{entry} L1 {row['dims']}: kernel {row['ms']!r} ms, {key} planes in turns"
+            f" {row[f'{tag}_ms']!r} ms ({tag}/bf16/bf16/{tag} {row['turns_ms']}) plain {row['plain_ms']!r} ms"
+            f" bound {row['bound_ms']!r} ms ({row['bound_by']}, 2-byte planes; {key} planes"
+            f" {row[f'{tag}_bound_ms']!r})")
+
+        if key == "float32":
+            bh = np.random.default_rng(19).standard_normal(N * N)
+            torch.cuda.synchronize()
+            zero_counts()
+            t1 = time.perf_counter()
+            stats = {}
+            x, hist = amt.solve_refined(ml, bh, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True,
+                                        stats=stats, subcycle=True, coef_dtype=bf16)
+            t2 = time.perf_counter()
+            c = read_counts()
+            relres = float(np.linalg.norm(bh - ml.levels[0].A @ x) / np.linalg.norm(bh))
+            log(f"subcycle bf16 solve_refined: rounds {len(hist) - 1} pcg_iters_per_round {stats['inner_iters']}"
+                f" relres {relres!r} history {hist} {t2 - t1!r} s; launches {c}")
+            if not (np.isfinite(x).all() and relres < TOL and len(hist) - 1 <= MAX_ROUNDS):
+                raise AssertionError(f"subcycle bf16 solve_refined relres {relres} after {len(hist) - 1} rounds")
+            if not (c["sub"] > 0 and c["tail"] == 0 and c["down"] == c["up"] == c["sub"] and c["updown"] == 0):
+                raise AssertionError(f"the bf16 subcycle solve's launches {c}: K9 per V-cycle, K1/K2 at L0 only")
+            row["launches_solve"] = c["sub"]
+
+            bf = torch.zeros(h.fine_padded, device=device)
+            bf[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device=device)
+            torch.cuda.synchronize()
+            zero_counts()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            xc = run_fixed_cycles(h, torch.zeros_like(bf), bf, CYCLES)
+            stop.record()
+            torch.cuda.synchronize()
+            cycle_counts = read_counts()
+            row["fixed_ms"] = start.elapsed_time(stop) / CYCLES
+            xch = xc[: N * N].double().cpu().numpy()
+            relres_fixed = float(np.linalg.norm(bf[: N * N].double().cpu().numpy() - ml.levels[0].A @ xch)
+                                 / float(bf.double().norm()))
+            log(f"subcycle bf16 fixed cycles {CYCLES}: ms_per_cycle {row['fixed_ms']!r} relres_after_cycles"
+                f" {relres_fixed!r}; launches {cycle_counts}")
+            want = dict.fromkeys(cycle_counts, 0)
+            want.update(updown=CYCLES - 1, sub=CYCLES, down=1, up=1)
+            if not (np.isfinite(xch).all() and relres_fixed < CYCLES_RELRES) or cycle_counts != want:
+                raise AssertionError(f"subcycle bf16 fixed cycles: relres {relres_fixed}, launches {cycle_counts}"
+                                     f" != {want}")
+            row["launches"] = cycle_counts["sub"]
+        else:
+            # float64: one V-cycle with the counters zeroed (K1/K2 at L0, K9)
+            from algebraicmultigrid_tpu_torch.models.device import _one_iteration
+
+            bf = vec(N * N, h.fine_padded, dtype)
+            torch.cuda.synchronize()
+            zero_counts()
+            _one_iteration(h, amt.V(), torch.zeros_like(bf), bf)
+            torch.cuda.synchronize()
+            c = read_counts()
+            want = dict.fromkeys(c, 0)
+            want.update(down=1, up=1, sub=1)
+            if c != want:
+                raise AssertionError(f"subcycle f64 bf16 V-cycle launches {c} != {want}")
+            row["launches"] = c["sub"]
+        rows[entry] = row
+        del h
+        ml._device_cache.clear()
+        torch.cuda.empty_cache()
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -1710,6 +1867,218 @@ def slab_path(device, ml):
         log(f"NCCL across cards was not run on this machine: it has {torch.cuda.device_count()} card(s),"
             f" the phase needs {SLAB_RANKS}")
         row["nccl"] = False
+    return row
+
+
+# --------------------------------------------------------------------------
+# the generic sharded tier (phase 20)
+# --------------------------------------------------------------------------
+
+SHARD_RANKS = 4
+SHARD_TIMEOUT_S = 900
+SHARD_RELTOL = 1e-5
+SHARD_X_RTOL = 1e-5  # 4 ranks against 1, in the 2-norm
+SHARD_RAP_RTOL = 5e-6  # the JAX test's bound on the probed planes
+# the kernels that the sharded tier drops (legs, tail, subcycle)
+SINGLE_CARD = ("down", "up", "updown", "tail", "sub", "down_nf", "up_nf", "tail_nf")
+
+
+def unstructured_problem():
+    """bench.py's scrambled 1024² Poisson (phase 7) and its SA hierarchy."""
+    import scipy.sparse as sp
+
+    import algebraicmultigrid_tpu_torch as amt
+
+    A = sp.csr_matrix(amt.poisson((NU, NU)))
+    p = np.random.default_rng(NU_SEED).permutation(A.shape[0])
+    Ap = A[p][:, p].tocsr()
+    return Ap, amt.smoothed_aggregation(Ap)
+
+
+def layout(h):
+    """(format of A, A held as a row block, smoother) by level."""
+    from algebraicmultigrid_tpu_torch.parallel.rows import ShardedOp, ShardedSmoother
+
+    return [(type(L.A.local if isinstance(L.A, ShardedOp) else L.A).__name__, isinstance(L.A, ShardedOp),
+             type(L.pre.cache if isinstance(L.pre, ShardedSmoother) else L.pre).__name__
+             + (" rows" if isinstance(L.pre, ShardedSmoother) else "")) for L in h.levels]
+
+
+def sharded_times(h, device):
+    """(L0 SpMV ms, V-cycle ms) of a sharded hierarchy by CUDA events (every
+    rank calls it: the collectives pair up)."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration
+    from algebraicmultigrid_tpu_torch.ops.banded import mat_vec
+
+    x = torch.randn(h.fine_padded, generator=torch.Generator(device="cpu").manual_seed(20)).to(device)
+    z = torch.zeros_like(x)
+    return time_ms(lambda: mat_vec(h.levels[0].A, x), reps=5), time_ms(lambda: _one_iteration(h, amt.V(), z, x),
+                                                                          reps=2)
+
+
+def sharded_rank(mesh):
+    """Phase 20 on one rank: (a) ``solve_sharded`` on the flagship with the
+    counters zeroed just before, its layout and times; (c)
+    ``rap_planes_sharded`` at L0 of the 4-slab hierarchy; (b)
+    ``solve_sharded`` on the scrambled 1024² problem and one V-cycle of it
+    with the counters zeroed just before."""
+    import hashlib
+
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, fit_len
+    from algebraicmultigrid_tpu_torch.parallel import build_sharded_hierarchy, rap_planes_sharded, solve_sharded
+    from algebraicmultigrid_tpu_torch.parallel.lattice_cycle import slab_hierarchy
+
+    out = {}
+    t0 = time.perf_counter()
+    ml = setup(N)
+    A0 = ml.levels[0].A
+    b = A0 @ np.ones(A0.shape[0])
+    t1 = time.perf_counter()
+    zero_counts()
+    x, it, nr = solve_sharded(ml, b, mesh=mesh, dtype="float32", reltol=SHARD_RELTOL)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out["counts"] = read_counts()
+    out["solve"] = (x if mesh.rank == 0 else None, it, nr, hashlib.sha1(x.tobytes()).hexdigest())
+    h = build_sharded_hierarchy(ml, mesh, dtype="float32")
+    out["layout"] = layout(h)
+    out["spmv_ms"], out["vcycle_ms"] = sharded_times(h, mesh.device)
+    del h
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+
+    hs = slab_hierarchy(ml, mesh)
+    out["rap"] = rap_planes_sharded(hs, 0, mesh, ml.levels[1].A.spec.offsets).cpu().numpy()
+    torch.cuda.synchronize()
+    del hs
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+
+    Ap, mlu = unstructured_problem()
+    bu = Ap @ np.ones(Ap.shape[0])
+    xu, itu, nru = solve_sharded(mlu, bu, mesh=mesh, dtype="float32", reltol=SHARD_RELTOL)
+    hu = build_sharded_hierarchy(mlu, mesh, dtype="float32")
+    bp = fit_len(torch.as_tensor(bu, dtype=torch.float32, device=mesh.device), hu.fine_padded)
+    torch.cuda.synchronize()
+    zero_counts()
+    _one_iteration(hu, amt.V(), torch.zeros_like(bp), bp)
+    torch.cuda.synchronize()
+    out["u_counts"] = read_counts()
+    out["u_layout"] = layout(hu)
+    out["u_solve"] = (itu, nru, float(np.linalg.norm(bu - Ap @ xu) / np.linalg.norm(bu)))
+    del hu
+    t5 = time.perf_counter()
+    out["seconds"] = dict(setup=t1 - t0, flagship_solve=t2 - t1, flagship_times=t3 - t2, rap=t4 - t3,
+                          unstructured=t5 - t4)
+    return out
+
+
+def check_sharded_ranks(res, backend, ml, it1, x1, u_bsg):
+    """Every rank's phase 20 results against this process's n_sh = 1 runs."""
+    x4 = res[0]["solve"][0]
+    for rank, r in enumerate(res):
+        _, it, nr, digest = r["solve"]
+        log(f"sharded rank {rank} ({backend}): seconds {r['seconds']}; flagship solve {it} iterations"
+            f" ‖r‖ {nr!r}, launches {r['counts']}; L0 SpMV {r['spmv_ms']!r} ms, V-cycle {r['vcycle_ms']!r} ms"
+            f" with {len(res)} ranks sharing the card; unstructured (iterations, ‖r‖, scipy relres)"
+            f" {r['u_solve']}, one V-cycle's launches {r['u_counts']}")
+        if (it, digest) != (res[0]["solve"][1], res[0]["solve"][3]) or it != it1:
+            raise AssertionError(f"rank {rank}: {it} iterations (n_sh = 1: {it1}), or another x than rank 0's")
+        if any(r["counts"][k] for k in SINGLE_CARD) or any(r["u_counts"][k] for k in SINGLE_CARD):
+            raise AssertionError(f"rank {rank}: the sharded tier launched a single-card kernel: {r['counts']}")
+        if r["u_counts"]["bsg"] != u_bsg:
+            raise AssertionError(f"rank {rank}: {r['u_counts']['bsg']} K6 launches a V-cycle, single card {u_bsg}")
+        if not r["u_solve"][2] < 1e-4:
+            raise AssertionError(f"rank {rank}: the unstructured sharded solve's scipy relres {r['u_solve'][2]}")
+    log(f"sharded layout ({backend}; A's format, held in blocks, smoother): {res[0]['layout']};"
+        f" unstructured {res[0]['u_layout']}")
+    e = float(np.linalg.norm(x4 - x1) / np.linalg.norm(x1))
+    log(f"solve_sharded ({backend}, {len(res)} ranks) x against n_sh = 1: {e!r} (2-norm)")
+    if not (np.isfinite(x4).all() and e <= SHARD_X_RTOL):
+        raise AssertionError(f"solve_sharded: x of {len(res)} ranks against one: {e}")
+    if not res[0]["layout"][0][1]:
+        raise AssertionError("the flagship's L0 is not held in row blocks")
+    child = ml.levels[1].A.spec
+    host = child.expand_all(dtype=np.float64)
+    planes = np.concatenate([r["rap"] for r in res], axis=1)[:, : child.row_dims[0], : child.row_dims[1]]
+    rap_err = float(np.abs(planes.astype(np.float64) - host).max() / np.abs(host).max())
+    log(f"rap_planes_sharded ({backend}) at L0 of the {len(res)}-slab flagship: planes {planes.shape} against the"
+        f" host child: max rel err {rap_err!r}")
+    if not rap_err <= SHARD_RAP_RTOL:
+        raise AssertionError(f"rap_planes_sharded disagrees with the host child: {rap_err}")
+    return rap_err
+
+
+def sharded_path(device, ml):
+    """Phase 20: the generic sharded tier on 4 gloo ranks sharing the card
+    (and NCCL, a card a rank, where the machine has 4), held against
+    ``solve_sharded`` at n_sh = 1 in this process; ``rap_planes_sharded``
+    on the 4-slab flagship; ``entry.dryrun_multichip(4)``."""
+    import torch
+
+    from algebraicmultigrid_tpu_torch import entry
+    from algebraicmultigrid_tpu_torch.parallel import build_sharded_hierarchy, make_row_mesh, run_ranks, solve_sharded
+
+    secs = {}
+    t0 = time.perf_counter()
+    res = run_ranks(sharded_rank, SHARD_RANKS, backend="gloo", device=device, timeout_s=SHARD_TIMEOUT_S)
+    secs["ranks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mesh1 = make_row_mesh(device=device)
+    A0 = ml.levels[0].A
+    b = A0 @ np.ones(A0.shape[0])
+    zero_counts()
+    x1, it1, nr1 = solve_sharded(ml, b, mesh=mesh1, dtype="float32", reltol=SHARD_RELTOL)
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    h1 = build_sharded_hierarchy(ml, mesh1, dtype="float32")
+    spmv1, vcycle1 = sharded_times(h1, device)
+    del h1
+    ml._device_cache.clear()
+    torch.cuda.empty_cache()
+    log(f"solve_sharded n_sh = 1: {it1} iterations ‖r‖ {nr1!r}, launches {c1}; L0 SpMV {spmv1!r} ms,"
+        f" V-cycle {vcycle1!r} ms (the single card, CUDA events)")
+    if any(c1[k] for k in SINGLE_CARD):
+        raise AssertionError(f"solve_sharded at n_sh = 1 launched a single-card kernel: {c1}")
+    Ap, mlu = unstructured_problem()
+    hu1 = build_sharded_hierarchy(mlu, mesh1, dtype="float32")
+    u_bsg = expected_vcycle_launches(hu1)[0]
+    del hu1, Ap, mlu
+    torch.cuda.empty_cache()
+    secs["one_rank"] = time.perf_counter() - t0
+
+    rap_err = check_sharded_ranks(res, "gloo", ml, it1, x1, u_bsg)
+    row = dict(iterations=it1, spmv_ms=[r["spmv_ms"] for r in res], vcycle_ms=[r["vcycle_ms"] for r in res],
+               one_card_spmv_ms=spmv1, one_card_vcycle_ms=vcycle1, k6_per_vcycle=u_bsg, rap_err=rap_err)
+
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(SHARD_RANKS)
+    secs["dryrun"] = time.perf_counter() - t0
+    log(f"entry.dryrun_multichip({SHARD_RANKS}): {dry}")
+    if [r["rank"] for r in dry] != list(range(SHARD_RANKS)) or len({r["normres"] for r in dry}) != 1:
+        raise AssertionError(f"dryrun_multichip: {dry}")
+
+    if torch.cuda.device_count() >= SHARD_RANKS:
+        t0 = time.perf_counter()
+        res_n = run_ranks(sharded_rank, SHARD_RANKS, backend="nccl", timeout_s=SHARD_TIMEOUT_S)
+        check_sharded_ranks(res_n, "nccl", ml, it1, x1, u_bsg)
+        secs["nccl"] = time.perf_counter() - t0
+        row["nccl"] = True
+    else:
+        log(f"NCCL across cards was not run on this machine: it has {torch.cuda.device_count()} card(s),"
+            f" the phase needs {SHARD_RANKS}")
+        row["nccl"] = False
+    log(f"phase 20 seconds: {secs}")
+    row["seconds"] = secs
     return row
 
 
@@ -2433,6 +2802,10 @@ def main():
     rows_nf, counts_nf, levels_nf, load_counts_nf, summary_nf = nonfactored_path(device, ml)
     ml._device_cache.clear()
     torch.cuda.empty_cache()
+    rows_sub_bf16 = subcycle_bf16_path(device, ml)
+    torch.cuda.empty_cache()
+    row_shard = sharded_path(device, ml)
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, rs in rows.items():
@@ -2552,6 +2925,18 @@ def main():
         if name != "fused_tail_nf":
             row["launches_by_level"] = levels_nf.get(COUNTER[name], {})
         kernels.append(row)
+    for entry, r in rows_sub_bf16.items():
+        tag = entry.split("_")[0]
+        kernels.append(dict(
+            name="fused_subcycle_" + ("bf16" if tag == "f32" else entry), route="cuda",
+            source=SOURCES["fused_subcycle"], replaces=REPLACES["fused_subcycle"], launches=r["launches"],
+            launches_solve=r.get("launches_solve"), max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, entry=entry,
+            **{f"{tag}_ms": r[f"{tag}_ms"], f"{tag}_bound_ms": r[f"{tag}_bound_ms"]},
+        ))
+    for row in kernels:
+        if row["name"] == "bsg_spmv":  # on the sharded tier's replicated BSG levels, every rank
+            row["sharded_launches_per_vcycle"] = row_shard["k6_per_vcycle"]
     log(f"flagship {N}x{N} f32, CUDA events: fixed cycle {fixed_ms!r} ms (first design, recorded:"
         f" {FIRST_DESIGN_FIXED_CYCLE_MS} ms), V-cycle {vcycle_ms!r} ms; card {card}")
     for key, b in bf16.items():
@@ -2559,6 +2944,9 @@ def main():
     log(f"3-D {N3}^3 bf16 planes, CUDA events: {summary_3db}; card {card}")
     log(f"rs {N}x{N}, CUDA events: {summary_rs}; card {card}")
     log(f"api.solve NoSymmetry / save-load {N}x{N}, non-factored legs and tail, CUDA events: {summary_nf};"
+        f" card {card}")
+    log(f"subcycle bf16 planes {N}x{N}: {rows_sub_bf16}; card {card}")
+    log(f"sharded tier {SHARD_RANKS} gloo ranks on one card, {N}x{N} solve_sharded, CUDA events: {row_shard};"
         f" card {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)

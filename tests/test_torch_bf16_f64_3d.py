@@ -14,7 +14,7 @@ with x64, and on LatND levels under float32), held against the JAX package:
   the JAX K7 in interpret mode to 1e-5; ``cg_device`` with the iterations
   of the JAX package's; the JAX hierarchy's bf16 LatND planes carried
   across by ``convert.hierarchy_from_numpy``;
-* K9 with bf16 planes still raising (ROADMAP B3).
+* K9 building its subcycle on bf16 planes under float32 and float64.
 
 The CUDA entries ``*_f64_bf16`` and ``amg_sweep3d_march_f32_bf16`` are held
 against these plain versions on the card by tests/test_torch_cuda.py."""
@@ -391,9 +391,14 @@ def test_convert_carries_bf16_latnd_planes(problem3):
 
 
 def test_subcycle_with_bf16_planes_still_raises(problem):
-    """K9 takes no bf16 planes (ROADMAP B3): the builder raises, it does not
-    fall back to other planes."""
+    """K9 takes bf16 planes now: ``build_device_hierarchy``, which raised
+    before K9 had them, builds the subcycle on bf16 A, T and S under float32 and float64
+    (D⁻¹ at the working dtype) and does not fall back to other planes
+    (tests/test_torch_subcycle_bf16.py holds them against the JAX
+    package)."""
     _, ml_t, _, _, _, _ = problem
     for dtype in (torch.float32, F64):
-        with pytest.raises(NotImplementedError, match="B3"):
-            _build(ml_t, dtype, tail_max_rows=600, subcycle=True)
+        h = _build(ml_t, dtype, tail_max_rows=600, subcycle=True)
+        assert h.sub_start == 1
+        for L in h.sub.levels:
+            assert (L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype) == (torch.bfloat16,) * 3 + (dtype,)

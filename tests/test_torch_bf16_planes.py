@@ -230,23 +230,20 @@ def test_solve_refined_with_bf16_planes(problem):
 
 
 def test_unsupported_combinations_raise(problem):
-    """bf16 planes with the subcycle (K9) have no port yet (ROADMAP B3): the
-    builder, the drivers and the conversion raise, none falls back to
-    float32 planes; planes of another dtype, or bf16 under vectors other
-    than float32/float64, are refused.  (Under float64 and on N-D lattices
-    bf16 planes are ported: tests/test_torch_bf16_f64_3d.py.)"""
-    from algebraicmultigrid_tpu_torch.convert import hierarchy_from_numpy
+    """bf16 planes with the subcycle (K9) build the subcycle with bf16
+    planes (tests/test_torch_subcycle_bf16.py holds them against the JAX
+    package), never float32 planes in their place; a subcycle cache that
+    mixes them is refused, and so are planes of another dtype and bf16
+    under vectors other than float32/float64.  (Under float64 and on N-D
+    lattices bf16 planes are ported: tests/test_torch_bf16_f64_3d.py.)"""
+    from algebraicmultigrid_tpu_torch.ops.kernels.subcycle_kernel import make_fused_subcycle_cache
 
-    _, ml_t, h_j, _, _, _ = problem
-    with pytest.raises(NotImplementedError, match="B3"):
-        _build(ml_t, tail_max_rows=600, subcycle=True)
-    with pytest.raises(NotImplementedError, match="B3"):
-        amt.solve_refined(ml_t, np.ones(N * N), device="cpu", dtype="float64", coef_dtype="bfloat16",
-                          subcycle=True)
-    levels, coarse = jax_hierarchy_to_numpy(h_j)
-    with pytest.raises(NotImplementedError, match="B3"):
-        hierarchy_from_numpy(levels, coarse, device="cpu", dtype=torch.float32, coef_dtype=torch.bfloat16,
-                             sub={}, sub_start=0)
+    _, ml_t, _, _, _, _ = problem
+    h = _build(ml_t, tail_max_rows=600, subcycle=True)
+    assert h.sub_start == 1 and all(L.A.dtype == torch.bfloat16 for L in h.sub.levels)
+    f32 = amt.build_device_hierarchy(ml_t, device="cpu", dtype=torch.float32, tail_max_rows=600, subcycle=True)
+    with pytest.raises(ValueError, match="planes"):
+        make_fused_subcycle_cache(f32.sub.top, h.sub.tail)
     with pytest.raises(ValueError):
         amt.build_device_hierarchy(ml_t, device="cpu", dtype=torch.float32, coef_dtype=torch.float16)
     with pytest.raises(ValueError):

@@ -5,6 +5,7 @@ fixed-cycle loop and a refined solve on the card against the CPU, on the
 lattice path, on an unstructured (scrambled Poisson) hierarchy, on a 3-D
 lattice and on a forward/backward GS lattice; multi-RHS cycles (K6 and
 scan_gs per column, K5's masked fallback); the slab SpMV on one slab and on
+two gloo ranks sharing the card; K9 with bf16 planes; ``solve_sharded`` on
 two gloo ranks sharing the card.
 
 Every test here needs a card and skips without one.  This file imports no
@@ -567,6 +568,57 @@ def test_cuda_bf16_entries_refuse_other_pairs(ml):
     assert vl.launches == before
 
 
+@pytest.mark.parametrize("dtype", VEC_DTYPES)
+@pytest.mark.parametrize("case", SUB_CASES, ids=str)
+def test_cuda_bf16_subcycle_matches_plain_version(ml, case, dtype, monkeypatch):
+    """K9's ``f32_bf16`` / ``f64_bf16`` entries (the top level's and the
+    tail's A, T, S in bf16, D⁻¹ at the vectors' dtype) against the plain
+    version on the cases of the float32/float64 entries."""
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import subcycle_kernel as sk
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    n, rows, iters, edge = case
+    if edge is not None:
+        monkeypatch.setattr(tk, "TAIL_TILE", (edge, edge))
+    mlp = ml if n == N else _small(n, 3, iters)
+    h = build_device_hierarchy(mlp, device="cuda", tail_max_rows=rows, subcycle=True, **dict(BF16, dtype=dtype))
+    assert (h.tail_start, h.sub_start) == (2, 1)
+    assert all((L.A.dtype, L.T.dtype, L.S.dtype, L.dinv.dtype) == (torch.bfloat16,) * 3 + (dtype,)
+               for L in h.sub.levels)
+    L = h.levels[1]
+    b = _vec(L.A.shape[0], L.A.rows_padded, 7, dtype)
+    before = vl.launches["sub"]
+    got = sk.fused_subcycle(h.sub, b)
+    ref = sk.fused_subcycle_reference(h.sub, b)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == b.shape and got.dtype == dtype
+    assert _rel(got, ref) < _tol(dtype)
+    assert vl.launches["sub"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", VEC_DTYPES)
+def test_cuda_bf16_subcycle_vcycle_matches_cpu(ml, dtype):
+    """One V-cycle with the bf16 subcycle on the card against the CPU's
+    plain versions: K1 and K2 at L0 and K9 for the rest."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration, build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        h = build_device_hierarchy(ml, device=dev, tail_max_rows=600, subcycle=True, **dict(BF16, dtype=dtype))
+        b = _vec(N * N, h.fine_padded, 8, dtype).to(dev)
+        before = dict(vl.launches)
+        out[dev] = _one_iteration(h, amt.V(), torch.zeros_like(b), b)
+        counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+    assert _rel(out["cuda"], out["cpu"]) < _tol(dtype)
+    want = dict.fromkeys(counts["cuda"], 0)
+    want.update(down=1, up=1, sub=1)
+    assert counts["cuda"] == want
+
+
 @pytest.fixture(scope="module")
 def ml_unstructured():
     if not torch.cuda.is_available():
@@ -1127,6 +1179,26 @@ def test_cuda_halo_spmv_on_gloo_ranks_sharing_the_card():
             for which in (0, 1):
                 got = np.concatenate([r[name, dtype][which] for r in res])
                 assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def test_cuda_solve_sharded_on_gloo_ranks_sharing_the_card():
+    """``solve_sharded`` on 2 gloo ranks sharing the card (the rows gathered
+    through host memory): the 48² RS problem and the 144² lattice, each
+    with the iterations and x of one rank on the card and the same on both
+    ranks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    from algebraicmultigrid_tpu_torch.parallel import make_row_mesh, run_ranks
+    from torch_port_common import DIST_PROBLEMS, dist_rank
+
+    res = run_ranks(dist_rank, 2, device="cuda", timeout_s=300)
+    one = dist_rank(make_row_mesh(device="cuda"))
+    for name in DIST_PROBLEMS:
+        x1, it1, _ = one[name, "solve"]
+        for r in res:
+            x, it, _ = r[name, "solve"]
+            assert it == it1 and np.abs(x - x1).max() <= 1e-10 * np.abs(x1).max(), name
+        assert res[0][name, "layout"][0]["A"][0]  # the fine level held in row blocks
 
 
 # --------------------------------------------------------------------------

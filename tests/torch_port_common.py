@@ -442,3 +442,112 @@ def multi_rhs_cycles(ml_j, ml_t, n, seed, **build_kw):
     want = np.asarray(cycle_j(h_j, amg.V(), jnp.zeros(B.shape), jnp.asarray(B.numpy())))
     got = cycle_t(h_t, amt.V(), torch.zeros_like(B), B).numpy()
     return h_t, got, want
+
+
+# --------------------------------------------------------------------------
+# the generic sharded tier (``parallel.solve_sharded``): what one rank
+# computes, on the problems of tests/test_multichip.py
+# --------------------------------------------------------------------------
+
+# name -> (replicate_below, dtype of build_sharded_hierarchy)
+DIST_PROBLEMS = {"rs48": (1024, None), "sa32": (512, None), "lat144": (256, "float64"), "gs32": (512, None)}
+DIST_RHS = 3  # columns of the multi-RHS block
+
+
+def dist_problem(pkg, name):
+    """(ml, b = A·1) of a named problem of tests/test_multichip.py (and
+    ``gs32``, RS with its default natural-order GS), set up by ``pkg`` (the
+    JAX package or the port)."""
+    if name == "rs48":
+        gs = pkg.GaussSeidel(ordering="multicolor")
+        A = pkg.poisson((48, 48))
+        ml = pkg.ruge_stuben(A, presmoother=gs, postsmoother=gs)
+    elif name == "sa32":
+        jac = pkg.Jacobi(0.6, iter=2)
+        A = pkg.poisson((32, 32))
+        ml = pkg.smoothed_aggregation(A, presmoother=jac, postsmoother=jac)
+    elif name == "gs32":  # the default natural-order GS: a sequential sweep on a sharded ELL level
+        A = pkg.poisson((32, 32))
+        ml = pkg.ruge_stuben(A)
+    else:
+        A = pkg.poisson((144, 144), lattice=True)
+        ml = pkg.structured_smoothed_aggregation(
+            A, proxy=64, cut_rows=2000, min_proxy_dim=16, aggregate=pkg.StructuredAggregation(box=3),
+        )
+    return ml, A @ np.ones(A.shape[0])
+
+
+def _op_arrays(E):
+    """(held as a row block, the rank's arrays) of a level operator."""
+    from algebraicmultigrid_tpu_torch.parallel.rows import ShardedOp
+
+    blocked = isinstance(E, ShardedOp)
+    F = E.local if blocked else E
+    arr = getattr(F, "data", getattr(F, "mat", None))
+    return blocked, None if arr is None else arr.cpu().numpy()
+
+
+def _smoother_arrays(c):
+    from algebraicmultigrid_tpu_torch.parallel.rows import ShardedSmoother
+
+    blocked = isinstance(c, ShardedSmoother)
+    c = c.cache if blocked else c
+    return blocked, type(c).__name__, {f: getattr(c, f).cpu().numpy() for f in ("dinv", "color_of", "diag")
+                                       if hasattr(c, f)}
+
+
+def dist_rank(mesh):
+    """One rank's results of the generic tier: each problem's layout (per
+    level: A, P, R and the pre/post smoothers, whether held as a row block
+    and the rank's arrays), its ``solve_sharded`` (x, iterations, ‖r‖) to
+    1e-8 (the lattice float64 to 1e-6; SA with a W cycle), the RS problem
+    on a [n, 3] block, and one V-cycle from zero on the lattice."""
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration
+    from algebraicmultigrid_tpu_torch.parallel import build_sharded_hierarchy, solve_sharded
+
+    out = {}
+    for name, (below, dtype) in DIST_PROBLEMS.items():
+        ml, b = dist_problem(amt, name)
+        h = build_sharded_hierarchy(ml, mesh, dtype=dtype, replicate_below=below)
+        out[name, "layout"] = [
+            {"A": _op_arrays(L.A), "P": _op_arrays(L.P), "R": _op_arrays(L.R),
+             "pre": _smoother_arrays(L.pre), "post": _smoother_arrays(L.post), "fused": L.fused}
+            for L in h.levels
+        ]
+        out[name, "caches"] = (h.tail, h.sub)
+        cycle = amt.W() if name == "sa32" else amt.V()
+        reltol = 1e-6 if name == "lat144" else 1e-8
+        out[name, "solve"] = solve_sharded(ml, b, cycle, mesh=mesh, reltol=reltol, dtype=dtype, replicate_below=below)
+        if name == "rs48":
+            B = np.random.default_rng(5).standard_normal((b.shape[0], DIST_RHS))
+            out[name, "block"] = solve_sharded(ml, B, mesh=mesh, reltol=1e-8, replicate_below=below)
+        if name == "lat144":
+            bp = torch.zeros(h.fine_padded, dtype=torch.float64, device=mesh.device)
+            bp[: b.shape[0]] = torch.as_tensor(np.random.default_rng(6).standard_normal(b.shape[0]))
+            out[name, "vcycle"] = _one_iteration(h, amt.V(), torch.zeros_like(bp), bp).cpu().numpy()
+    return out
+
+
+# the coarse stencil's reach over-listed for the last level, whose child is
+# the dense coarse matrix (absent couplings come back 0)
+RAP_LAST_OFFSETS = tuple((du, dv) for du in range(-2, 3) for dv in range(-2, 3))
+
+
+def rap_rank(mesh):
+    """One rank's ``rap_planes_sharded`` of the 216² slab hierarchy
+    (float32): at L0 (sharded on several ranks), with its host child's
+    offsets, and at the last level (replicated on every mesh), with
+    ``RAP_LAST_OFFSETS``; (level index, planes, sharded) each."""
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.parallel import build_slab_hierarchy, rap_planes_sharded
+
+    ml = slab_problem(amt)
+    h = build_slab_hierarchy(ml, mesh.n_sh).to_rank(mesh.rank, mesh.device)
+    last = len(h.levels) - 1
+    return {
+        key: (li, rap_planes_sharded(h, li, mesh, offs).cpu().numpy(), h.levels[li].sharded)
+        for key, li, offs in (("sharded", 0, ml.levels[1].A.spec.offsets), ("replicated", last, RAP_LAST_OFFSETS))
+    }
