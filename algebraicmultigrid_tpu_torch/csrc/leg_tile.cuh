@@ -1,8 +1,9 @@
-// One leg of the factored V-cycle on a Lat2D level, computed tile by tile
-// with the tile plus a halo of x in shared memory: the device code of the
-// legs K1, K2 and K3 (vcycle_legs.cu), of the tail levels of the whole-tail
-// kernel K4 (tail_levels.cuh) and of the top level of the whole-subcycle
-// kernel K9 (subcycle_kernel.cu).
+// One leg of the V-cycle on a Lat2D level, computed tile by tile with the
+// tile plus a halo of x in shared memory: the device code of the legs K1,
+// K2 and K3 (vcycle_legs.cu), of the tail levels of the whole-tail kernel
+// K4 (tail_levels.cuh) and of the top level of the whole-subcycle kernel
+// K9 (subcycle_kernel.cu); below them, K1's and K2's non-factored legs
+// (tile_down_nf, tile_up_nf: the R and P planes in place of T and S).
 //
 // A leg is up to four parts, in this order:
 //   correction  x = x_in + (Tup - S (A Tup)),  Tup = T * upsample_k(x_c);
@@ -426,6 +427,66 @@ __device__ __forceinline__ void tile_load(const LevelDesc& L,
   __syncthreads();
 }
 
+// The color steps, from registers and shared memory (sx: the stencil's
+// offsets in the box): step s updates the cells of its color at least
+// (s + 1) reach inside the box.  Ends on a block barrier.  (tile_run keeps
+// its own copy of these steps and of tile_store inline: calling them there
+// changed the factored kernels' register allocation, K3 at 4096^2 8%
+// slower on an H100, kernel_variants.py against.)
+template <typename T, int NOFF, int WARPS, int CI, int CJ>
+__device__ __forceinline__ void tile_steps(const LevelDesc& L,
+                                           const TileSmem<T>& sm,
+                                           const Box& bx,
+                                           const CellRegs<T, NOFF, CI, CJ>& R,
+                                           const int (&sx)[NOFF]) {
+  const int r = L.reach, E0 = bx.E0, E1 = bx.E1;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const T omega = (T)L.omega;
+  for (int s = 0; s < L.n_steps; ++s) {
+    const int lo = (s + 1) * r;
+    const unsigned char color = (unsigned char)L.steps[s];
+#pragma unroll
+    for (int a = 0; a < CI; ++a) {
+#pragma unroll
+      for (int c = 0; c < CJ; ++c) {
+        const int e0 = w + WARPS * a, e1 = lane + 32 * c;
+        if (e0 < lo || e0 >= E0 - lo || e1 < lo || e1 >= E1 - lo) continue;
+        const int e = e0 * E1 + e1;
+        if (sm.cs[e] != color) continue;
+        T acc = T(0);
+#pragma unroll
+        for (int q = 0; q < NOFF; ++q) acc += R.a[a][c][q] * sm.xs[e + sx[q]];
+        sm.xs[e] = sm.xs[e] + omega * R.d[a][c] * (R.b[a][c] - acc);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// x over the tile (its cells in the grid) to x_out.  Ends on a block
+// barrier.
+template <typename T, int WARPS, int CI, int CJ>
+__device__ __forceinline__ void tile_store(const LevelDesc& L,
+                                           const TileSmem<T>& sm,
+                                           const Box& bx, T* x_out) {
+  const int Wy = L.Wy, E1 = bx.E1, h = bx.h;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int a = 0; a < CI; ++a) {
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) {
+      const int e0 = w + WARPS * a, e1 = lane + 32 * c;
+      const int t0 = e0 - h, t1 = e1 - h;
+      if (t0 < 0 || t0 >= bx.tx || t1 < 0 || t1 >= bx.ty) continue;
+      const int e = e0 * E1 + e1;
+      if (sm.cs[e] != kOutside) {
+        x_out[(int64_t)(bx.ox + e0) * Wy + (bx.oy + e1)] = sm.xs[e];
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // The rest of the leg, from registers and shared memory: the correction
 // (x = x_in + (Tup - S (A Tup)) over the box), the color steps, and either
 // x over the tile to x_out or the restriction (r and g on the tile plus one
@@ -636,6 +697,305 @@ __device__ void tile_leg(const LevelDesc& L, unsigned char* base,
   } else {
     tile_leg_k<T, 3, C, D>(L, base, offset, ti, tj, x_in, xc, b, x_out, bc);
   }
+}
+
+// ---- the non-factored legs in tiles --------------------------------------
+//
+// A level without the factored stash restricts with b_c[c] = sum_q R_q[c]
+// r[k c + d_q] (R over the coarse grid) and corrects with x += sum_q P_q[i]
+// x_c[i / k + d_q] (P over the fine grid).  Each R and P coefficient is read
+// once a leg, by its coarse cell or its box cell, so those planes are read
+// from device memory where they are used; only A, dinv and b are reused
+// across the steps and sit in the registers (CellRegs, as in the factored
+// tile, without S and T).
+//
+// The down leg (K1): the steps from x_in (or zero), then r = b - A x on
+// the tile plus the R offsets' spill (nf_spill) in shared memory, then the
+// tile's coarse cells of b_c, each with one thread, consecutive threads
+// along a coarse row.  x must be exact one reach beyond r's area, so the
+// halo is (n_steps + 1) reach + spill (nf_down_halo).  The up leg (K2): x_c
+// over the box's coarse window (nf_window, the P offsets' span around the
+// box's coarse cells) staged in shared memory, x = x_in + the P-plane sum
+// on every box cell in the grid (exact: it reads only device memory), then
+// the steps; the halo is n_steps reach.  Terms in offset order, as
+// restrict_planes_cell and correct_planes_cell sum them (stencil.cuh).
+
+// the span of a stencil's offsets (and 0) along each axis
+struct OffsetSpan {
+  int lo0, hi0, lo1, hi1;
+};
+
+__host__ __device__ inline OffsetSpan offset_span(const Stencil& s) {
+  OffsetSpan o{0, 0, 0, 0};
+  for (int q = 0; q < s.n; ++q) {
+    o.lo0 = s.dx[q] < o.lo0 ? s.dx[q] : o.lo0;
+    o.hi0 = s.dx[q] > o.hi0 ? s.dx[q] : o.hi0;
+    o.lo1 = s.dy[q] < o.lo1 ? s.dy[q] : o.lo1;
+    o.hi1 = s.dy[q] > o.hi1 ? s.dy[q] : o.hi1;
+  }
+  return o;
+}
+
+// Cells of r a down tile needs beyond each face: its coarse cells (fine
+// k I .. k I + k - 1) read fine k I + d over the R offsets d.
+__host__ __device__ inline int nf_spill(const Stencil& sr, int k) {
+  const OffsetSpan o = offset_span(sr);
+  const int lo = -o.lo0 > -o.lo1 ? -o.lo0 : -o.lo1;
+  const int hi = (o.hi0 > o.hi1 ? o.hi0 : o.hi1) - (k - 1);
+  return lo > hi ? lo : hi;
+}
+
+__host__ __device__ inline int nf_down_halo(int n_steps, int reach,
+                                            int spill) {
+  return (n_steps + 1) * reach + spill;
+}
+
+// Coarse cells of x_c an up tile stages along an axis of E box cells: the
+// box's coarse cells (at most ceil(E / k) + 1) and the P offsets' span.
+__host__ __device__ inline int nf_window(int E, int k, int lo, int hi) {
+  return (E + k - 1) / k + 1 + hi - lo;
+}
+
+// The scratch elements of a non-factored tile: r over the tile and spill
+// (down), or the x_c window (up); s the R or P stencil.
+__host__ __device__ inline int nf_scratch(bool down, int tx, int ty,
+                                          int halo, const Stencil& s,
+                                          int k) {
+  if (down) {
+    const int sp = nf_spill(s, k);
+    return (tx + 2 * sp) * (ty + 2 * sp);
+  }
+  const OffsetSpan o = offset_span(s);
+  return nf_window(tx + 2 * halo, k, o.lo0, o.hi0) *
+         nf_window(ty + 2 * halo, k, o.lo1, o.hi1);
+}
+
+// Shared memory of a non-factored tile: x over the box, the scratch area
+// and a color byte per box cell.
+__host__ __device__ inline size_t nf_smem_bytes(int tx, int ty, int halo,
+                                                int scratch, int itemsize) {
+  const size_t e = (size_t)(tx + 2 * halo) * (ty + 2 * halo);
+  return (e + (size_t)scratch) * itemsize + ((e + 15) / 16) * 16;
+}
+
+template <typename T>
+__device__ __forceinline__ TileSmem<T> nf_buffers(unsigned char* base,
+                                                  unsigned offset,
+                                                  const Box& bx,
+                                                  int scratch) {
+  if (offset + nf_smem_bytes(bx.tx, bx.ty, bx.h, scratch, (int)sizeof(T)) >
+      dynamic_smem_bytes()) {
+    __trap();
+  }
+  TileSmem<T> sm;
+  sm.xs = reinterpret_cast<T*>(base + offset);
+  sm.sc = sm.xs + bx.E0 * bx.E1;
+  sm.cs = reinterpret_cast<unsigned char*>(sm.sc + scratch);
+  return sm;
+}
+
+// R and P terms a batch: the batch's loads are issued together, an index
+// past the last plane reading the batch's first and adding zero.  On an
+// H100 (kernel_variants.py legs nf, 4096^2's NoSymmetry hierarchy) the
+// plain loops (one plane an iteration) took K1 at L0 0.85 ms with float32
+// planes against 0.59 batched, K2 at L0 0.74 against 0.70; with bf16
+// planes K1 0.61 against 0.58, K2 at L1 0.25 against 0.22.  Three P planes
+// a batch spilled at L0 (K2 0.63 ms with bf16 planes).
+constexpr int kRBatch = 8, kPBatch = 2;
+
+template <int K>
+__device__ __forceinline__ int floor_div(int a) {
+  return a >= 0 ? a / K : -((K - 1 - a) / K);
+}
+
+// The down leg of tile (ti, tj) on a non-factored level: the steps from
+// x_in (nullptr: zero), x over the tile to x_out and the tile's coarse
+// cells of b_c from the R planes Rp (of type CR) with offsets sr.  Ends on
+// a block barrier.
+template <typename T, int K, int NOFF, int WARPS, int CI, int CJ,
+          typename C = T, typename D = C, typename CR = C>
+__device__ void tile_down_nf(const LevelDesc& L, const CR* __restrict__ Rp,
+                             const Stencil& sr, unsigned char* base,
+                             unsigned offset, int ti, int tj, const T* x_in,
+                             const T* b, T* x_out, T* bc) {
+  const int sp = nf_spill(sr, K);
+  const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
+                          nf_down_halo(L.n_steps, L.reach, sp));
+  if (bx.E0 > WARPS * CI || bx.E1 > 32 * CJ || blockDim.x != WARPS * 32) {
+    __trap();
+  }
+  const int G0 = bx.tx + 2 * sp, G1 = bx.ty + 2 * sp, E1 = bx.E1;
+  const TileSmem<T> sm = nf_buffers<T>(base, offset, bx, G0 * G1);
+  const DeviceIn<T, K, C, D> src =
+      device_in<T, K, C, D>(L, bx, x_in, (const T*)nullptr, b);
+  CellRegs<T, NOFF, CI, CJ> R;
+  tile_load<T, K, NOFF, WARPS, CI, CJ, false>(L, sm, bx, src, false, false,
+                                              R);
+  int sx[NOFF];
+#pragma unroll
+  for (int q = 0; q < NOFF; ++q) sx[q] = L.st.dx[q] * E1 + L.st.dy[q];
+  tile_steps<T, NOFF, WARPS, CI, CJ>(L, sm, bx, R, sx);
+
+  // r = b - A x on the tile plus the spill (0 outside the grid), and x
+  // over the tile to x_out
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, o = bx.h - sp;
+  T* rs = sm.sc;
+#pragma unroll
+  for (int a = 0; a < CI; ++a) {
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) {
+      const int e0 = w + WARPS * a, e1 = lane + 32 * c;
+      const int u0 = e0 - o, u1 = e1 - o;
+      if (u0 < 0 || u0 >= G0 || u1 < 0 || u1 >= G1) continue;
+      const int e = e0 * E1 + e1;
+      T rv = T(0);
+      if (sm.cs[e] != kOutside) {
+        T acc = T(0);
+#pragma unroll
+        for (int q = 0; q < NOFF; ++q) acc += R.a[a][c][q] * sm.xs[e + sx[q]];
+        rv = R.b[a][c] - acc;
+        if (in_tile(bx, e0, e1)) {
+          x_out[(int64_t)(bx.ox + e0) * L.Wy + (bx.oy + e1)] = sm.xs[e];
+        }
+      }
+      rs[u0 * G1 + u1] = rv;
+    }
+  }
+  __syncthreads();
+
+  // b_c[I, J] = sum_q R_q[I, J] r[k I + dx_q, k J + dy_q]
+  const int ky = bx.ty / K, nc = (bx.tx / K) * ky;
+  const int I0 = bx.i0 / K, J0 = bx.j0 / K;
+  const int64_t cplane = (int64_t)L.Wxc * L.Wyc;
+  for (int v = threadIdx.x; v < nc; v += blockDim.x) {
+    const int w0 = v / ky, w1 = v - w0 * ky;
+    const int I = I0 + w0, J = J0 + w1;
+    if (I >= L.Wxc || J >= L.Wyc) continue;
+    const int64_t cell = (int64_t)I * L.Wyc + J;
+    const T* rc = rs + (K * w0 + sp) * G1 + (K * w1 + sp);
+    T acc = T(0);
+    for (int q0 = 0; q0 < sr.n; q0 += kRBatch) {
+      T rq[kRBatch], rr[kRBatch];
+#pragma unroll
+      for (int u = 0; u < kRBatch; ++u) {
+        const int q = q0 + u < sr.n ? q0 + u : q0;
+        rq[u] = coef_ldg<T>(Rp, q * cplane + cell);
+        rr[u] = q0 + u < sr.n ? rc[sr.dx[q] * G1 + sr.dy[q]] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kRBatch; ++u) acc += rq[u] * rr[u];
+    }
+    bc[cell] = acc;
+  }
+  __syncthreads();
+}
+
+// The up leg of tile (ti, tj) on a non-factored level: x = x_in + the
+// P-plane sum (Pp of type C, offsets so) over the box, the steps, and x
+// over the tile to x_out.  Ends on a block barrier.
+template <typename T, int K, int NOFF, int WARPS, int CI, int CJ,
+          typename C = T, typename D = C>
+__device__ void tile_up_nf(const LevelDesc& L, const C* __restrict__ Pp,
+                           const Stencil& so, unsigned char* base,
+                           unsigned offset, int ti, int tj, const T* x_in,
+                           const T* xc, const T* b, T* x_out) {
+  const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
+                          leg_halo(L.n_steps, L.reach, false));
+  if (bx.E0 > WARPS * CI || bx.E1 > 32 * CJ || blockDim.x != WARPS * 32) {
+    __trap();
+  }
+  const OffsetSpan os = offset_span(so);
+  const int C0 = nf_window(bx.E0, K, os.lo0, os.hi0);
+  const int C1 = nf_window(bx.E1, K, os.lo1, os.hi1);
+  const int E1 = bx.E1;
+  const TileSmem<T> sm = nf_buffers<T>(base, offset, bx, C0 * C1);
+
+  // x_c over the window: its cell (v0, v1) is coarse cell (c0 + v0, c1 +
+  // v1), 0 outside the coarse grid
+  const int c0 = floor_div<K>(bx.ox) + os.lo0;
+  const int c1 = floor_div<K>(bx.oy) + os.lo1;
+  for (int v = threadIdx.x; v < C0 * C1; v += blockDim.x) {
+    const int v0 = v / C1, v1 = v - v0 * C1, I = c0 + v0, J = c1 + v1;
+    sm.sc[v] = I >= 0 && I < L.Wxc && J >= 0 && J < L.Wyc
+                   ? xc[(int64_t)I * L.Wyc + J]
+                   : T(0);
+  }
+  const DeviceIn<T, K, C, D> src =
+      device_in<T, K, C, D>(L, bx, x_in, (const T*)nullptr, b);
+  CellRegs<T, NOFF, CI, CJ> R;
+  tile_load<T, K, NOFF, WARPS, CI, CJ, false>(L, sm, bx, src, false, false,
+                                              R);
+
+  // x += sum_q P_q[i, j] x_c[i / k + dx_q, j / k + dy_q] on the owned box
+  // cells in the grid, each summing its terms in offset order
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t plane = (int64_t)L.Wx * L.Wy;
+  // owned cell (a, c) is grid cell g0 + WARPS a Wy + 32 c; bit a CJ + c of
+  // `in`: it lies in the box and the grid
+  static_assert(CI * CJ <= 32, "a bit an owned cell");
+  const int64_t g0 = (int64_t)(bx.ox + w) * L.Wy + (bx.oy + lane);
+  unsigned in = 0;
+  int wc[CI][CJ];
+  T acc[CI][CJ];
+#pragma unroll
+  for (int a = 0; a < CI; ++a) {
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) {
+      const int e0 = w + WARPS * a, e1 = lane + 32 * c;
+      const int i = bx.ox + e0, j = bx.oy + e1;
+      const bool cell = e0 < bx.E0 && e1 < E1 && inside(i, j, L.Wx, L.Wy);
+      in |= cell ? 1u << (a * CJ + c) : 0u;
+      wc[a][c] = cell ? (i / K - c0) * C1 + (j / K - c1) : 0;
+      acc[a][c] = T(0);
+    }
+  }
+  for (int q0 = 0; q0 < so.n; q0 += kPBatch) {
+    T pv[kPBatch][CI][CJ];
+#pragma unroll
+    for (int u = 0; u < kPBatch; ++u) {
+      const int64_t gq = (q0 + u < so.n ? q0 + u : q0) * plane;
+#pragma unroll
+      for (int a = 0; a < CI; ++a) {
+#pragma unroll
+        for (int c = 0; c < CJ; ++c) {
+          const bool cell = in >> (a * CJ + c) & 1u;
+          pv[u][a][c] = coef_ldg<T>(
+              Pp, gq + (cell ? g0 + (int64_t)(WARPS * a) * L.Wy + 32 * c : 0));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPBatch; ++u) {
+      if (q0 + u >= so.n) break;
+      const int dq = so.dx[q0 + u] * C1 + so.dy[q0 + u];
+#pragma unroll
+      for (int a = 0; a < CI; ++a) {
+#pragma unroll
+        for (int c = 0; c < CJ; ++c) {
+          if (in >> (a * CJ + c) & 1u) {
+            acc[a][c] += pv[u][a][c] * sm.sc[wc[a][c] + dq];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < CI; ++a) {
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) {
+      if (in >> (a * CJ + c) & 1u) {
+        const int e = (w + WARPS * a) * E1 + (lane + 32 * c);
+        sm.xs[e] = sm.xs[e] + acc[a][c];
+      }
+    }
+  }
+  __syncthreads();
+
+  int sx[NOFF];
+#pragma unroll
+  for (int q = 0; q < NOFF; ++q) sx[q] = L.st.dx[q] * E1 + L.st.dy[q];
+  tile_steps<T, NOFF, WARPS, CI, CJ>(L, sm, bx, R, sx);
+  tile_store<T, WARPS, CI, CJ>(L, sm, bx, x_out);
 }
 
 // tiles of a level's grid: (rows of tiles, tiles a row)

@@ -46,16 +46,23 @@
 // The non-factored R/P-plane branches (amg_fused_down_nf_*, amg_fused_up_nf_*;
 // the reference kernels' else branches, _down_kernel and _up_kernel): a
 // level without the factored stash keeps nR restriction planes over the
-// coarse grid and nP prolongation planes over the fine grid.  K1 runs the
-// presmooth passes, a pass writing r = b - A x and a pass with one thread a
-// coarse cell, b_c[c] = sum_q R_q[c] r[k c + d_q]; K2 a pass with one
-// thread a fine cell, x += sum_q P_q[i] x_c[i / k + d_q], then the
-// postsmooth passes.  Bytes bound them like the factored legs (the planes
-// read once a pass); the design is the first, simple one: the R and P
-// planes (21 and 5 at 4096^2's L0, 25 and 9 below) do not fit the tiles'
-// register map of 64 registers a thread, so they are read from device
-// memory, pass by pass.  K3 takes factored levels only, as the reference's
-// fused_updown does.
+// coarse grid and nP prolongation planes over the fine grid (21 and 5 at
+// 4096^2's L0, 25 and 9 below), and restricts with b_c[c] = sum_q R_q[c]
+// r[k c + d_q] and corrects with x += sum_q P_q[i] x_c[i / k + d_q].
+// Bytes bound them like the factored legs.  On a tiled level (the plan's
+// tile_x > 0) each is one launch of independent tiles, as the factored
+// legs (leg_tile.cuh tile_down_nf, tile_up_nf): each R and P coefficient is
+// read once a leg, so those planes are read where they are used and need
+// no registers; A, dinv and b sit in the registers across the steps as in
+// the factored tile.  The down tile keeps r on the tile plus the R
+// offsets' spill in shared memory, the up tile x_c over its box's coarse
+// window.  A level with no tile runs them pass by pass, their first design
+// (K1: the presmooth passes, a pass writing r = b - A x, a pass with one
+// thread a coarse cell; K2: a pass with one thread a fine cell, then the
+// postsmooth passes), each pass re-reading the planes and x: on an H100
+// with bf16 planes K1 at 4096^2's L0 took 1.10 ms that way against 0.58 in
+// tiles, K2 1.00 against 0.56 (kernel_variants.py legs nf).  K3 takes
+// factored levels only, as the reference's fused_updown does.
 //
 // bf16 coefficient planes (the entries *_f32_bf16 and *_f64_bf16: the
 // reference's AMG_COEF_DTYPE=bfloat16, which stores A, D^-1, T and S of the
@@ -166,7 +173,7 @@ __global__ void correct_kernel(T* __restrict__ x_out,
   }
 }
 
-// ---- the non-factored R/P-plane legs (pass by pass) ---------------------
+// ---- the non-factored R/P-plane legs' pass route ------------------------
 
 // r = b - A x
 template <typename T, typename C>
@@ -212,13 +219,13 @@ __global__ void correct_planes_kernel(T* __restrict__ x_out,
   }
 }
 
-// the level's descriptor, a kernel parameter, into shared memory for the
-// dynamic indexing of its stencil, coloring and steps
-__device__ __forceinline__ void copy_desc(amg::LevelDesc* sh,
-                                          const amg::LevelDesc& L) {
+// the level's descriptor (or a stencil), a kernel parameter, into shared
+// memory for the dynamic indexing of its stencil, coloring and steps
+template <typename S>
+__device__ __forceinline__ void copy_desc(S* sh, const S& L) {
   const int* src = reinterpret_cast<const int*>(&L);
   int* dst = reinterpret_cast<int*>(sh);
-  for (int w = threadIdx.x; w < (int)(sizeof(amg::LevelDesc) / sizeof(int));
+  for (int w = threadIdx.x; w < (int)(sizeof(S) / sizeof(int));
        w += blockDim.x) {
     dst[w] = src[w];
   }
@@ -237,6 +244,30 @@ __global__ void __launch_bounds__(WARPS * 32)
   copy_desc(&sh, L);
   amg::tile_leg_reg<T, K, NOFF, WARPS, CI, CJ, EARLY, C, C>(
       sh, leg_smem, 0, blockIdx.y, blockIdx.x, x_in, xc, b, x_out, bc);
+}
+
+// K1 and K2 on a tiled non-factored level, one block a tile: the down leg
+// (the R planes, bc) or the up leg (the P planes, xc); so: their offsets
+template <typename T, int K, int NOFF, int WARPS, int CI, int CJ, bool DOWN,
+          typename C>
+__global__ void __launch_bounds__(WARPS * 32)
+    leg_nf_kernel(T* x_out, const T* x_in, const T* b, const T* xc, T* bc,
+                  const C* planes, const __grid_constant__ amg::LevelDesc L,
+                  const __grid_constant__ Stencil so) {
+  extern __shared__ __align__(16) unsigned char leg_smem[];
+  __shared__ amg::LevelDesc sh;
+  __shared__ Stencil sho;
+  copy_desc(&sh, L);
+  copy_desc(&sho, so);
+  if constexpr (DOWN) {
+    amg::tile_down_nf<T, K, NOFF, WARPS, CI, CJ, C, C, C>(
+        sh, planes, sho, leg_smem, 0, blockIdx.y, blockIdx.x, x_in, b, x_out,
+        bc);
+  } else {
+    amg::tile_up_nf<T, K, NOFF, WARPS, CI, CJ, C, C>(
+        sh, planes, sho, leg_smem, 0, blockIdx.y, blockIdx.x, x_in, xc, b,
+        x_out);
+  }
 }
 
 // ---- the pipelined up leg (K2 on 5-point levels) ------------------------
@@ -689,6 +720,71 @@ int run_tiles(const amg::LevelDesc& L, int n_off, bool pipelined,
                                                 x_out, x_in, b, xc, bc, L);
 }
 
+template <typename Kernel, typename T, typename C>
+int launch_nf(Kernel fn, int threads, dim3 grid, size_t smem,
+              cudaStream_t stream, T* x_out, const T* x_in, const T* b,
+              const T* xc, T* bc, const C* planes, const amg::LevelDesc& L,
+              const Stencil& so) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<grid, threads, smem, stream>>>(x_out, x_in, b, xc, bc, planes, L, so);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename C, int K, bool DOWN>
+int launch_nf_k(int n_off, dim3 grid, size_t smem, cudaStream_t stream,
+                T* x_out, const T* x_in, const T* b, const T* xc, T* bc,
+                const C* planes, const amg::LevelDesc& L, const Stencil& so) {
+  if (n_off == 5) {
+    return launch_nf(
+        leg_nf_kernel<T, K, 5, kReg5Warps, kReg5Rows, kReg5Cols, DOWN, C>,
+        kReg5Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, planes,
+        L, so);
+  }
+  return launch_nf(
+      leg_nf_kernel<T, K, 9, kReg9Warps, kReg9Rows, kReg9Cols, DOWN, C>,
+      kReg9Warps * 32, grid, smem, stream, x_out, x_in, b, xc, bc, planes, L,
+      so);
+}
+
+// A non-factored leg of a tiled level (L.tile_x > 0) as one launch: the
+// down leg K1 (bc, the R planes) or the up leg K2 (xc, the P planes), with
+// the thread maps of the factored tiles
+template <typename T, typename C>
+int run_nf_tiles(const amg::LevelDesc& L, const Stencil& so, const C* planes,
+                 cudaStream_t stream, T* x_out, const T* x_in, const T* b,
+                 const T* xc, T* bc) {
+  const bool down = bc != nullptr;
+  const int n_off = L.st.n;
+  const int halo =
+      down ? amg::nf_down_halo(L.n_steps, L.reach, amg::nf_spill(so, L.k))
+           : amg::leg_halo(L.n_steps, L.reach, false);
+  const int E0 = L.tile_x + 2 * halo, E1 = L.tile_y + 2 * halo;
+  const bool fits =
+      (n_off == 5 && E0 <= kReg5Warps * kReg5Rows && E1 <= 32 * kReg5Cols) ||
+      (n_off == 9 && E0 <= kReg9Warps * kReg9Rows && E1 <= 32 * kReg9Cols);
+  const int ntx = amg::tiles_of(L.Wx, L.tile_x);
+  const int nty = amg::tiles_of(L.Wy, L.tile_y);
+  if (!fits || ntx > 65535 || so.n < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = amg::nf_smem_bytes(
+      L.tile_x, L.tile_y, halo,
+      amg::nf_scratch(down, L.tile_x, L.tile_y, halo, so, L.k),
+      (int)sizeof(T));
+  const dim3 grid(nty, ntx);
+  if (L.k == 2) {
+    return down ? launch_nf_k<T, C, 2, true>(n_off, grid, smem, stream, x_out,
+                                             x_in, b, xc, bc, planes, L, so)
+                : launch_nf_k<T, C, 2, false>(n_off, grid, smem, stream,
+                                              x_out, x_in, b, xc, bc, planes,
+                                              L, so);
+  }
+  return down ? launch_nf_k<T, C, 3, true>(n_off, grid, smem, stream, x_out,
+                                           x_in, b, xc, bc, planes, L, so)
+              : launch_nf_k<T, C, 3, false>(n_off, grid, smem, stream, x_out,
+                                            x_in, b, xc, bc, planes, L, so);
+}
+
 dim3 grid_for(int rows, int cols) {
   const int gx = (cols + kThreads - 1) / kThreads;
   const int gy = rows < 65535 ? (rows > 0 ? rows : 1) : 65535;
@@ -796,7 +892,8 @@ int fused_updown(T* x_out, const T* x_in, const T* b, const C* A,
                          x_in, b, xc, bc);
 }
 
-// K1 on a non-factored level: the presmooth passes (the first reads x_in,
+// K1 on a non-factored level: on a tiled level (tile_x > 0) one launch of
+// tiles (r unused), else the presmooth passes (the first reads x_in,
 // nullptr the zero start), r = b - A x, then the R-plane restriction
 template <typename T, typename C>
 int fused_down_nf(T* x_out, const T* x_in, const T* b, const C* A,
@@ -804,7 +901,7 @@ int fused_down_nf(T* x_out, const T* x_in, const T* b, const C* A,
                   int n_off, const int* ctab, int ca, int cb,
                   const int* steps, int n_steps, double omega,
                   const int* offs_r, int n_r, int Wx, int Wy, int Wxc,
-                  int Wyc, int k, void* stream_ptr) {
+                  int Wyc, int k, int tile_x, int tile_y, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Stencil st, sr;
   ColorGrid cg;
@@ -812,6 +909,16 @@ int fused_down_nf(T* x_out, const T* x_in, const T* b, const C* A,
       amg::make_stencil(&sr, offs_r, n_r) ||
       amg::make_colors(&cg, ctab, ca, cb) || n_steps < 1 || k < 1) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (tile_x > 0) {
+    amg::LevelDesc L;
+    if (amg::fill_level(&L, A, dinv, nullptr, nullptr, 0, 0, 0, 0, 0, Wx, Wy,
+                        Wxc, Wyc, k, tile_x, tile_y, offs, n_off, ctab, ca,
+                        cb, steps, n_steps, omega)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return run_nf_tiles<T, C>(L, sr, R, stream, x_out, x_in, b,
+                              (const T*)nullptr, bc);
   }
   run_steps<T, C>(x_out, x_in, b, A, dinv, st, cg, steps, n_steps, (T)omega,
                   Wx, Wy, true, stream);
@@ -822,14 +929,15 @@ int fused_down_nf(T* x_out, const T* x_in, const T* b, const C* A,
   return (int)cudaGetLastError();
 }
 
-// K2 on a non-factored level: the P-plane correction, then the postsmooth
-// passes in place
+// K2 on a non-factored level: on a tiled level one launch of tiles, else
+// the P-plane correction, then the postsmooth passes in place
 template <typename T, typename C>
 int fused_up_nf(T* x_out, const T* x_in, const T* b, const C* A,
                 const C* dinv, const C* P, const T* xc, const int* offs,
                 int n_off, const int* ctab, int ca, int cb, const int* steps,
                 int n_steps, double omega, const int* offs_p, int n_p, int Wx,
-                int Wy, int Wxc, int Wyc, int k, void* stream_ptr) {
+                int Wy, int Wxc, int Wyc, int k, int tile_x, int tile_y,
+                void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Stencil st, sp;
   ColorGrid cg;
@@ -837,6 +945,16 @@ int fused_up_nf(T* x_out, const T* x_in, const T* b, const C* A,
       amg::make_stencil(&sp, offs_p, n_p) ||
       amg::make_colors(&cg, ctab, ca, cb) || (k != 2 && k != 3)) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (tile_x > 0) {
+    amg::LevelDesc L;
+    if (amg::fill_level(&L, A, dinv, nullptr, nullptr, 0, 0, 0, 0, 0, Wx, Wy,
+                        Wxc, Wyc, k, tile_x, tile_y, offs, n_off, ctab, ca,
+                        cb, steps, n_steps, omega)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return run_nf_tiles<T, C>(L, sp, P, stream, x_out, x_in, b, xc,
+                              (T*)nullptr);
   }
   correct_planes_kernel<T, C><<<grid_for(Wx, Wy), kThreads, 0, stream>>>(
       x_out, x_in, xc, P, sp, Wx, Wy, Wxc, Wyc, k);
@@ -846,6 +964,21 @@ int fused_up_nf(T* x_out, const T* x_in, const T* b, const C* A,
 }
 
 }  // namespace
+
+// The shared memory of a non-factored tile (down: the R offsets, else the
+// P offsets), for the wrapper's plan to be checked against; -1 for an
+// offset list past the stencil's capacity.
+extern "C" int amg_nf_tile_smem_bytes(int down, int tx, int ty, int n_steps,
+                                      int reach, const int* offs, int n,
+                                      int k, int itemsize) {
+  Stencil s;
+  if (amg::make_stencil(&s, offs, n) || k < 1) return -1;
+  const int halo =
+      down ? amg::nf_down_halo(n_steps, reach, amg::nf_spill(s, k))
+           : amg::leg_halo(n_steps, reach, false);
+  return (int)amg::nf_smem_bytes(
+      tx, ty, halo, amg::nf_scratch(down != 0, tx, ty, halo, s, k), itemsize);
+}
 
 // one entry per (vector, plane) type: T vectors, C planes A, dinv, T, S
 #define AMG_DEFINE_LEGS(SUFFIX, T, C)                                          \
@@ -886,31 +1019,32 @@ int fused_up_nf(T* x_out, const T* x_in, const T* b, const C* A,
                            Wyc, k, tile_x, tile_y, stream);                    \
   }
 
-// the non-factored entries: C planes A, dinv, R, P
+// the non-factored entries: C planes A, dinv, R, P; a tile as the
+// factored entries take it ((0, 0): pass by pass)
 #define AMG_DEFINE_LEGS_NF(SUFFIX, T, C)                                       \
   extern "C" int amg_fused_down_nf_##SUFFIX(                                   \
       void* x_out, const void* x_in, const void* b, const void* A,             \
       const void* dinv, const void* R, void* r, void* bc, const int* offs,     \
       int n_off, const int* ctab, int ca, int cb, const int* steps,            \
       int n_steps, double omega, const int* offs_r, int n_r, int Wx, int Wy,   \
-      int Wxc, int Wyc, int k, void* stream) {                                 \
+      int Wxc, int Wyc, int k, int tile_x, int tile_y, void* stream) {         \
     return fused_down_nf<T, C>((T*)x_out, (const T*)x_in, (const T*)b,         \
                                (const C*)A, (const C*)dinv, (const C*)R,       \
                                (T*)r, (T*)bc, offs, n_off, ctab, ca, cb,       \
                                steps, n_steps, omega, offs_r, n_r, Wx, Wy,     \
-                               Wxc, Wyc, k, stream);                           \
+                               Wxc, Wyc, k, tile_x, tile_y, stream);           \
   }                                                                            \
   extern "C" int amg_fused_up_nf_##SUFFIX(                                     \
       void* x_out, const void* x_in, const void* b, const void* A,             \
       const void* dinv, const void* P, const void* xc, const int* offs,        \
       int n_off, const int* ctab, int ca, int cb, const int* steps,            \
       int n_steps, double omega, const int* offs_p, int n_p, int Wx, int Wy,   \
-      int Wxc, int Wyc, int k, void* stream) {                                 \
+      int Wxc, int Wyc, int k, int tile_x, int tile_y, void* stream) {         \
     return fused_up_nf<T, C>((T*)x_out, (const T*)x_in, (const T*)b,           \
                              (const C*)A, (const C*)dinv, (const C*)P,         \
                              (const T*)xc, offs, n_off, ctab, ca, cb, steps,   \
                              n_steps, omega, offs_p, n_p, Wx, Wy, Wxc, Wyc, k, \
-                             stream);                                          \
+                             tile_x, tile_y, stream);                          \
   }
 
 AMG_DEFINE_LEGS(f32, float, float)

@@ -49,11 +49,18 @@ hierarchy loaded by ``load_hierarchy`` — keeps its R planes (nR coarse
 planes) and P planes (nP fine planes) in the cache, expanded as the JAX
 leg builder expands them (bf16: at float32, then rounded), and its legs
 restrict with b_c = Σ_q R_q ⊙ r[k·c + δ_q] and correct with
-x += Σ_q P_q ⊙ x_c[⌊i/k⌋ + δ_q].  On the card they run pass by pass
-(``amg_fused_down_nf_*``, ``amg_fused_up_nf_*``: the color-step passes of
-the factored pass route, a residual pass, then one pass of the R-plane sum;
-the P-plane sum, then the color steps); K3 takes factored levels only, as
-in the JAX package.
+x += Σ_q P_q ⊙ x_c[⌊i/k⌋ + δ_q].  On the card (``amg_fused_down_nf_*``,
+``amg_fused_up_nf_*``) a level with a planned tile (``plan_down_nf``,
+``plan_up_nf``) runs each leg as one launch of independent tiles, as the
+factored legs: A, D⁻¹ and b in registers, x over the box in shared memory,
+the R and P planes read once where they are used; the down tile keeps r on
+the tile plus the R offsets' spill (``nf_spill``) in shared memory, so its
+halo is one reach and the spill more than the steps' erosion; the up tile
+stages x_c over its box's coarse window (``nf_window``).  A level with no
+tile runs them pass by pass (the color-step passes of the factored pass
+route, a residual pass, then one pass of the R-plane sum; the P-plane sum,
+then the color steps).  K3 takes factored levels only, as in the JAX
+package.  ``route_launches`` counts K1's and K2's launches by route.
 """
 
 from __future__ import annotations
@@ -94,6 +101,10 @@ __all__ = [
     "plan_down",
     "plan_up",
     "plan_up_pipelined",
+    "plan_down_nf",
+    "plan_up_nf",
+    "nf_spill",
+    "nf_tile_smem_bytes",
     "tile_smem_bytes",
     "with_tile_plans",
     "launches",
@@ -147,6 +158,8 @@ launches = {
 }
 # the leg and whole-sweep kernels' launches by level: (counter, grid dims) -> count
 level_launches = collections.Counter()
+# K1's and K2's launches by route: (counter, "tiles" | "pipelined" | "pass") -> count
+route_launches = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,9 +185,10 @@ class FusedLegCache:
     # K3's tile, from plan_updown when the cache is built; None: the level
     # is past the tiled kernel's limits and its updown runs K2 then K1
     updown_tile: Optional[Tuple[int, int]] = None
-    # K1's and K2's tiles (plan_down, plan_up); None: the leg runs pass by
-    # pass.  up_pipelined: K2's tiles are walked with the next tile's box
-    # staged in shared memory (plan_up_pipelined)
+    # K1's and K2's tiles (plan_down, plan_up; non-factored: plan_down_nf,
+    # plan_up_nf); None: the leg runs pass by pass.  up_pipelined: K2's
+    # tiles are walked with the next tile's box staged in shared memory
+    # (plan_up_pipelined)
     down_tile: Optional[Tuple[int, int]] = None
     up_tile: Optional[Tuple[int, int]] = None
     up_pipelined: bool = False
@@ -211,7 +225,7 @@ class FusedLegCache:
 
     @property
     def reach(self) -> int:
-        return max((max(abs(dx), abs(dy)) for dx, dy in self.offsA), default=0)
+        return _reach(self.offsA)
 
 
 def leg_halo(n_steps: int, reach: int, restriction: bool) -> int:
@@ -250,7 +264,7 @@ def _plan_leg(row_dims, k: int, offs, n_steps: int, restriction: bool, margin: i
     ``plan_tile`` for its halo plus ``margin`` reaches."""
     if not 1 <= n_steps <= MAX_STEPS:
         return None
-    reach = max((max(abs(dx), abs(dy)) for dx, dy in offs), default=0)
+    reach = _reach(offs)
     return plan_tile(row_dims, k, len(offs), leg_halo(n_steps, reach, restriction) + margin * reach, want)
 
 
@@ -272,6 +286,74 @@ def plan_up(row_dims, k: int, offs, n_steps: int):
     """K2's tile on a level, or None: its box plus one reach (where Tup is
     formed) within the register box, from ``UP_TILE``."""
     return _plan_leg(row_dims, k, offs, n_steps, False, 1, UP_TILE)
+
+
+def _reach(offs) -> int:
+    return max((max(abs(dx), abs(dy)) for dx, dy in offs), default=0)
+
+
+def offset_span(offs) -> Tuple[int, int, int, int]:
+    """(lo0, hi0, lo1, hi1): the span of the offsets (and 0) along each
+    axis (csrc/leg_tile.cuh ``offset_span``)."""
+    xs = [0] + [dx for dx, _ in offs]
+    ys = [0] + [dy for _, dy in offs]
+    return min(xs), max(xs), min(ys), max(ys)
+
+
+def nf_spill(offsR, k: int) -> int:
+    """Cells of r a non-factored down tile needs beyond each face: its
+    coarse cells (fine k·I … k·I + k − 1) read fine k·I + δ over the R
+    offsets δ (csrc/leg_tile.cuh ``nf_spill``)."""
+    lo0, hi0, lo1, hi1 = offset_span(offsR)
+    return max(-lo0, -lo1, max(hi0, hi1) - (k - 1))
+
+
+def nf_down_halo(n_steps: int, reach: int, spill: int) -> int:
+    """A non-factored down tile's halo: the steps' erosion, one reach for
+    r = b − A·x, and the R offsets' spill."""
+    return (n_steps + 1) * reach + spill
+
+
+def nf_window(E: int, k: int, lo: int, hi: int) -> int:
+    """Coarse cells of x_c a non-factored up tile stages along an axis of
+    ``E`` box cells: the box's coarse cells (at most ⌈E/k⌉ + 1) and the P
+    offsets' span ``lo`` … ``hi``."""
+    return -(-E // k) + 1 + hi - lo
+
+
+def nf_tile_smem_bytes(down: bool, tile, n_steps: int, reach: int, offs, k: int, itemsize: int) -> int:
+    """Shared memory of a non-factored tile (csrc/leg_tile.cuh
+    ``nf_smem_bytes``): x over the box, r over the tile and the spill of
+    the R offsets ``offs`` (down) or x_c over the coarse window of the P
+    offsets ``offs`` (up), and a color byte per box cell."""
+    tx, ty = tile
+    if down:
+        sp = nf_spill(offs, k)
+        halo = nf_down_halo(n_steps, reach, sp)
+        scratch = (tx + 2 * sp) * (ty + 2 * sp)
+    else:
+        halo = leg_halo(n_steps, reach, False)
+        lo0, hi0, lo1, hi1 = offset_span(offs)
+        scratch = nf_window(tx + 2 * halo, k, lo0, hi0) * nf_window(ty + 2 * halo, k, lo1, hi1)
+    e = (tx + 2 * halo) * (ty + 2 * halo)
+    return (e + scratch) * itemsize + -(-e // 16) * 16
+
+
+def plan_down_nf(row_dims, k: int, offs, offsR, n_steps: int):
+    """K1's tile on a non-factored level, or None (the leg runs pass by
+    pass): ``plan_tile`` for the halo ``nf_down_halo`` (the R offsets
+    ``offsR`` set its spill), from ``DOWN_TILE``; None past 64 steps."""
+    if not 1 <= n_steps <= MAX_STEPS:
+        return None
+    halo = nf_down_halo(n_steps, _reach(offs), nf_spill(offsR, k))
+    return plan_tile(row_dims, k, len(offs), halo, DOWN_TILE)
+
+
+def plan_up_nf(row_dims, k: int, offs, n_steps: int):
+    """K2's tile on a non-factored level, or None: its box within the
+    register box (the P-plane sum reads x_c staged in shared memory, so no
+    Tup area), from ``UP_TILE``."""
+    return _plan_leg(row_dims, k, offs, n_steps, False, 0, UP_TILE)
 
 
 def stage_bytes(box, n_off: int, reach: int, k: int, itemsize: int, coef_itemsize: Optional[int] = None) -> int:
@@ -316,11 +398,15 @@ def plan_up_pipelined(cache: "FusedLegCache") -> bool:
 
 def with_tile_plans(cache: "FusedLegCache") -> "FusedLegCache":
     """The cache with K3's, K1's and K2's tiles planned from its shapes; a
-    non-factored cache gets none (its legs run pass by pass, and it has no
-    K3)."""
-    if not cache.factored:
-        return dataclasses.replace(cache, updown_tile=None, down_tile=None, up_tile=None, up_pipelined=False)
+    non-factored cache gets K1's and K2's own (``plan_down_nf``,
+    ``plan_up_nf``), no K3 and no pipelined K2."""
     n = len(cache.steps)
+    if not cache.factored:
+        return dataclasses.replace(
+            cache, updown_tile=None, up_pipelined=False,
+            down_tile=plan_down_nf(cache.row_dims, cache.k, cache.offsA, cache.offsR, n),
+            up_tile=plan_up_nf(cache.row_dims, cache.k, cache.offsA, n),
+        )
     c = dataclasses.replace(
         cache,
         updown_tile=plan_updown(cache.row_dims, cache.k, cache.offsA, len(cache.steps2)),
@@ -735,8 +821,8 @@ _SIGNATURES = {
     "amg_fused_up_{}": [_P] * 8 + _STENCIL + [_I] * 8 + [_P],
     "amg_fused_updown_{}": [_P] * 9 + _STENCIL + [_I] * 7 + [_P],
     "amg_fused_tail_{}": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
-    "amg_fused_down_nf_{}": [_P] * 8 + _STENCIL + [_IP, _I] + [_I] * 5 + [_P],
-    "amg_fused_up_nf_{}": [_P] * 7 + _STENCIL + [_IP, _I] + [_I] * 5 + [_P],
+    "amg_fused_down_nf_{}": [_P] * 8 + _STENCIL + [_IP, _I] + [_I] * 7 + [_P],
+    "amg_fused_up_nf_{}": [_P] * 7 + _STENCIL + [_IP, _I] + [_I] * 7 + [_P],
     "amg_fused_tail_nf_{}": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_fused_subcycle_{}": [_P, _I, _I, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "amg_scan_gs_{}": [_P] * 9 + [_I, _I, _I, _D, _I, _I, _I, _I, _P],
@@ -763,6 +849,7 @@ _HELPERS = {
     "amg_tail_level_bytes": [],
     "amg_tail_block_cells": [],
     "amg_tile_smem_bytes": [_I] * 5,
+    "amg_nf_tile_smem_bytes": [_I] * 5 + [_IP] + [_I] * 3,
     "amg_tail_fill_level": [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L] + [_I] * 7 + _STENCIL,
     "amg_tail_transfer_bytes": [],
     "amg_tail_fill_transfer": [_P, _I, _P, _P, _IP, _I, _IP, _I],
@@ -899,41 +986,51 @@ def _offsets(offs):
     return _ints([v for o in offs for v in o]), len(offs)
 
 
+def _count(name: str, cache: FusedLegCache, route: str):
+    launches[name] += 1
+    level_launches[name, cache.row_dims] += 1
+    route_launches[name, route] += 1
+
+
 def _fused_down_nf(cache: FusedLegCache, x, b, x_zero: bool):
-    """K1's non-factored entry: the presmooth passes, a residual pass into
-    r and the R-plane restriction pass."""
+    """K1's non-factored entry: one launch of tiles on a level with a
+    planned tile (``cache.down_tile``), else the presmooth passes, a
+    residual pass into r and the R-plane restriction pass."""
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
+    tile = _tile_args(cache, cache.down_tile, "fused_down_nf")
     fn, x_out = _prepare(cache, "fused_down_nf", x, [("x", x, n), ("b", b, n)])
-    r = torch.empty((Wx, Wy), dtype=x.dtype, device=x.device)
+    # the r plane only for the pass-by-pass route
+    r = None if cache.down_tile is not None else torch.empty((Wx, Wy), dtype=x.dtype, device=x.device)
     bc = torch.empty(Wxc * Wyc, dtype=x.dtype, device=x.device)
     err = fn(
         x_out.data_ptr(), None if x_zero else x.data_ptr(), b.data_ptr(),
-        cache.A.data_ptr(), cache.dinv.data_ptr(), cache.R.data_ptr(), r.data_ptr(), bc.data_ptr(),
-        *stencil_args(cache, cache.steps), *_offsets(cache.offsR), Wx, Wy, Wxc, Wyc, cache.k, _stream(x),
+        cache.A.data_ptr(), cache.dinv.data_ptr(), cache.R.data_ptr(), None if r is None else r.data_ptr(),
+        bc.data_ptr(), *stencil_args(cache, cache.steps), *_offsets(cache.offsR), Wx, Wy, Wxc, Wyc, cache.k, *tile,
+        _stream(x),
     )
     raise_on(err, "fused_down_nf kernel")
-    launches["down_nf"] += 1
-    level_launches["down_nf", cache.row_dims] += 1
+    _count("down_nf", cache, "pass" if r is not None else "tiles")
     return x_out, bc
 
 
 def _fused_up_nf(cache: FusedLegCache, x, b, xc):
-    """K2's non-factored entry: the P-plane correction pass, then the
-    postsmooth passes."""
+    """K2's non-factored entry: one launch of tiles on a level with a
+    planned tile (``cache.up_tile``), else the P-plane correction pass,
+    then the postsmooth passes."""
     Wx, Wy = cache.row_dims
     Wxc, Wyc = cache.col_dims
     n = Wx * Wy
+    tile = _tile_args(cache, cache.up_tile, "fused_up_nf")
     fn, x_out = _prepare(cache, "fused_up_nf", x, [("x", x, n), ("b", b, n), ("xc", xc, Wxc * Wyc)])
     err = fn(
         x_out.data_ptr(), x.data_ptr(), b.data_ptr(), cache.A.data_ptr(), cache.dinv.data_ptr(),
         cache.P.data_ptr(), xc.data_ptr(), *stencil_args(cache, cache.steps), *_offsets(cache.offsP),
-        Wx, Wy, Wxc, Wyc, cache.k, _stream(x),
+        Wx, Wy, Wxc, Wyc, cache.k, *tile, _stream(x),
     )
     raise_on(err, "fused_up_nf kernel")
-    launches["up_nf"] += 1
-    level_launches["up_nf", cache.row_dims] += 1
+    _count("up_nf", cache, "pass" if cache.up_tile is None else "tiles")
     return x_out
 
 
@@ -942,8 +1039,8 @@ def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
     the zero vector (coarse-level cycles start from it), so x is not read.
     Returns x' at ``x``'s (padded) length and b_c at Wxc·Wyc.  A level with
     a planned tile (``cache.down_tile``) runs one launch of independent
-    tiles; any other, pass by pass; a non-factored level its own entry,
-    pass by pass."""
+    tiles; any other, pass by pass; a non-factored level its own entry, by
+    the same rule."""
     if x.device.type == "cpu":
         return fused_down_reference(cache, x, b, x_zero=x_zero)
     if not cache.factored:
@@ -965,15 +1062,14 @@ def fused_down(cache: FusedLegCache, x, b, x_zero: bool = False):
         *stencil_args(cache, cache.steps), Wx, Wy, Wxc, Wyc, cache.k, *tile, _stream(x),
     )
     raise_on(err, "fused_down kernel")
-    launches["down"] += 1
-    level_launches["down", cache.row_dims] += 1
+    _count("down", cache, "pass" if cache.down_tile is None else "tiles")
     return x_out, bc
 
 
 def fused_up(cache: FusedLegCache, x, b, xc):
     """x = postsmooth(x + P·x_c, b); returns x at ``x``'s (padded) length.
     Tiled (``cache.up_tile``; pipelined where ``cache.up_pipelined``) or
-    pass by pass, as ``fused_down`` (a non-factored level pass by pass)."""
+    pass by pass, as ``fused_down`` (a non-factored level its own entry)."""
     if x.device.type == "cpu":
         return fused_up_reference(cache, x, b, xc)
     if not cache.factored:
@@ -990,8 +1086,8 @@ def fused_up(cache: FusedLegCache, x, b, xc):
         int(cache.up_pipelined), _stream(x),
     )
     raise_on(err, "fused_up kernel")
-    launches["up"] += 1
-    level_launches["up", cache.row_dims] += 1
+    route = "pass" if cache.up_tile is None else "pipelined" if cache.up_pipelined else "tiles"
+    _count("up", cache, route)
     return x_out
 
 

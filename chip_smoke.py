@@ -569,6 +569,7 @@ def zero_counts():
     for key in vl.launches:
         vl.launches[key] = 0
     vl.level_launches.clear()
+    vl.route_launches.clear()
 
 
 def read_level_counts():
@@ -586,6 +587,13 @@ def read_counts():
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     return dict(vl.launches)
+
+
+def read_route_counts():
+    """K1's and K2's launches by route: {"counter/route": count}."""
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    return {f"{name}/{route}": count for (name, route), count in sorted(vl.route_launches.items()) if count}
 
 
 def main_path(device, ml, setup_s):
@@ -2546,8 +2554,11 @@ def nonfactored_path(device, ml):
     L1 and a non-factored tail), with bf16 planes under float32 cycles; the
     save/load round trip of phase 4's hierarchy and its refined solve; the
     new K1/K2/K4 entries against their plain versions and timed in turns
-    with the factored entries on phase 4's hierarchy; the cycles, factored
-    and not, timed in turns and compared."""
+    with the factored entries on phase 4's hierarchy; K1/K2's non-factored
+    tiles (asserted planned at L0 and L1, and the only route the solves
+    launch there) against and in turns with their pass route; the cycles,
+    factored and not, timed in turns and compared."""
+    import dataclasses
     import os
     import tempfile
 
@@ -2572,7 +2583,7 @@ def nonfactored_path(device, ml):
     x, res = amt.solve(LP, b1, amt.SmoothedAggregationAMG(), engine="torch", device=device, dtype=f32, coef_dtype=bf16,
                        reltol=API_RELTOL, maxiter=API_MAXITER, log=True, **api_kw)
     api_s = time.perf_counter() - t0
-    api_counts, api_levels = read_counts(), read_level_counts()
+    api_counts, api_levels, api_routes = read_counts(), read_level_counts(), read_route_counts()
     api_iters = len(res) - 1
     api_relres = float(np.linalg.norm(b1 - LP @ x.astype(np.float64)) / np.linalg.norm(b1))
 
@@ -2587,7 +2598,8 @@ def nonfactored_path(device, ml):
         f" {h_nf.tail_start}; legs factored {[f.factored for f in legs]} R/P offsets"
         f" {[(len(f.offsR), len(f.offsP)) for f in legs]}; tail factored {h_nf.tail.factored} tiles"
         f" {h_nf.tail.tiles}; {api_iters} V-cycles to relres {api_relres!r} (its own {res[-1] / res[0]!r}) in"
-        f" {api_s!r} s (setup, lowering and solve); launches {api_counts}; by level {api_levels}")
+        f" {api_s!r} s (setup, lowering and solve); launches {api_counts}; by level {api_levels}; by route"
+        f" {api_routes}; K1/K2 nf tiles {[(f.down_tile, f.up_tile) for f in legs]}")
     want = dict.fromkeys(api_counts, 0)
     want.update(down_nf=n_legs * api_iters, up_nf=n_legs * api_iters, tail_nf=api_iters)
     want_levels = {k: dict.fromkeys(dims, api_iters) for k in ("down_nf", "up_nf")}
@@ -2604,6 +2616,13 @@ def nonfactored_path(device, ml):
     if api_counts != want or api_levels != want_levels:
         raise AssertionError(f"api.solve launches {api_counts} {api_levels} != {want} {want_levels}: the"
                              " non-factored K1/K2 on L0, L1 and K4 once a V-cycle, no masked sweep")
+    planned = [(vl.plan_down_nf(f.row_dims, f.k, f.offsA, f.offsR, len(f.steps)),
+                vl.plan_up_nf(f.row_dims, f.k, f.offsA, len(f.steps))) for f in legs]
+    if any(None in p or (f.down_tile, f.up_tile) != p for f, p in zip(legs, planned)):
+        raise AssertionError(f"api.solve: the non-factored L0/L1 tiles {[(f.down_tile, f.up_tile) for f in legs]}"
+                             f" are not the plan's {planned}")
+    if api_routes != {"down_nf/tiles": n_legs * api_iters, "up_nf/tiles": n_legs * api_iters}:
+        raise AssertionError(f"api.solve: K1/K2 nf launches by route {api_routes}: not all in tiles")
 
     # (b) save/load of phase 4's hierarchy, then the refined solve with bf16 planes
     with tempfile.TemporaryDirectory() as d:
@@ -2621,13 +2640,13 @@ def nonfactored_path(device, ml):
     xl, hist = amt.solve_refined(ml_l, b, tol=TOL, max_rounds=MAX_ROUNDS, device=device, log=True, stats=stats,
                                  coef_dtype=bf16)
     load_s = time.perf_counter() - t0
-    load_counts = read_counts()
+    load_counts, load_routes = read_counts(), read_route_counts()
     load_relres = float(np.linalg.norm(b - LP @ xl) / np.linalg.norm(b))
     h_l = amt.get_device_hierarchy(ml_l, device=device, dtype=f32, coef_dtype=bf16)
     log(f"save/load {N}x{N}: {size} bytes, save+load {io_s!r} s; solve_refined (bf16 planes): rounds {len(hist) - 1}"
         f" pcg_iters_per_round {stats['inner_iters']} relres {load_relres!r} history {hist} {load_s!r} s"
         f" (lowering included); legs factored {[L.fused.factored for L in h_l.levels[: h_l.tail_start]]}, tail"
-        f" factored {h_l.tail.factored}; launches {load_counts}")
+        f" factored {h_l.tail.factored}; launches {load_counts}; by route {load_routes}")
     if not (np.isfinite(xl).all() and load_relres < TOL and len(hist) - 1 <= MAX_ROUNDS):
         raise AssertionError(f"loaded flagship: relres {load_relres} after {len(hist) - 1} rounds")
     if h_l.tail_start != EXPECT_TAIL_START or any(L.fused.factored for L in h_l.levels[:2]) or h_l.tail.factored:
@@ -2635,10 +2654,13 @@ def nonfactored_path(device, ml):
     if not (all(load_counts[k] > 0 for k in ("down_nf", "up_nf", "tail_nf"))
             and not any(load_counts[k] for k in ("down", "up", "updown", "tail", "gs"))):
         raise AssertionError(f"the loaded flagship's solve launches {load_counts}")
+    if set(load_routes) != {"down_nf/tiles", "up_nf/tiles"}:
+        raise AssertionError(f"the loaded flagship's K1/K2 nf launches by route {load_routes}: not all in tiles")
 
     # (c) each new entry against its plain version, timed in turns with the
-    # factored entry of phase 4's hierarchy on the same vectors; with bf16
-    # planes (the configuration) and float32 planes
+    # factored entry of phase 4's hierarchy on the same vectors, and K1/K2
+    # nf's tiles against and in turns with their pass route (the first
+    # design); with bf16 planes (the configuration) and float32 planes
     gen = torch.Generator(device="cpu").manual_seed(18)
 
     def vec(m, length):
@@ -2654,17 +2676,23 @@ def nonfactored_path(device, ml):
                         amt.build_device_hierarchy(ml, device=device, dtype=f32, coef_dtype=coef))
         hn, hf = hier[planes]
 
-        def record(name, got, ref, fn, fn_fact, plain, work, **extra):
+        def record(name, got, ref, fn, fn_fact, plain, work, fn_pass=None, by_pass=None, **extra):
             errs = [errors(g, r) for g, r in zip(got, ref)]
             row = dict(extra, planes=planes, max_abs_err=max(e[0] for e in errs),
                        max_rel_err=max(e[1] for e in errs))
             row["factored_ms"], row["ms"], row["turns_ms"] = in_turns(fn_fact, fn)
+            if fn_pass is not None:
+                row["pass_rel_err"] = max(errors(g, q)[1] for g, q in zip(got, by_pass))
+                row["pass_ms"], row["ms_vs_pass"], row["pass_turns_ms"] = in_turns(fn_pass, fn)
             row["plain_ms"] = time_ms(plain, reps=5)
             row["bound_ms"], row["bound_by"] = bound(*work, 4)
             rows[name].append(row)
 
         for lvl in (0, 1):
             L, f, g = hn.levels[lvl], hn.levels[lvl].fused, hf.levels[lvl].fused
+            if f.down_tile is None or f.up_tile is None:
+                raise AssertionError(f"level {lvl}'s non-factored K1/K2 have no tile: {f.down_tile}, {f.up_tile}")
+            passed = dataclasses.replace(f, down_tile=None, up_tile=None)
             n, pad, nc = L.A.shape[0], L.A.rows_padded, L.R.shape[0]
             x, b, xc = vec(n, pad), vec(n, pad), vec(nc, nc)
             for x_zero in (False, True):
@@ -2674,14 +2702,18 @@ def nonfactored_path(device, ml):
                     lambda: vl.fused_down(f, x, b, x_zero=x_zero), lambda: vl.fused_down(g, x, b, x_zero=x_zero),
                     lambda: vl.fused_down_reference(f, x, b, x_zero=x_zero),
                     leg_work(f, f.steps, False, True, x_zero=x_zero),
+                    fn_pass=lambda: vl.fused_down(passed, x, b, x_zero=x_zero),
+                    by_pass=vl.fused_down(passed, x, b, x_zero=x_zero),
                     level=lvl, dims=f.row_dims, x_zero=x_zero, factored_route=("tiles", g.down_tile),
+                    tile=f.down_tile,
                 )
             record(
                 "fused_up_nf", [vl.fused_up(f, x, b, xc)], [vl.fused_up_reference(f, x, b, xc)],
                 lambda: vl.fused_up(f, x, b, xc), lambda: vl.fused_up(g, x, b, xc),
-                lambda: vl.fused_up_reference(f, x, b, xc), leg_work(f, f.steps, True, False), level=lvl,
+                lambda: vl.fused_up_reference(f, x, b, xc), leg_work(f, f.steps, True, False),
+                fn_pass=lambda: vl.fused_up(passed, x, b, xc), by_pass=[vl.fused_up(passed, x, b, xc)], level=lvl,
                 dims=f.row_dims,
-                factored_route=("pipelined" if g.up_pipelined else "tiles", g.up_tile),
+                factored_route=("pipelined" if g.up_pipelined else "tiles", g.up_tile), tile=f.up_tile,
             )
         lvl = hn.tail_start
         L = hn.levels[lvl]
@@ -2709,9 +2741,15 @@ def nonfactored_path(device, ml):
                 + f": max_rel_err {r['max_rel_err']!r} max_abs_err {r['max_abs_err']!r} non-factored {r['ms']!r} ms"
                 f" factored {r['factored_ms']!r} ms {r['factored_route']} (in turns, factored/nf/nf/factored:"
                 f" {r['turns_ms']!r}) plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']};"
-                f" 4-byte planes {r['bound_4byte_ms']!r} ms); card {card_line()}")
+                f" 4-byte planes {r['bound_4byte_ms']!r} ms)"
+                + (f"; nf tile {r['tile']} {r['ms_vs_pass']!r} ms, nf pass route {r['pass_ms']!r} ms (in turns,"
+                   f" pass/tile/tile/pass: {r['pass_turns_ms']!r}), rel err vs the pass route {r['pass_rel_err']!r}"
+                   if "pass_ms" in r else "")
+                + f"; card {card_line()}")
             if not r["max_rel_err"] <= KERNEL_RTOL:
                 raise AssertionError(f"{name} on {r['planes']} planes disagrees with its plain version: {r}")
+            if not r.get("pass_rel_err", 0.0) <= KERNEL_RTOL:
+                raise AssertionError(f"{name} on {r['planes']} planes disagrees with its pass route: {r}")
 
     # (d) cycles: a V-cycle and 50 fixed cycles, factored and not, in turns
     # (bf16 planes); one V-cycle of each on the same x, b (float32 planes)
@@ -2918,9 +2956,10 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in rs), ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, entry="f32_bf16",
             factored_ms=first["factored_ms"], bound_4byte_ms=first["bound_4byte_ms"],
-            by_call=[{k: r[k] for k in ("planes", "level", "dims", "ms", "factored_ms", "plain_ms", "bound_ms",
-                                        "bound_4byte_ms") if k in r} | ({"x_zero": r["x_zero"]} if "x_zero" in r
-                                                                        else {}) for r in rs],
+            by_call=[{k: r[k] for k in ("planes", "level", "dims", "ms", "factored_ms", "pass_ms", "plain_ms",
+                                        "bound_ms", "bound_4byte_ms") if k in r} | ({"x_zero": r["x_zero"]}
+                                                                                    if "x_zero" in r else {})
+                     for r in rs],
         )
         if name != "fused_tail_nf":
             row["launches_by_level"] = levels_nf.get(COUNTER[name], {})

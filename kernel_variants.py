@@ -29,7 +29,7 @@ diagnostics split K4's time, dropping its block-0 levels and coarse solve
 (``k4_diag_no_block0``) or its grid levels (``k4_diag_no_grid``).  Run from
 the repository root:
 
-    python3 kernel_variants.py [legs | sweeps [march | march2d] | subcycle | scan | against DIR]
+    python3 kernel_variants.py [legs [nf] | sweeps [march | march2d] | subcycle | scan | against DIR | sass DIR]
 
 In ``sweeps`` mode each source variant runs K7's first design (the
 halo-tile kernel) and K5 with each box of ``BOXES_3D`` / ``BOXES_2D`` (the
@@ -61,6 +61,11 @@ read everything in their first memory phase: ``LEG_VARIANTS``) runs K1
 from x and from zero and K2 under each tile of ``LEG_TILES``, one tile a
 block and, for K2 where its stage fits, pipelined; then the legs pass by
 pass; then K3, K4, a V-cycle and a fixed cycle with the planned tiles.
+Then the non-factored K1 and K2 at L0/L1 of the 4096² NoSymmetry
+hierarchy, bf16 and float32 planes, each tile of ``NF_LEG_TILES`` in
+turns with their pass route, and the V-cycle with and without their
+tiles; ``legs nf`` runs that alone, and the planned tiles of each
+``NF_LEG_VARIANTS`` source edit (the plane-read loops) beside the tree's.
 In ``against DIR`` mode the two libraries run the float32 and float64
 K1 (from x and from zero), K2 and K3 at L0 and L1 of 1800² on their
 planned routes and pass by pass, K4 (x read and from zero), K9 at L1, and
@@ -70,7 +75,9 @@ bitwise equal;
 then it times float32 K1–K4 at 4096² (L0 and L1 for the legs), a V-cycle
 and a fixed cycle in turns (DIR, tree, tree, DIR).  DIR's library is
 loaded without the entries it may lack (the bf16-plane ones, the
-non-factored ones).
+non-factored ones).  In ``sass DIR`` mode each source that differs from
+DIR's is compiled on both sides and every kernel of DIR's compared
+instruction by instruction (``cuobjdump -sass``).
 """
 
 import ctypes
@@ -340,6 +347,86 @@ LEG_VARIANTS = {
 LEG_TILES = {
     0: {"down": [(54, 54), (48, 48), (36, 54)], "up": [(54, 54), (48, 48), (36, 54)]},
     1: {"down": [(45, 45), (36, 36), (24, 45)], "up": [(48, 48), (36, 36), (24, 48)]},
+}
+# The non-factored tiles' plane reads (csrc/leg_tile.cuh): the tree loads
+# the down tile's R planes kRBatch = 8 a batch and the up tile's P planes
+# kPBatch = 2 a batch; the first design's plain loops (one plane an
+# iteration, the R loop unrolled by 8); other batches.
+NF_R_BATCHED = """    for (int q0 = 0; q0 < sr.n; q0 += kRBatch) {
+      T rq[kRBatch], rr[kRBatch];
+#pragma unroll
+      for (int u = 0; u < kRBatch; ++u) {
+        const int q = q0 + u < sr.n ? q0 + u : q0;
+        rq[u] = coef_ldg<T>(Rp, q * cplane + cell);
+        rr[u] = q0 + u < sr.n ? rc[sr.dx[q] * G1 + sr.dy[q]] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kRBatch; ++u) acc += rq[u] * rr[u];
+    }
+"""
+NF_P_BATCHED = """  for (int q0 = 0; q0 < so.n; q0 += kPBatch) {
+    T pv[kPBatch][CI][CJ];
+#pragma unroll
+    for (int u = 0; u < kPBatch; ++u) {
+      const int64_t gq = (q0 + u < so.n ? q0 + u : q0) * plane;
+#pragma unroll
+      for (int a = 0; a < CI; ++a) {
+#pragma unroll
+        for (int c = 0; c < CJ; ++c) {
+          const bool cell = in >> (a * CJ + c) & 1u;
+          pv[u][a][c] = coef_ldg<T>(
+              Pp, gq + (cell ? g0 + (int64_t)(WARPS * a) * L.Wy + 32 * c : 0));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPBatch; ++u) {
+      if (q0 + u >= so.n) break;
+      const int dq = so.dx[q0 + u] * C1 + so.dy[q0 + u];
+#pragma unroll
+      for (int a = 0; a < CI; ++a) {
+#pragma unroll
+        for (int c = 0; c < CJ; ++c) {
+          if (in >> (a * CJ + c) & 1u) {
+            acc[a][c] += pv[u][a][c] * sm.sc[wc[a][c] + dq];
+          }
+        }
+      }
+    }
+  }
+"""
+NF_R_PLAIN = """#pragma unroll 8
+    for (int q = 0; q < sr.n; ++q) {
+      acc += coef_ldg<T>(Rp, q * cplane + cell) * rc[sr.dx[q] * G1 + sr.dy[q]];
+    }
+"""
+NF_P_PLAIN = """  for (int q = 0; q < so.n; ++q) {
+    const int dq = so.dx[q] * C1 + so.dy[q];
+    const int64_t gq = q * plane + g0;
+#pragma unroll
+    for (int a = 0; a < CI; ++a) {
+#pragma unroll
+      for (int c = 0; c < CJ; ++c) {
+        if (in >> (a * CJ + c) & 1u) {
+          acc[a][c] +=
+              coef_ldg<T>(Pp, gq + (int64_t)(WARPS * a) * L.Wy + 32 * c) *
+              sm.sc[wc[a][c] + dq];
+        }
+      }
+    }
+  }
+"""
+NF_BATCHES = "constexpr int kRBatch = 8, kPBatch = 2;"
+NF_LEG_VARIANTS = {
+    "nf_plain_loops": [("leg_tile.cuh", NF_R_BATCHED, NF_R_PLAIN), ("leg_tile.cuh", NF_P_BATCHED, NF_P_PLAIN)],
+    "nf_p_batch3": [("leg_tile.cuh", NF_BATCHES, "constexpr int kRBatch = 8, kPBatch = 3;")],
+    "nf_r_batch16": [("leg_tile.cuh", NF_BATCHES, "constexpr int kRBatch = 16, kPBatch = 2;")],
+}
+# the non-factored K1/K2 tiles per level and leg (the first is the plan's
+# at 4096²; then the same area cut along x, and along y)
+NF_LEG_TILES = {
+    0: {"down": [(54, 54), (27, 54), (54, 27)], "up": [(57, 57), (30, 57), (57, 30)]},
+    1: {"down": [(45, 45), (24, 45), (45, 24)], "up": [(48, 48), (24, 48), (48, 24)]},
 }
 SUB_VARIANTS = {
     "tree": [],
@@ -728,6 +815,78 @@ def legs(use):
             print(f"round {rnd} {name:10s} planned (L0 {f0.down_tile}/{f0.up_tile} up pipelined {f0.up_pipelined},"
                   f" L1 {h.levels[1].fused.down_tile}/{h.levels[1].fused.up_tile}): K3 L0 {k3!r} ms K4 {k4!r} ms"
                   f" V-cycle {vc!r} ms fixed cycle {fc!r} ms", flush=True)
+    del h
+    torch.cuda.empty_cache()
+    legs_nf(use, ["tree"])
+
+
+def legs_nf(use, names):
+    """The non-factored K1 (from x and from zero) and K2 at L0/L1 of the
+    4096² NoSymmetry hierarchy, float32 vectors under bf16 and float32
+    planes, per source variant of ``names``: each tile of ``NF_LEG_TILES``
+    (the tree; a variant, the planned tile) in turns with the pass route
+    (pass, tile, tile, pass), with its error against the plain version;
+    then the V-cycle with the planned tiles in turns with the one whose
+    L0/L1 legs run pass by pass."""
+    import dataclasses
+
+    import torch
+
+    import algebraicmultigrid_tpu_torch as amt
+    from algebraicmultigrid_tpu_torch.models.device import _one_iteration
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    import chip_smoke as cs
+
+    ml = cs.setup(N, symmetry=amt.NoSymmetry())
+    gen = torch.Generator().manual_seed(1)
+
+    def vec(m, length):
+        v = torch.zeros(length)
+        v[:m] = torch.randn(m, generator=gen)
+        return v.cuda()
+
+    for planes in ("bf16", "f32"):
+        h = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32,
+                                       coef_dtype=torch.bfloat16 if planes == "bf16" else None)
+        hp = dataclasses.replace(h, levels=tuple(
+            dataclasses.replace(L, fused=dataclasses.replace(L.fused, down_tile=None, up_tile=None))
+            if i < 2 else L for i, L in enumerate(h.levels)))
+        bv = torch.zeros(h.fine_padded, device="cuda")
+        bv[: N * N] = torch.as_tensor(ml.levels[0].A @ np.ones(N * N), dtype=torch.float32, device="cuda")
+        xv = torch.zeros_like(bv)
+        levels = []
+        for lvl in (0, 1):
+            L, f = h.levels[lvl], h.levels[lvl].fused
+            assert not f.factored
+            n, nc = L.A.shape[0], L.R.shape[0]
+            x, b, xc = vec(n, L.A.rows_padded), vec(n, L.A.rows_padded), vec(nc, nc)
+            calls = {
+                "down": (lambda c, x=x, b=b: vl.fused_down(c, x, b), vl.fused_down_reference(f, x, b)),
+                "down0": (lambda c, x=x, b=b: vl.fused_down(c, x, b, x_zero=True),
+                          vl.fused_down_reference(f, x, b, x_zero=True)),
+                "up": (lambda c, x=x, b=b, xc=xc: (vl.fused_up(c, x, b, xc),), (vl.fused_up_reference(f, x, b, xc),)),
+            }
+            levels.append((lvl, f, calls, dataclasses.replace(f, down_tile=None, up_tile=None)))
+        for name in names:
+            use(name)
+            for lvl, f, calls, passed in levels:
+                for leg, (fn, want) in calls.items():
+                    key = "up" if leg == "up" else "down"
+                    planned = getattr(f, f"{key}_tile")
+                    for tile in NF_LEG_TILES[lvl][key] if name == "tree" else [planned]:
+                        c = dataclasses.replace(f, **{f"{key}_tile": tile})
+                        err = max(cs.errors(g, r)[1] for g, r in zip(fn(c), want))
+                        pass_ms, ms, turns = cs.in_turns(lambda: fn(passed), lambda: fn(c))
+                        print(f"nf {name} {planes} planes L{lvl} {f.row_dims} {leg:5s} tile {tile}: {ms!r} ms, pass"
+                              f" route {pass_ms!r} ms (pass/tile/tile/pass {turns!r}) max_rel_err {err!r}"
+                              f"{'  (planned)' if tile == planned else ''}", flush=True)
+            pass_ms, ms, turns = cs.in_turns(lambda: _one_iteration(hp, amt.V(), xv, bv),
+                                             lambda: _one_iteration(h, amt.V(), xv, bv), reps=10)
+            print(f"nf {name} {planes} planes V-cycle: L0/L1 tiles {ms!r} ms, L0/L1 pass by pass {pass_ms!r} ms"
+                  f" (pass/tiles/tiles/pass {turns!r})", flush=True)
+        del h, hp, levels
+        torch.cuda.empty_cache()
 
 
 def legs_and_tail(use):
@@ -919,6 +1078,59 @@ def against(other):
     return 0 if all(same) else 1
 
 
+def sass_against(other):
+    """``sass DIR`` mode: every source whose text (with the headers it
+    includes) differs between the tree and DIR compiled to a cubin for
+    sm_90a on both sides and disassembled (``cuobjdump -sass``); prints,
+    for each kernel DIR's source defines, whether the tree's has the same
+    instructions (the anonymous namespace's name normalised).  Returns 0
+    when every kernel of DIR is unchanged."""
+    import re
+
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    cuobjdump = str(Path(vl._nvcc()).with_name("cuobjdump"))
+    tree_dir, other_dir = vl.CSRC, Path(other) / "algebraicmultigrid_tpu_torch" / "csrc"
+
+    def kernels(cubin):
+        text = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
+        out, name = {}, None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                name = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "ANON", m.group(1))
+                out[name] = []
+            elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+                out[name].append(line.split("*/", 1)[1].split(";")[0].strip())
+        return out
+
+    same, changed = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {}
+        for f in vl.SOURCES:
+            if not (other_dir / f.name).exists():
+                continue
+            if _included(tree_dir, f.name) == _included(other_dir, f.name):
+                print(f"{f.name}: the same source and headers", flush=True)
+                continue
+            for side, d in (("tree", tree_dir), ("other", other_dir)):
+                out = Path(tmp) / f"{side}-{f.stem}.cubin"
+                cmd = [vl._nvcc(), *vl._NVCC_FLAGS, "-cubin", str(d / f.name), "-o", str(out)]
+                jobs[f.name, side] = (subprocess.Popen(cmd), out)
+        if any(pr.wait() for pr, _ in jobs.values()):
+            raise SystemExit("nvcc failed")
+        for name in sorted({n for n, _ in jobs}):
+            tree, base = kernels(jobs[name, "tree"][1]), kernels(jobs[name, "other"][1])
+            for fn, code in base.items():
+                (same if tree.get(fn) == code else changed).append(f"{name} {fn}")
+            print(f"{name}: {sum(1 for fn in base if tree.get(fn) == base[fn])} of {len(base)} kernels with the same"
+                  f" instructions; {len(tree) - len(base)} more kernels in the tree", flush=True)
+    for c in changed:
+        print(f"CHANGED: {c}", flush=True)
+    print(f"same instructions: {len(same)} of {len(same) + len(changed)} kernels", flush=True)
+    return 0 if not changed else 1
+
+
 def main():
     import torch
 
@@ -926,6 +1138,8 @@ def main():
         print("no CUDA card: kernel_variants needs one")
         return 1
     mode = sys.argv[1] if sys.argv[1:] else ""
+    if mode == "sass":
+        return sass_against(sys.argv[2])
     if mode == "against":
         import chip_smoke as cs
 
@@ -941,6 +1155,8 @@ def main():
         variants = {k: v for k, v in variants.items() if k == "tree" or k.startswith("march")}
     if mode == "sweeps" and sys.argv[2:] == ["march2d"]:
         mode, variants = "march2d", MARCH2D_VARIANTS
+    if mode == "legs" and sys.argv[2:] == ["nf"]:
+        mode, variants = "legs_nf", {"tree": LEG_VARIANTS["tree"], **NF_LEG_VARIANTS}
     import algebraicmultigrid_tpu_torch as amt
     from algebraicmultigrid_tpu_torch.models.device import run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
@@ -969,6 +1185,10 @@ def main():
 
         if mode == "march2d":
             march2d(use, list(variants))
+            print(card)
+            return 0
+        if mode == "legs_nf":
+            legs_nf(use, list(variants))
             print(card)
             return 0
         if mode == "sweeps":

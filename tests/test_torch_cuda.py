@@ -14,6 +14,8 @@ JAX, so on a machine without JAX run it without the suite's conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -m gpu
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1252,6 +1254,77 @@ def test_cuda_nonfactored_legs_match_plain_versions(ml_nosym, lvl, entry):
     assert _rel(got, vl.fused_up_reference(f, x, b, xc)) < _nf_tol(dtype)
     assert vl.launches["down_nf"] == before["down_nf"] + 2 and vl.launches["up_nf"] == before["up_nf"] + 1
     assert all(vl.launches[k] == before[k] for k in ("down", "up", "updown"))
+
+
+# the non-factored tiles: the flagship's L0 and L1 shapes (4096², k = 3,
+# 5-point, 21 R / 5 P offsets; 1366², 9-point, 25 / 9), the 192²
+# NoSymmetry hierarchy's L0 and L2 (22², one partial tile), and ragged
+# synthetic levels with partial tiles and clipped coarse boxes
+NF_TILE_CASES = [
+    ("s", (4096, 4096), 3, 5, "cross"), ("s", (1366, 1366), 3, 9, "box"), ("h", 0), ("h", 2),
+    ("s", (37, 41), 3, 5, "cross"), ("s", (64, 70), 2, 9, "box"), ("s", (300, 257), 2, 5, "box"),
+]
+
+
+@pytest.mark.parametrize("entry", list(NF_ENTRIES))
+@pytest.mark.parametrize("case", NF_TILE_CASES, ids=str)
+def test_cuda_nonfactored_tiles_match_plain_version_and_pass_route(ml_nosym, case, entry):
+    """K1's and K2's non-factored entries on a planned tile against their
+    plain versions and against the pass route on the same inputs, x_zero
+    true and false: one tiled launch a call, the pass route only where the
+    tile is taken away."""
+    import dataclasses
+
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from torch_port_common import synthetic_nf_cache
+
+    dtype, coef = NF_ENTRIES[entry]
+    if case[0] == "h":
+        h = build_device_hierarchy(ml_nosym, device="cuda", dtype=dtype, tail=False, coef_dtype=coef)
+        f = h.levels[case[1]].fused
+    else:
+        _, dims, k, n_off, p_offsets = case
+        f = synthetic_nf_cache(dims, k, n_off, seed=sum(dims) + 5, p_offsets=p_offsets, dtype=dtype, device="cuda",
+                               coef_dtype=coef)
+    assert not f.factored and vl.plane_suffix(f, "fused_down_nf") == entry
+    assert f.down_tile is not None and f.up_tile is not None and f.updown_tile is None
+    passed = dataclasses.replace(f, down_tile=None, up_tile=None)
+    Wx, Wy = f.row_dims
+    n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
+    x, b, xc = _vec(n, n + 5, 11, dtype), _vec(n, n + 5, 12, dtype), _vec(nc, nc, 13, dtype)
+    tol = _nf_tol(dtype)
+    before = collections.Counter(vl.route_launches)
+    for x_zero in (False, True):
+        got = vl.fused_down(f, x, b, x_zero=x_zero)
+        by_pass = vl.fused_down(passed, x, b, x_zero=x_zero)
+        ref = vl.fused_down_reference(f, x, b, x_zero=x_zero)
+        torch.cuda.synchronize()
+        for g, p, r in zip(got, by_pass, ref):
+            assert g.shape == r.shape and g.dtype == dtype and _rel(g, r) < tol and _rel(g, p) < tol
+    got, by_pass = vl.fused_up(f, x, b, xc), vl.fused_up(passed, x, b, xc)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and _rel(got, vl.fused_up_reference(f, x, b, xc)) < tol and _rel(got, by_pass) < tol
+    counts = collections.Counter(vl.route_launches)
+    counts.subtract(before)
+    assert +counts == collections.Counter({("down_nf", "tiles"): 2, ("down_nf", "pass"): 2, ("up_nf", "tiles"): 1,
+                                           ("up_nf", "pass"): 1})
+
+
+def test_cuda_nf_tile_smem_matches_the_plan():
+    """The non-factored plans' shared-memory formula is the kernels'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from torch_port_common import nf_offsets
+
+    lib = vl.load_library()
+    for k, n_off, p_offsets, tile, steps, itemsize in ((3, 5, "cross", (54, 54), 3, 4), (3, 9, "box", (45, 45), 7, 8),
+                                                       (2, 9, "box", (12, 6), 5, 4), (2, 5, "cross", (6, 12), 9, 8)):
+        for down, offs in zip((True, False), nf_offsets(k, n_off, p_offsets)):
+            flat = vl._ints([v for o in offs for v in o])
+            want = vl.nf_tile_smem_bytes(down, tile, steps, 1, offs, k, itemsize)
+            assert lib.amg_nf_tile_smem_bytes(int(down), *tile, steps, 1, flat, len(offs), k, itemsize) == want
 
 
 @pytest.mark.parametrize("entry", list(NF_ENTRIES))

@@ -72,6 +72,7 @@ def _f32(a):
 @pytest.mark.parametrize("planes", ["f32", "bf16"])
 @pytest.mark.parametrize("lvl", LEVELS)
 def test_leg_planes_equal_jax_bitwise(problem, lvl, planes):
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
     from torch_port_common import _fused
 
     _, ml_t, legs, _, _ = problem
@@ -80,7 +81,10 @@ def test_leg_planes_equal_jax_bitwise(problem, lvl, planes):
     f = _build(ml_t, torch.float32, tail=False, coef_dtype=coef).levels[lvl].fused
     assert not f.factored and f.T is None and f.S is None
     assert f.offsR == tuple(want["offsR"]) and f.offsP == tuple(want["offsP"])
-    assert f.down_tile is f.up_tile is f.updown_tile is None
+    # K1's and K2's own tiles, no K3
+    assert f.updown_tile is None and not f.up_pipelined
+    assert f.down_tile == vl.plan_down_nf(f.row_dims, f.k, f.offsA, f.offsR, len(f.steps)) is not None
+    assert f.up_tile == vl.plan_up_nf(f.row_dims, f.k, f.offsA, len(f.steps)) is not None
     for name in ("A", "dinv", "R", "P"):
         got = getattr(f, name)
         assert got.dtype == (coef or torch.float32)
@@ -106,21 +110,45 @@ def test_tail_planes_equal_jax_bitwise(problem, planes):
             assert np.array_equal(got.to(dt).numpy(), want_p.astype(NP[dt])), (L.row_dims, name)
 
 
+@pytest.fixture(scope="module")
+def ragged():
+    """The NoSymmetry problem at 200² (200 = 3·66 + 2: clipped coarse boxes
+    at L0, a partial last tile under the non-factored plans) in both
+    packages, with the JAX device hierarchies in float32 and float64."""
+    from algebraicmultigrid_tpu.models.device import build_device_hierarchy as build_j
+
+    ml_j, ml_t = setup_both(n=RAGGED_N, nosym=True)
+    legs = {}
+    for dt in (torch.float32, torch.float64):
+        with jax_env(**PLAIN_TILES):
+            legs[dt] = build_j(ml_j, dtype=JNP[dt])
+    return ml_j, ml_t, legs
+
+
+RAGGED_N = 200
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("lvl", [0, 1])
-def test_fused_down_up_match_jax_kernels(problem, lvl, dtype):
+@pytest.mark.parametrize("lvl", [0, 1, "ragged"])
+def test_fused_down_up_match_jax_kernels(problem, lvl, dtype, request):
     """One K1 call (from x and from zero) and one K2 call on the port's own
-    caches and on the JAX caches carried across, against the JAX kernels."""
+    caches and on the JAX caches carried across, against the JAX kernels;
+    "ragged": L0 of the 200² problem, whose grid no tile of the
+    non-factored plans divides."""
     from algebraicmultigrid_tpu.ops.pallas.vcycle_kernels import fused_down as down_j, fused_up as up_j
     from algebraicmultigrid_tpu_torch.convert import hierarchy_from_numpy
     from algebraicmultigrid_tpu_torch.ops.kernels.vcycle_legs import fused_down_reference, fused_up_reference
 
     _, ml_t, legs, _, _ = problem
+    if lvl == "ragged":
+        _, ml_t, legs = request.getfixturevalue("ragged")
+        lvl = 0
     h_j = legs[dtype]
     Lj = h_j.levels[lvl]
     n, pad, nc = Lj.A.shape[0], Lj.A.rows_padded, Lj.R.shape[0]
     own = _build(ml_t, dtype, tail=False).levels[lvl].fused
     conv = hierarchy_from_numpy(*jax_hierarchy_to_numpy(h_j), device="cpu", dtype=dtype).levels[lvl].fused
+    assert own.down_tile is not None and own.up_tile is not None and own.row_dims == conv.row_dims
     npd = NP[dtype]
     x, b, xc = _vec(n, pad, lvl, npd), _vec(n, pad, 10 + lvl, npd), _vec(nc, nc, 20 + lvl, npd)
     for x_zero in (False, True):

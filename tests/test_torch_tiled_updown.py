@@ -19,44 +19,16 @@ import torch
 from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
 from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 from algebraicmultigrid_tpu_torch.ops.kernels.tiled_sweep import SMEM_LIMIT
-from torch_port_common import LEG_COLORS, LEG_OFFSETS, N, SETUP_KW, synthetic_leg_cache
+from torch_port_common import (
+    LEG_COLORS, LEG_OFFSETS, N, SETUP_KW, box_steps, boxed, inside, stitch_vectors as vectors,
+    synthetic_leg_cache,
+)
 
 OFFS5, OFFS9 = LEG_OFFSETS[5], LEG_OFFSETS[9]
 
 
 def leg_cache(dims, k, n_off, seed, iters=1):
     return synthetic_leg_cache(dims, k, n_off, seed, iters=iters)
-
-
-def boxed(X, ox, oy, E0, E1):
-    """X[ox:ox+E0, oy:oy+E1] with zeros outside the grid."""
-    Wx, Wy = X.shape[-2:]
-    out = torch.zeros(X.shape[:-2] + (E0, E1), dtype=X.dtype)
-    i0, i1, j0, j1 = max(ox, 0), min(ox + E0, Wx), max(oy, 0), min(oy + E1, Wy)
-    if i0 < i1 and j0 < j1:
-        out[..., i0 - ox : i1 - ox, j0 - oy : j1 - oy] = X[..., i0:i1, j0:j1]
-    return out
-
-
-def inside(ox, oy, E0, E1, dims):
-    return boxed(torch.ones(dims, dtype=torch.bool), ox, oy, E0, E1)
-
-
-def box_steps(c, X, ox, oy, B, steps):
-    """The leg's color steps on a box: step s updates the cells of its color
-    at least (s+1)·reach from the box's faces, in the grid."""
-    E0, E1 = X.shape
-    A, D, B = (boxed(v, ox, oy, E0, E1) for v in (c.A, c.dinv, B))
-    col = boxed(vl._color_plane(c, "cpu"), ox, oy, E0, E1)
-    ins = inside(ox, oy, E0, E1, c.row_dims)
-    ii = torch.arange(E0)[:, None]
-    jj = torch.arange(E1)[None, :]
-    for s, color in enumerate(steps):
-        lo = (s + 1) * c.reach
-        region = (ii >= lo) & (ii < E0 - lo) & (jj >= lo) & (jj < E1 - lo)
-        r = B - vl._stencil(A, X, c.offsA)
-        X = torch.where((col == color) & region & ins, X + c.omega * D * r, X)
-    return X
 
 
 def tile_restrict(c, X, ox, oy, B, h, tile):
@@ -105,14 +77,6 @@ def run_tiles(c, tile, leg, x, b, xc=None):
                 bc[I0:I1, J0:J1] = sums[: I1 - I0, : J1 - J0]
     x_out = vl._pad_out(out, b.shape[0])
     return x_out, None if leg == "up" else bc.reshape(-1)
-
-
-def vectors(c, seed, pad=7):
-    rng = np.random.default_rng(seed)
-    n = c.row_dims[0] * c.row_dims[1]
-    nc = c.col_dims[0] * c.col_dims[1]
-    x, b = (torch.as_tensor(np.concatenate([rng.standard_normal(n), np.zeros(pad)])) for _ in range(2))
-    return x, b, torch.as_tensor(rng.standard_normal(nc))
 
 
 CASES = [((37, 41), 3, 5), ((37, 41), 2, 9), ((64, 70), 3, 9), ((64, 70), 2, 5)]

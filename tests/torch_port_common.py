@@ -80,6 +80,98 @@ def synthetic_leg_cache(dims, k, n_off, seed, iters=1, dtype=None, device="cpu",
     return cache if coef_dtype is None else vl.round_planes(cache, coef_dtype)
 
 
+def nf_offsets(k, n_off, p_offsets):
+    """(R offsets, P offsets) of a synthetic non-factored level: R the k × k
+    box dilated by the stencil (21 and 25 at box 3, as the flagship's L0
+    and L1), P the 5-point cross or the 3 × 3 box."""
+    offs = LEG_OFFSETS[n_off]
+    offsR = tuple(sorted({(a + dx, c + dy) for a in range(k) for c in range(k) for dx, dy in offs}))
+    return offsR, LEG_OFFSETS[{"cross": 5, "box": 9}[p_offsets]]
+
+
+def synthetic_nf_cache(dims, k, n_off, seed, p_offsets="cross", iters=1, dtype=None, device="cpu",
+                       coef_dtype=None):
+    """A non-factored leg cache (R and P planes, no T and S) of a ``dims``
+    lattice level with random planes and the offsets of ``nf_offsets``,
+    its K1/K2 tiles planned from the shapes: vectors and planes of
+    ``dtype`` (default float64), or with ``coef_dtype=torch.bfloat16``
+    planes made at float32 and rounded to bf16 under ``dtype`` vectors."""
+    import dataclasses
+
+    import torch
+
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    dtype = dtype or torch.float64
+    plane_dtype = dtype if coef_dtype is None else torch.float32
+    f = synthetic_leg_cache(dims, k, n_off, seed, iters=iters, dtype=plane_dtype, device=device)
+    rng = np.random.default_rng(seed + 1)
+    offsR, offsP = nf_offsets(k, n_off, p_offsets)
+
+    def t(*shape):
+        return torch.as_tensor(rng.uniform(-1.0, 1.0, shape), dtype=f.A.dtype, device=device).contiguous()
+
+    cache = vl.with_tile_plans(dataclasses.replace(
+        f, T=None, S=None, R=t(len(offsR), *f.col_dims), P=t(len(offsP), *f.row_dims), offsR=offsR, offsP=offsP,
+    ))
+    return cache if coef_dtype is None else vl.round_planes(cache, coef_dtype, dtype=dtype)
+
+
+# box emulation of the tiled legs (tests/test_torch_tiled_updown.py,
+# tests/test_torch_tiled_nonfactored.py)
+
+
+def boxed(X, ox, oy, E0, E1):
+    """X[ox:ox+E0, oy:oy+E1] with zeros outside the grid."""
+    import torch
+
+    Wx, Wy = X.shape[-2:]
+    out = torch.zeros(X.shape[:-2] + (E0, E1), dtype=X.dtype)
+    i0, i1, j0, j1 = max(ox, 0), min(ox + E0, Wx), max(oy, 0), min(oy + E1, Wy)
+    if i0 < i1 and j0 < j1:
+        out[..., i0 - ox : i1 - ox, j0 - oy : j1 - oy] = X[..., i0:i1, j0:j1]
+    return out
+
+
+def inside(ox, oy, E0, E1, dims):
+    import torch
+
+    return boxed(torch.ones(dims, dtype=torch.bool), ox, oy, E0, E1)
+
+
+def box_steps(c, X, ox, oy, B, steps):
+    """The leg's color steps on a box: step s updates the cells of its color
+    at least (s+1)·reach from the box's faces, in the grid."""
+    import torch
+
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    E0, E1 = X.shape
+    A, D, B = (boxed(v.to(X.dtype), ox, oy, E0, E1) for v in (c.A, c.dinv, B))
+    col = boxed(vl._color_plane(c, "cpu"), ox, oy, E0, E1)
+    ins = inside(ox, oy, E0, E1, c.row_dims)
+    ii = torch.arange(E0)[:, None]
+    jj = torch.arange(E1)[None, :]
+    for s, color in enumerate(steps):
+        lo = (s + 1) * c.reach
+        region = (ii >= lo) & (ii < E0 - lo) & (jj >= lo) & (jj < E1 - lo)
+        r = B - vl._stencil(A, X, c.offsA)
+        X = torch.where((col == color) & region & ins, X + c.omega * D * r, X)
+    return X
+
+
+def stitch_vectors(c, seed, pad=7):
+    """(x, b, x_c) for a leg cache: x and b at the level's length plus
+    ``pad`` zeros, float64."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = c.row_dims[0] * c.row_dims[1]
+    nc = c.col_dims[0] * c.col_dims[1]
+    x, b = (torch.as_tensor(np.concatenate([rng.standard_normal(n), np.zeros(pad)])) for _ in range(2))
+    return x, b, torch.as_tensor(rng.standard_normal(nc))
+
+
 # the JAX fused-leg caches in a layout that untiles to full planes:
 # no packed sweeps, no representative-tile compaction
 PLAIN_TILES = dict(AMG_PALLAS_FUSED="1", AMG_PACKED_SWEEP="0", AMG_TILE_COMPACT="0")
