@@ -2,8 +2,9 @@
 // tile plus a halo of x in shared memory: the device code of the legs K1,
 // K2 and K3 (vcycle_legs.cu), of the tail levels of the whole-tail kernel
 // K4 (tail_levels.cuh) and of the top level of the whole-subcycle kernel
-// K9 (subcycle_kernel.cu); below them, K1's and K2's non-factored legs
-// (tile_down_nf, tile_up_nf: the R and P planes in place of T and S).
+// K9 (subcycle_kernel.cu); below them, the non-factored legs of K1, K2
+// and K4's grid levels (tile_down_nf, tile_up_nf: the R and P planes in
+// place of T and S).
 //
 // A leg is up to four parts, in this order:
 //   correction  x = x_in + (Tup - S (A Tup)),  Tup = T * upsample_k(x_c);
@@ -890,17 +891,18 @@ __device__ void tile_down_nf(const LevelDesc& L, const CR* __restrict__ Rp,
   __syncthreads();
 }
 
-// The up leg of tile (ti, tj) on a non-factored level: x = x_in + the
-// P-plane sum (Pp of type C, offsets so) over the box, the steps, and x
-// over the tile to x_out.  Ends on a block barrier.
+// The up leg of tile (ti, tj) of tx x ty cells on a non-factored level
+// (K2's tile is its level's, K4's its Transfer's): x = x_in + the P-plane
+// sum (Pp of type C, offsets so) over the box, the steps, and x over the
+// tile to x_out.  Ends on a block barrier.
 template <typename T, int K, int NOFF, int WARPS, int CI, int CJ,
           typename C = T, typename D = C>
 __device__ void tile_up_nf(const LevelDesc& L, const C* __restrict__ Pp,
                            const Stencil& so, unsigned char* base,
-                           unsigned offset, int ti, int tj, const T* x_in,
-                           const T* xc, const T* b, T* x_out) {
-  const Box bx = make_box(ti, tj, L.tile_x, L.tile_y,
-                          leg_halo(L.n_steps, L.reach, false));
+                           unsigned offset, int ti, int tj, int tx, int ty,
+                           const T* x_in, const T* xc, const T* b, T* x_out) {
+  const Box bx =
+      make_box(ti, tj, tx, ty, leg_halo(L.n_steps, L.reach, false));
   if (bx.E0 > WARPS * CI || bx.E1 > 32 * CJ || blockDim.x != WARPS * 32) {
     __trap();
   }

@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
                     int64_t b7_off, int64_t x7_off) {
   extern __shared__ __align__(16) unsigned char sub_smem[];
   LevelDesc* sh = reinterpret_cast<LevelDesc*>(sub_smem);
-  amg::load_levels(sh, lv, n_lvl);
+  amg::load_table(sh, lv, n_lvl);
   amg::tail_cycle<T, C, D>(sh, n_lvl, n_grid, work, x_out, nullptr, b, Mc,
                            n7, b7_off, x7_off, sub_smem, table_bytes(n_lvl),
                            false);

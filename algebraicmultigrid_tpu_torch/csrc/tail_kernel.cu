@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(kTailThreads)
                 int64_t x7_off) {
   extern __shared__ __align__(16) unsigned char tail_smem[];
   __shared__ LevelDesc sh[kMaxTailLevels];
-  amg::load_levels(sh, lv, n_lvl);
+  amg::load_table(sh, lv, n_lvl);
   amg::tail_cycle<T, C, D>(sh, n_lvl, n_grid, work, x_out, x_in, b_in, Mc,
                            n7, b7_off, x7_off, tail_smem, 0, false);
 }

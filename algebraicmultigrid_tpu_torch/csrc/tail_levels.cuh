@@ -35,10 +35,13 @@
 // tail_nf_kernel.cu): a level whose
 // Transfer holds R and P planes restricts with b_c[c] = sum_q R_q[c]
 // r[k c + d_q] (R at the vectors' type, as the reference's tail keeps it)
-// and corrects with x += sum_q P_q[i] x_c[i / k + d_q] (P of type C), pass
-// by pass on the grid or in block 0 (it has no tile).  A level with no R
-// in the table is factored; the NF = false instance (K4's factored entries
-// and K9) compiles none of it.
+// and corrects with x += sum_q P_q[i] x_c[i / k + d_q] (P of type C).  A
+// tiled one (tile_x > 0: the down leg's tile; the up leg's, Transfer::up_x,
+// may differ) runs each leg as one phase of tiles too, leg_tile.cuh's
+// tile_down_nf and tile_up_nf with the same x_mid hand-over, so one grid
+// barrier a leg; an untiled one runs pass by pass on the grid or in block
+// 0.  A level with no R in the table is factored; the NF = false instance
+// (K4's factored entries and K9) compiles none of it.
 //
 // The vectors and the arithmetic are of type T, the planes A, T and S of
 // type C and dinv of type D (stencil.cuh): T itself, or with bf16 planes
@@ -49,7 +52,7 @@
 // The per-level descriptors (plane pointers, shapes, stencil, coloring,
 // steps, tiles) exceed the kernel-parameter space, so they live in a
 // device array of LevelDesc, filled once per cache by amg_tail_fill_level
-// and copied into shared memory at kernel start (load_levels).  One work
+// and copied into shared memory at kernel start (load_table).  One work
 // buffer holds every level's x, b, r, g, x_mid and the coarse vectors.
 
 #pragma once
@@ -77,17 +80,21 @@ struct Transfer {
   const void* P;  // [nP, Wx, Wy] prolongation planes, the planes' type
   Stencil sr;     // coarse (I, J) reads fine (k I + dx, k J + dy)
   Stencil sp;     // fine (i, j) reads coarse (i / k + dx, j / k + dy)
+  int up_x, up_y;  // the up leg's tile, multiples of k (0: untiled)
 };
 
 inline int fill_transfer(Transfer* t, const void* R, const void* P,
                          const int* offs_r, int n_r, const int* offs_p,
-                         int n_p) {
+                         int n_p, int up_x, int up_y) {
   if (R == nullptr || P == nullptr || make_stencil(&t->sr, offs_r, n_r) ||
-      make_stencil(&t->sp, offs_p, n_p)) {
+      make_stencil(&t->sp, offs_p, n_p) || up_x < 0 || up_y < 0 ||
+      (up_x == 0) != (up_y == 0)) {
     return 1;
   }
   t->R = R;
   t->P = P;
+  t->up_x = up_x;
+  t->up_y = up_y;
   return 0;
 }
 
@@ -105,14 +112,83 @@ struct BlockBarrier {
   __device__ void operator()() { __syncthreads(); }
 };
 
-// copy n descriptors from the device table into shared memory
-__device__ __forceinline__ void load_levels(LevelDesc* sh, const LevelDesc* lv,
-                                            int n) {
-  const int words = n * (int)(sizeof(LevelDesc) / sizeof(int));
-  const int* src = (const int*)lv;
+// copy n entries of a device table (LevelDesc, Transfer) into shared memory
+template <typename E>
+__device__ __forceinline__ void load_table(E* sh, const E* table, int n) {
+  const int words = n * (int)(sizeof(E) / sizeof(int));
+  const int* src = (const int*)table;
   int* dst = (int*)sh;
   for (int w = threadIdx.x; w < words; w += blockDim.x) dst[w] = src[w];
   __syncthreads();
+}
+
+// the tiles (tx x ty cells) of a grid level, spread over the blocks
+template <typename F>
+__device__ __forceinline__ void for_level_tiles(const LevelDesc& L, int tx,
+                                                int ty, F&& f) {
+  if (tx <= 0 || ty <= 0) __trap();  // the plan tiles both legs or neither
+  const int nty = tiles_of(L.Wy, ty);
+  const int n = tiles_of(L.Wx, tx) * nty;
+  for (int t = blockIdx.x; t < n; t += gridDim.x) f(t / nty, t % nty);
+}
+
+template <int K_, int NOFF_>
+struct TileShape {
+  static constexpr int K = K_, NOFF = NOFF_;
+};
+
+// f(TileShape<k, stencil points>{}) for a 5- or 9-point level (the plans
+// tile no other)
+template <typename F>
+__device__ __forceinline__ void at_tile_shape(const LevelDesc& L, F&& f) {
+  if (L.st.n != 5 && L.st.n != 9) __trap();
+  if (L.k == 2) {
+    if (L.st.n == 9) {
+      f(TileShape<2, 9>{});
+    } else {
+      f(TileShape<2, 5>{});
+    }
+  } else if (L.st.n == 9) {
+    f(TileShape<3, 9>{});
+  } else {
+    f(TileShape<3, 5>{});
+  }
+}
+
+// The down leg of a tiled non-factored grid level, tile by tile with the
+// tail's thread map: the steps from x_in (nullptr: zero), x over each
+// tile to x_mid, the tiles' coarse cells of b_c from the R planes (at T).
+template <typename T, typename C, typename D>
+__device__ void level_down_nf_tiles(const LevelDesc& L, const Transfer& tf,
+                                    unsigned char* smem, unsigned smem_off,
+                                    const T* x_in, const T* b, T* x_mid,
+                                    T* bc) {
+  at_tile_shape(L, [&](auto s) {
+    using S = decltype(s);
+    for_level_tiles(L, L.tile_x, L.tile_y, [&](int ti, int tj) {
+      tile_down_nf<T, S::K, S::NOFF, kLegWarps, kLegRows, kLegCols, C, D, T>(
+          L, (const T*)tf.R, tf.sr, smem, smem_off, ti, tj, x_in, b, x_mid,
+          bc);
+    });
+  });
+}
+
+// The up leg of a tiled non-factored grid level, tile by tile (its own
+// tile, tf.up_x x tf.up_y): x = x_mid + the P-plane sum, the steps, x over
+// each tile to x_out.
+template <typename T, typename C, typename D>
+__device__ void level_up_nf_tiles(const LevelDesc& L, const Transfer& tf,
+                                  unsigned char* smem, unsigned smem_off,
+                                  const T* x_mid, const T* xc, const T* b,
+                                  T* x_out) {
+  at_tile_shape(L, [&](auto s) {
+    using S = decltype(s);
+    for_level_tiles(L, tf.up_x, tf.up_y, [&](int ti, int tj) {
+      tile_up_nf<T, S::K, S::NOFF, kLegWarps, kLegRows, kLegCols, C, D>(
+          L, (const C*)tf.P, tf.sp, smem, smem_off, ti, tj, tf.up_x, tf.up_y,
+          x_mid, xc, b, x_out);
+    });
+  });
 }
 
 // presmooth, residual and restriction of one level; x_in == nullptr is the
@@ -232,8 +308,9 @@ __device__ void level_up_nf(const LevelDesc& L, const Transfer& tf, T* x,
 // writes x_out.  A tiled level's tile buffers are at smem + smem_off.  Every
 // thread of the grid reaches every grid.sync() (no early return); with
 // final_barrier the call ends on a grid barrier after its last write.  NF:
-// tf holds n_lvl Transfers (in device memory), a level's non-factored
-// planes where its R is set (the factored code unchanged where not).
+// tf holds n_lvl Transfers (in shared memory), a level's non-factored
+// planes and up tile where its R is set (the factored code unchanged where
+// not).
 template <typename T, typename C = T, typename D = C, bool NF = false>
 __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
                            T* work, T* x_out, const T* x_in, const T* b_in,
@@ -277,6 +354,19 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
 
   for (int l = 0; l < n_grid; ++l) {
     const LevelDesc& L = sh[l];
+    if constexpr (NF) {
+      if (tf[l].R != nullptr) {
+        if (L.tile_x > 0) {
+          level_down_nf_tiles<T, C, D>(L, tf[l], smem, smem_off,
+                                       l == 0 ? x_in : (const T*)nullptr,
+                                       B(l), work + L.m_off, BC(l));
+          gbar();
+        } else {
+          down(l, gspan, gbar);
+        }
+        continue;
+      }
+    }
     if (L.tile_x > 0) {
       const T* xin = l == 0 ? x_in : (const T*)nullptr;
       for_tiles(L, [&](int ti, int tj) {
@@ -311,6 +401,19 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
   gbar();
   for (int l = n_grid - 1; l >= 0; --l) {
     const LevelDesc& L = sh[l];
+    if constexpr (NF) {
+      if (tf[l].R != nullptr) {
+        if (L.tile_x > 0) {
+          level_up_nf_tiles<T, C, D>(L, tf[l], smem, smem_off,
+                                     (const T*)(work + L.m_off), XC(l), B(l),
+                                     X(l));
+          if (l > 0 || final_barrier) gbar();
+        } else {
+          level_up_nf<T, C, D>(L, tf[l], X(l), B(l), XC(l), gspan, gbar);
+        }
+        continue;
+      }
+    }
     if (L.tile_x > 0) {
       for_tiles(L, [&](int ti, int tj) {
         tile_leg<T, C, D>(L, smem, smem_off, ti, tj, (const T*)(work + L.m_off),
@@ -318,12 +421,6 @@ __device__ void tail_cycle(const LevelDesc* sh, int n_lvl, int n_grid,
       });
       if (l > 0 || final_barrier) gbar();
     } else {
-      if constexpr (NF) {
-        if (tf[l].R != nullptr) {
-          level_up_nf<T, C, D>(L, tf[l], X(l), B(l), XC(l), gspan, gbar);
-          continue;
-        }
-      }
       level_up<T, C, D>(L, X(l), B(l), XC(l), gspan, gbar);
     }
   }

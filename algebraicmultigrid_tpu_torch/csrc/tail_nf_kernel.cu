@@ -15,12 +15,21 @@
 //
 // What bounds it: as tail_kernel.cu, the chain of dependent phases and the
 // grid barriers between them, not bytes (about 11 MB of planes at 4096^2,
-// L2-resident).  Design: the first, simple one.  A non-factored level has
-// no tile (its 21-25 R and 5-9 P planes do not fit the tiles' register
-// map), so its passes run as grid-stride loops with a grid barrier each
-// on the grid levels (456^2 and 153^2 at 4096^2) and with __syncthreads()
-// in block 0 below: 2 x (7 color steps + 2) passes a grid level, as the
-// factored K4's first design ran (0.395 ms, PERF.md).
+// L2-resident).  Design: the factored K4's.  A non-factored grid level
+// (456^2 and 153^2 at 4096^2) runs each leg as one phase of independent
+// tiles, K1's and K2's non-factored tiles (leg_tile.cuh tile_down_nf,
+// tile_up_nf) with the tail's thread map: A, D^-1 and b in registers,
+// every color step in shared memory, each R and P coefficient read once
+// where it is used; the down leg hands x to the up leg through the level's
+// x_mid, so a leg costs one grid barrier (4 a cycle at 4096^2).  The
+// levels' planned tiles come from the wrapper (LevelDesc::tile_x the down
+// leg's, Transfer::up_x the up leg's).  The first design ran every pass as
+// a grid-stride loop with a grid barrier each, 2 x (7 color steps + 2) a
+// grid level: 0.425-0.429 ms with bf16 planes on an H100 (PERF.md).  A
+// grid level with no tile (other than 5 or 9 points, a box past the
+// register map; decided by the plan from the shapes) keeps those passes,
+// and the levels of at most kBlockCells cells run them in block 0 with
+// __syncthreads().
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns a CUDA error code for the wrapper to check.
@@ -49,10 +58,12 @@ __global__ void __launch_bounds__(kTailThreads)
                    int64_t b7_off, int64_t x7_off) {
   extern __shared__ __align__(16) unsigned char tail_smem[];
   __shared__ LevelDesc sh[kMaxTailLevels];
-  amg::load_levels(sh, lv, n_lvl);
+  __shared__ Transfer shtf[kMaxTailLevels];
+  amg::load_table(sh, lv, n_lvl);
+  amg::load_table(shtf, tf, n_lvl);
   amg::tail_cycle<T, C, D, true>(sh, n_lvl, n_grid, work, x_out, x_in, b_in,
                                  Mc, n7, b7_off, x7_off, tail_smem, 0, false,
-                                 tf);
+                                 shtf);
 }
 
 template <typename T, typename C, typename D>
@@ -78,14 +89,16 @@ int fused_tail_nf(const void* desc, const void* transfers, int n_lvl,
 extern "C" int amg_tail_transfer_bytes() { return (int)sizeof(Transfer); }
 
 // Fill entry `l` of a host-side Transfer array with a non-factored level's
-// R and P planes and their offsets (the wrapper copies the array to the
-// card once per cache; a factored level's entry stays zero).
+// R and P planes, their offsets and its up leg's tile ((0, 0) where the
+// level runs pass by pass; the wrapper copies the array to the card once
+// per cache; a factored level's entry stays zero).
 extern "C" int amg_tail_fill_transfer(void* table, int l, const void* R,
                                       const void* P, const int* offs_r,
-                                      int n_r, const int* offs_p, int n_p) {
+                                      int n_r, const int* offs_p, int n_p,
+                                      int up_x, int up_y) {
   if (l < 0 || l >= kMaxTailLevels ||
       amg::fill_transfer((Transfer*)table + l, R, P, offs_r, n_r, offs_p,
-                         n_p)) {
+                         n_p, up_x, up_y)) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;

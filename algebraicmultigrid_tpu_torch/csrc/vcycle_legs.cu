@@ -265,8 +265,8 @@ __global__ void __launch_bounds__(WARPS * 32)
         bc);
   } else {
     amg::tile_up_nf<T, K, NOFF, WARPS, CI, CJ, C, C>(
-        sh, planes, sho, leg_smem, 0, blockIdx.y, blockIdx.x, x_in, xc, b,
-        x_out);
+        sh, planes, sho, leg_smem, 0, blockIdx.y, blockIdx.x, sh.tile_x,
+        sh.tile_y, x_in, xc, b, x_out);
   }
 }
 

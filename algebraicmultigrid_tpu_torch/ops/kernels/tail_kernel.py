@@ -26,9 +26,11 @@ level without the factored stash keeps its R planes (at the working dtype,
 under bf16 planes too, as the JAX tail cache keeps them) and its P planes
 (bf16 under bf16 planes), and restricts and corrects through them; such a
 tail runs the kernel's ``amg_fused_tail_nf_*`` entry
-(``csrc/tail_nf_kernel.cu``), with the levels' R/P
-planes in a second descriptor table (``transfers``), its non-factored
-levels pass by pass (no tile), and counts under ``launches["tail_nf"]``.
+(``csrc/tail_nf_kernel.cu``), with the levels' R/P planes and up tiles in
+a second descriptor table (``transfers``), and counts under
+``launches["tail_nf"]``.  Its grid levels take K1's and K2's non-factored
+tiles (``plan_down_nf``, ``plan_up_nf``; ``up_tiles``), one grid barrier a
+leg; a level the plan gives no tile runs pass by pass.
 
 Differences from the JAX cache builder, all TPU layout: the planes stay
 unpadded (the kernel guards reads outside the grid to zero), so the ``_H``
@@ -60,7 +62,10 @@ from .vcycle_legs import (
     launches,
     leg_halo,
     load_library,
+    nf_tile_smem_bytes,
+    plan_down_nf,
     plan_tile,
+    plan_up_nf,
     plane_suffix,
     raise_on,
     round_planes,
@@ -76,6 +81,7 @@ __all__ = [
     "fused_tail_reference",
     "tail_smem",
     "tail_tiles",
+    "tail_up_tiles",
 ]
 
 MAX_COARSE_ROWS = 4096
@@ -101,12 +107,15 @@ class FusedTailCache:
     Mc: torch.Tensor       # [n7, n7] dense coarse solve operator
     dims7: Tuple[int, int]  # coarse grid (W7x, W7y)
     work_len: int          # elements of the kernel's work buffer
-    # per level its tile, (0, 0) where the level runs pass by pass (in one
-    # block, or on the grid where the plan gives none)
+    # per level its tile (a non-factored level's down leg's), (0, 0) where
+    # the level runs pass by pass (in one block, or on the grid where the
+    # plan gives none)
     tiles: Tuple[Tuple[int, int], ...] = ()
+    # per level a tiled non-factored level's up leg's tile, else (0, 0)
+    up_tiles: Tuple[Tuple[int, int], ...] = ()
     desc: Optional[torch.Tensor] = None  # uint8 LevelDesc table (CUDA only)
-    # uint8 Transfer table of the levels' R/P planes (CUDA only; None when
-    # every level is factored)
+    # uint8 Transfer table of the levels' R/P planes and up tiles (CUDA
+    # only; None when every level is factored)
     transfers: Optional[torch.Tensor] = None
 
     @property
@@ -121,32 +130,54 @@ class FusedTailCache:
     @property
     def smem(self) -> int:
         """Bytes of dynamic shared memory the tiled levels take."""
-        return tail_smem(self.levels, self.tiles)
+        return tail_smem(self.levels, self.tiles, self.up_tiles)
 
 
 def tail_tiles(levels):
-    """Each level's tile: the factored levels of more than ``BLOCK_CELLS``
-    cells in tiles of about ``TAIL_TILE`` (``plan_tile``: a 5- or 9-point
-    level whose box fits the register map), else (0, 0): the level runs
-    pass by pass."""
+    """Each level's tile, for the levels of more than ``BLOCK_CELLS`` cells
+    (the grid levels): a factored level's in tiles of about ``TAIL_TILE``
+    (``plan_tile``: a 5- or 9-point level whose box fits the register map),
+    a non-factored level's down leg's from ``plan_down_nf`` (K1's plan);
+    else (0, 0): the level runs pass by pass."""
     out = []
     for L in levels:
         tile = None
-        if L.factored and L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS:
-            halo = leg_halo(len(L.steps), L.reach, True)
-            tile = plan_tile(L.row_dims, L.k, len(L.offsA), halo, TAIL_TILE)
+        if L.row_dims[0] * L.row_dims[1] > BLOCK_CELLS:
+            if L.factored:
+                halo = leg_halo(len(L.steps), L.reach, True)
+                tile = plan_tile(L.row_dims, L.k, len(L.offsA), halo, TAIL_TILE)
+            else:
+                tile = plan_down_nf(L.row_dims, L.k, L.offsA, L.offsR, len(L.steps))
         out.append(tile or (0, 0))
     return tuple(out)
 
 
-def tail_smem(levels, tiles) -> int:
-    """The largest tiled level's tile buffers (its down leg's: the up leg's
-    halo is smaller; vectors only, at the working dtype), in bytes."""
-    return max(
-        (tile_smem_bytes(*t, leg_halo(len(L.steps), L.reach, True), L.reach, L.dtype.itemsize)
-         for L, t in zip(levels, tiles) if t[0] > 0),
-        default=0,
+def tail_up_tiles(levels, tiles):
+    """Each non-factored level's up leg's tile where ``tiles`` tiles it,
+    from ``plan_up_nf`` (K2's plan; its halo is smaller than the down leg's,
+    so it fits where that does), else (0, 0)."""
+    return tuple(
+        (0, 0) if L.factored or t[0] == 0 else plan_up_nf(L.row_dims, L.k, L.offsA, len(L.steps))
+        for L, t in zip(levels, tiles)
     )
+
+
+def tail_smem(levels, tiles, up_tiles=None) -> int:
+    """The largest tiled leg's tile buffers, in bytes (vectors only, at the
+    working dtype): a factored level's down leg's (the up leg's halo is
+    smaller), a non-factored level's down and up legs' (``up_tiles``)."""
+    up_tiles = up_tiles or ((0, 0),) * len(levels)
+    sizes = [0]
+    for L, t, u in zip(levels, tiles, up_tiles):
+        if t[0] == 0:
+            continue
+        n, item = len(L.steps), L.dtype.itemsize
+        if L.factored:
+            sizes.append(tile_smem_bytes(*t, leg_halo(n, L.reach, True), L.reach, item))
+        else:
+            sizes.append(nf_tile_smem_bytes(True, t, n, L.reach, L.offsR, L.k, item))
+            sizes.append(nf_tile_smem_bytes(False, u, n, L.reach, L.offsP, L.k, item))
+    return max(sizes)
 
 
 def _work_layout(levels):
@@ -187,27 +218,31 @@ def _descriptor(levels, per, tiles) -> torch.Tensor:
     return host.to(levels[0].A.device)
 
 
-def _transfers(levels) -> torch.Tensor:
-    """The kernel's Transfer table: each non-factored level's R/P planes
-    and offsets, a factored level's entry zero; copied to the card once."""
+def _transfers(levels, up_tiles) -> torch.Tensor:
+    """The kernel's Transfer table: each non-factored level's R/P planes,
+    offsets and up tile, a factored level's entry zero; copied to the card
+    once."""
     lib = load_library()
     size = lib.amg_tail_transfer_bytes()
     table = (ctypes.c_char * (size * len(levels)))()
-    for i, L in enumerate(levels):
+    for i, (L, up) in enumerate(zip(levels, up_tiles)):
         if L.factored:
             continue
         err = lib.amg_tail_fill_transfer(
-            ctypes.addressof(table), i, L.R.data_ptr(), L.P.data_ptr(), *_offsets(L.offsR), *_offsets(L.offsP),
+            ctypes.addressof(table), i, L.R.data_ptr(), L.P.data_ptr(), *_offsets(L.offsR), *_offsets(L.offsP), *up,
         )
         raise_on(err, f"tail transfer of level {i}")
     host = torch.frombuffer(bytearray(table), dtype=torch.uint8)
     return host.to(levels[0].A.device)
 
 
-def make_fused_tail_cache(levels, Mc: torch.Tensor) -> FusedTailCache:
+def make_fused_tail_cache(levels, Mc: torch.Tensor, tiles=None) -> FusedTailCache:
     """Assemble the cache from per-level leg caches (fine → coarse) and the
-    coarse operator, with the grid levels' tiles planned from the shapes;
-    also the entry of ``convert.hierarchy_from_numpy``."""
+    coarse operator, with the grid levels' tiles planned from the shapes
+    (``tail_tiles``, the non-factored up legs' ``tail_up_tiles``), or
+    ``tiles``: per level the plan's tile or (0, 0), the level pass by pass
+    (the route the tiles replaced); also the entry of
+    ``convert.hierarchy_from_numpy``."""
     levels = tuple(levels)
     if not levels or len(levels) > MAX_LEVELS:
         raise ValueError(f"a tail has 1..{MAX_LEVELS} levels, got {len(levels)}")
@@ -221,13 +256,17 @@ def make_fused_tail_cache(levels, Mc: torch.Tensor) -> FusedTailCache:
     if tuple(Mc.shape) != (n7, n7):
         raise ValueError(f"coarse operator {tuple(Mc.shape)} does not fit the grid {dims7}")
     per, _, work_len = _work_layout(levels)
-    tiles = tail_tiles(levels)
+    planned = tail_tiles(levels)
+    tiles = planned if tiles is None else tuple(tuple(t) for t in tiles)
+    if len(tiles) != len(levels) or any(t not in (p, (0, 0)) for t, p in zip(tiles, planned)):
+        raise ValueError(f"tail tiles {tiles}: each level's is the plan's {planned} or (0, 0)")
+    up_tiles = tail_up_tiles(levels, tiles)
     cuda = Mc.device.type == "cuda"
     desc = _descriptor(levels, per, tiles) if cuda else None
-    transfers = _transfers(levels) if cuda and not all(L.factored for L in levels) else None
+    transfers = _transfers(levels, up_tiles) if cuda and not all(L.factored for L in levels) else None
     return FusedTailCache(
-        levels=levels, Mc=Mc.contiguous(), dims7=dims7, work_len=work_len, tiles=tiles, desc=desc,
-        transfers=transfers,
+        levels=levels, Mc=Mc.contiguous(), dims7=dims7, work_len=work_len, tiles=tiles, up_tiles=up_tiles,
+        desc=desc, transfers=transfers,
     )
 
 

@@ -852,7 +852,7 @@ _HELPERS = {
     "amg_nf_tile_smem_bytes": [_I] * 5 + [_IP] + [_I] * 3,
     "amg_tail_fill_level": [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L] + [_I] * 7 + _STENCIL,
     "amg_tail_transfer_bytes": [],
-    "amg_tail_fill_transfer": [_P, _I, _P, _P, _IP, _I, _IP, _I],
+    "amg_tail_fill_transfer": [_P, _I, _P, _P, _IP, _I, _IP, _I, _I, _I],
     "amg_scan_gs_smem_bytes": [_I] * 5,
     "amg_sweep3d_march_smem_bytes": [_I] * 5,
     "amg_gs_sweep_march_smem_bytes": [_I] * 6,

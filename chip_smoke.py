@@ -165,8 +165,10 @@ Runs, in order, and exits non-zero on the first failure:
     the counters zeroed just before (setup, lowering and V-cycles on the
     card): asserts 8 levels, OC 1.225, tail start 2, the legs of L0 and L1
     and the tail non-factored (legs' A, D⁻¹, R, P bf16; the tail's A, P
-    bf16 with R and D⁻¹ float32) and exactly the non-factored K1/K2 on L0
-    and L1 and K4 once a V-cycle, no other kernel and no masked sweep;
+    bf16 with R and D⁻¹ float32), the K1/K2 tiles of L0 and L1 and K4's
+    down and up tiles of its grid levels L2 and L3 as planned, and exactly
+    the non-factored K1/K2 on L0 and L1 (all in tiles) and K4 once a
+    V-cycle, no other kernel and no masked sweep;
     (b) ``save_hierarchy`` → ``load_hierarchy`` of phase 4's flagship (no
     factored stash: non-factored legs and tail) → ``solve_refined(tol=1e-8,
     coef_dtype=bfloat16)`` (< 1e-8 within 4 rounds, the counters zeroed
@@ -175,9 +177,13 @@ Runs, in order, and exits non-zero on the first failure:
     against their plain versions (max relative error <= 1e-5), each timed
     in turns with the factored entry on phase 4's hierarchy on the same
     vectors (factored, nf, nf, factored), beside its 2-byte and 4-byte
-    bound; (d) a V-cycle and a fixed cycle, non-factored and factored,
-    timed in turns, and one V-cycle of each on the same x and b with
-    float32 planes held to 1e-5 (2-norm: the same P two ways);
+    bound, and each against and in turns with its pass route (pass, tiles,
+    tiles, pass): K1/K2 with their tiles taken away, K4 on the same levels
+    with its grid levels' tiles set to (0, 0) through
+    ``make_fused_tail_cache``; (d) a V-cycle and a fixed cycle,
+    non-factored and factored, timed in turns, and one V-cycle of each on
+    the same x and b with float32 planes held to 1e-5 (2-norm: the same P
+    two ways);
 19. lowers the flagship with ``subcycle=True`` and bf16 planes in float32
     and float64: asserts ``sub_start`` 1, ``tail_start`` 2, the subcycle's
     A, T, S in bf16 with D⁻¹ and the coarse operator at the vectors' dtype
@@ -2556,8 +2562,9 @@ def nonfactored_path(device, ml):
     new K1/K2/K4 entries against their plain versions and timed in turns
     with the factored entries on phase 4's hierarchy; K1/K2's non-factored
     tiles (asserted planned at L0 and L1, and the only route the solves
-    launch there) against and in turns with their pass route; the cycles,
-    factored and not, timed in turns and compared."""
+    launch there) and K4's (asserted planned at its grid levels L2 and L3)
+    against and in turns with their pass route; the cycles, factored and
+    not, timed in turns and compared."""
     import dataclasses
     import os
     import tempfile
@@ -2597,7 +2604,8 @@ def nonfactored_path(device, ml):
         f" bf16 planes): levels {len(ml_nf.levels) + 1} OC {ml_nf.operator_complexity()!r} tail_start"
         f" {h_nf.tail_start}; legs factored {[f.factored for f in legs]} R/P offsets"
         f" {[(len(f.offsR), len(f.offsP)) for f in legs]}; tail factored {h_nf.tail.factored} tiles"
-        f" {h_nf.tail.tiles}; {api_iters} V-cycles to relres {api_relres!r} (its own {res[-1] / res[0]!r}) in"
+        f" {h_nf.tail.tiles} up tiles {h_nf.tail.up_tiles}; {api_iters} V-cycles to relres {api_relres!r}"
+        f" (its own {res[-1] / res[0]!r}) in"
         f" {api_s!r} s (setup, lowering and solve); launches {api_counts}; by level {api_levels}; by route"
         f" {api_routes}; K1/K2 nf tiles {[(f.down_tile, f.up_tile) for f in legs]}")
     want = dict.fromkeys(api_counts, 0)
@@ -2623,6 +2631,12 @@ def nonfactored_path(device, ml):
                              f" are not the plan's {planned}")
     if api_routes != {"down_nf/tiles": n_legs * api_iters, "up_nf/tiles": n_legs * api_iters}:
         raise AssertionError(f"api.solve: K1/K2 nf launches by route {api_routes}: not all in tiles")
+    tail_plan = tk.tail_tiles(h_nf.tail.levels)
+    grid = [L.row_dims[0] * L.row_dims[1] > tk.BLOCK_CELLS for L in h_nf.tail.levels]
+    tiled = [t[0] > 0 and u[0] > 0 for t, u in zip(h_nf.tail.tiles, h_nf.tail.up_tiles)]
+    if h_nf.tail.tiles != tail_plan or tiled != grid or sum(grid) != 2:
+        raise AssertionError(f"api.solve: K4 nf's grid levels are not all tiled as planned: tiles"
+                             f" {h_nf.tail.tiles} up {h_nf.tail.up_tiles}, plan {tail_plan}")
 
     # (b) save/load of phase 4's hierarchy, then the refined solve with bf16 planes
     with tempfile.TemporaryDirectory() as d:
@@ -2718,6 +2732,9 @@ def nonfactored_path(device, ml):
         lvl = hn.tail_start
         L = hn.levels[lvl]
         x, b = vec(L.A.shape[0], L.A.rows_padded), vec(L.A.shape[0], L.A.rows_padded)
+        # the pass route K4 nf's tiles replaced: the same levels, the grid
+        # levels' tiles set to (0, 0)
+        t_pass = tk.make_fused_tail_cache(hn.tail.levels, hn.tail.Mc, tiles=((0, 0),) * len(hn.tail.levels))
         for x_zero in (False, True):
             xin = torch.zeros_like(x) if x_zero else x
             record(
@@ -2725,8 +2742,11 @@ def nonfactored_path(device, ml):
                 [tk.fused_tail_reference(hn.tail, xin, b, x_zero=x_zero)],
                 lambda: tk.fused_tail(hn.tail, xin, b, x_zero=x_zero),
                 lambda: tk.fused_tail(hf.tail, xin, b, x_zero=x_zero),
-                lambda: tk.fused_tail_reference(hn.tail, xin, b, x_zero=x_zero), tail_work(hn.tail, x_zero), level=lvl,
+                lambda: tk.fused_tail_reference(hn.tail, xin, b, x_zero=x_zero), tail_work(hn.tail, x_zero),
+                fn_pass=lambda: tk.fused_tail(t_pass, xin, b, x_zero=x_zero),
+                by_pass=[tk.fused_tail(t_pass, xin, b, x_zero=x_zero)], level=lvl,
                 dims=hn.tail.levels[0].row_dims, x_zero=x_zero, factored_route=("tail", hf.tail.tiles),
+                tile=(hn.tail.tiles[:2], hn.tail.up_tiles[:2]),
             )
     # each call's 4-byte bound: that of the same call on float32 planes
     for rs in rows.values():
@@ -2955,7 +2975,7 @@ def main():
             launches=counts_nf[COUNTER[name]], launches_solve=load_counts_nf[COUNTER[name]],
             max_abs_err=max(r["max_abs_err"] for r in rs), ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, entry="f32_bf16",
-            factored_ms=first["factored_ms"], bound_4byte_ms=first["bound_4byte_ms"],
+            factored_ms=first["factored_ms"], pass_ms=first["pass_ms"], bound_4byte_ms=first["bound_4byte_ms"],
             by_call=[{k: r[k] for k in ("planes", "level", "dims", "ms", "factored_ms", "pass_ms", "plain_ms",
                                         "bound_ms", "bound_4byte_ms") if k in r} | ({"x_zero": r["x_zero"]}
                                                                                     if "x_zero" in r else {})

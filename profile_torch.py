@@ -29,8 +29,10 @@ iterates V-cycles, since K3 takes factored levels only).
 
 For each it prints the ms per cycle by CUDA events, the device time of each
 kernel and its share, the device's idle share of the window (1 − the
-summed kernel time over the window's elapsed time) and the port's kernel
-launches per cycle.  Run from the repository root:
+summed kernel time over the window's elapsed time; the kernel rows only
+(``kernel_rows``): the cycle's ``record_function`` ranges carry the device
+time of the kernels inside them, and so do the CPU operators that launch
+them) and the port's kernel launches per cycle.  Run from the repository root:
 
     python3 profile_torch.py [unstructured | 3d | fwdbwd | subcycle | f64bf16 | rs | nosym]
 """
@@ -142,6 +144,25 @@ RUNS = {
 }
 
 
+def kernel_rows(events):
+    """(ms, count, key) of each device kernel among a profile's
+    ``key_averages()`` rows with device time: rows on a device, not the
+    CPU, that are not ``record_function`` ranges (a range's device-side
+    row, a user annotation, also named by a CPU row, spans the kernels
+    inside it), so that their times add up to the device's busy time."""
+    ranges = {e.key for e in events if e.device_type.name == "CPU"}
+    rows = []
+    for e in events:
+        if e.device_type.name == "CPU" or getattr(e, "is_user_annotation", False) or e.key in ranges:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    return rows
+
+
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -171,13 +192,7 @@ def main():
             torch.cuda.synchronize()
         window_ms = start.elapsed_time(stop)
         per_cycle = {k: (vl.launches[k] - before[k]) / CYCLES for k in before if vl.launches[k] != before[k]}
-        rows = []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if us > 0:
-                rows.append((us / 1e3, e.count, e.key))
+        rows = kernel_rows(prof.key_averages())
         busy = sum(r[0] for r in rows)
         print(f"{name}: {window_ms / CYCLES!r} ms per cycle; device busy {busy / CYCLES!r} ms per cycle;"
               f" idle share {1 - busy / window_ms!r}; kernel launches per cycle {per_cycle}")

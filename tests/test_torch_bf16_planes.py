@@ -8,8 +8,9 @@ tests/test_torch_vcycle_legs.py), three fixed cycles against three JAX
 cycles, the refined solve, the combinations that raise, the paths the
 switch leaves at float32, the conversion from numpy, and the plans with
 2-byte planes.  Float64 vectors and 3-D lattices with bf16 planes:
-tests/test_torch_bf16_f64_3d.py.  The CUDA kernels are held against these plain versions on
-the card by tests/test_torch_cuda.py."""
+tests/test_torch_bf16_f64.py, tests/test_torch_bf16_f64_cycles.py and
+tests/test_torch_bf16_3d.py.  The CUDA kernels are held against these
+plain versions on the card by tests/test_torch_cuda.py."""
 
 import dataclasses
 
@@ -235,7 +236,8 @@ def test_unsupported_combinations_raise(problem):
     package), never float32 planes in their place; a subcycle cache that
     mixes them is refused, and so are planes of another dtype and bf16
     under vectors other than float32/float64.  (Under float64 and on N-D
-    lattices bf16 planes are ported: tests/test_torch_bf16_f64_3d.py.)"""
+    lattices bf16 planes are ported: tests/test_torch_bf16_f64.py,
+    tests/test_torch_bf16_3d.py.)"""
     from algebraicmultigrid_tpu_torch.ops.kernels.subcycle_kernel import make_fused_subcycle_cache
 
     _, ml_t, _, _, _, _ = problem

@@ -1348,6 +1348,55 @@ def test_cuda_nonfactored_tail_matches_plain_version(ml_nosym, entry):
     assert vl.launches["tail_nf"] == before["tail_nf"] + 2 and vl.launches["tail"] == before["tail"]
 
 
+@pytest.fixture(scope="module")
+def ml_nosym_1800():
+    """The 1800² NoSymmetry problem: its tail from L2 has two 9-point grid
+    levels (200², 67²), as the flagship's L2/L3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    import algebraicmultigrid_tpu_torch as amt
+
+    return amt.structured_smoothed_aggregation(
+        amt.poisson((1800, 1800), lattice=True), aggregate=amt.StructuredAggregation(box=3),
+        symmetry=amt.NoSymmetry(),
+    )
+
+
+@pytest.mark.parametrize("entry", list(NF_ENTRIES))
+@pytest.mark.parametrize("problem,n_grid", [("ml_nosym", 1), ("ml_nosym_1800", 2)])
+def test_cuda_nonfactored_tail_tiles_match_plain_version_and_pass_route(request, problem, n_grid, entry):
+    """K4's non-factored entries with every grid level in tiles (the
+    plan's down and up tiles) against the plain version and against the
+    same levels with the tiles set to (0, 0) (the pass route), from x and
+    from zero: one ``tail_nf`` launch a call."""
+    from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy
+    from algebraicmultigrid_tpu_torch.ops.kernels import tail_kernel as tk
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    dtype, coef = NF_ENTRIES[entry]
+    h = build_device_hierarchy(request.getfixturevalue(problem), device="cuda", dtype=dtype, coef_dtype=coef)
+    tail = h.tail
+    grid = [L.row_dims[0] * L.row_dims[1] > tk.BLOCK_CELLS for L in tail.levels]
+    assert not tail.factored and sum(grid) == n_grid and grid[:n_grid] == [True] * n_grid
+    assert [t[0] > 0 for t in tail.tiles] == [u[0] > 0 for u in tail.up_tiles] == grid
+    passed = tk.make_fused_tail_cache(tail.levels, tail.Mc, tiles=((0, 0),) * len(tail.levels))
+    L = h.levels[h.tail_start]
+    n, pad = L.A.shape[0], L.A.rows_padded
+    x, b = _vec(n, pad, 14, dtype), _vec(n, pad, 15, dtype)
+    tol = _nf_tol(dtype)
+    for x_zero in (False, True):
+        xin = torch.zeros_like(x) if x_zero else x
+        before = dict(vl.launches)
+        got = tk.fused_tail(tail, xin, b, x_zero=x_zero)
+        assert vl.launches == dict(before, tail_nf=before["tail_nf"] + 1)
+        by_pass = tk.fused_tail(passed, xin, b, x_zero=x_zero)
+        assert vl.launches == dict(before, tail_nf=before["tail_nf"] + 2)
+        ref = tk.fused_tail_reference(tail, xin, b, x_zero=x_zero)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == dtype
+        assert _rel(got, ref) < tol and _rel(got, by_pass) < tol and _rel(by_pass, ref) < tol, x_zero
+
+
 def test_cuda_nonfactored_cycles_match_cpu_and_take_no_updown(ml_nosym):
     """A float64 V-cycle and 3 fixed cycles on the card (non-factored L0
     legs, a non-factored tail from L1) against the CPU: the fixed-cycle
