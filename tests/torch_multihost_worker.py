@@ -36,8 +36,10 @@ def main():
     mlr = amt.ruge_stuben(A, presmoother=gs, postsmoother=gs)
     xr, it1, nr1 = solve_sharded(mlr, A @ np.ones(A.shape[0]), mesh=mesh, maxiter=1, replicate_below=256)
     assert xr.shape == (A.shape[0],) and np.isfinite(nr1) and it1 == 1
-    print(f"MULTIHOST_OK rank={mesh.rank} local_rank={os.environ['LOCAL_RANK']} iters={iters} relres={relres:.3e}"
-          f" err={err:.3e} sharded_step_res={nr1:.6e}", flush=True)
+    # the line and its newline in one write: ranks under one launcher share a pipe
+    sys.stdout.write(f"MULTIHOST_OK rank={mesh.rank} local_rank={os.environ['LOCAL_RANK']} iters={iters}"
+                     f" relres={relres:.3e} err={err:.3e} sharded_step_res={nr1:.6e}\n")
+    sys.stdout.flush()
 
 
 if __name__ == "__main__":
