@@ -27,9 +27,12 @@
 // tiles independent.  K1's tiles read everything in one memory phase;
 // K2's on a 5-point float32 level are walked by one block an SM with the
 // next tile's box staged in shared memory meanwhile (the pipelined up
-// leg).  On an H100 (kernel_variants.py legs) these were the fastest of
-// the variants for each leg: K1 at 4096^2 0.55 ms against 0.66 with K3's
-// phases and 0.71 pipelined, K2 0.53 against 0.56-0.58 in tiles.
+// leg); so are K3's on a 5-point level with bf16 planes under float32
+// vectors, the next box landing by TMA (updown_stage.cuh, the staged K3:
+// 0.75 ms at 4096^2 against 0.90 one block a tile).  On an H100
+// (kernel_variants.py legs) these were the fastest of the variants for
+// each leg: K1 at 4096^2 0.55 ms against 0.66 with K3's phases and 0.71
+// pipelined, K2 0.53 against 0.56-0.58 in tiles.
 //
 // A level with no tile (13 points, more than 64 steps, a box past the
 // register map) runs K1 and K2 pass by pass, as their first design did:
@@ -88,6 +91,7 @@
 #include <cstdint>
 
 #include "leg_tile.cuh"
+#include "updown_stage.cuh"
 
 namespace {
 
@@ -978,6 +982,45 @@ extern "C" int amg_nf_tile_smem_bytes(int down, int tx, int ty, int n_steps,
            : amg::leg_halo(n_steps, reach, false);
   return (int)amg::nf_smem_bytes(
       tx, ty, halo, amg::nf_scratch(down != 0, tx, ty, halo, s, k), itemsize);
+}
+
+// The tensor maps of a staged K3's bf16 planes (A, dinv, S over E0 rows of
+// the box, T over E0 + 2 reach) into out, 4 x 128 bytes, for the wrapper to
+// keep with the leg cache.  Returns a CUDA error code.
+extern "C" int amg_updown_plane_maps(void* out, const void* A,
+                                     const void* dinv, const void* Tp,
+                                     const void* S, int Wx, int Wy, int E0,
+                                     int reach) {
+  return amg::updown_plane_maps(out, A, dinv, Tp, S, Wx, Wy, E0, reach);
+}
+
+// The stage of a staged K3's E0 x E1 box, in bytes, for the wrapper's plan
+// to be checked against.
+extern "C" int amg_updown_stage_bytes(int E0, int E1, int reach, int k,
+                                      int coef_itemsize, int itemsize) {
+  return (int)amg::updown_stage(E0, E1, reach, k, coef_itemsize, itemsize)
+      .bytes;
+}
+
+// K3 staged (updown_stage.cuh; the wrapper's plan_updown_staged): float32
+// vectors under bf16 planes on a tiled 5-point level, the planes' tensor
+// maps encoded once by amg_updown_plane_maps
+extern "C" int amg_fused_updown_staged_f32_bf16(
+    void* x_out, const void* x_in, const void* b, const void* A,
+    const void* dinv, const void* Tp, const void* S, const void* xc, void* bc,
+    const void* plane_maps, const int* offs, int n_off, const int* ctab,
+    int ca, int cb, const int* steps, int n_steps, double omega, int Wx,
+    int Wy, int Wxc, int Wyc, int k, int tile_x, int tile_y, void* stream) {
+  amg::LevelDesc L;
+  if (amg::fill_level(&L, A, dinv, Tp, S, 0, 0, 0, 0, 0, Wx, Wy, Wxc, Wyc, k,
+                      tile_x, tile_y, offs, n_off, ctab, ca, cb, steps,
+                      n_steps, omega) ||
+      tile_x < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return amg::run_updown_staged<float, __nv_bfloat16>(
+      L, plane_maps, (cudaStream_t)stream, (float*)x_out, (const float*)x_in,
+      (const float*)b, (const float*)xc, (float*)bc);
 }
 
 // one entry per (vector, plane) type: T vectors, C planes A, dinv, T, S

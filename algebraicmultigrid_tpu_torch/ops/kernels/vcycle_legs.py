@@ -15,7 +15,9 @@ and the smoothing scale S = ω·D̃⁻¹, so P = (I − diag(S)·A)·T and R = P
 
 Each leg has a hand-written CUDA kernel (``csrc/vcycle_legs.cu``; K3 is one
 launch of independent tiles, each the tile plus a halo in shared memory,
-``csrc/leg_tile.cuh``) and a plain PyTorch version beside it
+``csrc/leg_tile.cuh``; on a 5-point level with bf16 planes under float32
+vectors, one block an SM walks the tiles with the next tile's box landing
+by TMA, ``csrc/updown_stage.cuh``) and a plain PyTorch version beside it
 (``fused_down_reference``, ``fused_up_reference``,
 ``fused_updown_reference``).  The port's CUDA sources (these legs, the
 whole-tail kernel ``csrc/tail_kernel.cu`` and its non-factored entries
@@ -60,7 +62,7 @@ stages x_c over its box's coarse window (``nf_window``).  A level with no
 tile runs them pass by pass (the color-step passes of the factored pass
 route, a residual pass, then one pass of the R-plane sum; the P-plane sum,
 then the color steps).  K3 takes factored levels only, as in the JAX
-package.  ``route_launches`` counts K1's and K2's launches by route.
+package.  ``route_launches`` counts K1's, K2's and K3's launches by route.
 """
 
 from __future__ import annotations
@@ -101,6 +103,8 @@ __all__ = [
     "plan_down",
     "plan_up",
     "plan_up_pipelined",
+    "plan_updown_staged",
+    "updown_stage_bytes",
     "plan_down_nf",
     "plan_up_nf",
     "nf_spill",
@@ -122,7 +126,8 @@ SOURCES = tuple(
     )
 )
 HEADERS = tuple(
-    CSRC / f for f in ("stencil.cuh", "leg_tile.cuh", "tail_levels.cuh", "sweep_tile.cuh", "sweep_march.cuh")
+    CSRC / f
+    for f in ("stencil.cuh", "leg_tile.cuh", "updown_stage.cuh", "tail_levels.cuh", "sweep_tile.cuh", "sweep_march.cuh")
 )
 BUILD_DIR = PACKAGE_DIR / "_build"
 
@@ -158,7 +163,7 @@ launches = {
 }
 # the leg and whole-sweep kernels' launches by level: (counter, grid dims) -> count
 level_launches = collections.Counter()
-# K1's and K2's launches by route: (counter, "tiles" | "pipelined" | "pass") -> count
+# K1's, K2's and K3's launches by route: (counter, "tiles" | "pipelined" | "staged" | "pass") -> count
 route_launches = collections.Counter()
 
 
@@ -192,6 +197,11 @@ class FusedLegCache:
     down_tile: Optional[Tuple[int, int]] = None
     up_tile: Optional[Tuple[int, int]] = None
     up_pipelined: bool = False
+    # K3's tiles are walked by one block an SM with the next tile's box
+    # landing in shared memory by TMA (plan_updown_staged); plane_maps: the
+    # planes' tensor maps for it, encoded when the cache is built on the card
+    updown_staged: bool = False
+    plane_maps: Optional[bytes] = dataclasses.field(default=None, compare=False, repr=False)
     # the vectors' dtype where it is not the planes' (bf16 planes,
     # ``round_planes``); None: the planes' own, float32 under bf16 planes
     vec_dtype: Optional[torch.dtype] = None
@@ -396,14 +406,84 @@ def plan_up_pipelined(cache: "FusedLegCache") -> bool:
     return need <= SMEM_LIMIT - DESC_BYTES
 
 
+# a staged K3's stage rows (csrc/updown_stage.cuh kStageRow): a tensor copy
+# starts a row at a multiple of 16 bytes of the grid, so a row holds the
+# box's (at most REG_BOX cells) from its first column rounded down to 8
+# cells; and the bytes the kernel may skip to align the stage to a tensor
+# copy's 128 (kStageAlign)
+STAGE_ROW = REG_BOX + 8
+STAGE_ALIGN = 128
+
+
+def updown_stage_bytes(box, reach: int, k: int, coef_itemsize: int, itemsize: int) -> int:
+    """Shared memory of a staged K3's stage (csrc/updown_stage.cuh
+    ``updown_stage``): A (5 planes) and D⁻¹ over the box's rows at
+    ``coef_itemsize``, b and x over them at ``itemsize``, x_c over the
+    coarse cells under T's area, and two slots of S over the box's rows and
+    T over the box plus one reach; rows of ``STAGE_ROW`` cells, each array
+    to 128 bytes."""
+    E0, E1 = box
+    U0, U1 = E0 + 2 * reach, E1 + 2 * reach
+    to128 = lambda v: -(-v // 128) * 128
+    plane, vec = E0 * STAGE_ROW * coef_itemsize, E0 * STAGE_ROW * itemsize
+    xc = ((U0 - 1) // k + 2) * ((U1 - 1) // k + 2) * itemsize
+    off = 0
+    for size in (5 * plane, plane, vec, vec, xc) + (plane, U0 * STAGE_ROW * coef_itemsize) * 2:
+        off = to128(off + size)
+    return off
+
+
+def _staged_box(cache: "FusedLegCache"):
+    h = leg_halo(len(cache.steps2), cache.reach, True)
+    return tuple(t + 2 * h for t in cache.updown_tile), h
+
+
+def plan_updown_staged(cache: "FusedLegCache") -> bool:
+    """Whether a level's tiled K3 runs staged (csrc/updown_stage.cuh): a
+    5-point level with a K3 tile, float32 vectors under bf16 planes, rows of
+    a multiple of 16 bytes and the planes contiguous and 16-byte aligned
+    (what a tensor map takes), the box plus one reach within the thread map
+    (``REG_BOX`` cells a side), and the stage and tile buffers within a
+    block's shared memory.  The flagship's L0 is such a level; float32
+    planes (whose stage does not fit at its box), 9-point levels, float64
+    vectors and ragged rows keep the tiled K3."""
+    if not cache.factored or len(cache.offsA) != PIPE_OFFSETS or cache.updown_tile is None:
+        return False
+    if cache.dtype != torch.float32 or cache.A.dtype != torch.bfloat16 or cache.row_dims[1] % 8:
+        return False
+    planes = (cache.A, cache.dinv, cache.T, cache.S)
+    if any(p.dtype != torch.bfloat16 or not p.is_contiguous() or p.data_ptr() % 16 for p in planes):
+        return False
+    box, h = _staged_box(cache)
+    if max(box) + 2 * cache.reach > REG_BOX:
+        return False
+    need = STAGE_ALIGN + updown_stage_bytes(box, cache.reach, cache.k, 2, 4) + tile_smem_bytes(
+        *cache.updown_tile, h, cache.reach, 4)
+    return need <= SMEM_LIMIT - DESC_BYTES
+
+
+def _plane_maps(cache: "FusedLegCache") -> bytes:
+    """The tensor maps of a staged level's planes on the card (A, D⁻¹, S
+    over the box's rows, T over the box plus one reach): 4 CUtensorMaps."""
+    box, _ = _staged_box(cache)
+    maps = ctypes.create_string_buffer(4 * 128)
+    err = load_library().amg_updown_plane_maps(
+        maps, *(p.data_ptr() for p in (cache.A, cache.dinv, cache.T, cache.S)), *cache.row_dims, box[0],
+        cache.reach)
+    raise_on(err, "encoding the staged fused_updown's tensor maps")
+    return maps.raw
+
+
 def with_tile_plans(cache: "FusedLegCache") -> "FusedLegCache":
-    """The cache with K3's, K1's and K2's tiles planned from its shapes; a
-    non-factored cache gets K1's and K2's own (``plan_down_nf``,
-    ``plan_up_nf``), no K3 and no pipelined K2."""
+    """The cache with K3's, K1's and K2's tiles planned from its shapes (K2
+    pipelined, K3 staged where they can be); a non-factored cache gets K1's
+    and K2's own (``plan_down_nf``, ``plan_up_nf``), no K3 and no
+    pipelined K2.  A staged cache on the card has its planes' tensor maps
+    encoded here (``plane_maps``)."""
     n = len(cache.steps)
     if not cache.factored:
         return dataclasses.replace(
-            cache, updown_tile=None, up_pipelined=False,
+            cache, updown_tile=None, up_pipelined=False, updown_staged=False, plane_maps=None,
             down_tile=plan_down_nf(cache.row_dims, cache.k, cache.offsA, cache.offsR, n),
             up_tile=plan_up_nf(cache.row_dims, cache.k, cache.offsA, n),
         )
@@ -413,7 +493,8 @@ def with_tile_plans(cache: "FusedLegCache") -> "FusedLegCache":
         down_tile=plan_down(cache.row_dims, cache.k, cache.offsA, n),
         up_tile=plan_up(cache.row_dims, cache.k, cache.offsA, n),
     )
-    return dataclasses.replace(c, up_pipelined=plan_up_pipelined(c))
+    c = dataclasses.replace(c, up_pipelined=plan_up_pipelined(c), updown_staged=plan_updown_staged(c))
+    return dataclasses.replace(c, plane_maps=_plane_maps(c) if c.updown_staged and c.A.is_cuda else None)
 
 
 def coef_dtype_of(coef_dtype, dtype) -> Optional[torch.dtype]:
@@ -860,6 +941,10 @@ _HELPERS = {
     "amg_gs_sweep_march_blocks_per_sm": [_I] * 4,
     "amg_sweep3d_march_blocks_per_sm": [_I] * 6,
     "amg_bsg_spmv_f32": [_P] * 5 + [_L, _I, _I, _L, _P],
+    # the staged K3 (float32 vectors, bf16 planes), its planes' tensor maps and its stage's bytes
+    "amg_fused_updown_staged_f32_bf16": [_P] * 10 + _STENCIL + [_I] * 7 + [_P],
+    "amg_updown_plane_maps": [_P] * 5 + [_I] * 4,
+    "amg_updown_stage_bytes": [_I] * 6,
 }
 
 
@@ -1093,8 +1178,11 @@ def fused_up(cache: FusedLegCache, x, b, xc):
 
 def fused_updown(cache: FusedLegCache, x, b, xc):
     """(x', b_c') = down(up(x, x_c)) across the cycle boundary in one
-    launch of independent tiles: returns the corrected and twice-smoothed x
-    at ``x``'s (padded) length and the next cycle's coarse rhs at Wxc·Wyc.
+    launch of tiles: returns the corrected and twice-smoothed x at ``x``'s
+    (padded) length and the next cycle's coarse rhs at Wxc·Wyc.  A staged
+    level (``cache.updown_staged``) walks its tiles one block an SM with the
+    next tile's box landing by TMA, where x and b lie 16-byte aligned (a
+    tensor map's base); any other, or unaligned vectors, one block a tile.
     A level with no planned tile (``cache.updown_tile`` None) has no K3 on
     the card; ``run_fixed_cycles`` runs K2 then K1 there.  Factored levels
     only, as in the JAX package."""
@@ -1110,13 +1198,13 @@ def fused_updown(cache: FusedLegCache, x, b, xc):
         raise ValueError("fused_updown indexes a level's cells in 32 bits")
     fn, x_out = _prepare(cache, "fused_updown", x, [("x", x, n), ("b", b, n), ("xc", xc, Wxc * Wyc)])
     bc = torch.empty(Wxc * Wyc, dtype=x.dtype, device=x.device)
-    err = fn(
-        x_out.data_ptr(), x.data_ptr(), b.data_ptr(),
-        cache.A.data_ptr(), cache.dinv.data_ptr(), cache.T.data_ptr(), cache.S.data_ptr(),
-        xc.data_ptr(), bc.data_ptr(), *stencil_args(cache, cache.steps2), Wx, Wy, Wxc, Wyc, cache.k,
-        *cache.updown_tile, _stream(x),
-    )
+    args = [x_out.data_ptr(), x.data_ptr(), b.data_ptr(), cache.A.data_ptr(), cache.dinv.data_ptr(),
+            cache.T.data_ptr(), cache.S.data_ptr(), xc.data_ptr(), bc.data_ptr()]
+    staged = cache.updown_staged and x.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    if staged:
+        fn = load_library().amg_fused_updown_staged_f32_bf16
+        args.append(cache.plane_maps)
+    err = fn(*args, *stencil_args(cache, cache.steps2), Wx, Wy, Wxc, Wyc, cache.k, *cache.updown_tile, _stream(x))
     raise_on(err, "fused_updown kernel")
-    launches["updown"] += 1
-    level_launches["updown", cache.row_dims] += 1
+    _count("updown", cache, "staged" if staged else "tiles")
     return x_out, bc

@@ -33,8 +33,9 @@ Runs, in order, and exits non-zero on the first failure:
 5. runs ``run_fixed_cycles`` (the updown loop) for 400 cycles from x = 0 on
    ``bench.py``'s right-hand side A·1, with the counters zeroed just
    before: ms per cycle, relative residual after the cycles (< 1e-5),
-   exactly updown 399, tail 400, down 401, up 401 launches, and the leg
-   launches by level (K1/K2 once at L0, 400 times at L1); and holds 3
+   exactly updown 399, tail 400, down 401, up 401 launches, the leg
+   launches by level (K1/K2 once at L0, 400 times at L1) and K3's 399 by
+   route (in tiles: the staged route takes bf16 planes only); and holds 3
    fixed cycles against 3 iterated cycles (float32 in the 2-norm to 1e-5,
    float64 to 1e-10);
 6. checks the solve against a direct solve, and one cycle on the card
@@ -125,8 +126,10 @@ Runs, in order, and exits non-zero on the first failure:
     planes; runs ``solve_refined(tol=1e-8)`` on b = A·1 and 400
     ``run_fixed_cycles`` with the counters zeroed just before each
     (relres < 1e-8 within 4 rounds; < 1e-5 after the cycles, with exactly
-    phase 5's launches, by kernel and by level), and times a V-cycle and a
-    fixed cycle in turns with float32's;
+    phase 5's launches, by kernel and by level, and K3's 399 all on its
+    staged route, ``csrc/updown_stage.cuh``), holds the staged K3 at L0
+    bitwise against the tiled K3 and times the two in turns (``route_ms``),
+    and times a V-cycle and a fixed cycle in turns with float32's;
 15. does the same in float64 (``bench.py``'s ``AMG_BENCH_DTYPE=float64``
     under its default bf16 planes): the legs' planes bf16 (rounded from
     float32), the tail's A, T, S bf16 with D⁻¹ and the coarse operator in
@@ -523,6 +526,7 @@ def compare_kernels(device, ml):
             "fused_updown", vl.fused_updown(f, x, b, xc), vl.fused_updown_reference(f, x, b, xc),
             lambda: vl.fused_updown(f, x, b, xc), lambda: vl.fused_updown_reference(f, x, b, xc),
             leg_work(f, f.steps2, True, True), level=lvl, dims=f.row_dims,
+            leg_route="staged" if f.updown_staged else "tiles", tile=f.updown_tile,
         )
         rows["fused_updown"][-1]["legs_ms"] = time_ms(
             lambda: vl.fused_down(f, vl.fused_up(f, x, b, xc), b)
@@ -596,7 +600,7 @@ def read_counts():
 
 
 def read_route_counts():
-    """K1's and K2's launches by route: {"counter/route": count}."""
+    """K1's, K2's and K3's launches by route: {"counter/route": count}."""
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
     return {f"{name}/{route}": count for (name, route), count in sorted(vl.route_launches.items()) if count}
@@ -682,12 +686,13 @@ def fixed_cycles(device, ml, h):
     torch.cuda.synchronize()
     counts = read_counts()
     by_level = read_level_counts()
+    routes = read_route_counts()
     ms_per_cycle = start.elapsed_time(stop) / CYCLES
     xh = x[: N * N].double().cpu().numpy()
     relres = float(np.linalg.norm(b - ml.levels[0].A @ xh) / np.linalg.norm(b))
     log(f"fixed cycles {CYCLES}: ms_per_cycle (CUDA events) {ms_per_cycle!r}"
         f" (first design, recorded: {FIRST_DESIGN_FIXED_CYCLE_MS} ms) relres_after_cycles {relres!r}")
-    log(f"launches in the fixed cycles {counts}; leg launches by level {by_level}")
+    log(f"launches in the fixed cycles {counts}; leg launches by level {by_level}; by route {routes}")
 
     fixed_rel = {}
     h64 = amt.build_device_hierarchy(ml, device=device, dtype=torch.float64)
@@ -714,6 +719,10 @@ def fixed_cycles(device, ml, h):
     want_levels = {"down": {l0: 1, l1: CYCLES}, "up": {l0: 1, l1: CYCLES}, "updown": {l0: CYCLES - 1}}
     if by_level != want_levels:
         raise AssertionError(f"fixed-cycle leg launches by level {by_level} != {want_levels}")
+    # K3 in tiles: the staged route takes bf16 planes only (phase 14 stages it)
+    want_k3 = {"updown/tiles": CYCLES - 1}
+    if {k: v for k, v in routes.items() if k.startswith("updown/")} != want_k3:
+        raise AssertionError(f"fixed-cycle K3 launches by route {routes} != {want_k3}")
     if not all(fixed_rel[k] <= tol for k, tol in FIXED_RTOL.items()):
         raise AssertionError(f"fixed cycles disagree with iterated cycles: {fixed_rel}")
     return counts, by_level, ms_per_cycle
@@ -2117,7 +2126,11 @@ def bf16_path(device, ml, dtype, ref_counts=None, ref_levels=None):
     solve and the fixed-cycle loop with the counters zeroed just before
     each, the loop's launches held against ``ref_counts``/``ref_levels``
     (phase 5's for float32; for float64 the same loop on float64 planes,
-    run here)."""
+    run here).  The staged K3 (L0 under float32 vectors) is held bitwise
+    against the tiled K3 and timed in turns with it, and the loop's K3
+    launches by route are asserted: all staged under float32."""
+    import dataclasses
+
     import torch
 
     import algebraicmultigrid_tpu_torch as amt
@@ -2201,8 +2214,16 @@ def bf16_path(device, ml, dtype, ref_counts=None, ref_levels=None):
             "fused_updown", vl.fused_updown(f, x, b, xc), vl.fused_updown_reference(f, x, b, xc),
             lambda: vl.fused_updown(f, x, b, xc), lambda: vl.fused_updown(g, x, b, xc),
             lambda: vl.fused_updown_reference(f, x, b, xc), leg_work(f, f.steps2, True, True), level=lvl,
-            dims=f.row_dims, tile=f.updown_tile,
+            dims=f.row_dims, tile=f.updown_tile, leg_route="staged" if f.updown_staged else "tiles",
         )
+        if f.updown_staged:
+            # the staged K3 in turns with the tiled K3 (one block a tile) on the same planes: bitwise equal
+            tiles = dataclasses.replace(f, updown_staged=False)
+            r = rows["fused_updown"][-1]
+            r["route_equal"] = all(torch.equal(u, v) for u, v in zip(vl.fused_updown(f, x, b, xc),
+                                                                     vl.fused_updown(tiles, x, b, xc)))
+            r["ms"], r["route_ms"], r["route_turns_ms"] = in_turns(lambda: vl.fused_updown(f, x, b, xc),
+                                                                   lambda: vl.fused_updown(tiles, x, b, xc))
     lvl = h.tail_start
     L = h.levels[lvl]
     x, b = vec(L.A.shape[0], L.A.rows_padded), vec(L.A.shape[0], L.A.rows_padded)
@@ -2224,9 +2245,13 @@ def bf16_path(device, ml, dtype, ref_counts=None, ref_levels=None):
                 + (f" ({tag} planes: {r['ref_route']})" if "ref_route" in r else "")
                 + f": max_rel_err {r['max_rel_err']!r} max_abs_err {r['max_abs_err']!r} bf16 {r['ms']!r} ms"
                 f" {tag} {r[f'{tag}_ms']!r} ms (in turns, {tag}/bf16/bf16/{tag}: {r['turns_ms']!r})"
-                f" plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']}, 2-byte planes)")
+                f" plain {r['plain_ms']!r} ms bound {r['bound_ms']!r} ms ({r['bound_by']}, 2-byte planes)"
+                + (f"; tiles route {r['route_ms']!r} ms (in turns, staged/tiles/tiles/staged:"
+                   f" {r['route_turns_ms']!r}), bitwise equal {r['route_equal']}" if "route_ms" in r else ""))
             if not r["max_rel_err"] <= rtol:
                 raise AssertionError(f"{name} with bf16 planes under {key} disagrees with its plain version: {r}")
+            if not r.get("route_equal", True):
+                raise AssertionError(f"the staged {name} differs from its tiles under {key}: {r}")
 
     # the refined solve on b = A·1, then the fixed-cycle loop, counters zeroed before each
     b1 = ml.levels[0].A @ np.ones(N * N)
@@ -2256,15 +2281,15 @@ def bf16_path(device, ml, dtype, ref_counts=None, ref_levels=None):
         torch.cuda.synchronize()
         xh = xf[: N * N].double().cpu().numpy()
         rel = float(np.linalg.norm(b1 - ml.levels[0].A @ xh) / np.linalg.norm(b1))
-        return xh, rel, start.elapsed_time(stop) / CYCLES, read_counts(), read_level_counts()
+        return xh, rel, start.elapsed_time(stop) / CYCLES, read_counts(), read_level_counts(), read_route_counts()
 
     if ref_counts is None:
-        _, rel_ref, ms_ref, ref_counts, ref_levels = fixed_400(href)
+        _, rel_ref, ms_ref, ref_counts, ref_levels, _ = fixed_400(href)
         log(f"{key} planes fixed cycles {CYCLES}: ms_per_cycle {ms_ref!r} relres_after_cycles {rel_ref!r};"
             f" launches {ref_counts}; by level {ref_levels}")
-    xh, relres_fixed, fixed_ms, cycle_counts, cycle_levels = fixed_400(h)
+    xh, relres_fixed, fixed_ms, cycle_counts, cycle_levels, cycle_routes = fixed_400(h)
     log(f"bf16 {key} fixed cycles {CYCLES}: ms_per_cycle {fixed_ms!r} relres_after_cycles {relres_fixed!r};"
-        f" launches {cycle_counts}; by level {cycle_levels}")
+        f" launches {cycle_counts}; by level {cycle_levels}; by route {cycle_routes}")
 
     # a V-cycle and a fixed cycle, dtype's planes and bf16 planes in turns
     times = {f"vcycle_{tag}": [], "vcycle_bf16": [], f"fixed_{tag}": [], "fixed_bf16": []}
@@ -2285,7 +2310,12 @@ def bf16_path(device, ml, dtype, ref_counts=None, ref_levels=None):
     if cycle_counts != ref_counts or cycle_levels != ref_levels:
         raise AssertionError(f"bf16 {key} fixed-cycle launches {cycle_counts} {cycle_levels} != {key} planes'"
                              f" {ref_counts} {ref_levels}")
+    # every K3 launch staged under float32 vectors (the flagship's L0), in tiles under float64
+    want_k3 = {f"updown/{'staged' if key == 'float32' else 'tiles'}": CYCLES - 1}
+    if {k: v for k, v in cycle_routes.items() if k.startswith("updown/")} != want_k3:
+        raise AssertionError(f"bf16 {key} fixed-cycle K3 launches by route {cycle_routes} != {want_k3}")
     summary = dict(vcycle_ms=times["vcycle_bf16"][0], fixed_ms=times["fixed_bf16"][0], fixed_400_ms=fixed_ms,
+                   k3_routes={k: v for k, v in cycle_routes.items() if k.startswith("updown/")},
                    rounds=len(hist) - 1, pcg_iters=stats["inner_iters"], relres=relres,
                    relres_after_cycles=relres_fixed)
     summary[f"vcycle_{tag}_ms"], summary[f"fixed_{tag}_ms"] = times[f"vcycle_{tag}"][0], times[f"fixed_{tag}"][0]
@@ -2885,6 +2915,8 @@ def main():
             # the tiled route at L0 and L1 and the pass-by-pass route it replaced, timed in turns
             row.update(route_ms=first["route_ms"], l1_route_ms=l1["route_ms"],
                        routes={f"L{r['level']}": r["leg_route"] for r in rs})
+        if name == "fused_updown":
+            row["routes"] = {f"L{r['level']}": r["leg_route"] for r in rs}
         kernels.append(row)
     for name, rs in rows_u.items():
         first = rs[0]  # K6 at L0, scan_gs at L3
@@ -2945,8 +2977,10 @@ def main():
                 l1 = next(r for r in rs if r["level"] == 1)
                 row.update(l1_ms=l1["ms"], l1_bound_ms=l1["bound_ms"], launches_by_level=levels_b.get(COUNTER[name], {}))
                 row[f"l1_{tag}_ms"] = l1[f"{tag}_ms"]
-            if name == "fused_up":
+            if name in ("fused_up", "fused_updown"):
                 row["routes"] = {f"L{r['level']}": r["leg_route"] for r in rs}
+            if "route_ms" in first:  # the staged K3 and the tiled K3, in turns
+                row["route_ms"] = first["route_ms"]
             kernels.append(row)
     first = rows_k7b[0]  # L0's presmoother
     kernels.append(dict(

@@ -60,7 +60,8 @@ at the planned tiles.  In ``legs`` mode each source variant (which legs
 read everything in their first memory phase: ``LEG_VARIANTS``) runs K1
 from x and from zero and K2 under each tile of ``LEG_TILES``, one tile a
 block and, for K2 where its stage fits, pipelined; then the legs pass by
-pass; then K3, K4, a V-cycle and a fixed cycle with the planned tiles.
+pass; then K3, K4, a V-cycle and a fixed cycle with the planned tiles, and
+K3 at L0 with bf16 planes on its staged route in turns with its tiles.
 Then the non-factored K1 and K2 at L0/L1 of the 4096² NoSymmetry
 hierarchy, bf16 and float32 planes, each tile of ``NF_LEG_TILES`` in
 turns with their pass route, and the V-cycle with and without their
@@ -742,7 +743,8 @@ def legs(use):
     """K1 (from x and from zero) and K2 at L0/L1 of 4096² per source
     variant, tile and route (one tile a block; K2 also pipelined where its
     stage fits), and pass by pass; K3, K4 and a V-cycle and a fixed cycle
-    with the planned tiles."""
+    with the planned tiles; K3 at L0 with bf16 planes, staged and in tiles,
+    in turns."""
     import dataclasses
 
     import torch
@@ -782,6 +784,9 @@ def legs(use):
     bt = vec(h.levels[2].A.shape[0], h.levels[2].A.rows_padded)
     f0 = h.levels[0].fused
     x0, b0, xc0 = vecs[0]
+    # K3 at L0 with bf16 planes (the benchmark's): staged and in tiles
+    fb = amt.build_device_hierarchy(ml, device="cuda", dtype=torch.float32, coef_dtype=torch.bfloat16).levels[0].fused
+    fb_tiles = dataclasses.replace(fb, updown_staged=False)
 
     def timed(fn, c, args, want):
         got = fn(*args(c))
@@ -815,6 +820,10 @@ def legs(use):
             print(f"round {rnd} {name:10s} planned (L0 {f0.down_tile}/{f0.up_tile} up pipelined {f0.up_pipelined},"
                   f" L1 {h.levels[1].fused.down_tile}/{h.levels[1].fused.up_tile}): K3 L0 {k3!r} ms K4 {k4!r} ms"
                   f" V-cycle {vc!r} ms fixed cycle {fc!r} ms", flush=True)
+            staged, tiles, turns = cs.in_turns(lambda: vl.fused_updown(fb, x0, b0, xc0),
+                                               lambda: vl.fused_updown(fb_tiles, x0, b0, xc0))
+            print(f"round {rnd} {name:10s} K3 L0 bf16 planes: staged {staged!r} ms (planned: {fb.updown_staged})"
+                  f" tiles {tiles!r} ms (in turns, staged/tiles/tiles/staged: {turns!r})", flush=True)
     del h
     torch.cuda.empty_cache()
     legs_nf(use, ["tree"])

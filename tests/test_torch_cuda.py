@@ -283,18 +283,21 @@ def test_cuda_fixed_cycles_match_cpu(ml):
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy, run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
-    out, counts = {}, {}
+    out, counts, routes = {}, {}, {}
     for dev in ("cuda", "cpu"):
         h = build_device_hierarchy(ml, device=dev, dtype=torch.float64, tail_max_rows=5000)
         b = _vec(N * N, h.fine_padded, 6, torch.float64).to(dev)
-        before = dict(vl.launches)
+        before, before_routes = dict(vl.launches), collections.Counter(vl.route_launches)
         out[dev] = run_fixed_cycles(h, torch.zeros_like(b), b, 3)
         counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+        routes[dev] = _route_counts(before_routes)
     assert _rel(out["cuda"], out["cpu"]) < 1e-12
     assert counts["cuda"] == {
         "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
         "down_nf": 0, "up_nf": 0, "tail_nf": 0,
     }
+    # float64 planes: K2 and K3 in tiles, one block a tile
+    assert routes["cuda"] == collections.Counter({("down", "tiles"): 1, ("up", "tiles"): 1, ("updown", "tiles"): 2})
     assert not any(counts["cpu"].values())
 
 
@@ -493,6 +496,94 @@ def test_cuda_bf16_updown_matches_plain_version(ml, case, dtype):
     assert vl.launches["updown"] == before + 1
 
 
+# The staged K3 (csrc/updown_stage.cuh): 5-point levels with bf16 planes
+# under float32 vectors, the 4096² flagship's L0 shape and ragged ones (k = 2
+# and 3, the last tiles cut by the grid edge), and the 192² hierarchy's L0
+STAGED_CASES = [
+    ("s", (4096, 4096), 3), ("s", (200, 200), 3), ("s", (301, 264), 2), ("s", (97, 136), 3), ("s", (64, 72), 2),
+    ("h", 192, 3, 0),
+]
+
+
+def _route_counts(before):
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    counts = collections.Counter(vl.route_launches)
+    counts.subtract(before)
+    return +counts
+
+
+@pytest.mark.parametrize("case", STAGED_CASES, ids=str)
+def test_cuda_updown_staged_matches_register_route(ml, case):
+    """The staged K3 against the tiled K3 (one block a tile: bitwise, the
+    same terms in the same order from the same values) and against its
+    plain version, each route counted by ``route_launches``."""
+    import dataclasses
+
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from torch_port_common import synthetic_leg_cache
+
+    if case[0] == "h":
+        f = _bf16_cache(case, seed=0)
+    else:
+        f = synthetic_leg_cache(case[1], case[2], 5, seed=sum(case[1]), device="cuda", **BF16)
+    assert f.updown_staged and len(f.plane_maps) == 4 * 128
+    tiles = dataclasses.replace(f, updown_staged=False)
+    Wx, Wy = f.row_dims
+    n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
+    x, b, xc = _vec(n, n + 8, 7), _vec(n, n + 8, 8), _vec(nc, nc, 9)
+    before = collections.Counter(vl.route_launches)
+    got = vl.fused_updown(f, x, b, xc)
+    ref_k = vl.fused_updown(tiles, x, b, xc)
+    torch.cuda.synchronize()
+    assert _route_counts(before) == collections.Counter({("updown", "staged"): 1, ("updown", "tiles"): 1})
+    ref = vl.fused_updown_reference(f, x, b, xc)
+    for g, k, r in zip(got, ref_k, ref):
+        assert g.shape == r.shape and torch.equal(g, k) and _rel(g, r) < TOL
+
+
+# levels the staged K3's plan refuses: float32 planes at the flagship's L0
+# shape (the stage does not fit), bf16 rows not a multiple of 16 bytes, 9
+# points, float64 vectors
+STAGED_REFUSED = [
+    ("f32 planes", (4096, 4096), 3, 5, torch.float32, None), ("odd rows", (200, 204), 3, 5, torch.float32, BF16),
+    ("9 points", (200, 200), 3, 9, torch.float32, BF16), ("f64 vectors", (200, 200), 3, 5, torch.float64, BF16),
+]
+
+
+@pytest.mark.parametrize("case", STAGED_REFUSED, ids=[c[0] for c in STAGED_REFUSED])
+def test_cuda_updown_refused_levels_run_the_tiles(ml, case):
+    """A level the staged K3 refuses runs the tiled K3, as the route
+    counter shows, and agrees with the plain version."""
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+    from torch_port_common import synthetic_leg_cache
+
+    _, dims, k, n_off, dtype, bf16 = case
+    kw = dict(dtype=dtype) if bf16 is None else dict(bf16, dtype=dtype)
+    f = synthetic_leg_cache(dims, k, n_off, seed=sum(dims) + 1, device="cuda", **kw)
+    assert f.updown_tile is not None and not f.updown_staged
+    Wx, Wy = dims
+    n, nc = Wx * Wy, f.col_dims[0] * f.col_dims[1]
+    x, b, xc = _vec(n, n + 8, 10, dtype), _vec(n, n + 8, 11, dtype), _vec(nc, nc, 12, dtype)
+    before = collections.Counter(vl.route_launches)
+    got = vl.fused_updown(f, x, b, xc)
+    torch.cuda.synchronize()
+    assert _route_counts(before) == collections.Counter({("updown", "tiles"): 1})
+    for g, r in zip(got, vl.fused_updown_reference(f, x, b, xc)):
+        assert g.shape == r.shape and _rel(g, r) < _tol(dtype)
+
+
+def test_cuda_updown_stage_smem_matches_the_plan():
+    """The staged K3's stage formula is the kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU mode")
+    from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
+
+    lib = vl.load_library()
+    for box, k, coef in (((62, 62), 3, 2), ((62, 62), 2, 4), ((40, 58), 3, 2), ((9, 12), 2, 2)):
+        assert lib.amg_updown_stage_bytes(*box, 1, k, coef, 4) == vl.updown_stage_bytes(box, 1, k, coef, 4)
+
+
 @pytest.mark.parametrize("dtype", VEC_DTYPES)
 @pytest.mark.parametrize("problem,rows", TAIL_CASES, ids=str)
 def test_cuda_bf16_tail_matches_plain_version(ml, problem, rows, dtype):
@@ -530,18 +621,22 @@ def test_cuda_bf16_fixed_cycles_and_solve(ml, dtype):
     from algebraicmultigrid_tpu_torch.models.device import build_device_hierarchy, run_fixed_cycles
     from algebraicmultigrid_tpu_torch.ops.kernels import vcycle_legs as vl
 
-    out, counts = {}, {}
+    out, counts, routes = {}, {}, {}
     for dev in ("cuda", "cpu"):
         h = build_device_hierarchy(ml, device=dev, tail_max_rows=5000, **dict(BF16, dtype=dtype))
         b = _vec(N * N, h.fine_padded, 6, dtype).to(dev)
-        before = dict(vl.launches)
+        before, before_routes = dict(vl.launches), collections.Counter(vl.route_launches)
         out[dev] = run_fixed_cycles(h, torch.zeros_like(b), b, 3)
         counts[dev] = {k: vl.launches[k] - before[k] for k in before}
+        routes[dev] = _route_counts(before_routes)
     assert out["cuda"].dtype == dtype and _rel(out["cuda"], out["cpu"]) < _tol(dtype)
     assert counts["cuda"] == {
         "down": 1, "up": 1, "updown": 2, "tail": 3, "sub": 0, "bsg": 0, "scan_gs": 0, "gs": 0, "sweep3d": 0, "halo": 0,
         "down_nf": 0, "up_nf": 0, "tail_nf": 0,
     }
+    # K3 staged at L0 under float32 vectors, in tiles under float64
+    k3 = "staged" if dtype == torch.float32 else "tiles"
+    assert routes["cuda"] == collections.Counter({("down", "tiles"): 1, ("up", "pipelined"): 1, ("updown", k3): 2})
     b = np.random.default_rng(6).standard_normal(N * N)
     x, hist = amt.solve_refined(ml, b, tol=1e-10, device="cuda", dtype=dtype, log=True, coef_dtype=torch.bfloat16)
     assert np.linalg.norm(b - ml.levels[0].A @ x) / np.linalg.norm(b) < 1e-9 and len(hist) - 1 <= 4

@@ -169,6 +169,6 @@ def test_build_command_lists_both_sources():
         assert f.exists() and str(f) in cmd and "-c" in cmd
         assert cmd.count("-gencode") == 1 and "arch=compute_90a,code=sm_90a" in cmd
     assert [f.name for f in vl.HEADERS] == [
-        "stencil.cuh", "leg_tile.cuh", "tail_levels.cuh", "sweep_tile.cuh", "sweep_march.cuh",
+        "stencil.cuh", "leg_tile.cuh", "updown_stage.cuh", "tail_levels.cuh", "sweep_tile.cuh", "sweep_march.cuh",
     ]
     assert all(f.exists() for f in vl.HEADERS)

@@ -10,6 +10,7 @@ at a multiple of k, or a coarse cell summed by two tiles shows here.  The
 grids are ragged (37 × 41, 64 × 70: partial last tiles and clipped coarse
 boxes), k is 2 and 3, the stencils 5- and 9-point."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -203,6 +204,108 @@ def test_leg_plan_limits():
     assert vl.plan_down((4096, 4096), 3, OFFS9, 29) is None  # halo 31: 2 cells left < k
     assert vl.plan_up((4096, 4096), 3, OFFS9, 30) is None  # Tup area: 64 - 2·31 < k
     assert vl.plan_up((4096, 4096), 2, OFFS9, 30) == (2, 2)
+
+
+def test_updown_staged_plan_at_the_flagship_shapes():
+    """K3's staged route (csrc/updown_stage.cuh, the next tile's box landing
+    by TMA): the flagship's L0 (4096², 5-point, tile 48, box 62) with bf16
+    planes under float32 vectors; not with float32 planes (the staged
+    route takes bf16 planes only), nor L1 (1366², 9-point)."""
+    L0 = shape_cache((4096, 4096), 3, 5)
+    assert L0.updown_tile == (48, 48) and not L0.updown_staged
+    bf = vl.round_planes(L0, torch.bfloat16)
+    assert bf.updown_tile == (48, 48) and bf.dtype == torch.float32 and bf.updown_staged
+    L1 = vl.round_planes(shape_cache((1366, 1366), 3, 9), torch.bfloat16)
+    assert L1.updown_tile == (33, 33) and not L1.updown_staged
+
+
+def test_updown_stage_fits_shared_memory():
+    """The staged K3's stage at the flagship's box, rows of 72 cells (64
+    and a skew of up to 7) and each array to 128 bytes: A (5 planes) and
+    D⁻¹ in bf16, b and x in float32, x_c's 23 × 23 coarse cells, two slots
+    of S (62 rows) and T (64 rows); with the tile buffers and the kernel's
+    alignment within a block's shared memory, in bf16 only.  Every box a
+    5-point plan can stage fits."""
+    to128 = lambda v: -(-v // 128) * 128
+    plane, vec, tarea = 62 * 72 * 2, 62 * 72 * 4, 64 * 72 * 2
+    want = 0
+    for size in (5 * plane, plane, vec, vec, 23 * 23 * 4, plane, tarea, plane, tarea):
+        want = to128(want + size)
+    assert vl.STAGE_ROW == 72 and vl.updown_stage_bytes((62, 62), 1, 3, 2, 4) == want == 128_000
+    limit = vl.SMEM_LIMIT - vl.DESC_BYTES
+    tile = vl.tile_smem_bytes(48, 48, 7, 1, 4)
+    assert vl.STAGE_ALIGN + want + tile <= limit < vl.STAGE_ALIGN + vl.updown_stage_bytes((62, 62), 1, 3, 4, 4) + tile
+    for k in (2, 3):
+        for n2 in range(1, 30):
+            t = vl.plan_updown((4096, 4096), k, OFFS5, n2)
+            h = vl.leg_halo(n2, 1, True)
+            if t is None or max(t) + 2 * h + 2 > vl.REG_BOX:
+                continue
+            box = (t[0] + 2 * h, t[1] + 2 * h)
+            assert vl.STAGE_ALIGN + vl.updown_stage_bytes(box, 1, k, 2, 4) + vl.tile_smem_bytes(*t, h, 1, 4) <= limit
+
+
+def _unaligned(t):
+    """t's values in a tensor whose data starts 2 bytes past an aligned one."""
+    raw = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = raw[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+STAGED_REFUSALS = {
+    "float64 vectors": lambda: vl.round_planes(shape_cache((4096, 4096), 3, 5, torch.float64), torch.bfloat16),
+    "bf16 rows not a multiple of 16 bytes": lambda: vl.round_planes(shape_cache((4100, 4100), 3, 5), torch.bfloat16),
+    "9 points": lambda: vl.round_planes(shape_cache((4096, 4096), 3, 9), torch.bfloat16),
+    "no K3 tile": lambda: leg_cache((40, 40), 2, 5, seed=1, iters=16),
+    "Tup area past the thread map": lambda: vl.round_planes(vl.with_tile_plans(dataclasses.replace(
+        shape_cache((4096, 4096), 3, 5), iter=2)), torch.bfloat16),
+    "non-contiguous planes": lambda: _replanned(lambda c: dict(A=c.A.transpose(1, 2).contiguous().transpose(1, 2))),
+    "unaligned planes": lambda: _replanned(lambda c: dict(S=_unaligned(c.S))),
+    "float32 planes": lambda: synthetic_leg_cache((32, 40), 2, 5, seed=1, dtype=torch.float32),
+    "float32 planes at the flagship's box": lambda: shape_cache((4096, 4096), 3, 5),
+}
+
+
+def _replanned(change):
+    c = synthetic_leg_cache((64, 72), 3, 5, seed=1, dtype=torch.float32, coef_dtype=torch.bfloat16)
+    assert c.updown_staged
+    return vl.with_tile_plans(dataclasses.replace(c, **change(c)))
+
+
+@pytest.mark.parametrize("case", list(STAGED_REFUSALS))
+def test_updown_staged_plan_refusals(case):
+    """Levels the staged K3 refuses keep the tiled K3 (one block a tile)."""
+    c = STAGED_REFUSALS[case]()
+    assert not c.updown_staged and c.plane_maps is None
+    if case == "no K3 tile":
+        assert c.updown_tile is None
+    elif case == "Tup area past the thread map":
+        assert c.updown_tile == (42, 42) and len(c.steps2) == 9  # box 64, Tup area 66
+    elif case == "float32 planes":
+        # the box (46 × 54) and its stage fit: refused for the planes' dtype alone
+        assert c.updown_tile == (32, 40) and vl.plan_updown_staged(vl.round_planes(c, torch.bfloat16))
+        box, h = (46, 54), 7
+        assert vl.STAGE_ALIGN + vl.updown_stage_bytes(box, 1, 2, 4, 4) + vl.tile_smem_bytes(
+            32, 40, h, 1, 4) <= vl.SMEM_LIMIT - vl.DESC_BYTES
+    else:
+        assert c.updown_tile is not None
+
+
+def test_updown_staged_plan_survives_convert():
+    """The plan is made where the other tiles are (``with_tile_plans``): a
+    leg cache carried across from numpy arrays by ``convert`` keeps it."""
+    from algebraicmultigrid_tpu_torch import convert
+
+    c = synthetic_leg_cache((64, 72), 3, 5, seed=2, dtype=torch.float32)
+    d = {name: getattr(c, name).numpy() for name in ("A", "dinv", "T", "S")}
+    d.update(offsA=c.offsA, color_grid=c.color_grid, n_colors=c.n_colors, k=c.k, row_dims=c.row_dims,
+             col_dims=c.col_dims, omega=c.omega, iter=c.iter, forward=c.forward, backward=c.backward)
+    f32 = convert._fused(d, torch.float32, "cpu")
+    bf = convert._fused(d, torch.float32, "cpu", coef_dtype=torch.bfloat16)
+    assert f32.updown_tile == bf.updown_tile == c.updown_tile
+    assert bf.A.dtype == torch.bfloat16 and bf.updown_staged and not f32.updown_staged
+    assert bf.plane_maps is None  # the tensor maps are encoded for planes on the card only
 
 
 def test_register_boxes_fit_shared_memory():
