@@ -9,7 +9,9 @@ traffic file (``traffic/<name>.json``, naming its driver
 ``drivers/<driver>.py``), its limits (``limits/<cell>.json``), and a
 reader for each per-layer metric (``metrics/<metric>.py``, or one reader
 for a family of metrics, ``metrics/<name before the first dot>.py``).  A
-cell added with new files and entries runs without an edit here.
+cell added with new files and entries runs without an edit here, on a
+lattice configuration of any dimension: the right-hand sides have one entry
+a cell of the whole grid, and the reference takes the grid as it is.
 """
 
 import contextlib
@@ -18,6 +20,7 @@ import gc
 import importlib
 import importlib.util
 import json
+import math
 import random
 import sys
 import time
@@ -224,7 +227,7 @@ def prepare(workload: str, device: str, config_override: Optional[dict] = None, 
     p.sync()
     p.spans["lowering"] = time.perf_counter() - t
     p.dims = tuple(config["problem"]["grid"])
-    p.n = p.dims[0] * p.dims[1]
+    p.n = math.prod(p.dims)
     return p
 
 

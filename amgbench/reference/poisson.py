@@ -1,12 +1,14 @@
 """The plain reference of the Poisson deployments, in plain PyTorch.
 
-The operator is AlgebraicMultigrid.jl's ``poisson`` gallery on an
-``(nx, ny)`` grid: the 5-point stencil, 4 on the diagonal and −1 to each
-grid neighbour, zero (Dirichlet) outside the grid.  A vector holds the grid
-row-major, ``x[i * ny + j]``; on a square grid with this symmetric stencil
-any ordering of the two axes gives the same matrix.  ``cg`` is a plain
-conjugate-gradient solver of it in any dtype: the reference put in the
-program's place, which the controls run in a lower precision.
+The operator is AlgebraicMultigrid.jl's ``poisson`` gallery on a grid of
+any dimension d, as the gallery gives it for a 1-, 2- or 3-tuple: the
+2·d-point Dirichlet Laplacian, 2·d on the diagonal and −1 to each grid
+neighbour, zero outside the grid (the 3-point stencil on a line, the
+5-point on a plane, the 7-point in space).  A vector holds the grid
+row-major over ``dims``, the last axis fastest (``x[i * ny + j]`` on an
+``(nx, ny)`` grid), the layout of the program's lattice operators.  ``cg``
+is a plain conjugate-gradient solver of it in any dtype: the reference put
+in the program's place, which the controls run in a lower precision.
 
 It imports nothing of the program under test, and nothing of JAX.
 """
@@ -15,14 +17,15 @@ import torch
 
 
 def apply(x, dims):
-    """A·x for x of shape [n] (or [k, n]), in x's dtype."""
-    nx, ny = dims
-    X = x.reshape(*x.shape[:-1], nx, ny)
-    Y = 4 * X
-    Y[..., 1:, :] -= X[..., :-1, :]
-    Y[..., :-1, :] -= X[..., 1:, :]
-    Y[..., :, 1:] -= X[..., :, :-1]
-    Y[..., :, :-1] -= X[..., :, 1:]
+    """A·x for x of shape [n] (or [k, n]), n the product of ``dims``, in
+    x's dtype: 2·d·X, then along each axis in turn the backward and the
+    forward neighbour taken off."""
+    X = x.reshape(*x.shape[:-1], *dims)
+    Y = 2 * len(dims) * X
+    for axis in range(X.dim() - len(dims), X.dim()):
+        m = X.shape[axis] - 1
+        Y.narrow(axis, 1, m).sub_(X.narrow(axis, 0, m))
+        Y.narrow(axis, 0, m).sub_(X.narrow(axis, 1, m))
     return Y.reshape(x.shape)
 
 

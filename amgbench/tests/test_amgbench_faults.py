@@ -5,8 +5,10 @@ its state unchanged (the zero guess), and an answer altered where it is
 produced (one entry of x); a solve the program reports unconverged counts
 as failed.  With the control in the program's place (the reference one
 precision down), false.  The cells have no batch to halve and no exchange
-between chips."""
+between chips.  A 3-D lattice runs through the same harness by a
+configuration override alone: the harness takes a grid of any dimension."""
 
+import math
 import time
 
 import pytest
@@ -15,6 +17,7 @@ import torch
 import algebraicmultigrid_tpu_torch as amt
 from algebraicmultigrid_tpu_torch.models import device as amg_device
 from amgbench import control, harness
+from amgbench.yardstick import rhs
 
 SMALL = {"grid": [192, 192]}
 # the proxy sizes that keep 192² on the structured path (every level a lattice)
@@ -109,3 +112,54 @@ def test_traced_run_reads_host_metrics_and_no_device_metric():
     assert r["correct"] is True
     assert {"setup.hierarchy_s", "setup.lowering_s", "solve.pcg_iters"} == set(r["metrics"])
     assert r["metrics"]["solve.pcg_iters"]["value"] > 0 and "breakdown" in r
+
+
+# a 3-D lattice through the N-D set-up route, at proxy sizes that keep L0 a
+# LatND (the 7-point operator K7 sweeps)
+GRID_3D = [48, 48, 48]
+OVERRIDE_3D = {
+    "problem": {"gallery": "poisson", "grid": GRID_3D, "lattice": True, "unknowns": math.prod(GRID_3D)},
+    "setup": {"route": "structured_sa_nd", "proxy": 24, "cut_rows": 2000},
+}
+
+
+def run_3d(seconds=0.3):
+    return harness.run("flagship-solve", SEED, seconds, False, "cpu", time.perf_counter(), config_override=OVERRIDE_3D)
+
+
+def test_3d_lattice_sound_run_is_correct(monkeypatch):
+    """The pool's rows have an entry a cell of the whole grid, L0 lowers to
+    LatND, and the sound run reads correct."""
+    shapes, levels = [], []
+    make_pool, lower = rhs.make_pool, amt.get_device_hierarchy
+
+    def recording_pool(spec, pool, n, seed, device):
+        out = make_pool(spec, pool, n, seed, device)
+        shapes.append(tuple(out.shape))
+        return out
+
+    def recording_lower(*a, **kw):
+        h = lower(*a, **kw)
+        levels.append(type(h.levels[0].A).__name__)
+        return h
+
+    monkeypatch.setattr(rhs, "make_pool", recording_pool)
+    monkeypatch.setattr(amt, "get_device_hierarchy", recording_lower)
+    r = run_3d()
+    assert shapes == [(64, math.prod(GRID_3D))] and levels == ["LatND"]
+    assert r["correct"] is True and r["failed"] == 0 and r["attempted"] >= 1
+    assert r["checks"]["relres_max"]["value"] <= r["checks"]["relres_max"]["limit"]
+
+
+@pytest.mark.parametrize("fault", [unchanged, altered])
+def test_3d_lattice_broken_path_is_not_correct(fault, monkeypatch):
+    break_path(monkeypatch, "flagship-solve", fault)
+    r = run_3d()
+    assert r["correct"] is False
+    assert r["checks"]["relres_max"]["value"] > r["checks"]["relres_max"]["limit"]
+
+
+def test_3d_lattice_control_run_is_not_correct():
+    r = control.control_run("flagship-solve", SEED, "cpu", OVERRIDE_3D)
+    assert r["correct"] is False and r["attempted"] == 1
+    assert r["checks"]["relres_max"]["value"] > r["checks"]["relres_max"]["limit"]
